@@ -71,4 +71,5 @@ def system_from_molecules(
         mol_idx=t(mol_idx),
         mult=t(mult) if mult is not None else None,
         cell=t(cell) if cell is not None else None,
+        species=tuple(sorted(int(z) for z in np.unique(zs) if z > 0)),
     )

@@ -5,9 +5,10 @@ One periodic structure at or above ``binned_threshold`` atoms goes onto the
 binned layout (SR grid plus the coarse LR twin for DSF Coulomb), with a
 capacity-regrow loop on bin overflow; ``eval`` returns energy, charges,
 forces and stress in input atom order, with the self-atomic energies added
-in float64 on the host.  Gas-phase inputs, batches, the molecule-bin layout,
-Hessians, the ``fast``/``balanced`` tiers and Ewald/PME/D3 raise with a
-pointer to ROADMAP.md.
+in float64 on the host.  The LR twin grid is planned on the largest
+long-range cutoff (DSF Coulomb, DFT-D3).  Gas-phase inputs, batches, the
+molecule-bin layout, Hessians, the ``fast``/``balanced`` tiers and
+Ewald/PME raise with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from aimnetcentral_tpu_torch.calculators import derivatives
 from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
 from aimnetcentral_tpu_torch.models.bridge import params_to
-from aimnetcentral_tpu_torch.models.heads import LRCoulombHead, auto_switch_simple_to_dsf
+from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
 from aimnetcentral_tpu_torch.ops import binned as B
 from aimnetcentral_tpu_torch.system import System
 
@@ -64,7 +65,7 @@ class AIMNet2Calculator:
     ``model`` is ``(params, cfg)`` or ``(params, cfg, aux)``; ``aux['sae']``
     holds float64 self-atomic-energy tables applied on the host.  Runs on
     ``device`` ("cuda" unless the caller asks for "cpu"); CUDA tensors run
-    the hand-written conv kernels, CPU tensors their plain versions.
+    the hand-written conv and pair kernels, CPU tensors their plain versions.
     """
 
     def __init__(
@@ -120,7 +121,11 @@ class AIMNet2Calculator:
         n_pad = _round_up(n_real + 1, ATOM_BUCKET)
         system = system_from_molecules(mols, self.device, n_pad=n_pad)
         cell_np = np.asarray(mol["cell"])
-        lr_cut = h_eff.dsf_rc if h_eff is not None else None
+        # the coarse LR twin layout is sized by the largest LR cutoff, so its
+        # stencil stays at radius 2
+        lr_cuts = [h_eff.dsf_rc] if h_eff is not None else []
+        lr_cuts += [h.cutoff for _n, h in self.cfg.outputs if isinstance(h, DFTD3Head)]
+        lr_cut = max(lr_cuts) if lr_cuts else None
 
         safety = lr_safety = 1.5
         skin = max(self.reuse_skin, 0.0)

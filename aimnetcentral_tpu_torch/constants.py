@@ -1,9 +1,30 @@
-"""Physical constants (counterpart of aimnetcentral_tpu/constants.py:20-25).
+"""Physical constants and the DFT-D3 tables (counterpart of
+aimnetcentral_tpu/constants.py:20-25 and :36-64).
 
-Unit system: energies in eV, distances in Angstrom, charges in e.
+Unit system: energies in eV, distances in Angstrom, charges in e.  The D3
+reference data is the port's own byte-identical copy of the JAX package's
+``data/d3_tables.npz``.
 """
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
 
 Hartree = 27.211386024367243  # eV
 half_Hartree = 0.5 * Hartree
 Bohr = 0.5291772105638411  # Angstrom
 Bohr_inv = 1.0 / Bohr
+
+_DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
+
+
+@functools.cache
+def get_d3_tables() -> dict[str, np.ndarray]:
+    """DFT-D3 reference data: c6ab (95, 95, 5, 5), cn_ref (95, 95, 5, 5),
+    rcov (95,), r4r2 (95,), all float32, indexed by atomic number (index 0
+    is the padding atom)."""
+    with np.load(os.path.join(_DATA_DIR, "d3_tables.npz")) as z:
+        return {k: z[k].copy() for k in z}

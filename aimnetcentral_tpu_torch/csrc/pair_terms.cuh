@@ -1,0 +1,173 @@
+// The pair terms of kernels D and E (csrc/pair_fwd.cu, csrc/pair_bwd.cu).
+//
+// A term is e_ij = c_ij g(d, s_i, s_j): one scalar extra s per atom and, for
+// a bilinear term, c_ij = p_i . r_j (computed by the kernels).  Each functor
+// gives g and its hand derivatives (g, dg/dd, dg/ds_i, dg/ds_j), the same
+// formulas as the plain versions' g_grad in kernels/pair_sweep.py, which the
+// CPU tests hold to torch.autograd.  Only valid pairs (both atoms real, not
+// the self pair, d < cutoff) reach a functor, so no guard is needed here for
+// the padding atom's zero extras.
+//
+// Constants (TermConsts.c): c[0] is the cutoff, c[1..] the term's own, in
+// the order of the term's consts() in kernels/pair_sweep.py.
+#pragma once
+
+#include <cuda_runtime.h>
+
+struct TermConsts {
+  float c[8];
+};
+
+namespace pair_terms {
+
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kXmax = 0.999999f;  // the exp envelope's clamp, 1 - 1e-6
+constexpr float kInvE = 0.36787944117144233f;
+
+// Abramowitz & Stegun 7.1.26 (ops/math.py::erfc_approx) and its derivative
+// as a function of x: the rational form itself, not the exact erfc.
+__device__ inline void erfc_as(float x, float& f, float& df) {
+  const float t = 1.0f / (1.0f + 0.3275911f * x);
+  const float q =
+      0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f)));
+  const float dq = -0.284496736f + t * (2.0f * 1.421413741f + t * (3.0f * -1.453152027f +
+                                                                 t * 4.0f * 1.061405429f));
+  const float ex = expf(-x * x);
+  f = t * q * ex;
+  df = (q + t * dq) * (-0.3275911f * t * t) * ex - 2.0f * x * f;
+}
+
+// DSF Coulomb: g = q_i q_j h(d), h = erfc(a d)/d - shift_val
+// + (d - dsf_rc) shift_slope - fc(d)/d (the SR envelope, env 1 = exp,
+// 2 = cosine, 0 = not subtracted).
+// c = [cutoff, alpha, shift_val, shift_slope, dsf_rc, rc, env]
+struct DsfTerm {
+  static constexpr bool kBilinear = false;
+
+  __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
+    const float a = k.c[1];
+    float ea, dea;
+    erfc_as(a * d, ea, dea);
+    const float inv_d = 1.0f / d;
+    hv = ea * inv_d - k.c[2] + (d - k.c[4]) * k.c[3];
+    dh = a * dea * inv_d - ea * inv_d * inv_d + k.c[3];
+    const int env = int(k.c[6]);
+    const float rc = k.c[5];
+    float fc = 0.0f, dfc = 0.0f;
+    if (env == 1) {
+      const float xr = d / rc;
+      const float x = fminf(fmaxf(xr, 0.0f), kXmax);
+      const float den = 1.0f - x * x;
+      fc = expf(-1.0f / den) / kInvE;
+      dfc = (xr >= 0.0f && xr <= kXmax) ? fc * (-2.0f * x / (den * den)) / rc : 0.0f;
+    } else if (env == 2 && d < rc) {
+      const float arg = fminf(fmaxf(d, 1e-6f), rc) * (kPi / rc);
+      fc = 0.5f * (cosf(arg) + 1.0f);
+      dfc = (d >= 1e-6f) ? -0.5f * sinf(arg) * (kPi / rc) : 0.0f;
+    }
+    hv -= fc * inv_d;
+    dh -= dfc * inv_d - fc * inv_d * inv_d;
+  }
+
+  __device__ static float g(const TermConsts& k, float d, float si, float sj) {
+    float hv, dh;
+    h(k, d, hv, dh);
+    return si * sj * hv;
+  }
+
+  __device__ static void grad(const TermConsts& k, float d, float si, float sj, float& g,
+                              float& gd, float& gsi, float& gsj) {
+    float hv, dh;
+    h(k, d, hv, dh);
+    g = si * sj * hv;
+    gd = si * sj * dh;
+    gsi = sj * hv;
+    gsj = si * hv;
+  }
+};
+
+// D3 coordination number: g = sigmoid(16 ((rcov_i + rcov_j) / d_b - 1)),
+// d_b = max(d / Bohr, 1e-12).  c = [cutoff, 1/Bohr]
+struct D3CnTerm {
+  static constexpr bool kBilinear = false;
+
+  __device__ static float g(const TermConsts& k, float d, float si, float sj) {
+    const float db = fmaxf(d * k.c[1], 1e-12f);
+    return 1.0f / (1.0f + expf(-16.0f * ((si + sj) / db - 1.0f)));
+  }
+
+  __device__ static void grad(const TermConsts& k, float d, float si, float sj, float& g,
+                              float& gd, float& gsi, float& gsj) {
+    const float dr = d * k.c[1];
+    const float db = fmaxf(dr, 1e-12f);
+    const float rsum = si + sj;
+    g = 1.0f / (1.0f + expf(-16.0f * (rsum / db - 1.0f)));
+    const float kk = g * (1.0f - g) * 16.0f;
+    gd = dr >= 1e-12f ? -kk * rsum / (db * db) * k.c[1] : 0.0f;
+    gsi = gsj = kk / db;
+  }
+};
+
+// D3(BJ) energy, scalar part: g = -damping(d_b, rr) switch(d_b) with
+// rr = 3 s_i s_j, r0 = a1 sqrt(rr) + a2, damping = s6/(d^6 + r0^6)
+// + s8 rr/(d^8 + r0^8) and the quintic S5 switch from r_on to r_off (Bohr);
+// e = (p_i . r_j) g.  c = [cutoff, a1, a2, s8, s6, r_on, r_off, 1/Bohr]
+struct D3EnergyTerm {
+  static constexpr bool kBilinear = true;
+
+  __device__ static void parts(const TermConsts& k, float d, float si, float sj, float& damp,
+                               float& ddamp_db, float& ddamp_drr, float& sw, float& dsw,
+                               float& dr) {
+    const float a1 = k.c[1], a2 = k.c[2], s8 = k.c[3], s6 = k.c[4];
+    const float r_on = k.c[5], r_off = k.c[6];
+    dr = d * k.c[7];
+    const float db = fmaxf(dr, 1e-12f);
+    const float rr = 3.0f * si * sj;
+    const float sq = sqrtf(rr);
+    const float r0 = a1 * sq + a2;
+    const float d2 = db * db;
+    const float d6 = d2 * d2 * d2;
+    const float d8 = d6 * d2;
+    const float r0_2 = r0 * r0;
+    const float r0_6 = r0_2 * r0_2 * r0_2;
+    const float r0_8 = r0_6 * r0_2;
+    const float den6 = d6 + r0_6;
+    const float den8 = d8 + r0_8;
+    damp = s6 / den6 + s8 * rr / den8;
+    ddamp_db = -6.0f * s6 * (d6 / db) / (den6 * den6) - 8.0f * s8 * rr * (d8 / db) / (den8 * den8);
+    const float dr0 = a1 / (2.0f * sq);
+    ddamp_drr = -6.0f * s6 * (r0_6 / r0) * dr0 / (den6 * den6) + s8 / den8 -
+                8.0f * s8 * rr * (r0_8 / r0) * dr0 / (den8 * den8);
+    sw = 1.0f;
+    dsw = 0.0f;
+    if (r_off > r_on && db > r_on) {
+      const float tr = (db - r_on) / (r_off - r_on);
+      const float t = fminf(fmaxf(tr, 0.0f), 1.0f);
+      const float t2 = t * t;
+      const float t3 = t2 * t;
+      sw = 1.0f - (10.0f * t3 - 15.0f * t3 * t + 6.0f * t3 * t2);
+      dsw = (tr >= 0.0f && tr <= 1.0f)
+                ? -(30.0f * t2 - 60.0f * t3 + 30.0f * t3 * t) / (r_off - r_on)
+                : 0.0f;
+    }
+  }
+
+  __device__ static float g(const TermConsts& k, float d, float si, float sj) {
+    float damp, ddb, ddrr, sw, dsw, dr;
+    parts(k, d, si, sj, damp, ddb, ddrr, sw, dsw, dr);
+    return -damp * sw;
+  }
+
+  __device__ static void grad(const TermConsts& k, float d, float si, float sj, float& g,
+                              float& gd, float& gsi, float& gsj) {
+    float damp, ddb, ddrr, sw, dsw, dr;
+    parts(k, d, si, sj, damp, ddb, ddrr, sw, dsw, dr);
+    g = -damp * sw;
+    gd = dr >= 1e-12f ? -(ddb * sw + damp * dsw) * k.c[7] : 0.0f;
+    const float drr = -sw * ddrr * 3.0f;
+    gsi = drr * sj;
+    gsj = drr * si;
+  }
+};
+
+}  // namespace pair_terms

@@ -2,8 +2,9 @@
 
 Each source is compiled by ``nvcc`` on its own into a shared library with a
 plain C interface (``-gencode arch=compute_90a,code=sm_90a``); all sources
-compile in parallel.  Libraries are named by a hash of their source, so a
-changed source is never served a stale build.  The build directory
+compile in parallel.  Libraries are named by a hash of their source and of
+the shared headers (``csrc/*.cuh``), so a changed source is never served a
+stale build.  The build directory
 (``aimnetcentral_tpu_torch/_build/``) is listed in .gitignore.
 """
 
@@ -18,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("conv_fwd", "conv_bwd")
+SOURCES = ("conv_fwd", "conv_bwd", "pair_fwd", "pair_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,8 +37,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 class KernelLibraries:
@@ -84,3 +87,17 @@ class KernelLibraries:
 
 
 LIBRARIES = KernelLibraries()
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address as a ctypes pointer argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def bind(name: str, symbol: str, n_ptr: int, n_int: int):
+    """The C launcher ``symbol`` of library ``name``: ``n_ptr`` pointers,
+    ``n_int`` ints and the stream, returning a cudaError_t as int."""
+    fn = getattr(LIBRARIES.get(name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

@@ -34,7 +34,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from aimnetcentral_tpu_torch.kernels.build import LIBRARIES
+from aimnetcentral_tpu_torch.kernels.build import bind as _bind
+from aimnetcentral_tpu_torch.kernels.build import ptr as _ptr
 
 THREADS = 256
 MAX_OUT_PER_THREAD = 8  # kernel A keeps TI*F <= 8*256 (i, f) sums in registers
@@ -116,17 +117,6 @@ def conv_backward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shift
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _bind(name: str, symbol: str, n_ptr: int, n_int: int):
-    fn = getattr(LIBRARIES.get(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(st: ConvStatic, **tensors) -> None:

@@ -1,0 +1,549 @@
+"""The half-stencil pair sweep and its adjoint: CUDA kernels, plain versions
+and the pair terms they specialise.
+
+Replaces the two Pallas TPU kernels of aimnetcentral_tpu/kernels/pair_sweep.py:
+
+- ``pair_sweep_forward`` (kernel D, csrc/pair_fwd.cu plus one gather)
+  replaces ``_fwd_kernel_hb`` (pair_sweep.py:228) and ``_hb_gather``: the
+  per-atom sums of a symmetric pair term over every pair within a cutoff,
+  each unordered pair computed once (a half stencil) and sent to both ends.
+- ``pair_sweep_backward`` (kernel E, csrc/pair_bwd.cu plus gathers) replaces
+  ``_bwd_kernel_hb`` (pair_sweep.py:283) and ``_pair_acc_hb_bwd``: given the
+  cotangent of the sums, the adjoints of the coordinates, of the per-atom
+  extras and of the lattice shifts (which carry the stress).
+
+The JAX package traces any pair function into its kernel; a CUDA kernel has
+one specialisation per term.  Every term here has the form
+
+    e_ij = c_ij g(d_ij, s_i, s_j),   c_ij = p_i . r_j  (bilinear terms) or 1,
+
+with one scalar extra ``s`` per atom and, for a bilinear term, two per-atom
+vectors ``p`` (read on the receiver) and ``r`` (read on the candidate) of
+width V.  The extras are packed per atom as ``[p (V), r (V), s]``, K = 2V+1.
+Terms: DSF Coulomb (s = q), the D3 coordination number (s = rcov) and the
+D3(BJ) energy over the factorised C6 (p, r, s = r4r2).  Each term has its
+plain ``g`` (differentiated by autograd in the plain versions) and its hand
+derivatives ``g_grad``, the formulas the CUDA functors (csrc/pair_terms.cuh)
+compute; the tests hold the latter to autograd.
+
+Offsets: ``s = 0`` is the zero offset, where each bin meets itself in both
+orderings and only the receiver side is summed; every other half offset
+sends each pair's value to both ends.  The self pair is dropped only at
+``s = 0``: on a grid with fewer than 2r+1 bins per axis the same bin recurs
+at other offsets as a periodic image.  Non-pairs take d2 := 1 before the
+sqrt, so no inf or NaN reaches a sum multiplied by 0.
+
+Each wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.  ``launches`` on each wrapper
+counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import ClassVar
+
+import torch
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
+
+from aimnetcentral_tpu_torch.constants import Bohr_inv
+from aimnetcentral_tpu_torch.kernels.build import bind, ptr
+from aimnetcentral_tpu_torch.kernels.conv_stencil import SMEM_LIMIT, THREADS, _balanced
+from aimnetcentral_tpu_torch.ops.math import erfc_approx
+
+ROWS = 32  # receiver rows per block tile (at most; tiles are balanced)
+COLS = 32  # candidate columns per inner tile: one per lane of a warp
+WARPS = THREADS // 32
+N_CONSTS = 8  # the cutoff plus a term's constants, passed by value
+
+# Abramowitz & Stegun 7.1.26, the coefficients of ops/math.py::erfc_approx
+_AS_P = 0.3275911
+_AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+_INV_E = 0.36787944117144233
+_XMAX = 1.0 - 1e-6  # the exp envelope's clamp
+
+
+# ---------------------------------------------------------------------------
+# pair terms
+
+
+def erfc_approx_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(erfc_approx(x), d/dx erfc_approx(x))``: the derivative of the
+    rational form itself, not of the exact erfc."""
+    a1, a2, a3, a4, a5 = _AS_A
+    t = 1.0 / (1.0 + _AS_P * x)
+    q = a1 + t * (a2 + t * (a3 + t * (a4 + t * a5)))
+    dq = a2 + t * (2.0 * a3 + t * (3.0 * a4 + t * 4.0 * a5))
+    ex = torch.exp(-x * x)
+    f = t * q * ex
+    dt = -_AS_P * t * t
+    return f, (q + t * dq) * dt * ex - 2.0 * x * f
+
+
+def _inside(x: torch.Tensor, lo: float, hi: float | None = None) -> torch.Tensor:
+    """Where ``torch.clamp`` passes the gradient: lo <= x <= hi."""
+    ok = x >= lo
+    return ok if hi is None else ok & (x <= hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class DSFTerm:
+    """Damped-shifted-force Coulomb, ``q_i q_j h(d)`` with
+    ``h = erfc(a d)/d - erfc(a rc)/rc + (d - rc) slope``, minus the SR
+    envelope part ``fc(d)/d`` when ``subtract_sr`` (exact on this stencil:
+    the envelope is zero beyond rc << dsf_rc)."""
+
+    alpha: float
+    dsf_rc: float
+    rc: float
+    envelope: str = "exp"
+    subtract_sr: bool = True
+    name: ClassVar[str] = "dsf"
+    code: ClassVar[int] = 0
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+    scalar_key: ClassVar[str] = "q"
+
+    @property
+    def shift_val(self) -> float:
+        return math.erfc(self.alpha * self.dsf_rc) / self.dsf_rc
+
+    @property
+    def shift_slope(self) -> float:
+        a, rc = self.alpha, self.dsf_rc
+        return math.erfc(a * rc) / rc**2 + 2.0 * a / math.sqrt(math.pi) * math.exp(-((a * rc) ** 2)) / rc
+
+    def consts(self) -> tuple[float, ...]:
+        env = 0.0 if not self.subtract_sr else (1.0 if self.envelope == "exp" else 2.0)
+        return (self.alpha, self.shift_val, self.shift_slope, self.dsf_rc, self.rc, env)
+
+    def _fc(self, d):
+        rc = self.rc
+        if self.envelope == "exp":
+            x = torch.clamp(d / rc, 0.0, _XMAX)
+            return torch.exp(-1.0 / (1.0 - x * x)) / _INV_E
+        fc = 0.5 * (torch.cos(torch.clamp(d, 1e-6, rc) * (math.pi / rc)) + 1.0)
+        return torch.where(d < rc, fc, 0.0)
+
+    def _fc_grad(self, d):
+        rc = self.rc
+        if self.envelope == "exp":
+            xr = d / rc
+            x = torch.clamp(xr, 0.0, _XMAX)
+            den = 1.0 - x * x
+            fc = torch.exp(-1.0 / den) / _INV_E
+            return fc, torch.where(_inside(xr, 0.0, _XMAX), fc * (-2.0 * x / (den * den)) / rc, 0.0)
+        arg = torch.clamp(d, 1e-6, rc) * (math.pi / rc)
+        inside = d < rc
+        fc = torch.where(inside, 0.5 * (torch.cos(arg) + 1.0), 0.0)
+        dfc = torch.where(inside & _inside(d, 1e-6, rc), -0.5 * torch.sin(arg) * (math.pi / rc), 0.0)
+        return fc, dfc
+
+    def _h(self, d):
+        h = erfc_approx(self.alpha * d) / d - self.shift_val + (d - self.dsf_rc) * self.shift_slope
+        if self.subtract_sr:
+            h = h - self._fc(d) / d
+        return h
+
+    def g(self, d, si, sj, valid):
+        return si * sj * self._h(d)
+
+    def g_grad(self, d, si, sj, valid):
+        a = self.alpha
+        ea, dea = erfc_approx_grad(a * d)
+        h = ea / d - self.shift_val + (d - self.dsf_rc) * self.shift_slope
+        dh = a * dea / d - ea / (d * d) + self.shift_slope
+        if self.subtract_sr:
+            fc, dfc = self._fc_grad(d)
+            h = h - fc / d
+            dh = dh - (dfc / d - fc / (d * d))
+        return si * sj * h, si * sj * dh, sj * h, si * h
+
+
+@dataclasses.dataclass(frozen=True)
+class D3CNTerm:
+    """D3 coordination number, ``sigmoid(16 ((rcov_i + rcov_j) / d - 1))``
+    with d in Bohr (engine_binned.d3_cn_fn in the JAX package)."""
+
+    name: ClassVar[str] = "d3_cn"
+    code: ClassVar[int] = 1
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+    scalar_key: ClassVar[str] = "rcov"
+
+    def consts(self) -> tuple[float, ...]:
+        return (Bohr_inv,)
+
+    def g(self, d, si, sj, valid):
+        db = torch.clamp(d * Bohr_inv, min=1e-12)
+        return torch.sigmoid(16.0 * ((si + sj) / db - 1.0))
+
+    def g_grad(self, d, si, sj, valid):
+        dr = d * Bohr_inv
+        db = torch.clamp(dr, min=1e-12)
+        rsum = si + sj
+        sg = torch.sigmoid(16.0 * (rsum / db - 1.0))
+        k = sg * (1.0 - sg) * 16.0
+        dd = torch.where(_inside(dr, 1e-12), -k * rsum / (db * db) * Bohr_inv, 0.0)
+        ds = k / db
+        return sg, dd, ds, ds
+
+
+@dataclasses.dataclass(frozen=True)
+class D3EnergyTerm:
+    """D3(BJ) energy over the factorised C6 (engine_binned.d3_e_fn in the
+    JAX package): ``e = -(p_i . r_j) damping(d, rr) switch(d)`` with
+    ``rr = 3 r4r2_i r4r2_j``, Becke-Johnson damping and the S5 switch from
+    ``r_on`` to ``r_off`` (Angstrom).  Non-pairs take rr := 1 (r4r2 of the
+    padding atom is 0, and sqrt has no finite slope there)."""
+
+    a1: float
+    a2: float
+    s8: float
+    s6: float = 1.0
+    r_on: float = 12.0
+    r_off: float = 15.0
+    name: ClassVar[str] = "d3_energy"
+    code: ClassVar[int] = 2
+    vector_keys: ClassVar[tuple[str, ...]] = ("p", "r")
+    scalar_key: ClassVar[str] = "rr"
+
+    def consts(self) -> tuple[float, ...]:
+        return (self.a1, self.a2, self.s8, self.s6, self.r_on * Bohr_inv, self.r_off * Bohr_inv, Bohr_inv)
+
+    def _parts(self, d, si, sj, valid):
+        db = torch.clamp(d * Bohr_inv, min=1e-12)
+        rr = torch.where(valid, 3.0 * si * sj, 1.0)
+        r0 = self.a1 * torch.sqrt(rr) + self.a2
+        return db, rr, r0
+
+    def g(self, d, si, sj, valid):
+        db, rr, r0 = self._parts(d, si, sj, valid)
+        d2 = db * db
+        d6 = d2 * d2 * d2
+        d8 = d6 * d2
+        r0_2 = r0 * r0
+        r0_6 = r0_2 * r0_2 * r0_2
+        r0_8 = r0_6 * r0_2
+        damping = self.s6 / (d6 + r0_6) + self.s8 * rr / (d8 + r0_8)
+        from aimnetcentral_tpu_torch.models.lr import _s5_switch  # models imports this module
+
+        return -damping * _s5_switch(db, self.r_on * Bohr_inv, self.r_off * Bohr_inv)
+
+    def g_grad(self, d, si, sj, valid):
+        dr = d * Bohr_inv
+        db, rr, r0 = self._parts(d, si, sj, valid)
+        s6, s8 = self.s6, self.s8
+        d2 = db * db
+        d6 = d2 * d2 * d2
+        d8 = d6 * d2
+        r0_2 = r0 * r0
+        r0_6 = r0_2 * r0_2 * r0_2
+        r0_8 = r0_6 * r0_2
+        den6 = d6 + r0_6
+        den8 = d8 + r0_8
+        damping = s6 / den6 + s8 * rr / den8
+        ddamp_db = -6.0 * s6 * (d6 / db) / (den6 * den6) - 8.0 * s8 * rr * (d8 / db) / (den8 * den8)
+        dr0 = self.a1 / (2.0 * torch.sqrt(rr))
+        ddamp_drr = (
+            -6.0 * s6 * (r0_6 / r0) * dr0 / (den6 * den6)
+            + s8 / den8
+            - 8.0 * s8 * rr * (r0_8 / r0) * dr0 / (den8 * den8)
+        )
+        r_on, r_off = self.r_on * Bohr_inv, self.r_off * Bohr_inv
+        if r_off <= r_on:
+            sw, dsw = torch.ones_like(db), torch.zeros_like(db)
+        else:
+            tr = (db - r_on) / (r_off - r_on)
+            t = torch.clamp(tr, 0.0, 1.0)
+            on = db <= r_on
+            sw = torch.where(on, 1.0, 1.0 - (10.0 * t**3 - 15.0 * t**4 + 6.0 * t**5))
+            dsw = torch.where(
+                on | ~_inside(tr, 0.0, 1.0),
+                0.0,
+                -(30.0 * t**2 - 60.0 * t**3 + 30.0 * t**4) / (r_off - r_on),
+            )
+        dd = torch.where(_inside(dr, 1e-12), -(ddamp_db * sw + damping * dsw) * Bohr_inv, 0.0)
+        drr = torch.where(valid, -sw * ddamp_drr * 3.0, 0.0)
+        return -damping * sw, dd, drr * sj, drr * si
+
+
+PairTerm = DSFTerm | D3CNTerm | D3EnergyTerm
+
+
+def pack_extras(term: PairTerm, extras: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Per-atom extras as the kernels take them: (L, K) ``[p, r, s]``."""
+    cols = [extras[k] for k in term.vector_keys] + [extras[term.scalar_key][:, None]]
+    return torch.cat(cols, dim=-1)
+
+
+def pair_value(term: PairTerm, d, valid, ext_self, ext_cand):
+    """The (B, Ci, Cj) pair values ``c_ij g(d_ij, s_i, s_j)`` for receiver
+    extras (B, Ci, K) and candidate extras (B, Cj, K)."""
+    si = ext_self[..., -1][:, :, None]
+    sj = ext_cand[..., -1][:, None, :]
+    g = term.g(d, si, sj, valid)
+    v = (ext_self.shape[-1] - 1) // 2
+    if v == 0:
+        return g
+    c = torch.einsum("bix,bjx->bij", ext_self[..., :v], ext_cand[..., v : 2 * v])
+    return c * g
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+@dataclasses.dataclass(frozen=True)
+class PairStatic:
+    """Static shapes of one sweep: B bins of capacity C, S half offsets
+    (the zero offset first), K = 2V+1 extras a atom, and the cutoff."""
+
+    b_tot: int
+    c: int
+    s_tot: int
+    k: int
+    cutoff: float
+
+    @property
+    def v(self) -> int:
+        return (self.k - 1) // 2
+
+
+def _pair_step(st: PairStatic, term, s: int, coord, mask, ext, shift_s, nbr_s, inv_s):
+    """One half offset of the plain sweep: its per-atom sums (B, C)."""
+    safe = nbr_s.clamp(min=0).long()
+    cj = coord[safe] + shift_s[:, None, :]
+    diff = cj[:, None, :, :] - coord[:, :, None, :]
+    real = mask > 0.5
+    vp = real[:, :, None] & real[safe][:, None, :] & (nbr_s >= 0)[:, None, None]
+    if s == 0:  # the zero offset: drop the self pair
+        vp = vp & ~torch.eye(st.c, dtype=torch.bool, device=coord.device)[None]
+    d2 = (diff * diff).sum(-1)
+    d = torch.sqrt(torch.where(vp, d2, torch.ones_like(d2)))
+    vp = vp & (d < st.cutoff)
+    e = torch.where(vp, pair_value(term, d, vp, ext, ext[safe]), 0.0)
+    out = e.sum(-1)  # receiver side
+    if s > 0:
+        # mirror side, back to the candidate bin by a gather through the
+        # inverse table (the zero offset already enumerates both orderings)
+        mirror = torch.cat([e.sum(-2), e.new_zeros((1, st.c))])
+        out = out + mirror[inv_s]
+    return out
+
+
+def pair_forward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv):
+    """Plain version of kernel D: per-atom sums (B, C).
+
+    coord (B, C, 3), mask (B, C), ext (B, C, K), shift (S, B, 3) cartesian
+    lattice shifts added to the candidates, nbr (S, B) candidate bins (-1
+    where a gas-phase step has none), inv (S, B) the bin whose step s has
+    each bin as its candidate (B where none).  Each offset is checkpointed,
+    so a backward holds one offset's pair tensors at a time.
+    """
+    acc = coord.new_zeros((st.b_tot, st.c))
+    for s in range(st.s_tot):
+        acc = acc + checkpoint(
+            _pair_step, st, term, s, coord, mask, ext, shift[s], nbr[s], inv[s], use_reentrant=False
+        )
+    return acc
+
+
+def pair_backward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, ct):
+    """Plain version of kernel E: the VJP of :func:`pair_forward_plain`
+    through torch.autograd, ``(grad_coord (B, C, 3), grad_ext (B, C, K),
+    grad_shift (S, B, 3))`` for the cotangent ``ct`` (B, C)."""
+    with torch.enable_grad():
+        c_ = coord.detach().requires_grad_(True)
+        e_ = ext.detach().requires_grad_(True)
+        s_ = shift.detach().requires_grad_(True)
+        out = pair_forward_plain(st, term, c_, mask, e_, s_, nbr, inv)
+        return torch.autograd.grad(out, (c_, e_, s_), ct)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def fwd_smem_bytes(st: PairStatic, ti: int) -> int:
+    """Shared memory of one kernel-D block (csrc/pair_fwd.cu::smem_bytes)."""
+    kp = st.k | 1
+    return 4 * (ti * (4 + kp) + COLS * (4 + kp) + ti + WARPS * COLS)
+
+
+def bwd_smem_bytes(st: PairStatic, ti: int) -> int:
+    """Shared memory of one kernel-E block (csrc/pair_bwd.cu::smem_bytes)."""
+    kp, v = st.k | 1, st.v
+    wm = ti * (COLS + 1) if v else 0
+    return 4 * (ti * (5 + kp) + COLS * (5 + kp) + 4 * ti + ti * v + wm + 4 * WARPS * COLS)
+
+
+def row_tile(st: PairStatic, smem_bytes) -> int:
+    """Receiver rows per block: at most ROWS, balanced over the capacity,
+    fewer where the extras do not fit shared memory.  Any capacity fits
+    (candidates are walked in tiles of COLS); only the extras width is
+    bounded."""
+    ti = _balanced(st.c, ROWS)
+    while ti > 1 and smem_bytes(st, ti) > SMEM_LIMIT:
+        ti = _balanced(st.c, ti - 1)
+    if smem_bytes(st, ti) > SMEM_LIMIT:
+        raise ValueError(f"pair kernels do not take K={st.k} extras a atom (shared memory)")
+    return ti
+
+
+def _check(st: PairStatic, **tensors) -> None:
+    """Refuse what the kernels do not take: wrong device, dtype, shape or a
+    non-contiguous layout."""
+    shapes = {
+        "coord": (st.b_tot, st.c, 3),
+        "mask": (st.b_tot, st.c),
+        "ext": (st.b_tot, st.c, st.k),
+        "shift": (st.s_tot, st.b_tot, 3),
+        "nbr": (st.s_tot, st.b_tot),
+        "inv": (st.s_tot, st.b_tot),
+        "ct": (st.b_tot, st.c),
+    }
+    dtypes = {"nbr": torch.int32, "inv": torch.int64}
+    for name, t in tensors.items():
+        want = dtypes.get(name, torch.float32)
+        if t.device.type != "cuda" or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes a contiguous {want} CUDA tensor")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
+    if st.k != 2 * st.v + 1:
+        raise ValueError(f"K={st.k}: the extras are [p (V), r (V), s], K = 2V+1")
+
+
+def _consts(st: PairStatic, term) -> ctypes.Array:
+    vals = (st.cutoff,) + tuple(term.consts())
+    return (ctypes.c_float * N_CONSTS)(*vals, *([0.0] * (N_CONSTS - len(vals))))
+
+
+def gather_candidate_rows(inv, rows):
+    """Per-(offset, receiver bin) candidate-side rows (S, B, ..., C) -> the
+    candidate bins' sums (B, ..., C): ``sum_s rows[s, inv[s, b]]``, one
+    static gather (bins no step points at read a zero row) and a sum in a
+    fixed order, so no float atomics."""
+    s_tot = rows.shape[0]
+    padded = torch.cat([rows, rows.new_zeros((s_tot, 1) + rows.shape[2:])], dim=1)
+    s_idx = torch.arange(s_tot, device=rows.device)[:, None]
+    return padded[s_idx, inv].sum(0)
+
+
+def assemble_forward(inv, out, me):
+    """Kernel D's outputs -> the per-atom sums (B, C): the receiver sums
+    ``out`` plus the mirror rows ``me`` (S, B, NT, C), their row tiles
+    added in a fixed order and sent home."""
+    return out + gather_candidate_rows(inv, me.sum(2))
+
+
+def assemble_backward(inv, gc, ge, gmc, gme):
+    """Kernel E's outputs -> ``(grad_coord, grad_ext, grad_shift)``.
+
+    ``gc`` (B, C, 3) and ``ge`` (B, C, V+1) = [p, s] are the receiver side;
+    ``gmc`` (S, B, NT, 3, C) and ``gme`` (S, B, NT, V+1, C) = [r, s] the
+    candidate side's rows, whose row tiles are added in a fixed order.
+    """
+    v = ge.shape[-1] - 1
+    gmc = gmc.sum(2)  # (S, B, 3, C)
+    gme = gme.sum(2)  # (S, B, V+1, C)
+    grad_shift = gmc.sum(-1)  # the shift rides on the candidate coordinates
+    grad_coord = gc + gather_candidate_rows(inv, gmc).transpose(1, 2)
+    cand = gather_candidate_rows(inv, gme).transpose(1, 2)  # (B, C, V+1): [r, s]
+    if v:
+        grad_ext = torch.cat([ge[..., :v], cand[..., :v], ge[..., v:] + cand[..., v:]], dim=-1)
+    else:
+        grad_ext = ge + cand
+    return grad_coord, grad_ext, grad_shift
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def pair_sweep_forward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv):
+    """Kernel D: per-atom sums (B, C) of ``term`` over the half stencil.
+    Arguments as :func:`pair_forward_plain`; ``nbr`` is int32 on the card."""
+    if coord.device.type == "cpu":
+        return pair_forward_plain(st, term, coord, mask, ext, shift, nbr, inv)
+    _check(st, coord=coord, mask=mask, ext=ext, shift=shift, nbr=nbr, inv=inv)
+    ti = row_tile(st, fwd_smem_bytes)
+    n_tiles = -(-st.c // ti)
+    dev = coord.device
+    out = torch.empty((st.b_tot, st.c), dtype=torch.float32, device=dev)
+    me = torch.empty((st.s_tot, st.b_tot, n_tiles, st.c), dtype=torch.float32, device=dev)
+    consts = _consts(st, term)
+    launch = bind("pair_fwd", "pair_fwd_launch", 8, 6)
+    err = launch(
+        ctypes.cast(consts, ctypes.c_void_p), ptr(coord), ptr(mask), ptr(ext), ptr(shift), ptr(nbr),
+        ptr(out), ptr(me), term.code, st.b_tot, st.c, st.k, st.s_tot, ti, _stream(coord),
+    )
+    if err != 0:
+        raise RuntimeError(f"pair kernel D launch failed: cudaError {err}")
+    pair_sweep_forward.launches += 1
+    return assemble_forward(inv, out, me)
+
+
+pair_sweep_forward.launches = 0
+
+
+def pair_sweep_backward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, ct):
+    """Kernel E: ``(grad_coord (B, C, 3), grad_ext (B, C, K), grad_shift
+    (S, B, 3))`` for the cotangent ``ct`` (B, C) of :func:`pair_sweep_forward`.
+
+    Per pair the cotangent is ``ct_i + ct_j`` (``ct_i`` alone at the zero
+    offset, whose pairs reach only the receiver's sum).  The receiver-side
+    adjoints stay in the block; the candidate side leaves as per-(offset,
+    bin, row tile) rows: three coordinate rows, whose sums over atoms are
+    also the lattice-shift adjoint, and V+1 extras rows (r and s).
+    """
+    if coord.device.type == "cpu":
+        return pair_backward_plain(st, term, coord, mask, ext, shift, nbr, inv, ct)
+    _check(st, coord=coord, mask=mask, ext=ext, shift=shift, nbr=nbr, inv=inv, ct=ct)
+    ti = row_tile(st, bwd_smem_bytes)
+    n_tiles = -(-st.c // ti)
+    v = st.v
+    dev = coord.device
+    gc = torch.empty((st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
+    ge = torch.empty((st.b_tot, st.c, v + 1), dtype=torch.float32, device=dev)
+    gmc = torch.empty((st.s_tot, st.b_tot, n_tiles, 3, st.c), dtype=torch.float32, device=dev)
+    gme = torch.empty((st.s_tot, st.b_tot, n_tiles, v + 1, st.c), dtype=torch.float32, device=dev)
+    consts = _consts(st, term)
+    launch = bind("pair_bwd", "pair_bwd_launch", 11, 6)
+    err = launch(
+        ctypes.cast(consts, ctypes.c_void_p), ptr(coord), ptr(mask), ptr(ext), ptr(shift), ptr(nbr),
+        ptr(ct), ptr(gc), ptr(ge), ptr(gmc), ptr(gme), term.code, st.b_tot, st.c, st.k, st.s_tot,
+        ti, _stream(coord),
+    )
+    if err != 0:
+        raise RuntimeError(f"pair kernel E launch failed: cudaError {err}")
+    pair_sweep_backward.launches += 1
+    return assemble_backward(inv, gc, ge, gmc, gme)
+
+
+pair_sweep_backward.launches = 0
+
+
+class PairAcc(torch.autograd.Function):
+    """The pair sweep with its fused adjoint (pair_sweep.pair_acc_hb).
+
+    Differentiable in ``coord``, ``ext`` and ``shift`` (the lattice shifts
+    carry the cell and strain gradients, i.e. stress).  First order only,
+    like kernels/conv_pass.py::ConvAcc, until the K3 rules are ported.
+    """
+
+    @staticmethod
+    def forward(ctx, coord, ext, shift, st, term, mask, nbr, inv):
+        ctx.st, ctx.term = st, term
+        ctx.save_for_backward(coord, ext, shift, mask, nbr, inv)
+        return pair_sweep_forward(st, term, coord, mask, ext, shift, nbr, inv)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        coord, ext, shift, mask, nbr, inv = ctx.saved_tensors
+        g_coord, g_ext, g_shift = pair_sweep_backward(
+            ctx.st, ctx.term, coord, mask, ext, shift, nbr, inv, ct.contiguous()
+        )
+        return g_coord, g_ext, g_shift, None, None, None, None, None

@@ -1,44 +1,38 @@
 """Binned pair sums: counterpart of aimnetcentral_tpu/models/engine_binned.py.
 
 ``pair_energy_binned`` is the half-stencil sweep of a symmetric pair term
-(each unordered pair computed once, its value sent to both ends), here on
-the coarse long-range twin layout for DSF Coulomb.  It is plain torch: no
-kernel of the JAX package's default path reaches it (its Pallas pair sweep
-is opt-in there, and is still to be ported).  The ConvSV message pass lives
-in kernels/conv_pass.py.
+(each unordered pair computed once, its value sent to both ends) through
+kernels/pair_sweep.py: the CUDA kernels D and E for CUDA tensors, their plain
+versions for CPU tensors.  On it sit DSF Coulomb and DFT-D3(BJ): the
+coordination-number sweep, the factorised per-atom C6 vectors, and the
+energy sweep, all on the coarse long-range twin layout.  The ConvSV message
+pass lives in kernels/conv_pass.py.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Callable
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from aimnetcentral_tpu_torch import constants
+from aimnetcentral_tpu_torch.kernels.pair_sweep import (
+    D3CNTerm,
+    D3EnergyTerm,
+    DSFTerm,
+    PairAcc,
+    PairStatic,
+    PairTerm,
+    pack_extras,
+)
 from aimnetcentral_tpu_torch.models.lr import FACTOR
 from aimnetcentral_tpu_torch.ops import binned as B
 from aimnetcentral_tpu_torch.ops.binned import stencil_radius
-from aimnetcentral_tpu_torch.ops.math import cellmul, erfc_approx
+from aimnetcentral_tpu_torch.ops.math import cellmul
 from aimnetcentral_tpu_torch.ops.nb import mol_sum
 from aimnetcentral_tpu_torch.system import System
-
-
-def _pair_geometry(self_blocks, cand_blocks, shift_cart, valid, not_self):
-    """Per-offset block geometry: ``(diff (B, Ci, Cc, 3), d (B, Ci, Cc),
-    valid_pair)``.  Non-pairs get d2 := 1 before the sqrt so that 1/d and
-    its gradient stay finite."""
-    ci = self_blocks["coord"]
-    cj = cand_blocks["coord"] + shift_cart
-    diff = cj[:, None, :, :] - ci[:, :, None, :]
-    real_i = (self_blocks["numbers"] > 0)[:, :, None]
-    real_j = (cand_blocks["numbers"] > 0)[:, None, :]
-    valid_pair = valid & real_i & real_j & not_self
-    d2 = (diff * diff).sum(-1)
-    d = torch.sqrt(torch.where(valid_pair, d2, torch.ones_like(d2)))
-    return diff, d, valid_pair
 
 
 @functools.lru_cache(maxsize=16)
@@ -51,86 +45,88 @@ def _half_tables(grid: B.BinGrid, radius: int):
     nbr, wraps, is_zero = B.stencil_tables(grid, radius)
     offs = B.stencil_offsets(radius)
     half = np.array([bool(z) or tuple(o) > (0, 0, 0) for o, z in zip(offs, is_zero)])
-    nbr, wraps, is_zero = nbr[half], wraps[half], is_zero[half]
+    nbr, wraps = nbr[half], wraps[half]
     b_tot = grid.total_bins
     inv = np.full(nbr.shape, b_tot, np.int64)
     for s in range(nbr.shape[0]):
         ok = nbr[s] >= 0
         inv[s, nbr[s][ok]] = np.arange(b_tot)[ok]
-    return nbr, wraps, is_zero, inv
+    return nbr, wraps, inv
+
+
+def pair_operands(
+    system: System,
+    cutoff: float,
+    term: PairTerm,
+    extra_blocks: dict[str, torch.Tensor],
+    layout: str = "sr",
+) -> tuple[PairStatic, dict[str, torch.Tensor]]:
+    """The sweep's static shapes and operands in the kernels' layout:
+    ``coord`` (B, C, 3), ``ext`` (B, C, K), ``shift`` (S, B, 3) (both
+    differentiable), ``mask`` (B, C), ``nbr`` (S, B) int32, ``inv`` (S, B).
+    ``layout="lr"`` takes the coarse twin layout when attached."""
+    grid, lr_slot = system.bins, None
+    if layout == "lr" and system.lr_bins is not None:
+        grid, lr_slot = system.lr_bins, system.lr_slot
+    radius = stencil_radius(cutoff, grid)
+    dev = system.device
+    nbr_np, wrap_np, inv_np = _half_tables(grid, radius)
+    coord, numbers, ext = system.coord, system.numbers, pack_extras(term, extra_blocks)
+    if lr_slot is not None:
+        coord, numbers, ext = coord[lr_slot], numbers[lr_slot], ext[lr_slot]
+    b_tot, c = grid.total_bins, grid.capacity
+    s_tot = nbr_np.shape[0]
+    if system.cell is not None and grid.periodic:
+        shift = cellmul(torch.as_tensor(wrap_np, device=dev), system.cell[0])
+    else:
+        shift = torch.zeros((s_tot, b_tot, 3), dtype=coord.dtype, device=dev)
+    st = PairStatic(b_tot=b_tot, c=c, s_tot=s_tot, k=ext.shape[-1], cutoff=float(cutoff))
+    ops = {
+        "coord": coord.reshape(b_tot, c, 3).contiguous(),
+        "ext": ext.reshape(b_tot, c, -1).to(coord.dtype).contiguous(),
+        "shift": shift.contiguous(),
+        "mask": (numbers > 0).to(coord.dtype).reshape(b_tot, c).contiguous(),
+        "nbr": torch.as_tensor(nbr_np, device=dev),
+        "inv": torch.as_tensor(inv_np, device=dev),
+    }
+    return st, ops
 
 
 def pair_energy_binned(
     system: System,
     cutoff: float,
-    e_pair_fn: Callable,
-    extra_blocks: dict[str, torch.Tensor] | None = None,
+    term: PairTerm,
+    extra_blocks: dict[str, torch.Tensor],
     layout: str = "sr",
 ) -> torch.Tensor:
     """Sum a SYMMETRIC pair term over all pairs within ``cutoff``: per-atom
     (ordered-pair convention) sums (L,) in the SR slot layout.
 
-    ``e_pair_fn(d, valid_pair, self_b, cand_b)`` gives the (B, Ci, Cc) pair
-    values.  ``layout="lr"`` sweeps the coarse twin layout when attached.
-    Each step is checkpointed, so the backward recomputes one step's pair
-    tensors at a time instead of holding all of them.
+    ``term`` is a term spec of kernels/pair_sweep.py and ``extra_blocks``
+    its per-atom extras in SR slot order.  ``layout="lr"`` sweeps the coarse
+    twin layout when attached.  The sweep runs kernel D (its backward kernel
+    E) for CUDA tensors and the plain version for CPU tensors.
     """
-    grid = system.bins
-    lr_slot = None
+    st, ops = pair_operands(system, cutoff, term, extra_blocks, layout)
+    acc = PairAcc.apply(
+        ops["coord"], ops["ext"], ops["shift"], st, term, ops["mask"], ops["nbr"], ops["inv"]
+    ).reshape(-1)
     if layout == "lr" and system.lr_bins is not None:
-        grid = system.lr_bins
-        lr_slot = system.lr_slot
-    cell0 = system.cell[0] if system.cell is not None else None
-    radius = stencil_radius(cutoff, grid)
-    dev = system.device
-
-    blocks = {"coord": system.coord, "numbers": system.numbers, **(extra_blocks or {})}
-    if lr_slot is not None:
-        blocks = {k: v[lr_slot] for k, v in blocks.items()}
-    b_tot, c = grid.total_bins, grid.capacity
-    keys = list(blocks)
-    self_list = [blocks[k].reshape((b_tot, c) + blocks[k].shape[1:]) for k in keys]
-
-    nbr_np, wrap_np, zero_np, inv_np = _half_tables(grid, radius)
-    nbr = torch.as_tensor(nbr_np, dtype=torch.int64, device=dev)
-    wraps = torch.as_tensor(wrap_np, device=dev)
-    inv = torch.as_tensor(inv_np, device=dev)
-    diag = torch.eye(c, dtype=torch.bool, device=dev)[None]
-    dtype = system.coord.dtype
-
-    def step(s: int, *tensors):
-        self_b = dict(zip(keys, tensors[: len(keys)]))
-        cell = tensors[len(keys)] if cell0 is not None else None
-        nbr_s = nbr[s]
-        safe = nbr_s.clamp(min=0)
-        cand = {k: v[safe] for k, v in self_b.items()}
-        if grid.periodic:
-            shift_cart = cellmul(wraps[s], cell)[:, None, :]
-            valid = torch.ones((b_tot, 1, 1), dtype=torch.bool, device=dev)
-        else:
-            shift_cart = torch.zeros((b_tot, 1, 3), dtype=dtype, device=dev)
-            valid = (nbr_s >= 0)[:, None, None]
-        not_self = ~(diag & bool(zero_np[s]))
-        _diff, d, valid_pair = _pair_geometry(self_b, cand, shift_cart, valid, not_self)
-        valid_pair = valid_pair & (d < cutoff)
-        e = torch.where(valid_pair, e_pair_fn(d, valid_pair, self_b, cand), 0.0)
-        out = e.sum(-1)  # self side (B, C)
-        if not zero_np[s]:
-            # mirror side, back to the candidate bin (the zero offset's
-            # within-bin enumeration already covers both sides)
-            mirror = torch.cat([e.sum(-2), torch.zeros((1, c), dtype=dtype, device=dev)])
-            out = out + mirror[inv[s]]
-        return out
-
-    args = self_list + ([cell0] if cell0 is not None else [])
-    acc = torch.zeros((b_tot, c), dtype=dtype, device=dev)
-    for s in range(nbr.shape[0]):
-        acc = acc + checkpoint(step, s, *args, use_reentrant=False)
-    acc = acc.reshape(-1)
-    if lr_slot is not None:
         # back to SR slot order through the inverse map: a gather
         acc = torch.cat([acc, acc.new_zeros(1)])[system.lr_inv]
     return acc
+
+
+def pair_sum_binned(
+    system: System,
+    cutoff: float,
+    term: PairTerm,
+    extra_blocks: dict[str, torch.Tensor],
+    layout: str = "sr",
+) -> torch.Tensor:
+    """Alias of :func:`pair_energy_binned` for non-energy per-atom pair sums
+    (coordination numbers)."""
+    return pair_energy_binned(system, cutoff, term, extra_blocks, layout)
 
 
 def coulomb_dsf_binned(
@@ -144,32 +140,88 @@ def coulomb_dsf_binned(
 ) -> torch.Tensor:
     """Damped-shifted-force Coulomb on the LR twin layout, with the SR
     envelope part subtracted in the same sweep (per-molecule energies)."""
-    alpha = dsf_alpha
-    erfc_rc = math.erfc(alpha * dsf_rc)
-    shift_val = erfc_rc / dsf_rc
-    shift_slope = erfc_rc / dsf_rc**2 + (
-        2.0 * alpha / math.sqrt(math.pi) * math.exp(-((alpha * dsf_rc) ** 2)) / dsf_rc
-    )
-
-    def e_fn(d, valid, self_b, cand_b):
-        qq = self_b["q"][:, :, None] * cand_b["q"][:, None, :]
-        e_pair = erfc_approx(alpha * d) / d - shift_val + (d - dsf_rc) * shift_slope
-        if subtract_sr:
-            # the SR envelope is zero beyond rc << dsf_rc: exact on this stencil
-            if envelope == "exp":
-                x = torch.clamp(d / rc, 0.0, 1.0 - 1e-6)
-                fc = torch.exp(-1.0 / (1.0 - x * x)) / 0.36787944117144233
-            else:
-                fc = torch.where(
-                    d < rc,
-                    0.5 * (torch.cos(torch.clamp(d, 1e-6, rc) * (math.pi / rc)) + 1.0),
-                    0.0,
-                )
-            e_pair = e_pair - fc / d
-        return qq * e_pair
-
-    e_i = pair_energy_binned(system, dsf_rc, e_fn, {"q": q}, layout="lr")
+    term = DSFTerm(alpha=dsf_alpha, dsf_rc=dsf_rc, rc=rc, envelope=envelope, subtract_sr=subtract_sr)
+    e_i = pair_energy_binned(system, dsf_rc, term, {"q": q}, layout="lr")
     e = FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
-    self_coeff = -(shift_val / 2.0 + alpha / math.sqrt(math.pi))
+    self_coeff = -(term.shift_val / 2.0 + dsf_alpha / math.sqrt(math.pi))
     q_real = torch.where(system.numbers > 0, q, 0.0)
     return e + 2.0 * FACTOR * mol_sum(self_coeff * q_real * q_real, system.mol_idx, system.num_mol)
+
+
+def dftd3_binned(
+    system: System,
+    tables: dict[str, torch.Tensor],
+    a1: float,
+    a2: float,
+    s8: float,
+    s6: float = 1.0,
+    smoothing_on: float = 12.0,
+    smoothing_off: float = 15.0,
+) -> torch.Tensor:
+    """DFT-D3(BJ) on the binned layout through an exactly factorised C6
+    (per-molecule energies).
+
+    The D3 reference tables factorise: ``c6_ij = P_i^T M P_j`` with
+    ``P_i = weights(cn_i) x onehot(species_i)`` and M a constant (5S x 5S)
+    matrix over the S species present (static on the System).  Two sweeps
+    on the LR twin layout: the coordination numbers, then the energy with
+    ``c6_ij = p_i . r_j``, r = M p.
+    """
+    if not system.species:
+        raise ValueError("binned D3 needs System.species (set by builders)")
+    cn = pair_sum_binned(
+        system, smoothing_off, D3CNTerm(), {"rcov": tables["rcov"][system.numbers]}, layout="lr"
+    )
+    extras = d3_pair_extras(system.species, system.numbers, cn, tables)
+    term = D3EnergyTerm(a1=a1, a2=a2, s8=s8, s6=s6, r_on=smoothing_on, r_off=smoothing_off)
+    e_i = pair_energy_binned(system, smoothing_off, term, extras, layout="lr")
+    return constants.half_Hartree * mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+@functools.lru_cache(maxsize=16)
+def _d3_species_tables(species: tuple[int, ...]):
+    """Host factorisation over the species present: ``nref`` (S,) reference
+    counts, ``cnref`` (S, 5) reference coordination numbers and M (5S, 5S),
+    M[(k, a), (l, b)] = c6ab[a, b, k, l]."""
+    s_count = len(species)
+    sp = np.asarray(species)
+    t = constants.get_d3_tables()
+    c6_sp = t["c6ab"][sp[:, None], sp[None, :]]  # (S, S, 5, 5)
+    cn_sp = t["cn_ref"][sp[:, None], sp[None, :]]
+    nz = c6_sp != 0
+    nref = nz.any(axis=(1, 3)).sum(axis=1).astype(np.int64)
+    cnref = np.zeros((s_count, 5), dtype=np.float32)
+    for a in range(s_count):
+        for k in range(5):
+            vals = cn_sp[a, :, k, :][nz[a, :, k, :]]
+            cnref[a, k] = vals[0] if len(vals) else 0.0
+    m_mat = np.transpose(c6_sp, (2, 0, 3, 1)).reshape(5 * s_count, 5 * s_count)
+    return nref, cnref, np.ascontiguousarray(m_mat, dtype=np.float32)
+
+
+def d3_pair_extras(
+    species: tuple[int, ...], numbers: torch.Tensor, cn: torch.Tensor, tables: dict[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Factorised per-atom D3 vectors from the coordination numbers:
+    ``p`` (L, 5S) Gaussian reference weights placed at the atom's species,
+    ``r = p M^T`` (so ``c6_ij = p_i . r_j``) and ``rr`` = r4r2 (L,)."""
+    s_count = len(species)
+    dev = numbers.device
+    zmap = np.zeros(95, dtype=np.int64)
+    for i, z in enumerate(species):
+        zmap[z] = i
+    spec_idx = torch.as_tensor(zmap, device=dev)[numbers]
+    nref_np, cnref_np, m_np = _d3_species_tables(tuple(species))
+    nref = torch.as_tensor(nref_np, device=dev)
+    cnref = torch.as_tensor(cnref_np, device=dev)
+    m_mat = torch.as_tensor(m_np, device=dev)
+    k_ids = torch.arange(5, device=dev)
+    w = torch.exp(-4.0 * (cn[:, None] - cnref[spec_idx]) ** 2)
+    w = torch.where(k_ids[None, :] < nref[spec_idx][:, None], w, 0.0)
+    wsum = w.sum(-1)
+    v = w / torch.clamp(wsum, min=1e-12)[:, None]
+    v = torch.where((wsum > 1e-12)[:, None], v, 0.0)
+    onehot = torch.nn.functional.one_hot(spec_idx, s_count).to(v.dtype)
+    p_vec = (v[:, :, None] * onehot[:, None, :]).reshape(-1, 5 * s_count)
+    r_vec = p_vec @ m_mat.T
+    return {"p": p_vec, "r": r_vec, "rr": tables["r4r2"][numbers]}

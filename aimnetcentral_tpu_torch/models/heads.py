@@ -3,8 +3,9 @@
 Each head is a frozen spec plus ``head_init``/``head_apply`` over an
 explicit parameter dict; ``head_apply`` takes and returns the data dict.
 This slice carries the flagship's heads: the energy MLP, the atomic shift
-(SAE, applied in float64 by the calculator), the atomic sum, and long-range
-Coulomb on the binned DSF branch.
+(SAE, applied in float64 by the calculator), the atomic sum, long-range
+Coulomb on the binned DSF branch, and the external DFT-D3(BJ) head of the
+released ``-d3`` families on the binned branch.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 
 import torch
 
+from aimnetcentral_tpu_torch import constants
 from aimnetcentral_tpu_torch.models import engine_binned as eb
 from aimnetcentral_tpu_torch.models.modules import MLPSpec, mlp_apply, mlp_init
 from aimnetcentral_tpu_torch.ops.nb import mask_pad_atoms, mol_sum
@@ -71,7 +73,23 @@ class LRCoulombHead:
             raise ValueError(f"Unknown method {self.method!r}")
 
 
-HeadSpec = OutputHead | AtomicShiftHead | AtomicSumHead | LRCoulombHead
+@dataclasses.dataclass(frozen=True)
+class DFTD3Head:
+    """External DFT-D3(BJ) dispersion with an S5 switch-off over the last
+    ``smoothing_fraction`` of ``cutoff``; its parameters carry the D3
+    reference tables."""
+
+    s8: float
+    a1: float
+    a2: float
+    s6: float = 1.0
+    cutoff: float = 15.0
+    smoothing_fraction: float = 0.2
+    key_out: str = "energy"
+    kind: str = dataclasses.field(default="dftd3", init=False)
+
+
+HeadSpec = OutputHead | AtomicShiftHead | AtomicSumHead | LRCoulombHead | DFTD3Head
 
 
 def auto_switch_simple_to_dsf(cfg):
@@ -94,6 +112,8 @@ def head_init(gen: torch.Generator, head: HeadSpec, device: torch.device) -> dic
         return {"mlp": mlp_init(gen, head.n_in, head.n_out, head.mlp, device)}
     if head.kind == "atomic_shift":
         return {"weight": torch.zeros(head.num_types, device=device)}
+    if head.kind == "dftd3":
+        return {k: torch.tensor(v, device=device) for k, v in constants.get_d3_tables().items()}
     return {}
 
 
@@ -150,6 +170,24 @@ def head_apply(head: HeadSpec, params: dict, data: dict, system: System) -> dict
             head.dsf_rc,
             head.envelope,
             head.subtract_sr,
+        )
+        return _add_energy(data, head.key_out, e)
+
+    if head.kind == "dftd3":
+        if system.bins is None:
+            raise NotImplementedError(
+                "D3 on the indexed layout is not ported yet (ROADMAP.md, queue 1: "
+                "the indexed / gas-phase path)"
+            )
+        e = eb.dftd3_binned(
+            system,
+            params,
+            head.a1,
+            head.a2,
+            head.s8,
+            head.s6,
+            smoothing_on=head.cutoff * (1.0 - head.smoothing_fraction),
+            smoothing_off=head.cutoff,
         )
         return _add_energy(data, head.key_out, e)
 

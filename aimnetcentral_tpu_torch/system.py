@@ -30,6 +30,9 @@ class System:
     lr_bins: "BinGrid | None" = None  # static coarse LR twin grid
     lr_slot: torch.Tensor | None = None  # (lr num_slots,) LR slot -> SR slot
     lr_inv: torch.Tensor | None = None  # (num_slots,) SR slot -> LR slot
+    # atomic numbers present (sorted, static; set by builders): D3's C6
+    # references become a small dense bilinear form over these species
+    species: tuple[int, ...] | None = None
 
     @property
     def natoms(self) -> int:

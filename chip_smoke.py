@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py [--out results.json]
 
+Two configurations at full width on the same 10,000-atom periodic box,
+random weights from seed 0: flagship-10k (the flagship head set, DSF
+Coulomb) and wb97m-d3-10k (the same heads plus the external DFT-D3(BJ) head
+of the released ``aimnet2-wb97m-d3_*`` models).
+
 Phases (any failure exits nonzero; nothing is caught):
 
 1. card: needs ``torch.cuda.is_available()``; prints the nvidia-smi name
@@ -11,18 +16,28 @@ Phases (any failure exits nonzero; nothing is caught):
    (one nvcc per source, in parallel) and prints ptxas' registers, shared
    memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs at the main path's shapes (10,000-atom flagship grid, F = 16 and
-   F = 17), with times (CUDA events) and the least time the card could take;
-4. main path: three ``AIMNet2Calculator.eval(forces=True)`` requests on the
-   10,000-atom box at the flagship's full width (random weights from a
-   seed), with the kernels' launch counts read around them;
-5. layers: host-clock times of binning and of the plain DSF sweep;
+   inputs at the main path's shapes, with times (CUDA events) and the least
+   time the card could take: A and B on the 10,000-atom flagship grid
+   (F = 16 and F = 17), D and E on its LR grid for each pair term (DSF
+   Coulomb, D3 coordination number, D3 energy);
+4. main path: for each configuration, three
+   ``AIMNet2Calculator.eval(forces=True)`` requests with the kernels'
+   launch counts read around them (A, B three times a request; D, E once
+   on flagship-10k, three times on wb97m-d3-10k), a repeated request
+   identical bit for bit, and a profiled request;
+5. layers: host-clock times of binning and of each pair term's sweep,
+   forward plus backward, through the kernels;
 6. the card against the port's own CPU run (plain versions) on a
-   ~1,200-atom box: energy, forces and stress.
+   ~1,200-atom box (3x3x3 LR grid): energy, forces and stress, for both
+   configurations.
 
 The last lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  ``--out`` writes the full results
-(build logs, per-F kernel detail, profile) as JSON.  Imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
+launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
+request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
+error); ``launches`` counts both configurations' main-path runs.  ``--out``
+writes the full results (build logs, per-F and per-term kernel detail,
+profiles) as JSON.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -87,6 +102,38 @@ def flagship_config():
             ("lrcoulomb", LRCoulombHead(rc=4.6, key_in="charges", key_out="energy")),
         )
     )
+
+
+def wb97m_d3_config():
+    """The released wB97M-D3 head set: the flagship's heads plus the
+    external DFT-D3(BJ) head with the family's constants
+    (aimnetcentral_tpu/data/model_registry.yaml:13-16)."""
+    import dataclasses
+
+    from aimnetcentral_tpu_torch.models.heads import DFTD3Head
+
+    cfg = flagship_config()
+    d3 = DFTD3Head(s8=0.3908, a1=0.566, a2=3.128, cutoff=15.0)
+    return dataclasses.replace(cfg, outputs=cfg.outputs + (("external_dftd3", d3),))
+
+
+def counters() -> dict:
+    """The launch-counting wrappers of every kernel, by name."""
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+
+    return {
+        "conv_stencil_forward": cs.conv_stencil_forward,
+        "conv_stencil_backward": cs.conv_stencil_backward,
+        "pair_sweep_forward": ps.pair_sweep_forward,
+        "pair_sweep_backward": ps.pair_sweep_backward,
+    }
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` moved and ``flops`` done."""
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / FP32_PEAK * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_cuda(fn, reps: int, warmup: int = 2) -> float:
@@ -232,10 +279,6 @@ def phase_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
         flops_b = 2.0 * flops_a
         dense_a = 2.0 * b * s_tot * 4 * c * c * g * f
 
-        def bound(nbytes, flops):
-            t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / FP32_PEAK * 1e3
-            return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
         tj, ti_b = cs.bwd_tiles(st)
         ti_a = cs.fwd_tile(st)
         log(f"[kernels] F={f} A: {ti_a} receiver rows a block, {cs.fwd_smem_bytes(st, ti_a)} B "
@@ -282,18 +325,173 @@ def phase_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
     return kernels, detail
 
 
-def phase_main_path(calc, coord, numbers, cell) -> dict:
+OPS_PER_PAIR = {  # FP32 operations per unordered pair within the cutoff (csrc/pair_*.cu)
+    "dsf": lambda v: (38, 75),
+    "d3_cn": lambda v: (18, 42),
+    "d3_energy": lambda v: (40 + 2 * v, 115 + 4 * v),
+}
+
+
+def pair_terms(calc, sysb) -> dict:
+    """The three pair sweeps of a wb97m-d3 request, as ``{name: (term,
+    cutoff, extras)}`` on the binned system: DSF with random charges (seed
+    4), the D3 coordination number, and the D3 energy over the C6 vectors
+    of this box's coordination numbers."""
     import torch
 
-    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+    from aimnetcentral_tpu_torch.models import engine_binned as eb
+    from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead
+
+    heads = [h for _n, h in calc._effective_cfg(True).outputs]
+    lr = next(h for h in heads if isinstance(h, LRCoulombHead))
+    d3 = next(h for h in heads if isinstance(h, DFTD3Head))
+    tables = calc.params["outputs"]["external_dftd3"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
+    rcov = tables["rcov"][sysb.numbers]
+    cn = eb.pair_sum_binned(sysb, d3.cutoff, ps.D3CNTerm(), {"rcov": rcov}, layout="lr")
+    r_on = d3.cutoff * (1.0 - d3.smoothing_fraction)
+    dsf = ps.DSFTerm(alpha=lr.dsf_alpha, dsf_rc=lr.dsf_rc, rc=lr.rc, envelope=lr.envelope,
+                     subtract_sr=lr.subtract_sr)
+    d3e = ps.D3EnergyTerm(a1=d3.a1, a2=d3.a2, s8=d3.s8, s6=d3.s6, r_on=r_on, r_off=d3.cutoff)
+    sweeps = (
+        (dsf, lr.dsf_rc, {"q": q}),
+        (ps.D3CNTerm(), d3.cutoff, {"rcov": rcov}),
+        (d3e, d3.cutoff, eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables)),
+    )
+    return {term.name: (term, cutoff, extras) for term, cutoff, extras in sweeps}
+
+
+def _half_pair_count(st, ops) -> int:
+    """Unordered real pairs within the cutoff on the half stencil: the pairs
+    the function needs (the kernels visit every slot pair)."""
+    import torch
+
+    nbr = ops["nbr"].clamp(min=0).long()
+    real = ops["mask"] > 0.5
+    total = 0.0
+    for s in range(st.s_tot):
+        cj = ops["coord"][nbr[s]] + ops["shift"][s][:, None, :]
+        d2 = ((cj[:, None, :, :] - ops["coord"][:, :, None, :]) ** 2).sum(-1)
+        ok = real[:, :, None] & real[nbr[s]][:, None, :] & (d2 < st.cutoff**2)
+        if s == 0:  # the zero offset enumerates both orderings
+            ok &= ~torch.eye(st.c, dtype=torch.bool, device=d2.device)[None]
+            total += 0.5 * int(ok.sum())
+        else:
+            total += int(ok.sum())
+    return int(total)
+
+
+def phase_pair_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
+    """Kernels D and E against their plain versions at the wb97m-d3-10k LR
+    shapes, for each of the three pair terms."""
+    import torch
+
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+    from aimnetcentral_tpu_torch.models import engine_binned as eb
+
+    sysb = calc.prepare_system({"coord": coord, "numbers": numbers, "cell": cell})
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    detail, sums = {}, {"D": {}, "E": {}}
+    for name, (term, cutoff, extras) in pair_terms(calc, sysb).items():
+        st, ops = eb.pair_operands(sysb, cutoff, term, extras, layout="lr")
+        ops = {k: v.detach().contiguous() for k, v in ops.items()}
+        ct = torch.randn((st.b_tot, st.c), generator=gen, device="cuda")
+        n_pairs = _half_pair_count(st, ops)
+        out_k = ps.pair_sweep_forward(st, term, **ops)
+        torch.cuda.synchronize()
+        out_p = ps.pair_forward_plain(st, term, **ops)
+        err_d, scale_d = float((out_k - out_p).abs().max()), float(out_p.abs().max())
+        got = ps.pair_sweep_backward(st, term, **ops, ct=ct)
+        torch.cuda.synchronize()
+        ref = ps.pair_backward_plain(st, term, **ops, ct=ct)
+        errs_e = {
+            k: (float((x - y).abs().max()), float(y.abs().max()))
+            for k, x, y in zip(("grad_coord", "grad_ext", "grad_shift"), got, ref)
+        }
+        log(f"[kernels] {name}: LR grid B={st.b_tot} C={st.c} S={st.s_tot} K={st.k}; "
+            f"{n_pairs} unordered pairs within {cutoff} A "
+            f"(slot pairs visited: {st.b_tot * st.s_tot * st.c * st.c})")
+        log(f"[kernels] {name} D: max_abs_err {err_d:.3e} rel {err_d / scale_d:.3e}")
+        for k, (e, sc) in errs_e.items():
+            log(f"[kernels] {name} E {k}: max_abs_err {e:.3e} rel {e / sc:.3e}")
+        if err_d > REL_TOL * scale_d:
+            raise SystemExit(f"FAIL: kernel D disagrees with its plain version for {name}")
+        for k, (e, sc) in errs_e.items():
+            if e > REL_TOL * sc:
+                raise SystemExit(f"FAIL: kernel E {k} disagrees with its plain version for {name}")
+
+        ms_d = time_cuda(lambda: ps.pair_sweep_forward(st, term, **ops), reps=10)
+        ms_e = time_cuda(lambda: ps.pair_sweep_backward(st, term, **ops, ct=ct), reps=10)
+        plain_d = time_cuda(lambda: ps.pair_forward_plain(st, term, **ops), reps=3, warmup=1)
+        plain_e = time_cuda(lambda: ps.pair_backward_plain(st, term, **ops, ct=ct), reps=3, warmup=1)
+        # least time: inputs read once and outputs written once, against
+        # the FP32 operations of the pairs within the cutoff
+        ins = 4 * (st.b_tot * st.c * (4 + st.k) + st.s_tot * st.b_tot * 4) + 8 * st.s_tot * st.b_tot
+        bytes_d = ins + 4 * st.b_tot * st.c
+        bytes_e = ins + 4 * st.b_tot * st.c + 4 * (st.b_tot * st.c * (3 + st.k) + st.s_tot * st.b_tot * 3)
+        ops_d, ops_e = OPS_PER_PAIR[name](st.v)
+        flops_d, flops_e = float(ops_d * n_pairs), float(ops_e * n_pairs)
+        bound_d, by_d = bound(bytes_d, flops_d)
+        bound_e, by_e = bound(bytes_e, flops_e)
+        log(f"[kernels] {name} D: {ms_d:.3f} ms (plain {plain_d:.3f} ms), bound {bound_d:.4f} ms "
+            f"by {by_d}, {ps.row_tile(st, ps.fwd_smem_bytes)} rows a block, "
+            f"{ps.fwd_smem_bytes(st, ps.row_tile(st, ps.fwd_smem_bytes))} B shared memory; no "
+            f"single PyTorch call computes this function (library_ms null)")
+        log(f"[kernels] {name} E: {ms_e:.3f} ms (plain {plain_e:.3f} ms), bound {bound_e:.4f} ms "
+            f"by {by_e}, {ps.row_tile(st, ps.bwd_smem_bytes)} rows a block, "
+            f"{ps.bwd_smem_bytes(st, ps.row_tile(st, ps.bwd_smem_bytes))} B shared memory")
+        detail[name] = {
+            "grid": {"b": st.b_tot, "c": st.c, "s": st.s_tot, "k": st.k}, "pairs": n_pairs,
+            "D": {"ms": ms_d, "plain_ms": plain_d, "bound_ms": bound_d, "bound_by": by_d,
+                  "max_abs_err": err_d, "rel_err": err_d / scale_d, "bytes": bytes_d, "flops": flops_d},
+            "E": {"ms": ms_e, "plain_ms": plain_e, "bound_ms": bound_e, "bound_by": by_e,
+                  "errors": errs_e, "bytes": bytes_e, "flops": flops_e},
+        }
+        for key, row, nbytes, flops, err in (
+            ("D", detail[name]["D"], bytes_d, flops_d, err_d),
+            ("E", detail[name]["E"], bytes_e, flops_e, max(e for e, _s in errs_e.values())),
+        ):
+            acc = sums[key]
+            acc["ms"] = acc.get("ms", 0.0) + row["ms"]
+            acc["plain_ms"] = acc.get("plain_ms", 0.0) + row["plain_ms"]
+            acc["bytes"] = acc.get("bytes", 0.0) + nbytes
+            acc["flops"] = acc.get("flops", 0.0) + flops
+            acc["max_abs_err"] = max(acc.get("max_abs_err", 0.0), err)
+        del ops, out_k, out_p, got, ref
+        torch.cuda.empty_cache()
+
+    rows = []
+    for key, name, src, line in (
+        ("D", "pair_sweep_forward", "pair_fwd.cu", 228),
+        ("E", "pair_sweep_backward", "pair_bwd.cu", 283),
+    ):
+        acc = sums[key]
+        b_ms, b_by = bound(acc["bytes"], acc["flops"])
+        rows.append({
+            "name": name, "route": "cuda", "source": f"aimnetcentral_tpu_torch/csrc/{src}",
+            "replaces": f"aimnetcentral_tpu/kernels/pair_sweep.py:{line}", "launches": None,
+            "max_abs_err": acc["max_abs_err"], "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    return rows, detail
+
+
+def phase_main_path(label: str, calc, coord, numbers, cell, per_request: dict) -> dict:
+    """Three requests with every kernel's launches counted around them, a
+    repeated request compared bit for bit, and a profiled request."""
+    import torch
 
     rng = np.random.default_rng(2)
     requests = [coord] + [
         (coord + rng.normal(scale=0.05, size=coord.shape)).astype(np.float32) for _ in range(2)
     ]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cs.conv_stencil_forward.launches = 0
-    cs.conv_stencil_backward.launches = 0
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
     times, energies, outputs = [], [], []
     for x in requests:
         t0 = time.perf_counter()
@@ -302,29 +500,27 @@ def phase_main_path(calc, coord, numbers, cell) -> dict:
         times.append(time.perf_counter() - t0)
         e, f_ = out["energy"], out["forces"]
         if not (np.isfinite(e).all() and np.isfinite(f_).all()):
-            raise SystemExit("FAIL: non-finite energy or forces on the main path")
+            raise SystemExit(f"FAIL: non-finite energy or forces on {label}")
         if f_.shape != (len(numbers), 3):
             raise SystemExit(f"FAIL: forces of shape {f_.shape}")
         net = float(np.abs(f_.astype(np.float64).sum(0)).max())
         total = float(np.abs(f_).sum())
         if net > 1e-5 * total:
-            raise SystemExit(f"FAIL: net force {net} against sum |F| {total}")
+            raise SystemExit(f"FAIL: net force {net} against sum |F| {total} on {label}")
         energies.append(float(e[0]))
         if not outputs:
             outputs.append(out)
-        log(f"[main] request: E = {e[0]:.6f} eV, |sum F| = {net:.3e} eV/A, "
+        log(f"[main {label}] request: E = {e[0]:.6f} eV, |sum F| = {net:.3e} eV/A, "
             f"max |F| = {np.abs(f_).max():.4f} eV/A, {times[-1] * 1e3:.1f} ms")
-    launches = {
-        "conv_stencil_forward": cs.conv_stencil_forward.launches,
-        "conv_stencil_backward": cs.conv_stencil_backward.launches,
-    }
-    log(f"[main] launches over {len(requests)} requests: {launches}")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"[main {label}] launches over {len(requests)} requests: {launches}")
     for name, n in launches.items():
-        if n != 3 * len(requests):
-            raise SystemExit(f"FAIL: {name} launched {n} times, expected 3 per request")
+        if n != per_request[name] * len(requests):
+            raise SystemExit(f"FAIL: {name} launched {n} times on {label}, expected "
+                             f"{per_request[name]} per request")
     peak = torch.cuda.max_memory_allocated()
     med = float(np.median(times))
-    log(f"[main] per-request wall time median {med * 1e3:.1f} ms "
+    log(f"[main {label}] per-request wall time median {med * 1e3:.1f} ms "
         f"(all: {', '.join(f'{t * 1e3:.1f}' for t in times)}), peak memory {peak / 2**30:.3f} GiB")
 
     # the first request once more, under the profiler: device time by kernel
@@ -340,8 +536,9 @@ def phase_main_path(calc, coord, numbers, cell) -> dict:
     wall = time.perf_counter() - t0
     for key in ("energy", "forces"):
         if not np.array_equal(again[key], outputs[0][key]):
-            raise SystemExit(f"FAIL: a repeated request gave another {key}")
-    log("[main] a repeated request gives the same energy and forces bit for bit")
+            raise SystemExit(f"FAIL: a repeated request gave another {key} on {label}")
+    log(f"[main {label}] a repeated request gives the same energy and forces bit for bit")
+
     def dev_us(e) -> float:  # the attribute was renamed across torch versions
         return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
 
@@ -351,29 +548,30 @@ def phase_main_path(calc, coord, numbers, cell) -> dict:
     top = sorted(events, key=dev_us, reverse=True)[:12]
     # the profiler slows the host several times over, so the idle share is
     # taken against the unprofiled median wall time
-    log(f"[main] profiled request: wall {wall * 1e3:.1f} ms, device busy {dev_total:.1f} ms; "
-        f"idle share against the unprofiled median {max(0.0, 1 - dev_total / (med * 1e3)):.3f}")
+    idle = max(0.0, 1 - dev_total / (med * 1e3))
+    log(f"[main {label}] profiled request: wall {wall * 1e3:.1f} ms, device busy {dev_total:.1f} ms; "
+        f"idle share against the unprofiled median {idle:.3f}")
     breakdown = []
     for e in top:
         ms = dev_us(e) / 1e3
         breakdown.append({"name": e.key[:90], "ms": ms, "count": e.count})
-        log(f"[main]   {ms:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        log(f"[main {label}]   {ms:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return {
         "launches": launches, "times_s": times, "median_s": med, "peak_bytes": peak,
         "energies": energies, "profile": {"wall_ms": wall * 1e3, "device_ms": dev_total,
-                                          "idle_share": max(0.0, 1 - dev_total / (med * 1e3)),
-                                          "top": breakdown},
+                                          "idle_share": idle, "top": breakdown},
     }
 
 
 def phase_layers(calc, coord, numbers, cell) -> dict:
-    """Host-clock time of two layers of a request, each ending in a
-    synchronize (median of three): binning (``prepare_system``) and the plain
-    DSF Coulomb sweep on the LR grid, forward and coordinate backward."""
+    """Host-clock time of layers of a wb97m-d3-10k request, each ending in a
+    synchronize (median of three): binning (``prepare_system``), each pair
+    term's sweep forward plus coordinate backward through kernels D and E,
+    and the whole D3 head (both sweeps, the C6 vectors, both backwards)."""
     import torch
 
-    from aimnetcentral_tpu_torch.models.engine_binned import coulomb_dsf_binned
-    from aimnetcentral_tpu_torch.models.heads import LRCoulombHead
+    from aimnetcentral_tpu_torch.models import engine_binned as eb
+    from aimnetcentral_tpu_torch.models.heads import DFTD3Head
 
     data = {"coord": coord, "numbers": numbers, "cell": cell}
 
@@ -389,23 +587,32 @@ def phase_layers(calc, coord, numbers, cell) -> dict:
 
     t_prep = timed(lambda: calc.prepare_system(data))
     sysb = calc.prepare_system(data)
-    head = next(h for _n, h in calc._effective_cfg(True).outputs if isinstance(h, LRCoulombHead))
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
+    terms = pair_terms(calc, sysb)
+    d3 = next(h for _n, h in calc.cfg.outputs if isinstance(h, DFTD3Head))
+    tables = calc.params["outputs"]["external_dftd3"]
+    r_on = d3.cutoff * (1.0 - d3.smoothing_fraction)
 
-    def dsf() -> None:
+    def sweep(term, cutoff, ex) -> None:
         c = sysb.coord.detach().requires_grad_(True)
-        e = coulomb_dsf_binned(sysb.replace(coord=c), q, head.rc, head.dsf_alpha, head.dsf_rc,
-                               head.envelope, head.subtract_sr)
+        e = eb.pair_energy_binned(sysb.replace(coord=c), cutoff, term, ex, layout="lr")
         torch.autograd.grad(e.sum(), c)
 
-    t_dsf = timed(dsf)
-    log(f"[layers] prepare_system {t_prep * 1e3:.1f} ms; DSF sweep forward + backward "
-        f"{t_dsf * 1e3:.1f} ms (medians of 3)")
-    return {"prepare_s": t_prep, "dsf_fwd_bwd_s": t_dsf}
+    def d3_head() -> None:
+        c = sysb.coord.detach().requires_grad_(True)
+        e = eb.dftd3_binned(sysb.replace(coord=c), tables, d3.a1, d3.a2, d3.s8, d3.s6, r_on, d3.cutoff)
+        torch.autograd.grad(e.sum(), c)
+
+    res = {"prepare_s": t_prep}
+    for name, (term, cutoff, ex) in terms.items():
+        res[f"{name}_fwd_bwd_s"] = timed(lambda: sweep(term, cutoff, ex))
+    res["d3_head_fwd_bwd_s"] = timed(d3_head)
+    log(f"[layers] prepare_system {t_prep * 1e3:.1f} ms; pair sweeps forward + backward: "
+        + ", ".join(f"{n} {res[f'{n}_fwd_bwd_s'] * 1e3:.1f} ms" for n in terms)
+        + f"; the D3 head {res['d3_head_fwd_bwd_s'] * 1e3:.1f} ms (medians of 3)")
+    return res
 
 
-def phase_card_vs_cpu(params, cfg) -> dict:
+def phase_card_vs_cpu(label: str, params, cfg) -> dict:
     import torch
 
     from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
@@ -413,8 +620,10 @@ def phase_card_vs_cpu(params, cfg) -> dict:
 
     coord, numbers, cell = build_box(N_CHECK, seed=1)
     data = {"coord": coord, "numbers": numbers, "cell": cell}
+    calc = AIMNet2Calculator((params, cfg), device="cuda")
+    grid = calc.prepare_system(data).lr_bins
     t0 = time.perf_counter()
-    card = AIMNet2Calculator((params, cfg), device="cuda").eval(data, forces=True, stress=True)
+    card = calc.eval(data, forces=True, stress=True)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -425,11 +634,12 @@ def phase_card_vs_cpu(params, cfg) -> dict:
     de = abs(float(card["energy"][0] - cpu["energy"][0]))
     df = float(np.abs(card["forces"] - cpu["forces"]).max())
     ds = float(np.abs(card["stress"] - cpu["stress"]).max())
-    log(f"[check] {N_CHECK} atoms: E card {card['energy'][0]:.6f} cpu {cpu['energy'][0]:.6f} "
+    log(f"[check {label}] {N_CHECK} atoms, LR grid {grid.nbins} C={grid.capacity}: "
+        f"E card {card['energy'][0]:.6f} cpu {cpu['energy'][0]:.6f} "
         f"|dE| {de:.3e} eV; max |dF| {df:.3e} eV/A; max |dstress| {ds:.3e} eV/A^3 "
         f"(card {t_card:.1f} s, cpu {t_cpu:.1f} s)")
     if de > REL_TOL * abs(float(cpu["energy"][0])) or df > 1e-4 or ds > 1e-6:
-        raise SystemExit("FAIL: the card and the CPU run disagree")
+        raise SystemExit(f"FAIL: the card and the CPU run disagree on {label}")
     return {"dE": de, "dF": df, "dstress": ds, "card_s": t_card, "cpu_s": t_cpu}
 
 
@@ -450,13 +660,28 @@ def main() -> None:
     cfg = flagship_config()
     params = aimnet2_init(cfg, seed=0, device="cuda")
     calc = AIMNet2Calculator((params, cfg), device="cuda")
+    cfg_d3 = wb97m_d3_config()
+    params_d3 = aimnet2_init(cfg_d3, seed=0, device="cuda")
+    calc_d3 = AIMNet2Calculator((params_d3, cfg_d3), device="cuda")
     coord, numbers, cell = build_box(N_MAIN)
+
     kernels, results["kernels_detail"] = phase_kernels(calc, coord, numbers, cell)
-    results["main"] = phase_main_path(calc, coord, numbers, cell)
+    pair_rows, results["pair_kernels_detail"] = phase_pair_kernels(calc_d3, coord, numbers, cell)
+    kernels += pair_rows
+    conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
+    results["main"] = phase_main_path(
+        "flagship-10k", calc, coord, numbers, cell,
+        {**conv, "pair_sweep_forward": 1, "pair_sweep_backward": 1},
+    )
+    results["main_d3"] = phase_main_path(
+        "wb97m-d3-10k", calc_d3, coord, numbers, cell,
+        {**conv, "pair_sweep_forward": 3, "pair_sweep_backward": 3},
+    )
     for k in kernels:
-        k["launches"] = results["main"]["launches"][k["name"]]
-    results["layers"] = phase_layers(calc, coord, numbers, cell)
-    results["check"] = phase_card_vs_cpu(params, cfg)
+        k["launches"] = results["main"]["launches"][k["name"]] + results["main_d3"]["launches"][k["name"]]
+    results["layers"] = phase_layers(calc_d3, coord, numbers, cell)
+    results["check"] = phase_card_vs_cpu("flagship", params, cfg)
+    results["check_d3"] = phase_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
 
     if args.out:
         with open(args.out, "w") as fh:

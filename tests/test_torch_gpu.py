@@ -17,13 +17,17 @@ import torch
 from aimnetcentral_tpu_torch.builders import system_from_molecules
 from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
 from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
 from aimnetcentral_tpu_torch.kernels.conv_pass import build_conv_tables
 from aimnetcentral_tpu_torch.models import AIMNet2Config, aimnet2_init
+from aimnetcentral_tpu_torch.models import engine_binned as eb
 from aimnetcentral_tpu_torch.models.heads import (
     AtomicShiftHead,
     AtomicSumHead,
+    DFTD3Head,
     LRCoulombHead,
     OutputHead,
+    head_init,
 )
 from aimnetcentral_tpu_torch.models.modules import MLPSpec
 from aimnetcentral_tpu_torch.ops import binned as B
@@ -131,16 +135,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         cs.conv_stencil_forward(st, **{**dev_ops, "coord": dev_ops["coord"].transpose(0, 1)})
 
 
-def _narrow_model(device):
+def _narrow_model(device, d3=False):
+    outputs = (
+        ("energy_mlp", OutputHead(n_in=16, n_out=1, key_in="aim", key_out="energy",
+                                  mlp=MLPSpec(hidden=(16, 16)))),
+        ("atomic_shift", AtomicShiftHead(key_in="energy", key_out="energy")),
+        ("atomic_sum", AtomicSumHead(key_in="energy", key_out="energy")),
+        ("lrcoulomb", LRCoulombHead(rc=4.6, key_in="charges", key_out="energy")),
+    )
+    if d3:
+        outputs += (("external_dftd3", DFTD3Head(s8=0.3908, a1=0.566, a2=3.128, cutoff=15.0)),)
     cfg = AIMNet2Config(
-        nfeature=4, ncomb_v=4, hidden=((32, 16), (32, 16), (32, 16)), aim_size=16,
-        outputs=(
-            ("energy_mlp", OutputHead(n_in=16, n_out=1, key_in="aim", key_out="energy",
-                                      mlp=MLPSpec(hidden=(16, 16)))),
-            ("atomic_shift", AtomicShiftHead(key_in="energy", key_out="energy")),
-            ("atomic_sum", AtomicSumHead(key_in="energy", key_out="energy")),
-            ("lrcoulomb", LRCoulombHead(rc=4.6, key_in="charges", key_out="energy")),
-        ),
+        nfeature=4, ncomb_v=4, hidden=((32, 16), (32, 16), (32, 16)), aim_size=16, outputs=outputs
     )
     return aimnet2_init(cfg, seed=0, device=device), cfg
 
@@ -169,3 +175,129 @@ def test_calculator_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(card["charges"], cpu["charges"], atol=1e-5)
     np.testing.assert_allclose(card["forces"], cpu["forces"], atol=1e-5)
     np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)
+
+
+def test_calculator_card_matches_cpu_with_d3(cuda_device):
+    """The wb97m-d3 head set: D and E run three times each (DSF, D3 CN, D3
+    energy), A and B three times each."""
+    params, cfg = _narrow_model(CPU, d3=True)
+    cpu = AIMNet2Calculator((params, cfg), device="cpu", binned_threshold=0).eval(
+        _box(), forces=True, stress=True
+    )
+    counters = (cs.conv_stencil_forward, cs.conv_stencil_backward,
+                ps.pair_sweep_forward, ps.pair_sweep_backward)
+    for fn in counters:
+        fn.launches = 0
+    card = AIMNet2Calculator((params, cfg), device=cuda_device, binned_threshold=0).eval(
+        _box(), forces=True, stress=True
+    )
+    assert [fn.launches for fn in counters] == [3, 3, 3, 3]
+    np.testing.assert_allclose(card["energy"], cpu["energy"], rtol=1e-5)
+    np.testing.assert_allclose(card["charges"], cpu["charges"], atol=1e-5)
+    np.testing.assert_allclose(card["forces"], cpu["forces"], atol=1e-5)
+    np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernels D and E
+
+
+def _pair_case(layout: str, term_name: str, seed: int = 5):
+    """Pair-sweep operands on the CPU.  ``banded``: 120 atoms in an 18 A box
+    on 3x3x3 SR bins, cutoff 5 A (radius 1, nz >= 2r+1); ``images``: 60
+    atoms in a 12 A box on its 1x1x1 LR grid, cutoff 15 A (radius 2: the
+    bin meets itself at every offset); ``wide``: the same 60 atoms on one SR
+    bin of capacity 272 (nine candidate tiles, uneven row tiles)."""
+    rng = np.random.default_rng(seed)
+    n, a, cutoff = {"banded": (120, 18.0, 5.0), "images": (60, 12.0, 15.0), "wide": (60, 12.0, 5.0)}[layout]
+    coord = rng.uniform(0, a, size=(n, 3)).astype(np.float32)
+    numbers = rng.choice([1, 6, 7, 8], size=n)
+    mol = {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * a}
+    cell = mol["cell"]
+    if layout == "wide":
+        grid = B.BinGrid(nbins=(1, 1, 1), capacity=272, edge_hint=12.0, periodic=True)
+    else:
+        grid = B.plan_bins(cell, n, 5.5, safety=3.0)
+    lr = B.plan_lr_bins(cell, n, 15.0, safety=3.0) if layout == "images" else None
+    sysb, _perm, ovf = B.to_binned_system(system_from_molecules([mol], CPU), grid, lr)
+    assert int(ovf) == 0
+    where = "lr" if layout == "images" else "sr"
+    tables = head_init(None, DFTD3Head(s8=0.3908, a1=0.566, a2=3.128), CPU)
+    if term_name == "dsf":
+        term = ps.DSFTerm(alpha=0.2, dsf_rc=cutoff, rc=4.6)
+        extras = {"q": torch.tensor(rng.normal(size=sysb.natoms).astype(np.float32) * 0.3)
+                  * (sysb.numbers > 0)}
+    elif term_name == "d3_cn":
+        term = ps.D3CNTerm()
+        extras = {"rcov": tables["rcov"][sysb.numbers]}
+    else:
+        term = ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=0.8 * cutoff, r_off=cutoff)
+        cn = eb.pair_sum_binned(sysb, cutoff, ps.D3CNTerm(), {"rcov": tables["rcov"][sysb.numbers]}, where)
+        extras = eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables)
+    st, ops = eb.pair_operands(sysb, cutoff, term, extras, where)
+    ops = {k: v.detach() for k, v in ops.items()}
+    ct = torch.tensor(rng.normal(size=(st.b_tot, st.c)).astype(np.float32))
+    return st, term, ops, ct
+
+
+PAIR_LAYOUTS = ["banded", "images", "wide"]
+PAIR_TERMS = ["dsf", "d3_cn", "d3_energy"]
+
+
+@pytest.mark.parametrize("term_name", PAIR_TERMS)
+@pytest.mark.parametrize("layout", PAIR_LAYOUTS)
+def test_kernel_d_matches_plain(cuda_device, layout, term_name):
+    st, term, ops, _ct = _pair_case(layout, term_name)
+    out = ps.pair_sweep_forward(st, term, **_to(cuda_device, ops))
+    torch.cuda.synchronize()
+    _close(out, ps.pair_forward_plain(st, term, **ops))
+
+
+@pytest.mark.parametrize("term_name", PAIR_TERMS)
+@pytest.mark.parametrize("layout", PAIR_LAYOUTS)
+def test_kernel_e_matches_plain(cuda_device, layout, term_name):
+    st, term, ops, ct = _pair_case(layout, term_name)
+    got = ps.pair_sweep_backward(st, term, **_to(cuda_device, ops), ct=ct.to(cuda_device))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ps.pair_backward_plain(st, term, **ops, ct=ct)):
+        _close(g, r)
+
+
+def test_pair_kernels_are_deterministic(cuda_device):
+    st, term, ops, ct = _pair_case("images", "d3_energy")
+    dev_ops = _to(cuda_device, ops)
+    ct = ct.to(cuda_device)
+    assert torch.equal(ps.pair_sweep_forward(st, term, **dev_ops), ps.pair_sweep_forward(st, term, **dev_ops))
+    for x, y in zip(ps.pair_sweep_backward(st, term, **dev_ops, ct=ct),
+                    ps.pair_sweep_backward(st, term, **dev_ops, ct=ct)):
+        assert torch.equal(x, y)
+
+
+def test_pair_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    st, term, ops, ct = _pair_case("banded", "dsf")
+    dev_ops = _to(cuda_device, ops)
+    with pytest.raises(ValueError, match="ext"):
+        ps.pair_sweep_forward(st, term, **{**dev_ops, "ext": dev_ops["ext"].double()})
+    with pytest.raises(ValueError, match="nbr"):
+        ps.pair_sweep_forward(st, term, **{**dev_ops, "nbr": dev_ops["nbr"].long()})
+    with pytest.raises(ValueError, match="ct"):
+        ps.pair_sweep_backward(st, term, **dev_ops, ct=ct.to(cuda_device)[:, :1])
+    with pytest.raises(ValueError, match="extras"):
+        wide = ps.PairStatic(b_tot=st.b_tot, c=st.c, s_tot=st.s_tot, k=2 * 4000 + 1, cutoff=st.cutoff)
+        ps.row_tile(wide, ps.fwd_smem_bytes)
+
+
+def test_pair_energy_binned_launches_the_kernels(cuda_device):
+    """On CUDA tensors the sweep is kernel D and its backward kernel E: the
+    plain version does not run on the card."""
+    rng = np.random.default_rng(2)
+    mol = _box(seed=2)
+    grid = B.plan_bins(mol["cell"], 60, 5.5, safety=3.0)
+    lr = B.plan_lr_bins(mol["cell"], 60, 15.0, safety=3.0)
+    sysb, _perm, _ovf = B.to_binned_system(system_from_molecules([mol], cuda_device), grid, lr)
+    q = torch.tensor(rng.normal(size=sysb.natoms).astype(np.float32), device=cuda_device)
+    coord = sysb.coord.clone().requires_grad_(True)
+    ps.pair_sweep_forward.launches = ps.pair_sweep_backward.launches = 0
+    e = eb.coulomb_dsf_binned(sysb.replace(coord=coord), q, 4.6, 0.2, 15.0, "exp", True)
+    torch.autograd.grad(e.sum(), coord)
+    assert (ps.pair_sweep_forward.launches, ps.pair_sweep_backward.launches) == (1, 1)
