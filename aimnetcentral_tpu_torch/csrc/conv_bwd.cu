@@ -1,56 +1,70 @@
 // Kernel B: the fused adjoint of kernel A (csrc/conv_fwd.cu).
 //
 // Replaces the Pallas TPU kernel aimnetcentral_tpu/kernels/conv_stencil.py
-// ::_bwd_kernel (conv_stencil.py:466).  Receiver-centric: one block per
-// (bin j, tile of TJ atoms of j), looping over the stencil offsets s and the
-// partner bin p = mnbr[s, j] whose FORWARD step s had j as its candidate
-// (the forward pair is i in p, j in this bin, displacement
-// r = x_j + shift[s, p] - x_i).  Given the forward cotangent
-// gbar[p, k, i, g, f] it forms, per pair and g,
-//     Wbar_k   = sum_f gbar[p, k, i, g, f] a[j, g, f]
-//     gsbar    = Wbar_0 + sum_k Wbar_k u_k
-//     ubar_k  += Wbar_k gs,     dbar += gsbar dgs/dd
-// summing over all g inside the block before the chain rule through u and d:
-//     rbar_k = within (dbar u_k + (ubar_k - (ubar . u) u_k) / d).
+// ::_bwd_kernel (conv_stencil.py:466).  Receiver-centric: atom j of bin jb
+// loops over the stencil offsets s and the partner bin p = mnbr[s, jb] whose
+// FORWARD step s had jb as its candidate (the forward pair is i in p, j in
+// jb, displacement r = x_j + shift[s, p] - x_i).  Given the forward
+// cotangent gbar[p, k, i, g, f] it forms, per pair and column c = (g, f),
+//     wbar_k   = gbar[p, k, i, c] a[j, c]
+//     ubar_k  += wbar_k gs_g,   dbar += (wbar_0 + sum_k wbar_k u_k) dgs_g/dd
+// (linear in wbar, so the sum over g and f is one sum over the columns),
+// then the chain rule through u and d:
+//     rbar_k = dbar u_k + (ubar_k - (ubar . u) u_k) / d.
 // Outputs:
-//   grad_a[j, g, f] = sum_{s, k, i} W_k[i, j, g] gbar[p, k, i, g, f]   (resident)
-//   grad_coord[j]   = sum_{s, i} rbar[i, j]                          (resident)
-//   pgrad[s, j, t, k, i] = -sum_{j in tile t} rbar_k[i, j]: the partner-side
-//     row sums of each atom tile; the wrapper sums the tiles (in a fixed
-//     order) and one static gather turns them into the partner atoms'
+//   grad_a[j, c]    = sum_{s, i} gs_g (gbar_0 + sum_k u_k gbar_k)[p, i, c]
+//   grad_coord[j]   = sum_{s, i} rbar[i, j]                  (receiver side)
+//   pgrad[s, jb, t, k, i] = -sum_{j in tile t} rbar_k[i, j]: the partner-side
+//     row sums of each tile of eight atoms; the wrapper sums the tiles (in a
+//     fixed order) and one static gather turns them into the partner atoms'
 //     coordinate adjoint and the lattice-shift adjoint (stress).
-// Every output element is written by exactly one block: no atomics, and the
-// result is deterministic.  `within` multiplies rbar before any 1/d term
-// reaches a sum, and non-pairs take d2 := 1, so every term stays finite.
+// Only real pairs within rc are walked, so every 1/d term is finite and the
+// pairs beyond rc add exact zeros to the partner rows.
 //
-// Design: the partner rows are walked in tiles of TI atoms.  Per (bin,
-// offset, row tile), each thread keeps its pairs' geometry (d, fc, fc', u)
-// and chain-rule sums (dbar, ubar) in registers across the G shifts; gs and
-// u are also kept in shared memory for the grad_a contraction, and grad_a
-// for the block's (j, g, f) is accumulated in shared memory across the
-// stencil.  The wrapper picks TJ and TI (one tile each at the flagship's
-// capacity).  Row strides of the pair matrices are TJ+1 and of the feature
-// tiles odd, so that the row and column walks are free of bank conflicts.
+// Design: one block per (bin, tile of eight atoms), one warp per atom.  Per
+// offset each warp tests 32 partner slots at a time, one per lane (masks
+// are tested, so no slot order is assumed); a ballot of "real pair within
+// rc" gives the pairs it walks, in ascending slot order.  The testing lane
+// computes d, fc, fc' and u once and shuffles hand them to the warp.  Lanes
+// own columns c = lane + 32 m of the G*F row: a[j, c] and the grad_a sums
+// stay in registers across the stencil, each lane forms gs and dgs for its
+// columns' g and reads gbar[p, k, i, c] (warp-wide loads of 128 contiguous
+// bytes); the ubar and dbar partial sums are added over the warp by a
+// shuffle butterfly.  The partner rows go through shared memory, one row
+// per warp, and are summed over the eight warps in warp order once per
+// offset (one __syncthreads a live offset, double-buffered).  Every output
+// element is written by exactly one block and every sum is taken in a
+// fixed order: no atomics, deterministic.  FP32 on CUDA cores.
 //
 // What bounds it on an H100: like kernel A, the function's least time is
 // set by the bytes it moves (gbar, features and outputs, each once); its
-// operations are about twice kernel A's per real pair.  This first version
-// visits every slot pair of the stencil and reads both operands of its two
-// contractions from shared memory, so it is bound by shared-memory loads;
-// register tiling and skipping empty slot pairs are the next steps.
+// operations are about twice kernel A's per real pair.  This kernel reads
+// gbar[p, :, i, :] (four rows of G*F) once per pair from L2/L1 and walks a
+// warp's pairs one after the other, so the latency of those loads bounds
+// it, with the shuffle butterfly per pair and the warps of a block waiting
+// for each other once per offset: the 4 M loads of a pair are issued
+// together ahead of the arithmetic, the offsets' table entries are read
+// once per 32 offsets, and two blocks an SM keep 16 warps in flight.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;  // atoms a block: one warp each
+constexpr int kThreads = 32 * kWarps;
 constexpr float kPi = 3.14159265358979323846f;
 
-// Two blocks per SM (at most 128 registers a thread): left free, ptxas takes
-// 181 registers for RP = 8 and one block per SM hides the shared-memory
-// latency worse; on an H100 the kernel ran a third faster with the bound.
-template <int RP>  // pairs per thread: TI * TJ <= RP * kThreads
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Two blocks an SM at M = 9 (at most 128 registers a thread, none spilled):
+// on an H100 at the flagship's shapes that ran far faster than one block of
+// 156 registers.
+template <int M>  // columns of the G*F row a lane owns: c = lane + 32 m, m < M
+__global__ void __launch_bounds__(kThreads, M <= 9 ? 2 : 1)
 conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
                 const float* __restrict__ mask,      // (B*C)
                 const float* __restrict__ a,         // (B*C, G*F)
@@ -62,251 +76,216 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
                 float* __restrict__ grad_a,          // (B*C, G*F)
                 float* __restrict__ grad_coord,      // (B*C, 3) receiver side
                 float* __restrict__ pgrad,           // (S, B, NJ, 3, C) partner side
-                int B, int C, int G, int F, int S, int TJ, int TI) {
-  extern __shared__ float smem[];
+                int* __restrict__ pair_count,        // (B*C) or null
+                int B, int C, int G, int F, int S) {
+  extern __shared__ float rows[];  // [2][kWarps][3][C]: partner rows, one per warp
   const int jb = blockIdx.x;
   const int jt = blockIdx.y;
   const int NJ = gridDim.y;
-  const int j0 = jt * TJ;
-  const int nj = min(TJ, C - j0);  // atoms of this block's tile
-  const int tid = threadIdx.x;
-  const int CP = TJ + 1;  // pair-matrix row stride
-  const int FP = F | 1;   // feature-tile row stride (odd)
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int j = jt * kWarps + w;
+  const size_t row = size_t(jb) * C + j;
+  const bool real_j = j < C && mask[row] > 0.5f;
   const int GF = G * F;
-  float* xj = smem;               // TJ*3  this tile (forward candidates)
-  float* mj = xj + 3 * TJ;        // TJ
-  float* xi = mj + TJ;            // TI*3  partner rows, minus the forward shift
-  float* mi = xi + 3 * TI;        // TI
-  float* gb = mi + TI;            // 4*TI*FP  gbar[p, k, i, g, :]
-  float* aj = gb + 4 * TI * FP;   // TJ*FP    a[j, g, :]
-  float* GS = aj + TJ * FP;       // TI*CP    gs at the current g
-  float* U = GS + TI * CP;        // 3*TI*CP  u_k, later rbar_k
-  float* GA = U + 3 * TI * CP;    // TJ*G*F   grad_a accumulator
-
+  const size_t kstride = size_t(C) * GF;  // gbar's k stride
   const float eta = scal[0];
   const float rc = scal[1];
   const float pi_rc = kPi / rc;
 
-  for (int t = tid; t < nj; t += kThreads) {
-    const size_t row = size_t(jb) * C + j0 + t;
-    xj[3 * t + 0] = coord[3 * row + 0];
-    xj[3 * t + 1] = coord[3 * row + 1];
-    xj[3 * t + 2] = coord[3 * row + 2];
-    mj[t] = mask[row];
+  float sg[M], av[M], ga[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int c = lane + 32 * m;
+    sg[m] = c < GF ? shifts_g[c / F] : 0.0f;
+    av[m] = (real_j && c < GF) ? a[row * GF + c] : 0.0f;
+    ga[m] = 0.0f;
   }
-  for (int t = tid; t < nj * GF; t += kThreads) GA[t] = 0.0f;
-  float gc0 = 0.0f, gc1 = 0.0f, gc2 = 0.0f;  // receiver-side adjoint of atom j0 + tid
+  float xj0 = 0.0f, xj1 = 0.0f, xj2 = 0.0f;
+  if (real_j) {
+    xj0 = coord[3 * row + 0];
+    xj1 = coord[3 * row + 1];
+    xj2 = coord[3 * row + 2];
+  }
+  float gc0 = 0.0f, gc1 = 0.0f, gc2 = 0.0f;
+  int npair = 0;
+  int buf = 0;  // the partner-row buffer of this live offset
 
-  for (int s = 0; s < S; ++s) {
-    const int p = mnbr[size_t(s) * B + jb];
-    float* prow = pgrad + ((size_t(s) * B + jb) * NJ + jt) * 3 * C;
-    if (p < 0) {  // gas-phase step without a partner: nothing to send
-      for (int t = tid; t < 3 * C; t += kThreads) prow[t] = 0.0f;
-      continue;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    // lane t holds offset s0 + t's partner bin and its forward shift, so the
+    // offsets' table reads are not a chain of dependent loads
+    const int sl = s0 + lane;
+    const int pl = sl < S ? mnbr[size_t(sl) * B + jb] : -1;
+    float shl0 = 0.0f, shl1 = 0.0f, shl2 = 0.0f;
+    if (pl >= 0) {
+      const float* sh = shift + (size_t(sl) * B + pl) * 3;
+      shl0 = sh[0];
+      shl1 = sh[1];
+      shl2 = sh[2];
     }
-    const float* sh = shift + (size_t(s) * B + p) * 3;
-    for (int i0 = 0; i0 < C; i0 += TI) {
-      const int ni = min(TI, C - i0);
-      const int npair = ni * nj;
-      __syncthreads();  // the previous tile's readers of xi and U are done
-      for (int t = tid; t < ni; t += kThreads) {
-        const size_t row = size_t(p) * C + i0 + t;
-        xi[3 * t + 0] = coord[3 * row + 0] - sh[0];
-        xi[3 * t + 1] = coord[3 * row + 1] - sh[1];
-        xi[3 * t + 2] = coord[3 * row + 2] - sh[2];
-        mi[t] = mask[row];
+    for (int s = s0; s < min(S, s0 + 32); ++s) {
+      const int p = __shfl_sync(0xffffffffu, pl, s - s0);  // the same for the whole block
+      float* prow = pgrad + ((size_t(s) * B + jb) * NJ + jt) * 3 * C;
+      if (p < 0) {  // gas-phase step without a partner: nothing to send
+        for (int t = threadIdx.x; t < 3 * C; t += kThreads) prow[t] = 0.0f;
+        continue;
       }
-      __syncthreads();
-
-      float rd[RP], rfc[RP], rfcp[RP], ru[RP][3];
-      float dbar[RP], ubar[RP][3];
+      float* mine = rows + (buf * kWarps + w) * 3 * C;
+      const float sh0 = __shfl_sync(0xffffffffu, shl0, s - s0);
+      const float sh1 = __shfl_sync(0xffffffffu, shl1, s - s0);
+      const float sh2 = __shfl_sync(0xffffffffu, shl2, s - s0);
+      for (int i0 = 0; i0 < C; i0 += 32) {
+        const int i = i0 + lane;
+        float d = 1.0f, fc = 0.0f, fcp = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
+        bool within = false;
+        if (real_j && i < C) {
+          const size_t pr = size_t(p) * C + i;
+          const float dx = xj0 - (coord[3 * pr + 0] - sh0);
+          const float dy = xj1 - (coord[3 * pr + 1] - sh1);
+          const float dz = xj2 - (coord[3 * pr + 2] - sh2);
+          const bool vp = mask[pr] > 0.5f && !(s == 0 && i == j);
+          d = sqrtf(vp ? dx * dx + dy * dy + dz * dz : 1.0f);
+          within = vp && d < rc;
+          if (within) {
+            const float arg = d * pi_rc;
+            fc = 0.5f * (cosf(arg) + 1.0f);
+            fcp = -0.5f * pi_rc * sinf(arg);
+            ux = dx / d;
+            uy = dy / d;
+            uz = dz / d;
+          }
+        }
+        float r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;  // this lane's partner-row entry
+        unsigned live = __ballot_sync(0xffffffffu, within);
+        while (live) {  // the same for every lane of the warp
+          const int src = __ffs(live) - 1;
+          live &= live - 1;
+          const float pd = __shfl_sync(0xffffffffu, d, src);
+          const float pfc = __shfl_sync(0xffffffffu, fc, src);
+          const float pfcp = __shfl_sync(0xffffffffu, fcp, src);
+          const float pux = __shfl_sync(0xffffffffu, ux, src);
+          const float puy = __shfl_sync(0xffffffffu, uy, src);
+          const float puz = __shfl_sync(0xffffffffu, uz, src);
+          const float* gb = gbar + (size_t(p) * 4 * C + i0 + src) * GF;
+          // the partner's four cotangent rows first: 4 M loads in flight together
+          float gv[M][4];
 #pragma unroll
-      for (int r = 0; r < RP; ++r) {
-        dbar[r] = ubar[r][0] = ubar[r][1] = ubar[r][2] = 0.0f;
-        rd[r] = 1.0f;
-        rfc[r] = rfcp[r] = ru[r][0] = ru[r][1] = ru[r][2] = 0.0f;
-        const int pr = tid + r * kThreads;
-        if (pr < npair) {
-          const int il = pr / nj;
-          const int jl = pr - il * nj;
-          const float dx = xj[3 * jl + 0] - xi[3 * il + 0];
-          const float dy = xj[3 * jl + 1] - xi[3 * il + 1];
-          const float dz = xj[3 * jl + 2] - xi[3 * il + 2];
-          const bool vp = mi[il] > 0.5f && mj[jl] > 0.5f && !(s == 0 && i0 + il == j0 + jl);
-          const float d = sqrtf(vp ? dx * dx + dy * dy + dz * dz : 1.0f);
-          const bool within = vp && d < rc;
-          const float arg = fminf(d, rc) * pi_rc;
-          rd[r] = d;
-          rfc[r] = within ? 0.5f * (cosf(arg) + 1.0f) : 0.0f;
-          rfcp[r] = within ? -0.5f * pi_rc * sinf(arg) : 0.0f;
-          ru[r][0] = dx / d;
-          ru[r][1] = dy / d;
-          ru[r][2] = dz / d;
-          U[il * CP + jl] = ru[r][0];
-          U[TI * CP + il * CP + jl] = ru[r][1];
-          U[2 * TI * CP + il * CP + jl] = ru[r][2];
-        }
-      }
-
-      for (int g = 0; g < G; ++g) {
-        __syncthreads();  // the previous g's readers of gb, aj and GS are done
-        for (int t = tid; t < 4 * ni * F; t += kThreads) {
-          const int kil = t / F;  // k*ni + il
-          const int f = t - kil * F;
-          const int k = kil / ni;
-          const int il = kil - k * ni;
-          gb[(k * TI + il) * FP + f] =
-              gbar[((size_t(p) * 4 + k) * C + i0 + il) * GF + size_t(g) * F + f];
-        }
-        for (int t = tid; t < nj * F; t += kThreads) {
-          const int jl = t / F;
-          const int f = t - jl * F;
-          aj[jl * FP + f] = a[(size_t(jb) * C + j0 + jl) * GF + size_t(g) * F + f];
-        }
-        __syncthreads();
-        const float sg = shifts_g[g];
+          for (int m = 0; m < M; ++m) {
+            const int c = lane + 32 * m;
 #pragma unroll
-        for (int r = 0; r < RP; ++r) {
-          const int pr = tid + r * kThreads;
-          if (pr < npair) {
-            const int il = pr / nj;
-            const int jl = pr - il * nj;
-            const float dd = rd[r] - sg;
-            const float e = expf(-eta * dd * dd);
-            const float gs = e * rfc[r];
-            const float dgs = e * (rfcp[r] - 2.0f * eta * dd * rfc[r]);
-            GS[il * CP + jl] = gs;
-            const float* g0 = gb + il * FP;
-            const float* g1 = g0 + TI * FP;
-            const float* g2 = g1 + TI * FP;
-            const float* g3 = g2 + TI * FP;
-            const float* av = aj + jl * FP;
-            float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f, w3 = 0.0f;
-            for (int f = 0; f < F; ++f) {
-              const float x = av[f];
-              w0 = fmaf(g0[f], x, w0);
-              w1 = fmaf(g1[f], x, w1);
-              w2 = fmaf(g2[f], x, w2);
-              w3 = fmaf(g3[f], x, w3);
+            for (int k = 0; k < 4; ++k) gv[m][k] = c < GF ? __ldg(gb + k * kstride + c) : 0.0f;
+          }
+          float ub0 = 0.0f, ub1 = 0.0f, ub2 = 0.0f, db = 0.0f;
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const int c = lane + 32 * m;
+            if (c < GF) {
+              const float dd = pd - sg[m];
+              const float e = expf(-eta * dd * dd);
+              const float gs = e * pfc;
+              const float dgs = e * (pfcp - 2.0f * eta * dd * pfc);
+              const float g0 = gv[m][0];
+              const float g1 = gv[m][1];
+              const float g2 = gv[m][2];
+              const float g3 = gv[m][3];
+              ga[m] = fmaf(gs, g0 + pux * g1 + puy * g2 + puz * g3, ga[m]);
+              const float w0 = g0 * av[m];
+              const float w1 = g1 * av[m];
+              const float w2 = g2 * av[m];
+              const float w3 = g3 * av[m];
+              ub0 = fmaf(w1, gs, ub0);
+              ub1 = fmaf(w2, gs, ub1);
+              ub2 = fmaf(w3, gs, ub2);
+              db = fmaf(w0 + w1 * pux + w2 * puy + w3 * puz, dgs, db);
             }
-            const float gsbar = w0 + w1 * ru[r][0] + w2 * ru[r][1] + w3 * ru[r][2];
-            ubar[r][0] += w1 * gs;
-            ubar[r][1] += w2 * gs;
-            ubar[r][2] += w3 * gs;
-            dbar[r] += gsbar * dgs;
           }
-        }
-        __syncthreads();
-        // grad_a[j, g, f] += sum_i gs (gbar_0 + sum_k u_k gbar_k)
-        for (int o = tid; o < nj * F; o += kThreads) {
-          const int jl = o / F;
-          const int f = o - jl * F;
-          float acc = 0.0f;
-          for (int il = 0; il < ni; ++il) {
-            const float gsv = GS[il * CP + jl];
-            const float t = gb[il * FP + f] + U[il * CP + jl] * gb[(TI + il) * FP + f] +
-                            U[TI * CP + il * CP + jl] * gb[(2 * TI + il) * FP + f] +
-                            U[2 * TI * CP + il * CP + jl] * gb[(3 * TI + il) * FP + f];
-            acc = fmaf(gsv, t, acc);
+          ub0 = warp_sum(ub0);
+          ub1 = warp_sum(ub1);
+          ub2 = warp_sum(ub2);
+          db = warp_sum(db);
+          const float inv_d = 1.0f / pd;
+          const float uu = ub0 * pux + ub1 * puy + ub2 * puz;
+          const float rb0 = db * pux + (ub0 - uu * pux) * inv_d;
+          const float rb1 = db * puy + (ub1 - uu * puy) * inv_d;
+          const float rb2 = db * puz + (ub2 - uu * puz) * inv_d;
+          gc0 += rb0;
+          gc1 += rb1;
+          gc2 += rb2;
+          if (lane == src) {
+            r0 = -rb0;
+            r1 = -rb1;
+            r2 = -rb2;
           }
-          GA[(jl * G + g) * F + f] += acc;
+          ++npair;
+        }
+        if (i < C) {
+          mine[i] = r0;
+          mine[C + i] = r1;
+          mine[2 * C + i] = r2;
         }
       }
-
-      // chain rule through u and d, then rbar replaces u in shared memory
-      __syncthreads();  // the last grad_a pass has read U
+      __syncthreads();  // every warp's row of this offset is in place
+      // the tile's partner rows: the eight warps' rows added in warp order.
+      // The next live offset writes the other buffer; the one after it comes
+      // after that offset's __syncthreads, when these reads are done.
+      const float* both = rows + buf * kWarps * 3 * C;
+      for (int t = threadIdx.x; t < 3 * C; t += kThreads) {
+        float sum = 0.0f;
 #pragma unroll
-      for (int r = 0; r < RP; ++r) {
-        const int pr = tid + r * kThreads;
-        if (pr < npair) {
-          const int il = pr / nj;
-          const int jl = pr - il * nj;
-          const bool vp = mi[il] > 0.5f && mj[jl] > 0.5f && !(s == 0 && i0 + il == j0 + jl);
-          const float wf = (vp && rd[r] < rc) ? 1.0f : 0.0f;
-          const float inv_d = 1.0f / rd[r];
-          const float uu = ubar[r][0] * ru[r][0] + ubar[r][1] * ru[r][1] + ubar[r][2] * ru[r][2];
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            U[k * TI * CP + il * CP + jl] =
-                wf * (dbar[r] * ru[r][k] + (ubar[r][k] - uu * ru[r][k]) * inv_d);
-          }
-        }
+        for (int v = 0; v < kWarps; ++v) sum += both[v * 3 * C + t];
+        prow[t] = sum;
       }
-      __syncthreads();
-      if (tid < nj) {  // column sums: atom j0 + tid of this bin
-        float col[3] = {0.0f, 0.0f, 0.0f};
-        for (int il = 0; il < ni; ++il) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) col[k] += U[k * TI * CP + il * CP + tid];
-        }
-        gc0 += col[0];
-        gc1 += col[1];
-        gc2 += col[2];
-      }
-      if (tid < ni) {  // row sums: partner atom i0 + tid, over this tile's j
-        float rowsum[3] = {0.0f, 0.0f, 0.0f};
-        for (int jl = 0; jl < nj; ++jl) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) rowsum[k] += U[k * TI * CP + tid * CP + jl];
-        }
-#pragma unroll
-        for (int k = 0; k < 3; ++k) prow[k * C + i0 + tid] = -rowsum[k];
-      }
+      buf ^= 1;
     }
   }
 
-  __syncthreads();
-  for (int t = tid; t < nj * GF; t += kThreads) {
-    grad_a[(size_t(jb) * C + j0) * GF + t] = GA[t];
-  }
-  if (tid < nj) {
-    const size_t row = size_t(jb) * C + j0 + tid;
-    grad_coord[3 * row + 0] = gc0;
-    grad_coord[3 * row + 1] = gc1;
-    grad_coord[3 * row + 2] = gc2;
+  if (j < C) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int c = lane + 32 * m;
+      if (c < GF) grad_a[row * GF + c] = ga[m];
+    }
+    if (lane == 0) {
+      grad_coord[3 * row + 0] = gc0;
+      grad_coord[3 * row + 1] = gc1;
+      grad_coord[3 * row + 2] = gc2;
+      if (pair_count != nullptr) pair_count[row] = npair;
+    }
   }
 }
 
-// Shared-memory bytes of one block; kernels/conv_stencil.py::bwd_smem_bytes
-// computes the same number to choose TJ and TI.
-size_t smem_bytes(int G, int F, int TJ, int TI) {
-  const size_t fp = size_t(F | 1);
-  return sizeof(float) * (4 * size_t(TJ) + 4 * size_t(TI) + 4 * size_t(TI) * fp +
-                          size_t(TJ) * fp + 4 * size_t(TI) * (TJ + 1) + size_t(TJ) * G * F);
-}
-
-template <int RP>
+template <int M>
 int launch(const float* coord, const float* mask, const float* a, const float* gbar,
            const int* mnbr, const float* shift, const float* shifts_g, const float* scal,
-           float* grad_a, float* grad_coord, float* pgrad, int B, int C, int G, int F, int S,
-           int TJ, int TI, cudaStream_t stream) {
-  const size_t smem = smem_bytes(G, F, TJ, TI);
+           float* grad_a, float* grad_coord, float* pgrad, int* pair_count, int B, int C,
+           int G, int F, int S, cudaStream_t stream) {
+  // kernels/conv_stencil.py::bwd_smem_bytes computes the same number
+  const size_t smem = sizeof(float) * 2 * kWarps * 3 * size_t(C);
   cudaError_t err = cudaFuncSetAttribute(
-      conv_bwd_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      conv_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(B, (C + TJ - 1) / TJ);
-  conv_bwd_kernel<RP><<<grid, kThreads, smem, stream>>>(
-      coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord, pgrad,
-      B, C, G, F, S, TJ, TI);
+  dim3 grid(B, (C + kWarps - 1) / kWarps);
+  conv_bwd_kernel<M><<<grid, kThreads, smem, stream>>>(
+      coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord, pgrad, pair_count,
+      B, C, G, F, S);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
+// M, the columns a lane owns, is kernels/conv_stencil.py::lane_columns.
 extern "C" int conv_bwd_launch(const float* coord, const float* mask, const float* a,
                                const float* gbar, const int* mnbr, const float* shift,
                                const float* shifts_g, const float* scal, float* grad_a,
-                               float* grad_coord, float* pgrad, int B, int C, int G, int F,
-                               int S, int TJ, int TI, void* stream) {
-  const int pairs = TJ * TI;
+                               float* grad_coord, float* pgrad, int* pair_count, int B, int C,
+                               int G, int F, int S, int M, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (TJ < 1 || TJ > C || TI < 1 || TI > C || TJ > kThreads || TI > kThreads)
-    return int(cudaErrorInvalidValue);
-  if (pairs <= 4 * kThreads)
-    return launch<4>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
-                     pgrad, B, C, G, F, S, TJ, TI, st);
-  if (pairs <= 8 * kThreads)
-    return launch<8>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
-                     pgrad, B, C, G, F, S, TJ, TI, st);
+  if (B < 1 || C < 1 || G * F > 32 * M) return int(cudaErrorInvalidValue);
+  if (M == 9)
+    return launch<9>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
+                     pgrad, pair_count, B, C, G, F, S, st);
+  if (M == 17)
+    return launch<17>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
+                      pgrad, pair_count, B, C, G, F, S, st);
   return int(cudaErrorInvalidValue);
 }

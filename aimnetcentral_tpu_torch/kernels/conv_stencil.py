@@ -15,9 +15,11 @@ Replaces the two Pallas TPU kernels of aimnetcentral_tpu/kernels/conv_stencil.py
   conv_pallas.py::conv_bwd_acc.  Given the output cotangent it returns the
   feature, coordinate and lattice-shift adjoints.
 
-Both kernels are FP32 on CUDA cores (the exact tier has no TF32) with no
-float atomics: every output element is owned by one block, so results are
-deterministic.  What bounds them on an H100 and what the design does about
+Both kernels run one warp per receiver atom and contract only the real
+pairs within rc, which a ballot over the candidate slots picks out; FP32 on
+CUDA cores (the exact tier has no TF32) with no float atomics: every output
+element is owned by one block and every sum has a fixed order, so results
+are deterministic.  What bounds them on an H100 and what the design does about
 it is in the notes at the top of each source.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
@@ -37,9 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from aimnetcentral_tpu_torch.kernels.build import bind as _bind
 from aimnetcentral_tpu_torch.kernels.build import ptr as _ptr
 
-THREADS = 256
-MAX_OUT_PER_THREAD = 8  # kernel A keeps TI*F <= 8*256 (i, f) sums in registers
-MAX_PAIRS_PER_THREAD = 8  # kernel B keeps TI*TJ <= 8*256 pairs' geometry in registers
+WARPS = 8  # receiver atoms a block of kernels A and B, one warp each
+LANE_COLUMNS = (9, 17)  # columns of the G*F row a lane may own (the kernels' builds)
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 
 
@@ -115,6 +116,23 @@ def conv_backward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shift
         return torch.autograd.grad(out, (a_, c_, s_), gbar)
 
 
+def pair_counts_plain(st: ConvStatic, coord, mask, shift, nbr, scal):
+    """The real pairs within rc of each receiver row over the stencil,
+    (B*C,) int64: what the kernels' ``pair_counts`` diagnostic reads."""
+    rc = scal[1]
+    nn = nbr.clamp(min=0).long()
+    real = mask > 0.5
+    total = torch.zeros((st.b_tot, st.c), dtype=torch.int64, device=coord.device)
+    for s in range(st.s_tot):
+        cj = coord[nn[s]] + shift[s][:, None, :]
+        d = torch.sqrt(((cj[:, None, :, :] - coord[:, :, None, :]) ** 2).sum(-1))
+        ok = real[:, :, None] & real[nn[s]][:, None, :] & (nbr[s] >= 0)[:, None, None] & (d < rc)
+        if s == 0:
+            ok &= ~torch.eye(st.c, dtype=torch.bool, device=coord.device)[None]
+        total += ok.sum(-1)
+    return total.reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
@@ -141,58 +159,64 @@ def _check(st: ConvStatic, **tensors) -> None:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
 
 
-def fwd_smem_bytes(st: ConvStatic, ti: int) -> int:
-    """Shared memory of one kernel-A block (csrc/conv_fwd.cu::smem_bytes)."""
-    return 4 * (4 * ti + 4 * st.c + st.c * st.f + 4 * ti * st.c)
+def lane_columns(st: ConvStatic) -> int:
+    """Columns of the G*F feature row each lane of kernels A and B owns
+    (c = lane + 32 m): the smallest build that holds the row."""
+    need = -(-st.g * st.f // 32)
+    for m in LANE_COLUMNS:
+        if need <= m:
+            return m
+    raise ValueError(f"conv kernels A and B take G*F <= {32 * LANE_COLUMNS[-1]}, not {st.g * st.f}")
 
 
-def bwd_smem_bytes(st: ConvStatic, tj: int, ti: int) -> int:
-    """Shared memory of one kernel-B block (csrc/conv_bwd.cu::smem_bytes)."""
-    fp = st.f | 1
-    return 4 * (4 * tj + 4 * ti + 4 * ti * fp + tj * fp + 4 * ti * (tj + 1) + tj * st.g * st.f)
+def fwd_blocks(st: ConvStatic) -> int:
+    """Kernel A's blocks: one warp per receiver slot row, WARPS rows a block."""
+    return -(-st.b_tot * st.c // WARPS)
 
 
-def _balanced(c: int, most: int) -> int:
-    """The tile size that splits c rows into the fewest tiles of at most
-    ``most`` rows, as evenly as possible."""
-    n = -(-c // max(1, most))
-    return -(-c // n)
+def bwd_tiles(st: ConvStatic) -> int:
+    """Kernel B's atom tiles a bin: one block per (bin, tile of WARPS atoms)."""
+    return -(-st.c // WARPS)
 
 
-def fwd_tile(st: ConvStatic) -> int:
-    """Kernel A's receiver rows per block: its (i, f) outputs fit the
-    threads' registers and its pair weights fit shared memory."""
-    ti = _balanced(st.c, MAX_OUT_PER_THREAD * THREADS // st.f)
-    while ti > 1 and fwd_smem_bytes(st, ti) > SMEM_LIMIT:
-        ti = _balanced(st.c, ti - 1)
-    if st.f > MAX_OUT_PER_THREAD * THREADS or fwd_smem_bytes(st, ti) > SMEM_LIMIT:
-        raise ValueError(f"conv kernel A does not take C={st.c}, F={st.f}")
-    return ti
+def bwd_smem_bytes(st: ConvStatic) -> int:
+    """Shared memory of one kernel-B block: two buffers of one partner row
+    (3 x C) per warp (csrc/conv_bwd.cu::launch)."""
+    return 4 * 2 * WARPS * 3 * st.c
 
 
-def bwd_tiles(st: ConvStatic) -> tuple[int, int]:
-    """Kernel B's (TJ receiver atoms per block, TI partner rows per step):
-    at most 64 resident atoms and 8 pairs per thread."""
-    tj = _balanced(st.c, 64)
-    ti = _balanced(st.c, MAX_PAIRS_PER_THREAD * THREADS // tj)
-    if bwd_smem_bytes(st, tj, ti) > SMEM_LIMIT:
-        raise ValueError(f"conv kernel B does not take C={st.c}, F={st.f}, G={st.g}")
-    return tj, ti
+def _counts_arg(st: ConvStatic, pair_counts):
+    """The optional per-row pair-count output of a kernel, as a pointer."""
+    if pair_counts is None:
+        return ctypes.c_void_p(0)
+    if pair_counts.dtype != torch.int32 or tuple(pair_counts.shape) != (st.b_tot * st.c,) \
+            or pair_counts.device.type != "cuda" or not pair_counts.is_contiguous():
+        raise ValueError(f"pair_counts: the kernel takes a contiguous int32 CUDA tensor of "
+                         f"shape ({st.b_tot * st.c},)")
+    return _ptr(pair_counts)
 
 
-def conv_stencil_forward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal):
+def conv_stencil_forward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal,
+                         pair_counts=None):
     """Kernel A: the stencil ConvSV contraction, (B, 4, C, G*F).  Arguments
-    as :func:`conv_forward_plain`; ``nbr`` is int32 on the card."""
+    as :func:`conv_forward_plain`; ``nbr`` is int32 on the card.
+
+    ``pair_counts``, a (B*C,) int32 CUDA tensor, receives the pairs each
+    receiver row contracted (a diagnostic; the plain version has none).
+    """
     if a_gmajor.device.type == "cpu":
+        if pair_counts is not None:
+            raise ValueError("pair_counts: only the kernel counts its pairs")
         return conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
     _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr,
            shifts_g=shifts_g, scal=scal)
-    ti = fwd_tile(st)
+    cols = lane_columns(st)
+    counts = _counts_arg(st, pair_counts)
     out = torch.empty((st.b_tot, 4, st.c, st.g * st.f), dtype=torch.float32, device=a_gmajor.device)
-    launch = _bind("conv_fwd", "conv_fwd_launch", 8, 6)
+    launch = _bind("conv_fwd", "conv_fwd_launch", 9, 6)
     err = launch(
         _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(nbr), _ptr(shift), _ptr(shifts_g),
-        _ptr(scal), _ptr(out), st.b_tot, st.c, st.g, st.f, st.s_tot, ti,
+        _ptr(scal), _ptr(out), counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols,
         ctypes.c_void_p(torch.cuda.current_stream(a_gmajor.device).cuda_stream),
     )
     if err != 0:
@@ -224,28 +248,34 @@ def gather_partner_adjoints(st: ConvStatic, nbr, dc_recv, pgrad):
     return dc, ds
 
 
-def conv_stencil_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar):
+def conv_stencil_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar,
+                          pair_counts=None):
     """Kernel B: ``(grad_a (B, C, G*F), grad_coord (B, C, 3), grad_shift
     (S, B, 3))`` for the output cotangent ``gbar`` (B, 4, C, G*F).
 
     ``mnbr`` (S, B) is the receiver-centric mirror of ``nbr``
     (ops/binned.py::mirror_stencil_tables), -1 where a step has no partner.
+    ``pair_counts`` as in :func:`conv_stencil_forward`, per receiver atom j.
     """
     if a_gmajor.device.type == "cpu":
+        if pair_counts is not None:
+            raise ValueError("pair_counts: only the kernel counts its pairs")
         return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar)
     _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr, mnbr=mnbr,
            shifts_g=shifts_g, scal=scal, gbar=gbar)
-    tj, ti = bwd_tiles(st)
-    n_tiles = -(-st.c // tj)
+    cols = lane_columns(st)
+    counts = _counts_arg(st, pair_counts)
+    if bwd_smem_bytes(st) > SMEM_LIMIT:
+        raise ValueError(f"conv kernel B does not take C={st.c}")
     dev = a_gmajor.device
     grad_a = torch.empty((st.b_tot, st.c, st.g * st.f), dtype=torch.float32, device=dev)
     dc_recv = torch.empty((st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
-    pgrad = torch.empty((st.s_tot, st.b_tot, n_tiles, 3, st.c), dtype=torch.float32, device=dev)
-    launch = _bind("conv_bwd", "conv_bwd_launch", 11, 7)
+    pgrad = torch.empty((st.s_tot, st.b_tot, bwd_tiles(st), 3, st.c), dtype=torch.float32, device=dev)
+    launch = _bind("conv_bwd", "conv_bwd_launch", 12, 6)
     err = launch(
         _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(gbar), _ptr(mnbr), _ptr(shift),
-        _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad),
-        st.b_tot, st.c, st.g, st.f, st.s_tot, tj, ti,
+        _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad), counts,
+        st.b_tot, st.c, st.g, st.f, st.s_tot, cols,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:

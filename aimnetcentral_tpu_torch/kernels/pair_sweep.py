@@ -51,9 +51,10 @@ from torch.utils.checkpoint import checkpoint
 
 from aimnetcentral_tpu_torch.constants import Bohr_inv
 from aimnetcentral_tpu_torch.kernels.build import bind, ptr
-from aimnetcentral_tpu_torch.kernels.conv_stencil import SMEM_LIMIT, THREADS, _balanced
+from aimnetcentral_tpu_torch.kernels.conv_stencil import SMEM_LIMIT
 from aimnetcentral_tpu_torch.ops.math import erfc_approx
 
+THREADS = 256  # threads a block of kernels D and E
 ROWS = 32  # receiver rows per block tile (at most; tiles are balanced)
 COLS = 32  # candidate columns per inner tile: one per lane of a warp
 WARPS = THREADS // 32
@@ -377,6 +378,13 @@ def bwd_smem_bytes(st: PairStatic, ti: int) -> int:
     kp, v = st.k | 1, st.v
     wm = ti * (COLS + 1) if v else 0
     return 4 * (ti * (5 + kp) + COLS * (5 + kp) + 4 * ti + ti * v + wm + 4 * WARPS * COLS)
+
+
+def _balanced(c: int, most: int) -> int:
+    """The tile size that splits c rows into the fewest tiles of at most
+    ``most`` rows, as evenly as possible."""
+    n = -(-c // max(1, most))
+    return -(-c // n)
 
 
 def row_tile(st: PairStatic, smem_bytes) -> int:

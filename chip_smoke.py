@@ -23,8 +23,9 @@ Phases (any failure exits nonzero; nothing is caught):
 4. main path: for each configuration, three
    ``AIMNet2Calculator.eval(forces=True)`` requests with the kernels'
    launch counts read around them (A, B three times a request; D, E once
-   on flagship-10k, three times on wb97m-d3-10k), a repeated request
-   identical bit for bit, and a profiled request;
+   on flagship-10k, three times on wb97m-d3-10k), ten more requests timed
+   (their median is the request time), a repeated request identical bit
+   for bit, and a profiled request;
 5. layers: host-clock times of binning and of each pair term's sweep,
    forward plus backward, through the kernels;
 6. the card against the port's own CPU run (plain versions) on a
@@ -54,6 +55,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 10_000
 N_CHECK = 1_200
+N_TIMED = 10  # requests timed a configuration, after the three counted ones
 FP32_PEAK = 67e12  # H100 SXM, FP32 outside the tensor cores (FLOP/s)
 HBM_RATE = 3.35e12  # H100 SXM device memory (bytes/s)
 REL_TOL = 1e-5
@@ -184,22 +186,9 @@ def phase_build() -> dict:
     return {"seconds": seconds, "logs": LIBRARIES.logs}
 
 
-def _pair_count(st, ops, rc: float) -> int:
-    """Ordered real pairs within rc over the stencil: the pairs this run's
-    data needs (the kernels visit all C x C slot pairs of every offset)."""
-    import torch
-
-    nbr = ops["nbr"].clamp(min=0).long()
-    real = ops["mask"] > 0.5
-    total = 0
-    for s in range(st.s_tot):
-        cj = ops["coord"][nbr[s]] + ops["shift"][s][:, None, :]
-        d2 = ((cj[:, None, :, :] - ops["coord"][:, :, None, :]) ** 2).sum(-1)
-        ok = real[:, :, None] & real[nbr[s]][:, None, :] & (d2 < rc * rc)
-        if s == 0:
-            ok &= ~torch.eye(st.c, dtype=torch.bool, device=d2.device)[None]
-        total += int(ok.sum())
-    return total
+def rel64(x, ref) -> float:
+    """Largest |x - ref| over the largest |ref|, in f64."""
+    return float((x.double() - ref).abs().max() / ref.abs().max())
 
 
 def phase_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
@@ -230,7 +219,6 @@ def phase_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
     s_tot = tab["nbr"].shape[0]
     log(f"[kernels] grid {grid.nbins} B={b} C={c} G={g} S={s_tot}")
     gen = torch.Generator(device=dev).manual_seed(1)
-    rc = float(cfg.aev.rc_s)
     n_pairs = None
     detail = {}
     rows = {}
@@ -239,9 +227,19 @@ def phase_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
         ops = dict(base, a_gmajor=0.3 * torch.randn((b, c, g * f), generator=gen, device=dev))
         gbar = torch.randn((b, 4, c, g * f), generator=gen, device=dev)
         if n_pairs is None:
-            n_pairs = _pair_count(st, ops, rc)
-            log(f"[kernels] real ordered pairs within rc: {n_pairs} "
-                f"(slot pairs visited: {b * s_tot * c * c})")
+            # the pairs each kernel contracted, read from its pair_counts
+            # output, against the real ordered pairs within rc
+            n_pairs = int(cs.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"],
+                                               ops["nbr"], ops["scal"]).sum())
+            counts_a = torch.zeros(b * c, dtype=torch.int32, device=dev)
+            counts_b = torch.zeros_like(counts_a)
+            cs.conv_stencil_forward(st, **ops, pair_counts=counts_a)
+            cs.conv_stencil_backward(st, **ops, mnbr=mnbr, gbar=gbar, pair_counts=counts_b)
+            real_rows = int((ops["mask"] > 0.5).sum())
+            log(f"[kernels] pairs contracted: A {int(counts_a.sum())}, B {int(counts_b.sum())}; "
+                f"real ordered pairs within rc: {n_pairs}; distance tests {real_rows * s_tot * c} "
+                f"(real receivers x offsets x capacity); a slot-dense stencil visits every slot pair: "
+                f"{b * s_tot * c * c}")
 
         out_k = cs.conv_stencil_forward(st, **ops)
         torch.cuda.synchronize()
@@ -264,6 +262,18 @@ def phase_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
             if e > REL_TOL * s:
                 raise SystemExit(f"FAIL: kernel B {name} disagrees with its plain version at F={f}")
 
+        if f == cfg.nfeature + cfg.num_charge_channels:
+            # which side the differences come from: the kernels and the f32
+            # plain versions, each against the plain versions in f64
+            ops64 = {k: (v.double() if v.is_floating_point() else v) for k, v in ops.items()}
+            out64 = cs.conv_forward_plain(st, **ops64)
+            ref64 = cs.conv_backward_plain(st, **ops64, gbar=gbar.double())
+            parts = [f"A out: kernel {rel64(out_k, out64):.2e}, plain {rel64(out_p, out64):.2e}"]
+            parts += [f"B {name}: kernel {rel64(x, z):.2e}, plain {rel64(y, z):.2e}"
+                      for name, x, y, z in zip(("grad_a", "grad_coord", "grad_shift"), got, ref, ref64)]
+            log(f"[kernels] F={f} against f64, relative to the largest magnitude: " + "; ".join(parts))
+            del ops64, out64, ref64
+
         ms_a = time_cuda(lambda: cs.conv_stencil_forward(st, **ops), reps=20)
         ms_b = time_cuda(lambda: cs.conv_stencil_backward(st, **ops, mnbr=mnbr, gbar=gbar), reps=10)
         plain_a = time_cuda(lambda: cs.conv_forward_plain(st, **ops), reps=3, warmup=1)
@@ -279,19 +289,18 @@ def phase_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
         flops_b = 2.0 * flops_a
         dense_a = 2.0 * b * s_tot * 4 * c * c * g * f
 
-        tj, ti_b = cs.bwd_tiles(st)
-        ti_a = cs.fwd_tile(st)
-        log(f"[kernels] F={f} A: {ti_a} receiver rows a block, {cs.fwd_smem_bytes(st, ti_a)} B "
-            f"dynamic shared memory; B: {tj} x {ti_b} atom tiles, "
-            f"{cs.bwd_smem_bytes(st, tj, ti_b)} B")
+        log(f"[kernels] F={f} A: {cs.fwd_blocks(st)} blocks of {cs.WARPS} receiver rows (a warp "
+            f"each), {cs.lane_columns(st)} columns a lane; B: {b} x {cs.bwd_tiles(st)} blocks of "
+            f"{cs.WARPS} atoms, {cs.bwd_smem_bytes(st)} B dynamic shared memory")
         bound_a, by_a = bound(bytes_a, flops_a)
         bound_b, by_b = bound(bytes_b, flops_b)
         log(f"[kernels] F={f} A: {ms_a:.3f} ms (plain {plain_a:.3f} ms), bound {bound_a:.4f} ms "
-            f"by {by_a}; slot-dense work {dense_a / 1e9:.1f} GFLOP = "
-            f"{dense_a / FP32_PEAK * 1e3:.3f} ms at the FP32 peak; no single PyTorch call "
+            f"by {by_a}; the pairs' work {flops_a / 1e9:.2f} GFLOP = {flops_a / ms_a / 1e9:.2f} "
+            f"TFLOP/s (slot-dense work: {dense_a / 1e9:.1f} GFLOP); no single PyTorch call "
             f"computes this function (library_ms null)")
         log(f"[kernels] F={f} B: {ms_b:.3f} ms (plain {plain_b:.3f} ms), bound {bound_b:.4f} ms "
-            f"by {by_b}; slot-dense work {2 * dense_a / 1e9:.1f} GFLOP")
+            f"by {by_b}; the pairs' work {flops_b / 1e9:.2f} GFLOP = {flops_b / ms_b / 1e9:.2f} "
+            f"TFLOP/s (slot-dense: {2 * dense_a / 1e9:.1f} GFLOP)")
         detail[f"F{f}"] = {
             "A": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a, "bound_by": by_a,
                   "max_abs_err": err_a, "rel_err": err_a / scale_a, "bytes": bytes_a,
@@ -479,8 +488,9 @@ def phase_pair_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
 
 
 def phase_main_path(label: str, calc, coord, numbers, cell, per_request: dict) -> dict:
-    """Three requests with every kernel's launches counted around them, a
-    repeated request compared bit for bit, and a profiled request."""
+    """Three requests with every kernel's launches counted around them, ten
+    more timed, a repeated request compared bit for bit, and a profiled
+    request."""
     import torch
 
     rng = np.random.default_rng(2)
@@ -519,9 +529,18 @@ def phase_main_path(label: str, calc, coord, numbers, cell, per_request: dict) -
             raise SystemExit(f"FAIL: {name} launched {n} times on {label}, expected "
                              f"{per_request[name]} per request")
     peak = torch.cuda.max_memory_allocated()
-    med = float(np.median(times))
-    log(f"[main {label}] per-request wall time median {med * 1e3:.1f} ms "
-        f"(all: {', '.join(f'{t * 1e3:.1f}' for t in times)}), peak memory {peak / 2**30:.3f} GiB")
+    # the request time: N_TIMED more requests cycling over the same three
+    # inputs (the first request above carries the one-time warm-up)
+    timed = []
+    for k in range(N_TIMED):
+        t0 = time.perf_counter()
+        calc.eval({"coord": requests[k % len(requests)], "numbers": numbers, "cell": cell}, forces=True)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+    med = float(np.median(timed))
+    log(f"[main {label}] the three requests: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; "
+        f"{N_TIMED} more: median {med * 1e3:.1f} ms, min {min(timed) * 1e3:.1f}, max "
+        f"{max(timed) * 1e3:.1f}; peak memory {peak / 2**30:.3f} GiB")
 
     # the first request once more, under the profiler: device time by kernel
     # name, and the main path is deterministic (no float atomics): the
@@ -557,7 +576,7 @@ def phase_main_path(label: str, calc, coord, numbers, cell, per_request: dict) -
         breakdown.append({"name": e.key[:90], "ms": ms, "count": e.count})
         log(f"[main {label}]   {ms:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return {
-        "launches": launches, "times_s": times, "median_s": med, "peak_bytes": peak,
+        "launches": launches, "times_s": times, "timed_s": timed, "median_s": med, "peak_bytes": peak,
         "energies": energies, "profile": {"wall_ms": wall * 1e3, "device_ms": dev_total,
                                           "idle_share": idle, "top": breakdown},
     }

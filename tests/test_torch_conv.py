@@ -157,50 +157,102 @@ def test_autograd_matches_jax_vjp(case):
     _close(gs.numpy(), np.asarray(gs_j)[..., :3])
 
 
-def _kernel_b_emulation(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar):
-    """What csrc/conv_bwd.cu computes, written out in torch: the
-    receiver-centric mirror sweep with the chain rule by hand, then the
-    wrapper's gather.  Holds the kernel's algorithm and the gather against
-    autograd on the CPU."""
-    b, c, g, f = st.b_tot, st.c, st.g, st.f
+def _kernel_a_emulation(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal):
+    """What csrc/conv_fwd.cu computes, written out in torch: per offset the
+    real pairs within rc are picked out, their geometry is formed once per
+    pair, gs once per pair and column c = (g, f), and each pair adds
+    ``W_k a[j, c]`` to its receiver's four rows.  Returns the output and
+    the pairs each receiver row contracted."""
+    b, c, gf = st.b_tot, st.c, st.g * st.f
     eta, rc = float(scal[0]), float(scal[1])
-    a4 = a_gmajor.reshape(b, c, g, f)
-    gb4 = gbar.reshape(b, 4, c, g, f)
-    grad_a = torch.zeros(b, c, g, f)
-    dc_recv = torch.zeros(b, c, 3)
-    pgrad = torch.zeros(st.s_tot, b, 3, c)
+    col_sg = shifts_g[torch.arange(gf) // st.f]
+    a_rows = a_gmajor.reshape(b * c, gf)
+    out = torch.zeros(b * c, 4, gf)
+    counts = torch.zeros(b * c, dtype=torch.int64)
     for s in range(st.s_tot):
-        p = mnbr[s].long()
-        live = (p >= 0).float()
-        p = p.clamp(min=0)
-        xi = coord[p] - shift[s][p][:, None, :]
-        diff = coord[:, None, :, :] - xi[:, :, None, :]  # (B, Ci partner, Cj receiver, 3)
-        vp = (mask[p] > 0.5)[:, :, None] & (mask > 0.5)[:, None, :]
+        n = nbr[s].long()
+        nn = n.clamp(min=0)
+        diff = (coord[nn] + shift[s][:, None, :])[:, None, :, :] - coord[:, :, None, :]
+        vp = (mask > 0.5)[:, :, None] & (mask[nn] > 0.5)[:, None, :] & (n >= 0)[:, None, None]
         if s == 0:
             vp = vp & ~torch.eye(c, dtype=torch.bool)[None]
         d = torch.sqrt(torch.where(vp, (diff * diff).sum(-1), torch.ones(())))
-        within = vp & (d < rc)
-        arg = torch.clamp(d, max=rc) * (math.pi / rc)
-        fc = torch.where(within, 0.5 * (torch.cos(arg) + 1.0), 0.0)
-        fcp = torch.where(within, -0.5 * (math.pi / rc) * torch.sin(arg), 0.0)
-        u = diff / d[..., None]
-        dd = d[..., None] - shifts_g
+        bi, ii, jj = (vp & (d < rc)).nonzero(as_tuple=True)  # the ballot: slots ascending
+        dp = d[bi, ii, jj]
+        u = diff[bi, ii, jj] / dp[:, None]
+        fc = 0.5 * (torch.cos(dp * (math.pi / rc)) + 1.0)
+        gs = torch.exp(-eta * (dp[:, None] - col_sg) ** 2) * fc[:, None]  # (P, G*F)
+        w = torch.stack([gs] + [gs * u[:, k, None] for k in range(3)], dim=1)
+        rows = bi * c + ii
+        out.index_add_(0, rows, w * a_rows[nn[bi] * c + jj][:, None, :])
+        counts.index_add_(0, rows, torch.ones_like(rows))
+    return out.reshape(b, c, 4, gf).transpose(1, 2), counts
+
+
+def _kernel_b_emulation(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar):
+    """What csrc/conv_bwd.cu computes, written out in torch: the
+    receiver-centric mirror sweep over the real pairs within rc only, the
+    ubar/dbar sums taken over the columns c = (g, f) at once, the chain rule
+    by hand, the partner rows of each tile of WARPS receiver atoms, then the
+    wrapper's tile sum and gather.  Holds the kernel's algorithm and the
+    reassembly against autograd on the CPU."""
+    b, c, gf = st.b_tot, st.c, st.g * st.f
+    nj = tcs.bwd_tiles(st)
+    eta, rc = float(scal[0]), float(scal[1])
+    col_sg = shifts_g[torch.arange(gf) // st.f]
+    a_rows = a_gmajor.reshape(b * c, gf)
+    gb4 = gbar.reshape(b, 4, c, gf)
+    grad_a = torch.zeros(b * c, gf)
+    dc_recv = torch.zeros(b * c, 3)
+    pgrad = torch.zeros(st.s_tot, b, nj, 3, c)
+    counts = torch.zeros(b * c, dtype=torch.int64)
+    for s in range(st.s_tot):
+        p = mnbr[s].long()
+        pp = p.clamp(min=0)
+        xi = coord[pp] - shift[s][pp][:, None, :]
+        diff = coord[:, :, None, :] - xi[:, None, :, :]  # (B, Cj receiver, Ci partner, 3)
+        vp = (mask > 0.5)[:, :, None] & (mask[pp] > 0.5)[:, None, :] & (p >= 0)[:, None, None]
+        if s == 0:
+            vp = vp & ~torch.eye(c, dtype=torch.bool)[None]
+        d = torch.sqrt(torch.where(vp, (diff * diff).sum(-1), torch.ones(())))
+        bj, jj, ii = (vp & (d < rc)).nonzero(as_tuple=True)  # the ballot: slots ascending
+        dp = d[bj, jj, ii]
+        u = diff[bj, jj, ii] / dp[:, None]
+        arg = dp * (math.pi / rc)
+        fc = (0.5 * (torch.cos(arg) + 1.0))[:, None]
+        fcp = (-0.5 * (math.pi / rc) * torch.sin(arg))[:, None]
+        dd = dp[:, None] - col_sg
         e = torch.exp(-eta * dd * dd)
-        gs = e * fc[..., None]
-        dgs = e * (fcp[..., None] - 2.0 * eta * dd * fc[..., None])
-        gbp = gb4[p]
-        wbar = torch.einsum("bkigf,bjgf->bkijg", gbp, a4)
-        gsbar = wbar[:, 0] + sum(wbar[:, k + 1] * u[..., k, None] for k in range(3))
-        ubar = torch.stack([(wbar[:, k + 1] * gs).sum(-1) for k in range(3)], dim=-1)
-        dbar = (gsbar * dgs).sum(-1)
-        w = torch.stack([gs] + [gs * u[..., k, None] for k in range(3)], dim=1)
-        grad_a += torch.einsum("bkijg,bkigf->bjgf", w, gbp) * live[:, None, None, None]
-        uu = (ubar * u).sum(-1, keepdim=True)
-        rbar = within[..., None] * (dbar[..., None] * u + (ubar - uu * u) / d[..., None])
-        dc_recv += rbar.sum(1) * live[:, None, None]
-        pgrad[s] = -rbar.sum(2).transpose(1, 2) * live[:, None, None]
-    dc, ds = tcs.gather_partner_adjoints(st, nbr, dc_recv, pgrad)
-    return grad_a.reshape(b, c, g * f), dc, ds
+        gs, dgs = e * fc, e * (fcp - 2.0 * eta * dd * fc)  # (P, G*F)
+        gk = gb4[pp[bj], :, ii]  # (P, 4, G*F)
+        rows = bj * c + jj
+        grad_a.index_add_(0, rows, gs * (gk[:, 0] + sum(u[:, k, None] * gk[:, k + 1] for k in range(3))))
+        wb = gk * a_rows[rows][:, None, :]
+        ub = (wb[:, 1:] * gs[:, None, :]).sum(-1)  # (P, 3)
+        db = ((wb[:, 0] + sum(wb[:, k + 1] * u[:, k, None] for k in range(3))) * dgs).sum(-1)
+        uu = (ub * u).sum(-1, keepdim=True)
+        rb = db[:, None] * u + (ub - uu * u) / dp[:, None]
+        dc_recv.index_add_(0, rows, rb)
+        part = torch.zeros(b * nj * c, 3)
+        part.index_add_(0, (bj * nj + jj // tcs.WARPS) * c + ii, -rb)
+        pgrad[s] = part.reshape(b, nj, c, 3).transpose(2, 3)
+        counts.index_add_(0, rows, torch.ones_like(rows))
+    dc, ds = tcs.gather_partner_adjoints(st, nbr, dc_recv.reshape(b, c, 3), pgrad.sum(2))
+    return (grad_a.reshape(b, c, gf), dc, ds), counts
+
+
+def test_kernel_a_algorithm_matches_plain(case):
+    _sysj, syst, feats = case
+    st, ops, mnbr, _radius = _port_operands(syst, feats)
+    out, counts = _kernel_a_emulation(st, **ops)
+    _close(out.numpy(), tcs.conv_forward_plain(st, **ops).numpy())
+    # the receiver-centric sweep of B walks the same ordered pairs
+    _emu, counts_b = _kernel_b_emulation(
+        st, **ops, mnbr=mnbr, gbar=torch.zeros(st.b_tot, 4, st.c, st.g * st.f)
+    )
+    plain = tcs.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"], ops["nbr"], ops["scal"])
+    assert torch.equal(counts, plain) and torch.equal(counts_b, plain) and int(plain.sum()) > 0
+    assert int(counts[ops["mask"].reshape(-1) < 0.5].sum()) == 0
 
 
 def test_kernel_b_algorithm_matches_autograd(case):
@@ -208,7 +260,7 @@ def test_kernel_b_algorithm_matches_autograd(case):
     st, ops, mnbr, _radius = _port_operands(syst, feats)
     gbar = torch.tensor(feats["gbar"]).reshape(st.b_tot, 4, st.c, -1)
     ref = tcs.conv_backward_plain(st, **ops, gbar=gbar)
-    emu = _kernel_b_emulation(st, **ops, mnbr=mnbr, gbar=gbar)
+    emu, _counts = _kernel_b_emulation(st, **ops, mnbr=mnbr, gbar=gbar)
     for e, r in zip(emu, ref):
         _close(e.numpy(), r.numpy())
 
@@ -229,15 +281,18 @@ def test_second_order_raises(case):
 
 @pytest.mark.parametrize("f", [16, 17, 33])
 def test_kernel_tiles_fit_the_card(f):
-    """The wrappers' tile choice keeps every capacity the planner can give
+    """The wrappers' launch shapes keep every capacity the planner can give
     inside the kernels' register and shared-memory budgets."""
     for c in range(8, 257, 8):
         st = tcs.ConvStatic(b_tot=1, c=c, g=G_DIM, f=f, s_tot=27)
-        ti = tcs.fwd_tile(st)
-        assert ti * f <= tcs.MAX_OUT_PER_THREAD * tcs.THREADS
-        assert tcs.fwd_smem_bytes(st, ti) <= tcs.SMEM_LIMIT
-        tj, ti = tcs.bwd_tiles(st)
-        assert tj <= 64 and ti <= c and tj * ti <= tcs.MAX_PAIRS_PER_THREAD * tcs.THREADS
-        assert tcs.bwd_smem_bytes(st, tj, ti) <= tcs.SMEM_LIMIT
+        cols = tcs.lane_columns(st)
+        assert cols in tcs.LANE_COLUMNS and st.g * st.f <= 32 * cols
+        assert tcs.fwd_blocks(st) * tcs.WARPS >= st.b_tot * c
+        assert tcs.bwd_tiles(st) * tcs.WARPS >= c
+        assert tcs.bwd_smem_bytes(st) <= tcs.SMEM_LIMIT
+    with pytest.raises(ValueError, match="G\\*F"):
+        tcs.lane_columns(tcs.ConvStatic(b_tot=1, c=40, g=G_DIM, f=35, s_tot=27))
+    # the flagship's grid: 20,480 receiver rows in 2,560 blocks for A, 512 x 5
+    # blocks for B, nine columns a lane
     st = tcs.ConvStatic(b_tot=512, c=40, g=G_DIM, f=17, s_tot=27)
-    assert tcs.fwd_tile(st) == 40 and tcs.bwd_tiles(st) == (40, 40)  # one tile at the flagship's grid
+    assert tcs.lane_columns(st) == 9 and tcs.fwd_blocks(st) == 2560 and tcs.bwd_tiles(st) == 5

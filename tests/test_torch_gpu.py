@@ -50,9 +50,37 @@ def _close(actual, desired, rel=1e-5):
     np.testing.assert_allclose(actual.detach().cpu().numpy(), desired, atol=rel * np.abs(desired).max())
 
 
+EDGE_BOX, EDGE_CAP = 15.6, 10
+FULL_BIN, EMPTY_BIN, FAR_BINS = 0, 13, (3, 6)  # (0,0,0), (1,1,1); (0,1,0) and (0,2,0)
+
+
+def _edge_molecule(rng):
+    """A 15.6 A box on 3x3x3 bins of edge 5.2 for the edges of the pair
+    compaction: bin (0,0,0) filled to its capacity of 10, the centre bin
+    empty, the neighbours (0,1,0) and (0,2,0) with every pair beyond rc
+    (their atoms at least 10.1 A apart in y), two
+    atoms exactly rc apart (x = 10.5 and 15.5, both exact in f32), and 24
+    more atoms in the other bins."""
+    full = rng.uniform(0.3, 4.9, size=(EDGE_CAP, 3))
+    lo = np.column_stack([rng.uniform(0.5, 4.5, 3), rng.uniform(5.25, 5.35, 3), rng.uniform(0.5, 4.5, 3)])
+    hi = np.column_stack([rng.uniform(0.5, 4.5, 3), rng.uniform(15.45, 15.55, 3), rng.uniform(0.5, 4.5, 3)])
+    at_rc = np.array([[10.5, 13.0, 13.0], [15.5, 13.0, 13.0]])
+    skip = {(0, 0, 0), (1, 1, 1), (0, 1, 0), (0, 2, 0), (2, 2, 2)}
+    rest = []
+    while len(rest) < 24:
+        x = rng.uniform(0.1, EDGE_BOX - 0.1, size=3)
+        if tuple((x // 5.2).astype(int)) not in skip:
+            rest.append(x)
+    coord = np.concatenate([full, lo, hi, at_rc, np.array(rest)]).astype(np.float32)
+    numbers = rng.choice([1, 6, 8], size=len(coord))
+    return {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * EDGE_BOX}
+
+
 def _operands(layout: str, f: int, seed: int = 7):
     """Kernel operands on the CPU: a 40-atom box on 2x2x2 or 1x1x1
-    periodic bins, or a gas-phase 3x2x2 grid (steps without a candidate)."""
+    periodic bins, a gas-phase 3x2x2 grid (steps without a candidate), or
+    the edges box of :func:`_edge_molecule`, whose slots are then reversed
+    in every bin (its real atoms a suffix of the slots, not a prefix)."""
     rng = np.random.default_rng(seed)
     n, a = 40, 12.0
     coord = rng.uniform(0, a, size=(n, 3)).astype(np.float32)
@@ -60,6 +88,9 @@ def _operands(layout: str, f: int, seed: int = 7):
     if layout == "gas":
         mol = {"coord": coord * np.array([1.0, 0.7, 0.7], np.float32), "numbers": numbers}
         grid = B.BinGrid(nbins=(3, 2, 2), capacity=16, edge_hint=4.0, periodic=False)
+    elif layout == "edges":
+        mol = _edge_molecule(rng)
+        grid = B.BinGrid(nbins=(3, 3, 3), capacity=EDGE_CAP, edge_hint=5.2, periodic=True)
     else:
         mol = {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * a}
         # capacity 16 on 2x2x2 bins; 136 on one bin, which the kernels
@@ -84,6 +115,10 @@ def _operands(layout: str, f: int, seed: int = 7):
         scal=torch.tensor([ETA, RC]),
     )
     gbar = torch.tensor(rng.normal(size=(b, 4, c, G_DIM * f)).astype(np.float32))
+    if layout == "edges":
+        for key in ("a_gmajor", "coord", "mask"):
+            ops[key] = ops[key].flip(1).contiguous()
+        gbar = gbar.flip(2).contiguous()
     return st, ops, torch.tensor(tab["mnbr"]), gbar
 
 
@@ -91,10 +126,10 @@ def _to(dev, ops):
     return {k: v.to(dev).contiguous() for k, v in ops.items()}
 
 
-LAYOUTS = ["2x2x2", "1x1x1", "gas"]
+LAYOUTS = ["2x2x2", "1x1x1", "gas", "edges"]
 
 
-@pytest.mark.parametrize("f", [16, 17])
+@pytest.mark.parametrize("f", [16, 17, 33])  # 33: the kernels' second build (17 columns a lane)
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_kernel_a_matches_plain(cuda_device, layout, f):
     st, ops, _mnbr, _gbar = _operands(layout, f)
@@ -103,7 +138,7 @@ def test_kernel_a_matches_plain(cuda_device, layout, f):
     _close(out, cs.conv_forward_plain(st, **ops))
 
 
-@pytest.mark.parametrize("f", [16, 17])
+@pytest.mark.parametrize("f", [16, 17, 33])
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_kernel_b_matches_plain(cuda_device, layout, f):
     st, ops, mnbr, gbar = _operands(layout, f)
@@ -124,6 +159,39 @@ def test_kernels_are_deterministic(cuda_device):
     for x, y in zip(cs.conv_stencil_backward(st, **dev_ops, **args),
                     cs.conv_stencil_backward(st, **dev_ops, **args)):
         assert torch.equal(x, y)
+
+
+def test_edges_layout_has_its_edges(cuda_device):
+    """The edges box holds what it is built for, and on it both kernels walk
+    exactly the real pairs within rc of each receiver row."""
+    st, ops, mnbr, gbar = _operands("edges", 17)
+    mask = ops["mask"]
+    assert int(mask[FULL_BIN].sum()) == st.c == EDGE_CAP  # filled to capacity
+    assert int(mask[EMPTY_BIN].sum()) == 0
+    lo, hi = FAR_BINS
+    assert mask[lo, 0] < 0.5 and mask[lo, -1] > 0.5  # padding slots before real ones
+    real = lambda b: ops["coord"][b][mask[b] > 0.5]  # noqa: E731
+    met = 0
+    for s in range(st.s_tot):
+        if int(ops["nbr"][s, lo]) == hi:
+            d = torch.cdist(real(lo), real(hi) + ops["shift"][s, lo])
+            assert float(d.min()) > RC + 1.0  # every pair of the two bins beyond rc
+            met += 1
+    assert met > 0
+    at_rc = torch.tensor([[10.5, 13.0, 13.0], [15.5, 13.0, 13.0]])
+    flat = ops["coord"].reshape(-1, 3)
+    slots = [int(((flat - x).abs().sum(-1) == 0).nonzero()[0]) for x in at_rc]
+    assert float((flat[slots[0]] - flat[slots[1]]).norm()) == RC
+
+    plain = cs.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"], ops["nbr"], ops["scal"])
+    dev_ops = _to(cuda_device, ops)
+    counts_a = torch.zeros(st.b_tot * st.c, dtype=torch.int32, device=cuda_device)
+    counts_b = torch.zeros_like(counts_a)
+    cs.conv_stencil_forward(st, **dev_ops, pair_counts=counts_a)
+    cs.conv_stencil_backward(st, **dev_ops, mnbr=mnbr.to(cuda_device), gbar=gbar.to(cuda_device),
+                             pair_counts=counts_b)
+    torch.cuda.synchronize()
+    assert torch.equal(counts_a.cpu().long(), plain) and torch.equal(counts_b.cpu().long(), plain)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
