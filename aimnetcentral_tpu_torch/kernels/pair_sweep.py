@@ -3,14 +3,21 @@ and the pair terms they specialise.
 
 Replaces the two Pallas TPU kernels of aimnetcentral_tpu/kernels/pair_sweep.py:
 
-- ``pair_sweep_forward`` (kernel D, csrc/pair_fwd.cu plus one gather)
-  replaces ``_fwd_kernel_hb`` (pair_sweep.py:228) and ``_hb_gather``: the
-  per-atom sums of a symmetric pair term over every pair within a cutoff,
-  each unordered pair computed once (a half stencil) and sent to both ends.
-- ``pair_sweep_backward`` (kernel E, csrc/pair_bwd.cu plus gathers) replaces
-  ``_bwd_kernel_hb`` (pair_sweep.py:283) and ``_pair_acc_hb_bwd``: given the
-  cotangent of the sums, the adjoints of the coordinates, of the per-atom
-  extras and of the lattice shifts (which carry the stress).
+- ``pair_sweep_forward`` (kernel D, csrc/pair_fwd.cu) replaces
+  ``_fwd_kernel_hb`` (pair_sweep.py:228) and ``_hb_gather``: the per-atom
+  sums of a symmetric pair term over every pair within a cutoff.
+- ``pair_sweep_backward`` (kernel E, csrc/pair_bwd.cu plus one fixed-order
+  sum) replaces ``_bwd_kernel_hb`` (pair_sweep.py:283) and
+  ``_pair_acc_hb_bwd``: given the cotangent of the sums, the adjoints of
+  the coordinates, of the per-atom extras and of the lattice shifts (which
+  carry the stress).
+
+The operands describe the half stencil (each unordered pair once, its value
+sent to both ends), and the plain versions sweep it so.  The kernels walk
+it as the full stencil from the receiver's side, one warp per receiver
+atom, and contract only the real pairs within the cutoff, which a ballot
+over the candidate slots picks out (csrc/pair_walk.cuh): every output is
+the receiver's own row, with no float atomics and no candidate-side rows.
 
 The JAX package traces any pair function into its kernel; a CUDA kernel has
 one specialisation per term.  Every term here has the form
@@ -54,10 +61,9 @@ from aimnetcentral_tpu_torch.kernels.build import bind, ptr
 from aimnetcentral_tpu_torch.kernels.conv_stencil import SMEM_LIMIT
 from aimnetcentral_tpu_torch.ops.math import erfc_approx
 
-THREADS = 256  # threads a block of kernels D and E
-ROWS = 32  # receiver rows per block tile (at most; tiles are balanced)
-COLS = 32  # candidate columns per inner tile: one per lane of a warp
-WARPS = THREADS // 32
+WARPS = 4  # receiver rows a block of kernels D and E, one warp each
+QUEUE = 64  # a warp's queue of pairs (csrc/pair_walk.cuh::kQueue)
+MAX_V = 96  # vector columns of the extras kernel E holds in a warp's registers
 N_CONSTS = 8  # the cutoff plus a term's constants, passed by value
 
 # Abramowitz & Stegun 7.1.26, the coefficients of ops/math.py::erfc_approx
@@ -367,42 +373,56 @@ def pair_backward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv,
 # kernel wrappers
 
 
-def fwd_smem_bytes(st: PairStatic, ti: int) -> int:
-    """Shared memory of one kernel-D block (csrc/pair_fwd.cu::smem_bytes)."""
-    kp = st.k | 1
-    return 4 * (ti * (4 + kp) + COLS * (4 + kp) + ti + WARPS * COLS)
+def pair_counts_plain(st: PairStatic, coord, mask, shift, nbr, inv):
+    """The real ordered pairs within the cutoff of each receiver row over the
+    full stencil (B*C,) int64, with the distance rounded as the kernels round
+    it: what their ``pair_counts`` diagnostic reads.  Each unordered pair
+    counts at both ends, so the total is twice the half stencil's pairs."""
+    real = mask > 0.5
+    total = torch.zeros((st.b_tot, st.c), dtype=torch.int64, device=coord.device)
+    for s in range(st.s_tot):
+        safe = nbr[s].clamp(min=0).long()
+        dx, dy, dz = ((coord[safe] + shift[s][:, None, :])[:, None, :, :] - coord[:, :, None, :]).unbind(-1)
+        d = torch.sqrt((dx * dx + dy * dy) + dz * dz)
+        ok = real[:, :, None] & real[safe][:, None, :] & (nbr[s] >= 0)[:, None, None] & (d < st.cutoff)
+        if s == 0:
+            ok &= ~torch.eye(st.c, dtype=torch.bool, device=coord.device)[None]
+        total += ok.sum(-1)
+        if s > 0:  # the candidate end, home through the inverse table
+            total += torch.cat([ok.sum(-2), total.new_zeros((1, st.c))])[inv[s].long()]
+    return total.reshape(-1)
 
 
-def bwd_smem_bytes(st: PairStatic, ti: int) -> int:
-    """Shared memory of one kernel-E block (csrc/pair_bwd.cu::smem_bytes)."""
-    kp, v = st.k | 1, st.v
-    wm = ti * (COLS + 1) if v else 0
-    return 4 * (ti * (5 + kp) + COLS * (5 + kp) + 4 * ti + ti * v + wm + 4 * WARPS * COLS)
+def bin_boxes(coord, mask) -> torch.Tensor:
+    """Each bin's box of real atoms, (B, 6) = [lo (3), hi (3)]; an empty
+    bin's is empty (lo = +inf, hi = -inf).  The kernels skip an offset whose
+    candidate box lies beyond the cutoff of the receiver."""
+    real = (mask > 0.5)[..., None]
+    lo = torch.where(real, coord, math.inf).amin(1)
+    hi = torch.where(real, coord, -math.inf).amax(1)
+    return torch.cat([lo, hi], dim=-1).contiguous()
 
 
-def _balanced(c: int, most: int) -> int:
-    """The tile size that splits c rows into the fewest tiles of at most
-    ``most`` rows, as evenly as possible."""
-    n = -(-c // max(1, most))
-    return -(-c // n)
+def smem_bytes(st: PairStatic, adjoint: bool) -> int:
+    """Shared memory of one kernel-D or kernel-E block (csrc/pair_walk.cuh::
+    warp_words): per warp a queue of QUEUE pairs and the receiver's extras;
+    E adds the (S, 3) shift rows."""
+    return 4 * WARPS * (5 * QUEUE + st.k + (3 * st.s_tot if adjoint else 0))
 
 
-def row_tile(st: PairStatic, smem_bytes) -> int:
-    """Receiver rows per block: at most ROWS, balanced over the capacity,
-    fewer where the extras do not fit shared memory.  Any capacity fits
-    (candidates are walked in tiles of COLS); only the extras width is
-    bounded."""
-    ti = _balanced(st.c, ROWS)
-    while ti > 1 and smem_bytes(st, ti) > SMEM_LIMIT:
-        ti = _balanced(st.c, ti - 1)
-    if smem_bytes(st, ti) > SMEM_LIMIT:
-        raise ValueError(f"pair kernels do not take K={st.k} extras a atom (shared memory)")
-    return ti
+def bwd_scratch_bytes(st: PairStatic) -> int:
+    """Kernel E's device scratch: the per-receiver shift rows (B*C, S, 3)."""
+    return 4 * st.b_tot * st.c * st.s_tot * 3
 
 
-def _check(st: PairStatic, **tensors) -> None:
-    """Refuse what the kernels do not take: wrong device, dtype, shape or a
-    non-contiguous layout."""
+def blocks(st: PairStatic) -> int:
+    """Blocks of kernels D and E: one warp per receiver slot row."""
+    return -(-st.b_tot * st.c // WARPS)
+
+
+def _check(st: PairStatic, term, **tensors) -> None:
+    """Refuse what the kernels do not take: wrong device, dtype, shape, a
+    non-contiguous layout, or extras wider than the kernels hold."""
     shapes = {
         "coord": (st.b_tot, st.c, 3),
         "mask": (st.b_tot, st.c),
@@ -411,16 +431,27 @@ def _check(st: PairStatic, **tensors) -> None:
         "nbr": (st.s_tot, st.b_tot),
         "inv": (st.s_tot, st.b_tot),
         "ct": (st.b_tot, st.c),
+        "pair_counts": (st.b_tot * st.c,),
     }
-    dtypes = {"nbr": torch.int32, "inv": torch.int64}
+    dtypes = {"nbr": torch.int32, "inv": torch.int64, "pair_counts": torch.int32}
     for name, t in tensors.items():
         want = dtypes.get(name, torch.float32)
         if t.device.type != "cuda" or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes a contiguous {want} CUDA tensor")
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
-    if st.k != 2 * st.v + 1:
+    check_width(st, term)
+
+
+def check_width(st: PairStatic, term) -> None:
+    """The extras the kernels take: K = 2V+1 with V <= MAX_V (the vector
+    columns a lane of kernel E holds), within a block's shared memory."""
+    if st.k != 2 * st.v + 1 or (not term.vector_keys and st.k != 1):
         raise ValueError(f"K={st.k}: the extras are [p (V), r (V), s], K = 2V+1")
+    if st.v > MAX_V:
+        raise ValueError(f"pair kernels take extras of V <= {MAX_V} columns, not {st.v}")
+    if smem_bytes(st, adjoint=True) > SMEM_LIMIT:
+        raise ValueError(f"pair kernels do not take K={st.k} extras at S={st.s_tot} (shared memory)")
 
 
 def _consts(st: PairStatic, term) -> ctypes.Array:
@@ -428,106 +459,77 @@ def _consts(st: PairStatic, term) -> ctypes.Array:
     return (ctypes.c_float * N_CONSTS)(*vals, *([0.0] * (N_CONSTS - len(vals))))
 
 
-def gather_candidate_rows(inv, rows):
-    """Per-(offset, receiver bin) candidate-side rows (S, B, ..., C) -> the
-    candidate bins' sums (B, ..., C): ``sum_s rows[s, inv[s, b]]``, one
-    static gather (bins no step points at read a zero row) and a sum in a
-    fixed order, so no float atomics."""
-    s_tot = rows.shape[0]
-    padded = torch.cat([rows, rows.new_zeros((s_tot, 1) + rows.shape[2:])], dim=1)
-    s_idx = torch.arange(s_tot, device=rows.device)[:, None]
-    return padded[s_idx, inv].sum(0)
-
-
-def assemble_forward(inv, out, me):
-    """Kernel D's outputs -> the per-atom sums (B, C): the receiver sums
-    ``out`` plus the mirror rows ``me`` (S, B, NT, C), their row tiles
-    added in a fixed order and sent home."""
-    return out + gather_candidate_rows(inv, me.sum(2))
-
-
-def assemble_backward(inv, gc, ge, gmc, gme):
-    """Kernel E's outputs -> ``(grad_coord, grad_ext, grad_shift)``.
-
-    ``gc`` (B, C, 3) and ``ge`` (B, C, V+1) = [p, s] are the receiver side;
-    ``gmc`` (S, B, NT, 3, C) and ``gme`` (S, B, NT, V+1, C) = [r, s] the
-    candidate side's rows, whose row tiles are added in a fixed order.
-    """
-    v = ge.shape[-1] - 1
-    gmc = gmc.sum(2)  # (S, B, 3, C)
-    gme = gme.sum(2)  # (S, B, V+1, C)
-    grad_shift = gmc.sum(-1)  # the shift rides on the candidate coordinates
-    grad_coord = gc + gather_candidate_rows(inv, gmc).transpose(1, 2)
-    cand = gather_candidate_rows(inv, gme).transpose(1, 2)  # (B, C, V+1): [r, s]
-    if v:
-        grad_ext = torch.cat([ge[..., :v], cand[..., :v], ge[..., v:] + cand[..., v:]], dim=-1)
-    else:
-        grad_ext = ge + cand
-    return grad_coord, grad_ext, grad_shift
-
-
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def pair_sweep_forward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv):
+def _counts_ptr(pair_counts) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0) if pair_counts is None else ptr(pair_counts)
+
+
+def pair_sweep_forward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, pair_counts=None):
     """Kernel D: per-atom sums (B, C) of ``term`` over the half stencil.
-    Arguments as :func:`pair_forward_plain`; ``nbr`` is int32 on the card."""
+    Arguments as :func:`pair_forward_plain`; ``nbr`` is int32 on the card.
+
+    ``pair_counts``, a (B*C,) int32 CUDA tensor, receives the ordered pairs
+    each receiver row contracted (a diagnostic; see :func:`pair_counts_plain`).
+    """
     if coord.device.type == "cpu":
+        if pair_counts is not None:
+            raise ValueError("pair_counts: only the kernel counts its pairs")
         return pair_forward_plain(st, term, coord, mask, ext, shift, nbr, inv)
-    _check(st, coord=coord, mask=mask, ext=ext, shift=shift, nbr=nbr, inv=inv)
-    ti = row_tile(st, fwd_smem_bytes)
-    n_tiles = -(-st.c // ti)
-    dev = coord.device
-    out = torch.empty((st.b_tot, st.c), dtype=torch.float32, device=dev)
-    me = torch.empty((st.s_tot, st.b_tot, n_tiles, st.c), dtype=torch.float32, device=dev)
+    counts = {} if pair_counts is None else {"pair_counts": pair_counts}
+    _check(st, term, coord=coord, mask=mask, ext=ext, shift=shift, nbr=nbr, inv=inv, **counts)
+    out = torch.empty((st.b_tot, st.c), dtype=torch.float32, device=coord.device)
     consts = _consts(st, term)
-    launch = bind("pair_fwd", "pair_fwd_launch", 8, 6)
+    box = bin_boxes(coord, mask)
+    launch = bind("pair_fwd", "pair_fwd_launch", 10, 5)
     err = launch(
         ctypes.cast(consts, ctypes.c_void_p), ptr(coord), ptr(mask), ptr(ext), ptr(shift), ptr(nbr),
-        ptr(out), ptr(me), term.code, st.b_tot, st.c, st.k, st.s_tot, ti, _stream(coord),
+        ptr(inv), ptr(box), ptr(out), _counts_ptr(pair_counts), term.code, st.b_tot, st.c, st.k, st.s_tot,
+        _stream(coord),
     )
     if err != 0:
         raise RuntimeError(f"pair kernel D launch failed: cudaError {err}")
     pair_sweep_forward.launches += 1
-    return assemble_forward(inv, out, me)
+    return out
 
 
 pair_sweep_forward.launches = 0
 
 
-def pair_sweep_backward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, ct):
+def pair_sweep_backward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, ct, pair_counts=None):
     """Kernel E: ``(grad_coord (B, C, 3), grad_ext (B, C, K), grad_shift
     (S, B, 3))`` for the cotangent ``ct`` (B, C) of :func:`pair_sweep_forward`.
 
-    Per pair the cotangent is ``ct_i + ct_j`` (``ct_i`` alone at the zero
-    offset, whose pairs reach only the receiver's sum).  The receiver-side
-    adjoints stay in the block; the candidate side leaves as per-(offset,
-    bin, row tile) rows: three coordinate rows, whose sums over atoms are
-    also the lattice-shift adjoint, and V+1 extras rows (r and s).
+    Per pair the cotangent is ``ct_i + ct_j`` (at the zero offset ``ct_i``
+    on ``c_ij`` and ``ct_j`` on ``c_ji``).  Every adjoint is the receiver's
+    own row; the shift adjoint arrives as per-receiver rows (B*C, S, 3),
+    added here over each bin's atoms.  ``pair_counts`` as in
+    :func:`pair_sweep_forward`.
     """
     if coord.device.type == "cpu":
+        if pair_counts is not None:
+            raise ValueError("pair_counts: only the kernel counts its pairs")
         return pair_backward_plain(st, term, coord, mask, ext, shift, nbr, inv, ct)
-    _check(st, coord=coord, mask=mask, ext=ext, shift=shift, nbr=nbr, inv=inv, ct=ct)
-    ti = row_tile(st, bwd_smem_bytes)
-    n_tiles = -(-st.c // ti)
-    v = st.v
+    counts = {} if pair_counts is None else {"pair_counts": pair_counts}
+    _check(st, term, coord=coord, mask=mask, ext=ext, shift=shift, nbr=nbr, inv=inv, ct=ct, **counts)
     dev = coord.device
     gc = torch.empty((st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
-    ge = torch.empty((st.b_tot, st.c, v + 1), dtype=torch.float32, device=dev)
-    gmc = torch.empty((st.s_tot, st.b_tot, n_tiles, 3, st.c), dtype=torch.float32, device=dev)
-    gme = torch.empty((st.s_tot, st.b_tot, n_tiles, v + 1, st.c), dtype=torch.float32, device=dev)
+    ge = torch.empty((st.b_tot, st.c, st.k), dtype=torch.float32, device=dev)
+    rows = torch.empty((st.b_tot, st.c, st.s_tot, 3), dtype=torch.float32, device=dev)
     consts = _consts(st, term)
-    launch = bind("pair_bwd", "pair_bwd_launch", 11, 6)
+    box = bin_boxes(coord, mask)
+    launch = bind("pair_bwd", "pair_bwd_launch", 13, 5)
     err = launch(
         ctypes.cast(consts, ctypes.c_void_p), ptr(coord), ptr(mask), ptr(ext), ptr(shift), ptr(nbr),
-        ptr(ct), ptr(gc), ptr(ge), ptr(gmc), ptr(gme), term.code, st.b_tot, st.c, st.k, st.s_tot,
-        ti, _stream(coord),
+        ptr(inv), ptr(box), ptr(ct), ptr(gc), ptr(ge), ptr(rows), _counts_ptr(pair_counts), term.code,
+        st.b_tot, st.c, st.k, st.s_tot, _stream(coord),
     )
     if err != 0:
         raise RuntimeError(f"pair kernel E launch failed: cudaError {err}")
     pair_sweep_backward.launches += 1
-    return assemble_backward(inv, gc, ge, gmc, gme)
+    return gc, ge, rows.sum(1).transpose(0, 1)
 
 
 pair_sweep_backward.launches = 0

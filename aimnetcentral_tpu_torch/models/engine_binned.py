@@ -39,9 +39,10 @@ from aimnetcentral_tpu_torch.system import System
 def _half_tables(grid: B.BinGrid, radius: int):
     """Host tables of the half stencil: the zero offset plus every offset
     lexicographically above it.  ``inv[s]`` inverts ``nbr[s]`` (sentinel B
-    for bins no step-s source points at), so the mirror sums arrive by a
-    gather instead of a scatter-add (``index_add_`` is a float atomic on
-    CUDA, and not deterministic)."""
+    for bins no step-s source points at): the plain sweep's mirror sums
+    arrive through it by a gather instead of a scatter-add (``index_add_``
+    is a float atomic on CUDA, and not deterministic), and kernels D and E
+    read it as the candidate bins of the lower half of the full stencil."""
     nbr, wraps, is_zero = B.stencil_tables(grid, radius)
     offs = B.stencil_offsets(radius)
     half = np.array([bool(z) or tuple(o) > (0, 0, 0) for o, z in zip(offs, is_zero)])

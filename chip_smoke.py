@@ -19,7 +19,9 @@ Phases (any failure exits nonzero; nothing is caught):
    inputs at the main path's shapes, with times (CUDA events) and the least
    time the card could take: A and B on the 10,000-atom flagship grid
    (F = 16 and F = 17), D and E on its LR grid for each pair term (DSF
-   Coulomb, D3 coordination number, D3 energy);
+   Coulomb, D3 coordination number, D3 energy); each also against a plain
+   run in f64 beside the f32 plain version, and the pairs each kernel
+   contracted (its ``pair_counts`` output) against the plain count;
 4. main path: for each configuration, three
    ``AIMNet2Calculator.eval(forces=True)`` requests with the kernels'
    launch counts read around them (A, B three times a request; D, E once
@@ -373,28 +375,60 @@ def pair_terms(calc, sysb) -> dict:
 
 
 def _half_pair_count(st, ops) -> int:
-    """Unordered real pairs within the cutoff on the half stencil: the pairs
-    the function needs (the kernels visit every slot pair)."""
+    """Unordered real pairs within the cutoff on the half stencil, the
+    distance rounded as the plain sweep and the kernels round it: the pairs
+    the function needs."""
     import torch
 
     nbr = ops["nbr"].clamp(min=0).long()
     real = ops["mask"] > 0.5
-    total = 0.0
+    total = 0
     for s in range(st.s_tot):
         cj = ops["coord"][nbr[s]] + ops["shift"][s][:, None, :]
-        d2 = ((cj[:, None, :, :] - ops["coord"][:, :, None, :]) ** 2).sum(-1)
-        ok = real[:, :, None] & real[nbr[s]][:, None, :] & (d2 < st.cutoff**2)
+        dx, dy, dz = (cj[:, None, :, :] - ops["coord"][:, :, None, :]).unbind(-1)
+        d = torch.sqrt((dx * dx + dy * dy) + dz * dz)
+        ok = real[:, :, None] & real[nbr[s]][:, None, :] & (ops["nbr"][s] >= 0)[:, None, None] & (d < st.cutoff)
         if s == 0:  # the zero offset enumerates both orderings
-            ok &= ~torch.eye(st.c, dtype=torch.bool, device=d2.device)[None]
-            total += 0.5 * int(ok.sum())
+            ok &= ~torch.eye(st.c, dtype=torch.bool, device=d.device)[None]
+            total += int(ok.sum()) // 2
         else:
             total += int(ok.sum())
-    return int(total)
+    return total
+
+
+F64_FLOOR = 2e-7  # two f32 roundings of the largest magnitude
+
+
+def _slot_tests(st, ops) -> int:
+    """Candidate slots kernels D and E test: real receivers x capacity x
+    the offsets of the full stencil whose candidate box is not beyond the
+    cutoff (the skip of csrc/pair_walk.cuh, its margin included)."""
+    import torch
+
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+
+    coord, real = ops["coord"], ops["mask"] > 0.5
+    box = ps.bin_boxes(coord, ops["mask"])
+    limit = 1.0001 * st.cutoff**2 + 1e-6
+    walked = 0
+    for o in range(2 * st.s_tot - 1):
+        lower = o >= st.s_tot
+        h = o - st.s_tot + 1 if lower else o
+        n = (ops["inv"][h] if lower else ops["nbr"][h]).long()
+        has = (n >= 0) & (n < st.b_tot)
+        n = torch.where(has, n, 0)
+        sh = ops["shift"][h][n if lower else torch.arange(st.b_tot, device=n.device)][:, None, :]
+        sgn = -1.0 if lower else 1.0
+        e = torch.clamp(torch.maximum(box[n][:, None, :3] + sgn * sh - coord,
+                                      coord - (box[n][:, None, 3:] + sgn * sh)), min=0.0)
+        walked += int((real & has[:, None] & ((e * e).sum(-1) <= limit)).sum())
+    return walked * st.c
 
 
 def phase_pair_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
     """Kernels D and E against their plain versions at the wb97m-d3-10k LR
-    shapes, for each of the three pair terms."""
+    shapes, for each of the three pair terms: errors, the same against an
+    f64 plain run, the pairs each kernel contracted, E's scratch, times."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
@@ -408,6 +442,24 @@ def phase_pair_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
         ops = {k: v.detach().contiguous() for k, v in ops.items()}
         ct = torch.randn((st.b_tot, st.c), generator=gen, device="cuda")
         n_pairs = _half_pair_count(st, ops)
+        # the pairs each kernel contracted, read from its pair_counts output:
+        # every unordered pair at both ends, each row its own plain count
+        plain_rows = ps.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"], ops["nbr"], ops["inv"])
+        counts_d = torch.zeros(st.b_tot * st.c, dtype=torch.int32, device="cuda")
+        counts_e = torch.zeros_like(counts_d)
+        ps.pair_sweep_forward(st, term, **ops, pair_counts=counts_d)
+        ps.pair_sweep_backward(st, term, **ops, ct=ct, pair_counts=counts_e)
+        torch.cuda.synchronize()
+        log(f"[kernels] {name}: LR grid B={st.b_tot} C={st.c} S={st.s_tot} K={st.k}; "
+            f"{n_pairs} unordered pairs within {cutoff} A; ordered pairs contracted (full stencil, "
+            f"each pair at both ends): D {int(counts_d.sum())}, E {int(counts_e.sum())}, "
+            f"2 x unordered = {2 * n_pairs}; slot tests {_slot_tests(st, ops)} of "
+            f"{int((ops['mask'] > 0.5).sum()) * (2 * st.s_tot - 1) * st.c} without the box skip "
+            f"(real receivers x {2 * st.s_tot - 1} offsets x capacity)")
+        for key, counts in (("D", counts_d), ("E", counts_e)):
+            if not torch.equal(counts.long(), plain_rows) or int(counts.sum()) != 2 * n_pairs:
+                raise SystemExit(f"FAIL: kernel {key} contracted other pairs than the plain count for {name}")
+
         out_k = ps.pair_sweep_forward(st, term, **ops)
         torch.cuda.synchronize()
         out_p = ps.pair_forward_plain(st, term, **ops)
@@ -415,13 +467,11 @@ def phase_pair_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
         got = ps.pair_sweep_backward(st, term, **ops, ct=ct)
         torch.cuda.synchronize()
         ref = ps.pair_backward_plain(st, term, **ops, ct=ct)
+        names = ("grad_coord", "grad_ext", "grad_shift")
         errs_e = {
             k: (float((x - y).abs().max()), float(y.abs().max()))
-            for k, x, y in zip(("grad_coord", "grad_ext", "grad_shift"), got, ref)
+            for k, x, y in zip(names, got, ref)
         }
-        log(f"[kernels] {name}: LR grid B={st.b_tot} C={st.c} S={st.s_tot} K={st.k}; "
-            f"{n_pairs} unordered pairs within {cutoff} A "
-            f"(slot pairs visited: {st.b_tot * st.s_tot * st.c * st.c})")
         log(f"[kernels] {name} D: max_abs_err {err_d:.3e} rel {err_d / scale_d:.3e}")
         for k, (e, sc) in errs_e.items():
             log(f"[kernels] {name} E {k}: max_abs_err {e:.3e} rel {e / sc:.3e}")
@@ -431,8 +481,22 @@ def phase_pair_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
             if e > REL_TOL * sc:
                 raise SystemExit(f"FAIL: kernel E {k} disagrees with its plain version for {name}")
 
-        ms_d = time_cuda(lambda: ps.pair_sweep_forward(st, term, **ops), reps=10)
-        ms_e = time_cuda(lambda: ps.pair_sweep_backward(st, term, **ops, ct=ct), reps=10)
+        # which side the differences come from: the kernels and the f32 plain
+        # versions, each against the plain versions in f64
+        ops64 = {k: (v.double() if v.is_floating_point() else v) for k, v in ops.items()}
+        out64 = ps.pair_forward_plain(st, term, **ops64)
+        ref64 = ps.pair_backward_plain(st, term, **ops64, ct=ct.double())
+        f64 = {"D out": (rel64(out_k, out64), rel64(out_p, out64))}
+        f64.update({f"E {k}": (rel64(x, z), rel64(y, z)) for k, x, y, z in zip(names, got, ref, ref64)})
+        log(f"[kernels] {name} against f64, relative to the largest magnitude: "
+            + "; ".join(f"{k}: kernel {a:.2e}, plain {b:.2e}" for k, (a, b) in f64.items()))
+        for k, (a, b) in f64.items():
+            if a > max(2.0 * b, F64_FLOOR):
+                raise SystemExit(f"FAIL: kernel {k} of {name} is farther from f64 than twice the f32 plain")
+        del ops64, out64, ref64
+
+        ms_d = time_cuda(lambda: ps.pair_sweep_forward(st, term, **ops), reps=20)
+        ms_e = time_cuda(lambda: ps.pair_sweep_backward(st, term, **ops, ct=ct), reps=20)
         plain_d = time_cuda(lambda: ps.pair_forward_plain(st, term, **ops), reps=3, warmup=1)
         plain_e = time_cuda(lambda: ps.pair_backward_plain(st, term, **ops, ct=ct), reps=3, warmup=1)
         # least time: inputs read once and outputs written once, against
@@ -444,15 +508,18 @@ def phase_pair_kernels(calc, coord, numbers, cell) -> tuple[list[dict], dict]:
         flops_d, flops_e = float(ops_d * n_pairs), float(ops_e * n_pairs)
         bound_d, by_d = bound(bytes_d, flops_d)
         bound_e, by_e = bound(bytes_e, flops_e)
+        scratch = ps.bwd_scratch_bytes(st)
         log(f"[kernels] {name} D: {ms_d:.3f} ms (plain {plain_d:.3f} ms), bound {bound_d:.4f} ms "
-            f"by {by_d}, {ps.row_tile(st, ps.fwd_smem_bytes)} rows a block, "
-            f"{ps.fwd_smem_bytes(st, ps.row_tile(st, ps.fwd_smem_bytes))} B shared memory; no "
-            f"single PyTorch call computes this function (library_ms null)")
+            f"by {by_d}; {ps.blocks(st)} blocks of {ps.WARPS} receiver rows (a warp each), "
+            f"{ps.smem_bytes(st, adjoint=False)} B shared memory; no single PyTorch call "
+            f"computes this function (library_ms null)")
         log(f"[kernels] {name} E: {ms_e:.3f} ms (plain {plain_e:.3f} ms), bound {bound_e:.4f} ms "
-            f"by {by_e}, {ps.row_tile(st, ps.bwd_smem_bytes)} rows a block, "
-            f"{ps.bwd_smem_bytes(st, ps.row_tile(st, ps.bwd_smem_bytes))} B shared memory")
+            f"by {by_e}; {ps.smem_bytes(st, adjoint=True)} B shared memory; device scratch "
+            f"{scratch} B (the per-receiver shift rows, {scratch / 2**20:.2f} MiB)")
         detail[name] = {
             "grid": {"b": st.b_tot, "c": st.c, "s": st.s_tot, "k": st.k}, "pairs": n_pairs,
+            "pairs_contracted": {"D": int(counts_d.sum()), "E": int(counts_e.sum())},
+            "f64": f64, "scratch_bytes_e": scratch,
             "D": {"ms": ms_d, "plain_ms": plain_d, "bound_ms": bound_d, "bound_by": by_d,
                   "max_abs_err": err_d, "rel_err": err_d / scale_d, "bytes": bytes_d, "flops": flops_d},
             "E": {"ms": ms_e, "plain_ms": plain_e, "bound_ms": bound_e, "bound_by": by_e,

@@ -275,22 +275,39 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     on 3x3x3 SR bins, cutoff 5 A (radius 1, nz >= 2r+1); ``images``: 60
     atoms in a 12 A box on its 1x1x1 LR grid, cutoff 15 A (radius 2: the
     bin meets itself at every offset); ``wide``: the same 60 atoms on one SR
-    bin of capacity 272 (nine candidate tiles, uneven row tiles)."""
+    bin of capacity 272; ``edges``: the box of :func:`_edge_molecule` at
+    cutoff rc (a full bin, an empty bin, a bin pair beyond the cutoff, two
+    atoms exactly the cutoff apart, capacity 10), every bin's slots then
+    reversed; ``gas``: 40 atoms on a gas-phase 3x2x2 grid at radius 2
+    (steps without a candidate bin).  ``d3_energy_v70`` is the D3 energy
+    term with random factorised vectors of V = 70, the width of all 14
+    elements of the released models."""
     rng = np.random.default_rng(seed)
-    n, a, cutoff = {"banded": (120, 18.0, 5.0), "images": (60, 12.0, 15.0), "wide": (60, 12.0, 5.0)}[layout]
-    coord = rng.uniform(0, a, size=(n, 3)).astype(np.float32)
-    numbers = rng.choice([1, 6, 7, 8], size=n)
-    mol = {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * a}
-    cell = mol["cell"]
-    if layout == "wide":
-        grid = B.BinGrid(nbins=(1, 1, 1), capacity=272, edge_hint=12.0, periodic=True)
+    lr = None
+    if layout == "edges":
+        mol, cutoff = _edge_molecule(rng), RC
+        grid = B.BinGrid(nbins=(3, 3, 3), capacity=EDGE_CAP, edge_hint=5.2, periodic=True)
+    elif layout == "gas":
+        n, cutoff = 40, 5.0
+        coord = rng.uniform(0, 12.0, size=(n, 3)).astype(np.float32) * np.array([1.0, 0.7, 0.7], np.float32)
+        mol = {"coord": coord, "numbers": rng.choice([1, 6, 7, 8], size=n)}
+        grid = B.BinGrid(nbins=(3, 2, 2), capacity=16, edge_hint=4.0, periodic=False)
     else:
-        grid = B.plan_bins(cell, n, 5.5, safety=3.0)
-    lr = B.plan_lr_bins(cell, n, 15.0, safety=3.0) if layout == "images" else None
+        n, a, cutoff = {"banded": (120, 18.0, 5.0), "images": (60, 12.0, 15.0), "wide": (60, 12.0, 5.0)}[layout]
+        coord = rng.uniform(0, a, size=(n, 3)).astype(np.float32)
+        numbers = rng.choice([1, 6, 7, 8], size=n)
+        mol = {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * a}
+        cell = mol["cell"]
+        if layout == "wide":
+            grid = B.BinGrid(nbins=(1, 1, 1), capacity=272, edge_hint=12.0, periodic=True)
+        else:
+            grid = B.plan_bins(cell, n, 5.5, safety=3.0)
+        lr = B.plan_lr_bins(cell, n, 15.0, safety=3.0) if layout == "images" else None
     sysb, _perm, ovf = B.to_binned_system(system_from_molecules([mol], CPU), grid, lr)
     assert int(ovf) == 0
     where = "lr" if layout == "images" else "sr"
     tables = head_init(None, DFTD3Head(s8=0.3908, a1=0.566, a2=3.128), CPU)
+    d3e = ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=0.8 * cutoff, r_off=cutoff)
     if term_name == "dsf":
         term = ps.DSFTerm(alpha=0.2, dsf_rc=cutoff, rc=4.6)
         extras = {"q": torch.tensor(rng.normal(size=sysb.natoms).astype(np.float32) * 0.3)
@@ -298,17 +315,27 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     elif term_name == "d3_cn":
         term = ps.D3CNTerm()
         extras = {"rcov": tables["rcov"][sysb.numbers]}
+    elif term_name == "d3_energy_v70":
+        term = d3e
+        p = rng.uniform(0.0, 1.0, size=(sysb.natoms, 70))
+        m = rng.uniform(0.0, 5.0, size=(70, 70))
+        extras = {"p": torch.tensor(p, dtype=torch.float32),
+                  "r": torch.tensor(p @ (m + m.T) / 70.0, dtype=torch.float32),
+                  "rr": tables["r4r2"][sysb.numbers]}
     else:
-        term = ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=0.8 * cutoff, r_off=cutoff)
+        term = d3e
         cn = eb.pair_sum_binned(sysb, cutoff, ps.D3CNTerm(), {"rcov": tables["rcov"][sysb.numbers]}, where)
         extras = eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables)
     st, ops = eb.pair_operands(sysb, cutoff, term, extras, where)
     ops = {k: v.detach() for k, v in ops.items()}
+    if layout == "edges":  # real atoms a suffix of each bin's slots, not a prefix
+        for key in ("coord", "mask", "ext"):
+            ops[key] = ops[key].flip(1).contiguous()
     ct = torch.tensor(rng.normal(size=(st.b_tot, st.c)).astype(np.float32))
     return st, term, ops, ct
 
 
-PAIR_LAYOUTS = ["banded", "images", "wide"]
+PAIR_LAYOUTS = ["banded", "images", "wide", "edges", "gas"]
 PAIR_TERMS = ["dsf", "d3_cn", "d3_energy"]
 
 
@@ -327,8 +354,45 @@ def test_kernel_e_matches_plain(cuda_device, layout, term_name):
     st, term, ops, ct = _pair_case(layout, term_name)
     got = ps.pair_sweep_backward(st, term, **_to(cuda_device, ops), ct=ct.to(cuda_device))
     torch.cuda.synchronize()
-    for g, r in zip(got, ps.pair_backward_plain(st, term, **ops, ct=ct)):
+    ref = ps.pair_backward_plain(st, term, **ops, ct=ct)
+    for g, r in zip(got, ref):
         _close(g, r)
+    if st.v:  # the p and r columns of the extras adjoint each
+        for cols in (slice(0, st.v), slice(st.v, 2 * st.v)):
+            _close(got[1][..., cols], ref[1][..., cols])
+
+
+@pytest.mark.parametrize("layout", ["images", "edges"])
+def test_pair_kernels_take_v70(cuda_device, layout):
+    """The D3 energy at V = 70 (K = 141): D and E against the plain versions."""
+    st, term, ops, ct = _pair_case(layout, "d3_energy_v70")
+    assert st.v == 70
+    dev_ops = _to(cuda_device, ops)
+    out = ps.pair_sweep_forward(st, term, **dev_ops)
+    got = ps.pair_sweep_backward(st, term, **dev_ops, ct=ct.to(cuda_device))
+    torch.cuda.synchronize()
+    _close(out, ps.pair_forward_plain(st, term, **ops))
+    ref = ps.pair_backward_plain(st, term, **ops, ct=ct)
+    for g, r in zip(got, ref):
+        _close(g, r)
+    for cols in (slice(0, 70), slice(70, 140)):
+        _close(got[1][..., cols], ref[1][..., cols])
+
+
+@pytest.mark.parametrize("layout", PAIR_LAYOUTS)
+def test_pair_kernels_count_the_plain_pairs(cuda_device, layout):
+    """Each receiver row contracts exactly its real pairs within the cutoff,
+    met from both ends: kernels D and E's own counts against the plain."""
+    st, term, ops, ct = _pair_case(layout, "d3_energy")
+    plain = ps.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"], ops["nbr"], ops["inv"])
+    dev_ops = _to(cuda_device, ops)
+    counts_d = torch.zeros(st.b_tot * st.c, dtype=torch.int32, device=cuda_device)
+    counts_e = torch.zeros_like(counts_d)
+    ps.pair_sweep_forward(st, term, **dev_ops, pair_counts=counts_d)
+    ps.pair_sweep_backward(st, term, **dev_ops, ct=ct.to(cuda_device), pair_counts=counts_e)
+    torch.cuda.synchronize()
+    assert int(plain.sum()) > 0
+    assert torch.equal(counts_d.cpu().long(), plain) and torch.equal(counts_e.cpu().long(), plain)
 
 
 def test_pair_kernels_are_deterministic(cuda_device):
@@ -350,9 +414,12 @@ def test_pair_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         ps.pair_sweep_forward(st, term, **{**dev_ops, "nbr": dev_ops["nbr"].long()})
     with pytest.raises(ValueError, match="ct"):
         ps.pair_sweep_backward(st, term, **dev_ops, ct=ct.to(cuda_device)[:, :1])
-    with pytest.raises(ValueError, match="extras"):
-        wide = ps.PairStatic(b_tot=st.b_tot, c=st.c, s_tot=st.s_tot, k=2 * 4000 + 1, cutoff=st.cutoff)
-        ps.row_tile(wide, ps.fwd_smem_bytes)
+    st, term, ops, ct = _pair_case("images", "d3_energy_v70")
+    v = ps.MAX_V + 1
+    wide = ps.PairStatic(b_tot=st.b_tot, c=st.c, s_tot=st.s_tot, k=2 * v + 1, cutoff=st.cutoff)
+    ext = torch.zeros((st.b_tot, st.c, 2 * v + 1), device=cuda_device)
+    with pytest.raises(ValueError, match="V <= "):
+        ps.pair_sweep_forward(wide, term, **{**_to(cuda_device, ops), "ext": ext})
 
 
 def test_pair_energy_binned_launches_the_kernels(cuda_device):

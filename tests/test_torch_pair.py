@@ -139,64 +139,147 @@ def test_plain_sweep_matches_jax(case, term_name):
         _close(g.numpy(), j_grads[2][k], 3e-5)
 
 
-def _kernel_emulation(st, term, ops, ct, ti):
-    """What csrc/pair_fwd.cu and csrc/pair_bwd.cu compute, written out in
-    torch: per offset and row tile of ``ti`` receivers, the receiver sums
-    and adjoints and the candidate side rows (the pair cotangent ct_i +
-    ct_j, ct_i alone at the zero offset), with each term's hand
-    derivatives; then the wrappers' reassembly.  Holds the kernels'
-    algorithm and the reassembly against the plain versions on the CPU."""
-    coord, mask, ext, shift, nbr = (ops[k] for k in ("coord", "mask", "ext", "shift", "nbr"))
-    b, c, v = st.b_tot, st.c, st.v
-    nt = -(-c // ti)
-    out, gc, ge = torch.zeros(b, c), torch.zeros(b, c, 3), torch.zeros(b, c, v + 1)
-    me = torch.zeros(st.s_tot, b, nt, c)
-    gmc, gme = torch.zeros(st.s_tot, b, nt, 3, c), torch.zeros(st.s_tot, b, nt, v + 1, c)
+def _kernel_emulation(st, term, ops, ct):
+    """What csrc/pair_walk.cuh computes (kernels D and E), written out in
+    torch: the full stencil walked from each receiver's side in the kernels'
+    order (the zero offset, the upper half through ``nbr``, the lower half
+    through ``inv`` with the displacement rounded as its half-stencil view
+    rounds it; an offset skipped where the candidate bin's box of real atoms
+    lies beyond the cutoff, which must drop no pair), the real pairs within
+    the cutoff compacted into each
+    receiver's queue in (offset, slot) order, each queued pair on lane
+    ``position % 32`` with the o = 0 / upper / lower conventions and each
+    term's hand derivatives, the lanes' partial sums added in lane order,
+    the per-(receiver, half offset) shift rows, and the wrapper's sum of
+    those rows over each bin's atoms.  Returns ``(out, (grad_coord,
+    grad_ext, grad_shift), pair counts per receiver row)``."""
+    coord, mask, ext, shift, nbr, inv = (ops[k] for k in ("coord", "mask", "ext", "shift", "nbr", "inv"))
+    b, c, v, s_tot, k = st.b_tot, st.c, st.v, st.s_tot, st.k
+    n_rows = b * c
+    real = mask > 0.5
+    slot = torch.arange(c)
+    box = ps.bin_boxes(coord, mask)
+    d2_max = _d2_limit(st.cutoff)
+    recv, offs, cand, diffs = [], [], [], []
+    for o in range(2 * s_tot - 1):
+        lower = o >= s_tot
+        h = o - s_tot + 1 if lower else o
+        n = (inv[h] if lower else nbr[h]).long()
+        has = (n >= 0) & (n < b)
+        n = torch.where(has, n, 0)
+        sh = shift[h][n if lower else torch.arange(b)][:, None, None, :]
+        xi, xj = coord[:, :, None, :], coord[n][:, None, :, :]
+        diff = -((xi + sh) - xj) if lower else (xj + sh) - xi  # (B, Ci, Cj, 3)
+        dx, dy, dz = diff.unbind(-1)
+        ok = real[:, :, None] & real[n][:, None, :] & has[:, None, None]
+        d2 = (dx * dx + dy * dy) + dz * dz
+        assert torch.equal(torch.sqrt(d2) < st.cutoff, d2 < d2_max)
+        ok &= d2 < d2_max
+        sgn = -1.0 if lower else 1.0
+        lo, hi = box[n][:, None, :3] + sgn * sh[:, 0], box[n][:, None, 3:] + sgn * sh[:, 0]
+        e = torch.clamp(torch.maximum(lo - coord, coord - hi), min=0.0)  # (B, Ci, 3)
+        far = (e * e).sum(-1) > 1.0001 * d2_max + 1e-6
+        assert not (ok & far[:, :, None]).any()  # the skip drops no pair
+        ok &= ~far[:, :, None]
+        if o == 0:
+            ok &= slot[:, None] != slot[None, :]
+        bi, ii, jj = ok.nonzero(as_tuple=True)
+        recv.append(bi * c + ii)
+        offs.append(torch.full_like(bi, o))
+        cand.append(n[bi] * c + jj)
+        diffs.append(diff[bi, ii, jj])
+    recv, offs, cand, diff = (torch.cat(x) for x in (recv, offs, cand, diffs))
+    order = torch.argsort((recv * (2 * s_tot) + offs) * n_rows + cand, stable=True)  # the queue order
+    recv, offs, cand, diff = recv[order], offs[order], cand[order], diff[order]
+    counts = torch.bincount(recv, minlength=n_rows)
+    first = torch.cumsum(counts, 0) - counts
+    lane = (torch.arange(len(recv)) - first[recv]) % 32
+
+    e_flat, ct_flat = ext.reshape(n_rows, k), ct.reshape(-1)
+    d = torch.sqrt((diff * diff).sum(-1))
+    si, sj = e_flat[recv, -1], e_flat[cand, -1]
+    valid = torch.ones_like(d, dtype=torch.bool)
+    g, gd, gsi, _gsj = term.g_grad(d, si, sj, valid)
+    if v:
+        cij = (e_flat[recv, :v] * e_flat[cand, v : 2 * v]).sum(-1)
+        cji = (e_flat[cand, :v] * e_flat[recv, v : 2 * v]).sum(-1)
+    else:
+        cij = cji = torch.ones_like(d)
+    kind = torch.where(offs == 0, 0, torch.where(offs < s_tot, 1, 2))
+    cti, ctj = ct_flat[recv], ct_flat[cand]
+    zero = torch.zeros_like(d)
+    cp = torch.where(kind == 0, cti, torch.where(kind == 1, cti + ctj, zero))  # on c_ij
+    cq = torch.where(kind == 0, ctj, torch.where(kind == 2, cti + ctj, zero))  # on c_ji
+    eff = cp * cij + cq * cji
+
+    def lanes(x):  # each lane's partial sums, then the butterfly over the lanes
+        acc = torch.zeros((n_rows, 32) + x.shape[1:])
+        acc.index_put_((recv, lane), x, accumulate=True)
+        return acc.sum(1)
+
+    out = lanes(torch.where(kind == 2, cji, cij) * g)
+    grad_coord = lanes(-(eff * gd / d)[:, None] * diff)
+    grad_ext = torch.zeros(n_rows, k)
+    grad_ext[:, -1] = lanes(eff * gsi)
+    if v:
+        grad_ext[:, :v].index_add_(0, recv, (cp * g)[:, None] * e_flat[cand, v : 2 * v])
+        grad_ext[:, v : 2 * v].index_add_(0, recv, (cq * g)[:, None] * e_flat[cand, :v])
+    rows = torch.zeros(n_rows, s_tot, 3)
+    upper = kind < 2
+    rows.index_put_((recv[upper], offs[upper]), ((cp * cij * gd / d)[:, None] * diff)[upper], accumulate=True)
+    grad_shift = rows.reshape(b, c, s_tot, 3).sum(1).transpose(0, 1)
+    return (out.reshape(b, c), (grad_coord.reshape(b, c, 3), grad_ext.reshape(b, c, k), grad_shift),
+            counts)
+
+
+def _d2_limit(c: float) -> float:
+    """csrc/pair_walk.cuh::d2_limit: the least f32 x with sqrt(x) >= c."""
+    c, x = np.float32(c), np.float32(c) * np.float32(c)
+    while x > 0 and np.sqrt(np.nextafter(x, np.float32(0))) >= c:
+        x = np.nextafter(x, np.float32(0))
+    while np.sqrt(x) < c:
+        x = np.nextafter(x, np.float32(np.inf))
+    return float(x)
+
+
+def _half_pair_count(st, ops) -> int:
+    """Unordered real pairs within the cutoff as the plain sweep tests them."""
+    coord, mask, shift, nbr = ops["coord"], ops["mask"], ops["shift"], ops["nbr"]
+    total = 0
     for s in range(st.s_tot):
-        n = nbr[s].long()
+        n = nbr[s].clamp(min=0).long()
         diff = (coord[n] + shift[s][:, None, :])[:, None, :, :] - coord[:, :, None, :]
-        vp = (mask > 0.5)[:, :, None] & (mask[n] > 0.5)[:, None, :]
-        if s == 0:
-            vp = vp & ~torch.eye(c, dtype=torch.bool)[None]
-        d = torch.sqrt(torch.where(vp, (diff * diff).sum(-1), 1.0))
-        vp = vp & (d < st.cutoff)
-        g, gd, gsi, gsj = term.g_grad(d, ext[..., -1][:, :, None], ext[n][..., -1][:, None, :], vp)
-        cc = torch.einsum("bix,bjx->bij", ext[..., :v], ext[n][..., v : 2 * v]) if v else 1.0
-        e = torch.where(vp, cc * g, 0.0)
-        cbar = torch.where(vp, ct[:, :, None] + float(s > 0) * ct[n][:, None, :], 0.0)
-        f = (cbar * cc * gd / d)[..., None] * diff  # candidate side; the receiver's is -f
-        wm = cbar * g  # the bilinear weight
-        out += e.sum(2)
-        gc -= f.sum(2)
-        ge[..., v] += (cbar * cc * gsi).sum(2)
-        if v:
-            ge[..., :v] += torch.einsum("bij,bjx->bix", wm, ext[n][..., v : 2 * v])
-        for t in range(nt):
-            rows = slice(t * ti, (t + 1) * ti)
-            if s > 0:
-                me[s, :, t] = e[:, rows].sum(1)
-            gmc[s, :, t] = f[:, rows].sum(1).transpose(1, 2)
-            gme[s, :, t, v] = (cbar * cc * gsj)[:, rows].sum(1)
-            if v:
-                gme[s, :, t, :v] = torch.einsum("bij,bix->bxj", wm[:, rows], ext[:, rows, :v])
-    return (ps.assemble_forward(ops["inv"], out, me),
-            ps.assemble_backward(ops["inv"], gc, ge, gmc, gme))
+        ok = (mask > 0.5)[:, :, None] & (mask[n] > 0.5)[:, None, :] & (nbr[s] >= 0)[:, None, None]
+        ok &= torch.sqrt((diff * diff).sum(-1)) < st.cutoff
+        if s == 0:  # both orderings of each pair
+            ok &= ~torch.eye(st.c, dtype=torch.bool)[None]
+            total += int(ok.sum()) // 2
+        else:
+            total += int(ok.sum())
+    return total
 
 
 @pytest.mark.parametrize("term_name", ["dsf_exp", "d3_cn", "d3_energy"])
 def test_kernel_algorithm_matches_plain(case, term_name):
-    """Kernels D and E's algorithm in uneven row tiles of 7, against the
-    plain forward and its autograd."""
+    """Kernels D and E's algorithm (full stencil from the receiver's side,
+    compacted pairs in lanes of 32) against the plain forward and its
+    autograd, and the pairs it contracts against the plain count."""
     _bj, bt, cutoff, layout, ex = case
     term = _terms(cutoff)[term_name][0]
     extras = {k: torch.tensor(ex[k]) for k in list(term.vector_keys) + [term.scalar_key]}
     st, ops = teb.pair_operands(bt, cutoff, term, extras, layout)
     args = {k: ops[k] for k in ("coord", "mask", "ext", "shift", "nbr", "inv")}
     ct = torch.tensor(np.random.default_rng(6).normal(size=(st.b_tot, st.c)).astype(np.float32))
-    emu_out, emu_grads = _kernel_emulation(st, term, ops, ct, ti=7)
+    emu_out, emu_grads, counts = _kernel_emulation(st, term, ops, ct)
     _close(emu_out.numpy(), ps.pair_forward_plain(st, term, **args).numpy(), 1e-5)
-    for e, r in zip(emu_grads, ps.pair_backward_plain(st, term, **args, ct=ct)):
+    ref = ps.pair_backward_plain(st, term, **args, ct=ct)
+    for e, r in zip(emu_grads, ref):
         _close(e.numpy(), r.numpy(), 3e-5)
+    if st.v:  # the p and r columns each, not only their sum
+        for cols in (slice(0, st.v), slice(st.v, 2 * st.v)):
+            _close(emu_grads[1][..., cols].numpy(), ref[1][..., cols].numpy(), 3e-5)
+    assert torch.equal(counts, ps.pair_counts_plain(st, **{k: args[k] for k in args if k != "ext"}))
+    assert int(counts.sum()) == 2 * _half_pair_count(st, ops) > 0
 
 
 def test_second_order_raises(case):
@@ -274,20 +357,23 @@ def test_non_pairs_keep_d3_gradients_finite():
     assert float(grads[1][0]) == 0.0
 
 
-def test_tiles_cover_any_capacity_and_bound_the_extras():
-    """Candidates are walked in tiles of 32 and receivers in tiles of at
-    most 32, so the capacity never limits the kernels; shared memory bounds
-    the extras width: the widest K that fits each kernel is taken, one more
-    raises."""
+def test_kernel_widths():
+    """One warp per receiver row takes any capacity; the extras' width is
+    bounded by the vector columns a lane of kernel E holds: V = 70 (all 14
+    elements of the released models, five references each) is taken at the
+    10,000-atom LR shapes and at a wider stencil, V = MAX_V too, one more
+    column raises, as do extras that are not [p, r, s]."""
+    d3, cn = HAND_TERMS["d3_energy"], HAND_TERMS["d3_cn"]
     for c in (8, 80, 120, 1000):
-        st = ps.PairStatic(b_tot=216, c=c, s_tot=63, k=41, cutoff=15.0)
-        assert 1 <= ps.row_tile(st, ps.fwd_smem_bytes) <= ps.ROWS
-        assert 1 <= ps.row_tile(st, ps.bwd_smem_bytes) <= ps.ROWS
-    for smem in (ps.fwd_smem_bytes, ps.bwd_smem_bytes):
-        v = 0
-        while smem(ps.PairStatic(216, 80, 63, 2 * (v + 1) + 1, 15.0), 1) <= ps.SMEM_LIMIT:
-            v += 1
-        ps.row_tile(ps.PairStatic(216, 80, 63, 2 * v + 1, 15.0), smem)
-        with pytest.raises(ValueError, match="extras"):
-            ps.row_tile(ps.PairStatic(216, 80, 63, 2 * (v + 1) + 1, 15.0), smem)
-        assert v >= 5 * 94  # every element of the D3 tables at once
+        st = ps.PairStatic(b_tot=216, c=c, s_tot=63, k=2 * 70 + 1, cutoff=15.0)
+        ps.check_width(st, d3)
+        assert ps.blocks(st) * ps.WARPS >= 216 * c
+    for s_tot, v in ((63, 70), (172, 70), (63, ps.MAX_V)):
+        st = ps.PairStatic(b_tot=216, c=80, s_tot=s_tot, k=2 * v + 1, cutoff=15.0)
+        ps.check_width(st, d3)
+        assert ps.smem_bytes(st, adjoint=True) <= ps.SMEM_LIMIT
+    with pytest.raises(ValueError, match="V <= "):
+        ps.check_width(ps.PairStatic(216, 80, 63, 2 * (ps.MAX_V + 1) + 1, 15.0), d3)
+    with pytest.raises(ValueError, match="extras"):
+        ps.check_width(ps.PairStatic(216, 80, 63, 3, 15.0), cn)
+    assert ps.bwd_scratch_bytes(ps.PairStatic(216, 80, 63, 41, 15.0)) == 216 * 80 * 63 * 3 * 4
