@@ -6,15 +6,19 @@ binned layout (SR grid plus the coarse LR twin for DSF Coulomb), with a
 capacity-regrow loop on bin overflow; ``eval`` returns energy, charges,
 forces and stress in input atom order, with the self-atomic energies added
 in float64 on the host.  The LR twin grid is planned on the largest
-long-range cutoff (DSF Coulomb, DFT-D3).  Gas-phase inputs, batches, the
-molecule-bin layout, Hessians, the ``fast``/``balanced`` tiers and
-Ewald/PME raise with a pointer to ROADMAP.md.
+long-range cutoff (DSF Coulomb, DFT-D3).  While the topology is unchanged
+and no atom moved more than ``reuse_skin / 2``, the prepared layout is
+reused (the grids carry the skin as their stencil margin, so the result is
+exact).  Every force evaluation runs inside its precision tier's context
+(``precision_tiers``).  Gas-phase inputs, batches, the molecule-bin layout,
+Hessians and Ewald/PME raise with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -30,6 +34,42 @@ from aimnetcentral_tpu_torch.system import System
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 ATOM_BUCKET = 16  # the compact atom count is padded to a multiple of this
+
+
+def precision_tiers(precision: str) -> tuple[str, str | None]:
+    """Map a precision tier to ``(matmul_precision, conv_precision)``, the
+    JAX package's mapping (calculators/calculator.py::precision_tiers):
+
+    - ``exact``    -> ("highest", None): full f32 matmuls (TF32 off);
+    - ``balanced`` -> ("highest", "f32x3"): exact outside the conv kernels,
+      which on the TPU split each operand for three bf16 passes.  The
+      port's conv kernels contract in FP32 on the CUDA cores, at least as
+      exact as that split, so ``balanced`` computes what ``exact`` does
+      until a kernel uses the tensor cores;
+    - ``fast``     -> ("default", None): TF32 matmuls.
+    """
+    if precision not in ("exact", "balanced", "fast"):
+        raise ValueError(f"precision must be 'exact', 'balanced' or 'fast', got {precision!r}")
+    return (
+        "default" if precision == "fast" else "highest",
+        "f32x3" if precision == "balanced" else None,
+    )
+
+
+@contextlib.contextmanager
+def ambient_matmul_context(matmul_precision: str) -> Iterator[None]:
+    """Set ``torch.backends.cuda.matmul.allow_tf32`` for a tier's matmuls
+    (on for "default", off for "highest") and restore the caller's value on
+    the way out, exception or not.  It must wrap the forward AND
+    ``torch.autograd.grad``: the backward's GEMMs run when the gradient is
+    pulled.  The geometry contractions are exact either way
+    (``ops/math.py::cellmul``); CPU matmuls are exact f32 at every tier."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_precision == "default"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,6 +99,20 @@ def _as_molecules(data: Mapping[str, Any]) -> list[dict]:
     return [mol]
 
 
+def _prep_key(mols: list[dict]) -> tuple:
+    """What a reused layout must share with the new input: numbers, charge,
+    mult and cell of every molecule."""
+    return tuple(
+        (
+            np.asarray(m["numbers"]).tobytes(),
+            float(m.get("charge", 0.0)),
+            None if m.get("mult") is None else float(m["mult"]),
+            None if m.get("cell") is None else np.asarray(m["cell"]).tobytes(),
+        )
+        for m in mols
+    )
+
+
 class AIMNet2Calculator:
     """Single-point energy / forces / stress on the binned periodic path.
 
@@ -66,6 +120,8 @@ class AIMNet2Calculator:
     holds float64 self-atomic-energy tables applied on the host.  Runs on
     ``device`` ("cuda" unless the caller asks for "cpu"); CUDA tensors run
     the hand-written conv and pair kernels, CPU tensors their plain versions.
+    ``precision`` is a tier of ``precision_tiers``; ``reuse_skin`` (Angstrom)
+    the Verlet skin of the prepared-layout reuse, 0 to rebuild every call.
     """
 
     def __init__(
@@ -76,11 +132,9 @@ class AIMNet2Calculator:
         reuse_skin: float = 0.6,
         precision: str = "exact",
     ):
-        if precision in ("fast", "balanced"):
-            raise NotImplementedError(f"precision={precision!r} {_NOT_PORTED}")
-        if precision != "exact":
-            raise ValueError(f"precision must be 'exact', 'balanced' or 'fast', got {precision!r}")
-        self.device = resolve_device(device)  # also pins TF32 off: the exact tier
+        precision_tiers(precision)  # validate
+        self.precision = precision
+        self.device = resolve_device(device)
         if len(model) == 2:
             params, cfg = model
             aux: dict = {"sae": {}}
@@ -92,6 +146,7 @@ class AIMNet2Calculator:
         self.binned_threshold = binned_threshold
         self.reuse_skin = reuse_skin
         self._last_perm: np.ndarray | None = None
+        self._prep_cache: dict | None = None
 
     @property
     def cutoff(self) -> float:
@@ -101,8 +156,50 @@ class AIMNet2Calculator:
         """Periodic cells switch simple -> DSF Coulomb."""
         return auto_switch_simple_to_dsf(self.cfg) if has_cell else self.cfg
 
+    # -- Verlet-style prepared-system reuse ---------------------------------
+
+    def _store_prep(self, mols: list[dict], system: System, n_pad: int, perm: np.ndarray) -> None:
+        """Keep the binned layout with the input it was built from and the
+        per-atom lattice wrap of that input (padding rows at 1, as the
+        builder fills them)."""
+        if self.reuse_skin <= 0:
+            return
+        ref = np.concatenate([np.asarray(m["coord"], np.float32) for m in mols])
+        cell = np.asarray(mols[0]["cell"], np.float32)
+        compact0 = np.ones((n_pad, 3), np.float32)
+        compact0[: len(ref)] = ref
+        wrap = np.floor(compact0 @ np.linalg.inv(cell)).astype(np.float32)
+        self._prep_cache = {
+            "key": _prep_key(mols), "system": system, "ref": ref, "n_pad": n_pad,
+            "perm": perm, "wrap": wrap, "cell": cell,
+        }
+
+    def _reuse_prepared(self, mols: list[dict]) -> System | None:
+        """The cached layout with the new coordinates slotted in, while the
+        topology is unchanged and no coordinate moved more than
+        ``reuse_skin / 2`` since the build (the grids reach ``reuse_skin``
+        beyond every cutoff, and every term masks at its own cutoff, so the
+        result is exact); None otherwise."""
+        c = self._prep_cache
+        if c is None or self.reuse_skin <= 0 or c["key"] != _prep_key(mols):
+            return None
+        new = np.concatenate([np.asarray(m["coord"], np.float32) for m in mols])
+        if new.shape != c["ref"].shape or np.abs(new - c["ref"]).max() > 0.5 * self.reuse_skin:
+            return None
+        compact = np.ones((c["n_pad"], 3), np.float32)
+        compact[: len(new)] = new
+        # the wrap CACHED at build time keeps an atom that crossed the box
+        # boundary since continuous (its bin is stale by less than the skin,
+        # which the grids' margin covers)
+        compact = compact - c["wrap"] @ c["cell"]
+        self._last_perm = c["perm"]
+        return c["system"].replace(coord=torch.as_tensor(compact[c["perm"]], device=self.device))
+
     def prepare_system(self, data: Mapping[str, Any]) -> System:
         mols = _as_molecules(data)
+        reused = self._reuse_prepared(mols)
+        if reused is not None:
+            return reused
         mol = mols[0]
         n_real = len(mol["numbers"])
         if "cell" not in mol:
@@ -146,6 +243,7 @@ class AIMNet2Calculator:
             if safety > 32:
                 raise RuntimeError("bin capacity planning failed")
         self._last_perm = perm.cpu().numpy()
+        self._store_prep(mols, sysb, n_pad, self._last_perm)
         return sysb
 
     def eval(
@@ -160,7 +258,8 @@ class AIMNet2Calculator:
         fn = derivatives.make_eval_fn(
             cfg_eff, forces=forces, stress=stress, hessian=hessian, sae_external=True
         )
-        out = fn(self.params, system)
+        with ambient_matmul_context(precision_tiers(self.precision)[0]):
+            out = fn(self.params, system)
         return self._postprocess(out, system)
 
     __call__ = eval

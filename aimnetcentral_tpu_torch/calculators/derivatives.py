@@ -22,7 +22,7 @@ def apply_strain(system: System, scaling: torch.Tensor) -> System:
     (num_mol, 3, 3); padding atoms read the identity."""
     eye = torch.eye(3, dtype=scaling.dtype, device=scaling.device)[None]
     atom_scaling = torch.cat([scaling, eye], dim=0)[system.mol_idx]  # (N, 3, 3)
-    coord = torch.einsum("ni,nij->nj", system.coord, atom_scaling)
+    coord = cellmul(system.coord[:, None, :], atom_scaling)[:, 0]  # exact f32 at every tier
     cell = cellmul(system.cell, scaling) if system.cell is not None else None
     return system.replace(coord=coord, cell=cell)
 

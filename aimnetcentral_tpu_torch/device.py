@@ -12,13 +12,11 @@ import torch
 def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     """Return the torch device an entry point runs on.
 
-    Also pins the exact-f32 tier (``precision="exact"`` of the JAX
-    calculator): TF32 would keep about three decimal digits in matmuls and
-    convolutions, and it would move periodic images in the geometry
-    contractions (``ops/math.py::cellmul``).
+    The matmul precision is not set here: each force evaluation runs inside
+    its precision tier's context (``calculators/calculator.py::
+    ambient_matmul_context``), and the geometry contractions are exact
+    whatever the TF32 flag (``ops/math.py::cellmul``).
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -39,6 +39,15 @@ def build_conv_tables(grid: B.BinGrid, radius: int) -> dict[str, np.ndarray]:
     return {"nbr": nbr, "mnbr": mnbr, "wraps": wraps, "push": push}
 
 
+@functools.lru_cache(maxsize=16)
+def device_conv_tables(grid: B.BinGrid, radius: int, device: torch.device) -> dict[str, torch.Tensor]:
+    """``build_conv_tables`` uploaded to ``device`` once per (grid, radius,
+    device): a force evaluation, an MD step above all, copies no table from
+    the host.  A regrown or shrunk grid is another key (``BinGrid`` is
+    frozen and hashable)."""
+    return {k: torch.as_tensor(v, device=device) for k, v in build_conv_tables(grid, radius).items()}
+
+
 class ConvAcc(torch.autograd.Function):
     """The stencil contraction with its fused adjoint (conv_pallas.conv_acc).
 
@@ -80,19 +89,17 @@ def conv_pass(
     dev = system.device
     cell0 = system.cell[0] if system.cell is not None else None
     radius = B.stencil_radius(rc_static, grid)
-    tables = build_conv_tables(grid, radius)
+    tables = device_conv_tables(grid, radius, dev)
     b_tot, c = grid.total_bins, grid.capacity
     lshape, f_dim, g_dim = a.shape
     cq = q.shape[1] if q is not None else 0
     f_tot = f_dim + cq
     st = ConvStatic(b_tot=b_tot, c=c, g=g_dim, f=f_tot, s_tot=tables["nbr"].shape[0])
 
-    wraps = torch.as_tensor(tables["wraps"], device=dev)
-    shift = torch.as_tensor(tables["push"], device=dev)
+    shift = tables["push"]
     if cell0 is not None:
-        shift = shift + cellmul(wraps, cell0)
-    nbr = torch.as_tensor(tables["nbr"], device=dev)
-    mnbr = torch.as_tensor(tables["mnbr"], device=dev)
+        shift = shift + cellmul(tables["wraps"], cell0)
+    nbr, mnbr = tables["nbr"], tables["mnbr"]
 
     coord = system.coord.reshape(b_tot, c, 3)
     mask = (system.numbers > 0).to(a.dtype).reshape(b_tot, c)

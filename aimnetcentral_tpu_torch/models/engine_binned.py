@@ -55,6 +55,13 @@ def _half_tables(grid: B.BinGrid, radius: int):
     return nbr, wraps, inv
 
 
+@functools.lru_cache(maxsize=16)
+def _device_half_tables(grid: B.BinGrid, radius: int, device: torch.device):
+    """``_half_tables`` uploaded to ``device`` once per (grid, radius,
+    device), so that a force evaluation copies no table from the host."""
+    return tuple(torch.as_tensor(t, device=device) for t in _half_tables(grid, radius))
+
+
 def pair_operands(
     system: System,
     cutoff: float,
@@ -71,14 +78,14 @@ def pair_operands(
         grid, lr_slot = system.lr_bins, system.lr_slot
     radius = stencil_radius(cutoff, grid)
     dev = system.device
-    nbr_np, wrap_np, inv_np = _half_tables(grid, radius)
+    nbr, wraps, inv = _device_half_tables(grid, radius, dev)
     coord, numbers, ext = system.coord, system.numbers, pack_extras(term, extra_blocks)
     if lr_slot is not None:
         coord, numbers, ext = coord[lr_slot], numbers[lr_slot], ext[lr_slot]
     b_tot, c = grid.total_bins, grid.capacity
-    s_tot = nbr_np.shape[0]
+    s_tot = nbr.shape[0]
     if system.cell is not None and grid.periodic:
-        shift = cellmul(torch.as_tensor(wrap_np, device=dev), system.cell[0])
+        shift = cellmul(wraps, system.cell[0])
     else:
         shift = torch.zeros((s_tot, b_tot, 3), dtype=coord.dtype, device=dev)
     st = PairStatic(b_tot=b_tot, c=c, s_tot=s_tot, k=ext.shape[-1], cutoff=float(cutoff))
@@ -87,8 +94,8 @@ def pair_operands(
         "ext": ext.reshape(b_tot, c, -1).to(coord.dtype).contiguous(),
         "shift": shift.contiguous(),
         "mask": (numbers > 0).to(coord.dtype).reshape(b_tot, c).contiguous(),
-        "nbr": torch.as_tensor(nbr_np, device=dev),
-        "inv": torch.as_tensor(inv_np, device=dev),
+        "nbr": nbr,
+        "inv": inv,
     }
     return st, ops
 
@@ -200,6 +207,16 @@ def _d3_species_tables(species: tuple[int, ...]):
     return nref, cnref, np.ascontiguousarray(m_mat, dtype=np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _d3_device_tables(species: tuple[int, ...], device: torch.device):
+    """The species map (95,) and ``_d3_species_tables`` on ``device``,
+    uploaded once per (species, device)."""
+    zmap = np.zeros(95, dtype=np.int64)
+    for i, z in enumerate(species):
+        zmap[z] = i
+    return tuple(torch.as_tensor(t, device=device) for t in (zmap, *_d3_species_tables(species)))
+
+
 def d3_pair_extras(
     species: tuple[int, ...], numbers: torch.Tensor, cn: torch.Tensor, tables: dict[str, torch.Tensor]
 ) -> dict[str, torch.Tensor]:
@@ -208,21 +225,15 @@ def d3_pair_extras(
     ``r = p M^T`` (so ``c6_ij = p_i . r_j``) and ``rr`` = r4r2 (L,)."""
     s_count = len(species)
     dev = numbers.device
-    zmap = np.zeros(95, dtype=np.int64)
-    for i, z in enumerate(species):
-        zmap[z] = i
-    spec_idx = torch.as_tensor(zmap, device=dev)[numbers]
-    nref_np, cnref_np, m_np = _d3_species_tables(tuple(species))
-    nref = torch.as_tensor(nref_np, device=dev)
-    cnref = torch.as_tensor(cnref_np, device=dev)
-    m_mat = torch.as_tensor(m_np, device=dev)
+    zmap_t, nref, cnref, m_mat = _d3_device_tables(tuple(species), dev)
+    spec_idx = zmap_t[numbers]
     k_ids = torch.arange(5, device=dev)
     w = torch.exp(-4.0 * (cn[:, None] - cnref[spec_idx]) ** 2)
     w = torch.where(k_ids[None, :] < nref[spec_idx][:, None], w, 0.0)
     wsum = w.sum(-1)
     v = w / torch.clamp(wsum, min=1e-12)[:, None]
     v = torch.where((wsum > 1e-12)[:, None], v, 0.0)
-    onehot = torch.nn.functional.one_hot(spec_idx, s_count).to(v.dtype)
+    onehot = (spec_idx[:, None] == torch.arange(s_count, device=dev)).to(v.dtype)  # no host sync
     p_vec = (v[:, :, None] * onehot[:, None, :]).reshape(-1, 5 * s_count)
     r_vec = p_vec @ m_mat.T
     return {"p": p_vec, "r": r_vec, "rr": tables["r4r2"][numbers]}

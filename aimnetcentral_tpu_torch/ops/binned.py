@@ -151,22 +151,23 @@ def bin_atoms(
     """
     n = coord.shape[0]
     dev = coord.device
-    nbins_t = torch.tensor(grid.nbins, dtype=torch.int64, device=dev)
     real = numbers > 0
+    # Python scalars and inv_ex (no singularity check) keep this free of
+    # host copies and host syncs: it runs inside MD steps
     if grid.periodic:
         if cell is None:
             raise ValueError("a periodic grid needs the cell")
-        frac = cellmul(coord, torch.linalg.inv(cell))
+        frac = cellmul(coord, torch.linalg.inv_ex(cell).inverse)
         wrap = torch.floor(frac)
-        bin3 = ((frac - wrap) * nbins_t.to(frac.dtype)).to(torch.int64)
+        cols = [((frac[:, k] - wrap[:, k]) * grid.nbins[k]).to(torch.int64) for k in range(3)]
     else:
         inf = torch.full_like(coord, math.inf)
         lo = torch.where(real[:, None], coord, inf).amin(dim=0)
         wrap = torch.zeros_like(coord)
-        bin3 = ((coord - lo) / grid.edge_hint).to(torch.int64)
-    bin3 = torch.minimum(bin3.clamp(min=0), nbins_t - 1)
+        cols = [((coord[:, k] - lo[k]) / grid.edge_hint).to(torch.int64) for k in range(3)]
+    ix, iy, iz = (c.clamp(0, nb - 1) for c, nb in zip(cols, grid.nbins))
     ny, nz = grid.nbins[1], grid.nbins[2]
-    bin_id = (bin3[:, 0] * ny + bin3[:, 1]) * nz + bin3[:, 2]
+    bin_id = (ix * ny + iy) * nz + iz
     bin_id = torch.where(real, bin_id, torch.full_like(bin_id, grid.total_bins))
 
     order = torch.argsort(bin_id, stable=True)
@@ -182,8 +183,9 @@ def bin_atoms(
     pad_src = torch.argmin(real.to(torch.int32))
     perm = torch.full((grid.num_slots + 1,), 0, dtype=torch.int64, device=dev) + pad_src
     # slots of in-capacity atoms are unique; every dropped atom lands on the
-    # discarded last entry
-    perm[slot[in_cap]] = order[in_cap]
+    # discarded last entry (a scatter of every row: no boolean indexing, so
+    # no host sync inside an MD step)
+    perm[slot] = order
     overflow = ((~in_cap) & in_grid).sum()
     return perm[: grid.num_slots], wrap.to(coord.dtype), overflow
 
@@ -203,10 +205,12 @@ def invert_slot_map(lr_perm: torch.Tensor, lr_real: torch.Tensor, n_src: int) ->
     winner.  Both give padding rows a slot whose pair sums are zero.
     """
     l_dst = lr_perm.shape[0]
-    inv = torch.full((n_src,), l_dst, dtype=torch.int64, device=lr_perm.device)
+    inv = torch.full((n_src + 1,), l_dst, dtype=torch.int64, device=lr_perm.device)
     dst = torch.arange(l_dst, device=lr_perm.device)
-    inv[lr_perm[lr_real]] = dst[lr_real]
-    return inv
+    # empty destinations write to the discarded last entry: no boolean
+    # indexing, so no host sync
+    inv[torch.where(lr_real, lr_perm, n_src)] = dst
+    return inv[:n_src]
 
 
 def to_binned_system(system, grid: BinGrid, lr_grid: BinGrid | None = None):

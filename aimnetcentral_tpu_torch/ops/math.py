@@ -11,9 +11,12 @@ from aimnetcentral_tpu_torch.ops.nb import expand_mol, mol_sum
 
 def cellmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact-f32 geometry contraction ``a @ b`` (wraps @ cell, coord @
-    inv_cell, strain).  Exact because TF32 is off (device.resolve_device):
-    a TF32 product would displace periodic images."""
-    return torch.matmul(a, b)
+    inv_cell, strain): ``a`` (..., k) or (..., n, k) against ``b`` (k, m) or
+    (..., k, m).  Written as k multiply-adds per output, not as a matmul,
+    so it stays exact f32 whatever the TF32 flag of the ``fast`` tier: a
+    TF32 product would keep about three decimal digits and displace
+    periodic images."""
+    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(-2)
 
 
 def cosine_cutoff(d_ij: torch.Tensor, rc) -> torch.Tensor:

@@ -32,20 +32,40 @@ Phases (any failure exits nonzero; nothing is caught):
    forward plus backward, through the kernels;
 6. the card against the port's own CPU run (plain versions) on a
    ~1,200-atom box (3x3x3 LR grid): energy, forces and stress, for both
-   configurations.
+   configurations; a calculator request after a sub-skin move reuses the
+   prepared layout and equals a fresh calculator's;
+7. MD (``dynamics.MDDriver``, Langevin, dt 0.5 fs, 300 K, skin 0.3 A):
+   on flagship-10k two chunks of 25 steps to run out the synthetic box's
+   violent start, then four timed chunks of 25 steps at the default tier
+   (``fast``) and four at ``exact``; on wb97m-d3-10k the same warm-up and
+   one timed window at the default tier.  Each window: ms per step (median
+   over chunks, min, max), steps/s, re-binnings per 100 steps, retried
+   chunks, peak device memory and the idle share of one profiled chunk;
+   gated on the kernels' launches per step (A, B 3; D, E 1 on flagship-10k,
+   3 on wb97m-d3-10k; re-binning steps add none), peak memory against the
+   single request's, no growth of held memory.  The random-weight
+   potential blows the box up after 35-40 fs, so the same measurements are
+   also taken over the first 50 steps of a fresh NVE driver at each tier,
+   gated at ``exact`` on the total energy (within 1e-4 of itself); two drivers of one seed give
+   the same coordinates bit for bit after 50 steps; on the 1,200-atom box
+   at the exact tier, 10 NVE steps and 10 FIRE steps of wb97m-d3 on the
+   card against the CPU.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
 request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
-error); ``launches`` counts both configurations' main-path runs.  ``--out``
-writes the full results (build logs, per-F and per-term kernel detail,
-profiles) as JSON.  Imports nothing of JAX.
+error); ``launches`` counts every main-path run (both configurations'
+requests and MD windows) and ``launches_per_md_step`` the launches per MD
+step by configuration.  ``--out`` writes the full results (build logs,
+per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -61,6 +81,12 @@ N_TIMED = 10  # requests timed a configuration, after the three counted ones
 FP32_PEAK = 67e12  # H100 SXM, FP32 outside the tensor cores (FLOP/s)
 HBM_RATE = 3.35e12  # H100 SXM device memory (bytes/s)
 REL_TOL = 1e-5
+MD_CHUNK = 25  # steps a chunk: the overflow check and the observables reach the host once per chunk
+MD_WARM = 2  # chunks run before timing (the synthetic box starts violently)
+MD_TIMED = 4  # timed chunks a window
+MD_PEAK_RATIO = 1.25  # MD peak memory against the single request's
+MD_HELD_GROWTH = 64 * 2**20  # bytes held after a window beyond those held before it
+MD_NVE_DRIFT = 1e-4  # NVE total energy change over the first 50 steps at the exact tier, of itself
 
 
 def log(msg: str) -> None:
@@ -671,8 +697,13 @@ def phase_layers(calc, coord, numbers, cell) -> dict:
             times.append(time.perf_counter() - t0)
         return float(np.median(times))
 
-    t_prep = timed(lambda: calc.prepare_system(data))
+    def fresh_prepare():
+        calc._prep_cache = None  # a full build, not the reuse of the last layout
+        return calc.prepare_system(data)
+
+    t_prep = timed(fresh_prepare)
     sysb = calc.prepare_system(data)
+    t_reuse = timed(lambda: calc.prepare_system(data))
     terms = pair_terms(calc, sysb)
     d3 = next(h for _n, h in calc.cfg.outputs if isinstance(h, DFTD3Head))
     tables = calc.params["outputs"]["external_dftd3"]
@@ -688,11 +719,12 @@ def phase_layers(calc, coord, numbers, cell) -> dict:
         e = eb.dftd3_binned(sysb.replace(coord=c), tables, d3.a1, d3.a2, d3.s8, d3.s6, r_on, d3.cutoff)
         torch.autograd.grad(e.sum(), c)
 
-    res = {"prepare_s": t_prep}
+    res = {"prepare_s": t_prep, "prepare_reuse_s": t_reuse}
     for name, (term, cutoff, ex) in terms.items():
         res[f"{name}_fwd_bwd_s"] = timed(lambda: sweep(term, cutoff, ex))
     res["d3_head_fwd_bwd_s"] = timed(d3_head)
-    log(f"[layers] prepare_system {t_prep * 1e3:.1f} ms; pair sweeps forward + backward: "
+    log(f"[layers] prepare_system {t_prep * 1e3:.1f} ms built, {t_reuse * 1e3:.1f} ms reusing the "
+        f"layout; pair sweeps forward + backward: "
         + ", ".join(f"{n} {res[f'{n}_fwd_bwd_s'] * 1e3:.1f} ms" for n in terms)
         + f"; the D3 head {res['d3_head_fwd_bwd_s'] * 1e3:.1f} ms (medians of 3)")
     return res
@@ -727,6 +759,235 @@ def phase_card_vs_cpu(label: str, params, cfg) -> dict:
     if de > REL_TOL * abs(float(cpu["energy"][0])) or df > 1e-4 or ds > 1e-6:
         raise SystemExit(f"FAIL: the card and the CPU run disagree on {label}")
     return {"dE": de, "dF": df, "dstress": ds, "card_s": t_card, "cpu_s": t_cpu}
+
+
+def phase_reuse(label: str, params, cfg) -> dict:
+    """A calculator request after a sub-skin move reuses the prepared layout
+    (no rebuild) and equals a fresh calculator's request within the card
+    against CPU tolerances.  Run on wb97m-d3: the random flagship's total
+    energy on this box is near zero (0.09 eV), so 1e-5 of it is below the
+    f32 noise of a sum over 1,200 atoms taken in another slot order."""
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+
+    coord, numbers, cell = build_box(N_CHECK, seed=1)
+    calc = AIMNet2Calculator((params, cfg), device="cuda")
+    calc.eval({"coord": coord, "numbers": numbers, "cell": cell})
+    cached = calc._prep_cache["system"]
+    step = np.random.default_rng(3).normal(scale=0.05, size=coord.shape)
+    moved = {"coord": (coord + np.clip(step, -0.25, 0.25)).astype(np.float32), "numbers": numbers, "cell": cell}
+    got = calc.eval(moved, forces=True, stress=True)
+    if calc._prep_cache["system"] is not cached:
+        raise SystemExit("FAIL: a sub-skin move rebuilt the calculator's layout")
+    ref = AIMNet2Calculator((params, cfg), device="cuda").eval(moved, forces=True, stress=True)
+    de = abs(float(got["energy"][0] - ref["energy"][0]))
+    df = float(np.abs(got["forces"] - ref["forces"]).max())
+    ds = float(np.abs(got["stress"] - ref["stress"]).max())
+    log(f"[reuse {label}] {N_CHECK} atoms moved by at most 0.25 A: the layout was reused; against a fresh "
+        f"calculator |dE| {de:.3e} eV, max |dF| {df:.3e} eV/A, max |dstress| {ds:.3e} eV/A^3")
+    if de > REL_TOL * abs(float(ref["energy"][0])) or df > 1e-4 or ds > 1e-6:
+        raise SystemExit(f"FAIL: the reused layout and a fresh build disagree on {label}")
+    return {"dE": de, "dF": df, "dstress": ds}
+
+
+def md_system(coord, numbers, cell, device):
+    """The compact System an MD driver starts from."""
+    from aimnetcentral_tpu_torch.builders import system_from_molecules
+    from aimnetcentral_tpu_torch.calculators.calculator import ATOM_BUCKET
+
+    n_pad = -(-(len(numbers) + 1) // ATOM_BUCKET) * ATOM_BUCKET
+    return system_from_molecules([{"coord": coord, "numbers": numbers, "cell": cell}], device, n_pad=n_pad)
+
+
+def device_busy_ms(prof) -> float:
+    """Device time of a profile's kernel-level events (ms)."""
+    def dev_us(e) -> float:  # the attribute was renamed across torch versions
+        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+
+    return sum(dev_us(e) for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+
+
+def md_window(label: str, drv, per_eval: dict, request_peak: int, n_chunks: int = MD_TIMED) -> dict:
+    """``n_chunks`` timed chunks of MD_CHUNK steps with every kernel's
+    launches counted around them, then one profiled chunk.  The total
+    energy (potential plus kinetic) is read from the observables."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aimnetcentral_tpu_torch import constants
+
+    n_real = int((drv.state.system.numbers > 0).sum())
+
+    wrappers = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    rebins0, regrows0 = drv.rebins, drv.regrows
+    for fn in wrappers.values():
+        fn.launches = 0
+    chunk_s, temps, etot = [], [], []
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        obs = drv.run(MD_CHUNK, chunk=MD_CHUNK)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        if not all(np.isfinite(v).all() for v in obs.values()):
+            raise SystemExit(f"FAIL: non-finite MD observables on {label}")
+        temps.append(float(obs["temperature"].mean()))
+        etot += list(obs["epot"].astype(np.float64) + 1.5 * n_real * constants.kB * obs["temperature"])
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    steps = n_chunks * MD_CHUNK
+    rebins, regrows = drv.rebins - rebins0, drv.regrows - regrows0
+    evals = steps + MD_CHUNK * regrows  # a retried chunk evaluates its steps again
+    for name, n in launches.items():
+        if n != per_eval[name] * evals:
+            raise SystemExit(f"FAIL: {name} launched {n} times in {evals} MD force evaluations on {label}, "
+                             f"expected {per_eval[name]} each ({rebins} re-binning steps)")
+    peak = torch.cuda.max_memory_allocated()
+    held = torch.cuda.memory_allocated() - held0
+    per_step = [t / MD_CHUNK * 1e3 for t in chunk_s]
+    med = float(np.median(per_step))
+    drift = abs(etot[-1] - etot[0]) / abs(etot[0])
+    log(f"[md {label}] {steps} steps: {med:.2f} ms a step (median of {n_chunks} chunks of {MD_CHUNK}; "
+        f"min {min(per_step):.2f}, max {max(per_step):.2f}), {1e3 / med:.2f} steps/s; {rebins * 100 / steps:.1f} "
+        f"re-binnings per 100 steps, {regrows} retried chunks; peak memory {peak / 2**30:.3f} GiB "
+        f"(a single request: {request_peak / 2**30:.3f}), held {held / 2**20:+.1f} MiB; mean temperature by "
+        f"chunk {', '.join(f'{t:.0f}' for t in temps)} K; total energy {etot[0]:.4f} -> {etot[-1]:.4f} eV "
+        f"(|change| / |E| {drift:.2e}); launches {launches}")
+    if peak > MD_PEAK_RATIO * request_peak:
+        raise SystemExit(f"FAIL: MD peak memory {peak} B above {MD_PEAK_RATIO} x the single request's on {label}")
+    if held > MD_HELD_GROWTH:
+        raise SystemExit(f"FAIL: MD holds {held} B more after the window than before on {label}")
+
+    # one more chunk under the profiler: device busy against the unprofiled
+    # median chunk (the profiler slows the host)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        drv.run(MD_CHUNK, chunk=MD_CHUNK)
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof) / MD_CHUNK
+    idle = max(0.0, 1 - busy / med)
+    log(f"[md {label}] profiled chunk: device busy {busy:.2f} ms a step, idle share against the "
+        f"unprofiled median {idle:.3f}")
+    return {
+        "ms_per_step": per_step, "median_ms": med, "steps_per_s": 1e3 / med,
+        "rebins_per_100": rebins * 100 / steps, "retried_chunks": regrows, "peak_bytes": peak,
+        "held_growth_bytes": held, "device_busy_ms_per_step": busy, "idle_share": idle,
+        "launches": launches, "launches_per_step": {k: v / evals for k, v in launches.items()},
+        "mean_temperature_K": temps, "etot_first_last_eV": (etot[0], etot[-1]), "etot_drift": drift,
+    }
+
+
+def phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, request_peaks: dict) -> dict:
+    """MD on both configurations at the main path's size, and two drivers of
+    one seed repeating each other bit for bit."""
+    import torch
+
+    from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
+
+    dev = torch.device("cuda")
+    md = MDConfig(dt_fs=0.5, temperature_K=300.0, thermostat="langevin", skin=0.3)
+    system = md_system(coord, numbers, cell, dev)
+    conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
+    windows = {}
+    for label, p, c, n_pair, tiers in (
+        ("flagship-10k", params, cfg, 1, (None, "exact")),
+        ("wb97m-d3-10k", params_d3, cfg_d3, 3, (None,)),
+    ):
+        t0 = time.perf_counter()
+        drv = MDDriver(p, c, system, md, seed=0, device="cuda")
+        warm = drv.run(MD_WARM * MD_CHUNK, chunk=MD_CHUNK)
+        torch.cuda.synchronize()
+        log(f"[md {label}] SR grid {drv.grid.nbins} C={drv.grid.capacity}, LR grid {drv.lr_grid.nbins} "
+            f"C={drv.lr_grid.capacity}; warm-up {MD_WARM * MD_CHUNK} steps in {time.perf_counter() - t0:.1f} s "
+            f"(driver, initial forces, steps), temperature {warm['temperature'][0]:.0f} -> "
+            f"{warm['temperature'][-1]:.0f} K, {drv.regrows} retried chunks")
+        per_eval = {**conv, "pair_sweep_forward": n_pair, "pair_sweep_backward": n_pair}
+        for tier in tiers:
+            drv.md = dataclasses.replace(md, precision=tier)
+            name = f"{label} {tier or 'fast'}"
+            windows[name] = md_window(name, drv, per_eval, request_peaks[label])
+        del drv
+        # the random-weight potential is unbounded below: atoms fall
+        # together and after 35-40 fs (steps 70-80 at 0.5 fs, at any dt)
+        # the forces of colliding atoms blow the box up, so the windows
+        # above run hot, re-binning every step.  The first 50 steps of a
+        # fresh NVE driver are the regime of a sane potential: timed, and
+        # at the exact tier gated on energy conservation
+        for tier in tiers:
+            name = f"{label} {tier or 'fast'} first 50 NVE"
+            drv = MDDriver(p, c, system, dataclasses.replace(md, thermostat="nve", precision=tier), seed=0,
+                           device="cuda")
+            drv.state  # the initial forces, outside the window
+            windows[name] = md_window(name, drv, per_eval, request_peaks[label], n_chunks=MD_WARM)
+            if tier == "exact" and windows[name]["etot_drift"] > MD_NVE_DRIFT:
+                raise SystemExit(f"FAIL: NVE total energy moved by more than {MD_NVE_DRIFT} of itself on {name}")
+            del drv
+        torch.cuda.empty_cache()
+
+    snaps = []
+    for _ in range(2):
+        drv = MDDriver(params, cfg, system, md, seed=7, device="cuda")
+        drv.run(2 * MD_CHUNK, chunk=MD_CHUNK)
+        snaps.append(drv.snapshot())
+    if not all(np.array_equal(snaps[0][k], snaps[1][k]) for k in ("coord", "veloc", "cell")):
+        raise SystemExit("FAIL: two MD drivers of one seed gave other coordinates after 50 steps")
+    log("[md] two drivers of one seed give the same coordinates and velocities bit for bit after 50 steps")
+    return {"windows": windows}
+
+
+def phase_md_card_vs_cpu(label: str, params, cfg, devices=("cuda", "cpu")) -> dict:
+    """On the 1,200-atom box at the exact tier: 10 NVE steps from the same
+    injected 300 K velocities, and 10 FIRE steps, on the card and on the
+    CPU (``devices``: the card's run first).  Run on wb97m-d3, whose energy
+    on this box (-164 eV) gives the relative gate a scale (see
+    ``phase_reuse``)."""
+    import torch
+
+    from aimnetcentral_tpu_torch import constants
+    from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver, fire_relax
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.models.heads import auto_switch_simple_to_dsf
+    from aimnetcentral_tpu_torch.ops import binned as B
+
+    coord, numbers, cell = build_box(N_CHECK, seed=1)
+    masses = constants.get_masses()[numbers]
+    v0 = np.sqrt(constants.kB * 300.0 / masses)[:, None] * np.random.default_rng(5).normal(size=(N_CHECK, 3))
+    runs = {}
+    for key, dev in zip(("card", "cpu"), map(torch.device, devices)):
+        t0 = time.perf_counter()
+        p = params_to(params, dev)
+        system = md_system(coord, numbers, cell, dev)
+        drv = MDDriver(p, cfg, system, MDConfig(dt_fs=0.5, thermostat="nve", skin=0.3, precision="exact"),
+                       device=dev)
+        st = drv._state
+        vel = torch.as_tensor(v0.astype(np.float32), device=dev)
+        drv._state = dataclasses.replace(
+            st, veloc=torch.where((st.system.numbers > 0)[:, None], vel[st.atom_id.clamp(max=N_CHECK - 1)], 0.0)
+        )
+        obs = drv.run(10, chunk=10)
+        snap = drv.snapshot()
+        # FIRE on a fixed binned layout of the same box
+        grid = dataclasses.replace(B.plan_bins(cell, N_CHECK, cfg.aev.rc_s + 0.3), margin=0.3)
+        lr_grid = B.plan_lr_bins(cell, N_CHECK, drv._lr_cutoff(), margin=0.3)
+        sysb, _perm, ovf = B.to_binned_system(system, grid, lr_grid)
+        if int(ovf):
+            raise SystemExit("FAIL: the FIRE layout overflowed")
+        relaxed, info = fire_relax(p, auto_switch_simple_to_dsf(cfg), sysb, fmax=0.0, max_steps=10)
+        real = sysb.numbers > 0
+        runs[key] = {"epot": obs["epot"], "coord": snap["coord"], "rebins": drv.rebins,
+                          "fire": relaxed.coord[real].cpu().numpy(), "fire_fmax": info["fmax"],
+                          "s": time.perf_counter() - t0}
+    card, cpu = runs["card"], runs["cpu"]
+    de = float(np.max(np.abs(card["epot"] - cpu["epot"]) / np.abs(cpu["epot"])))
+    dx = float(np.abs(card["coord"] - cpu["coord"]).max())
+    dfire = float(np.abs(card["fire"] - cpu["fire"]).max())
+    log(f"[md check {label}] {N_CHECK} atoms, 10 NVE steps at the exact tier ({card['rebins']} re-binnings on the "
+        f"card, {cpu['rebins']} on the CPU): largest per-step |dE|/|E| {de:.3e}, final max |dx| {dx:.3e} A; "
+        f"10 FIRE steps: max |dx| {dfire:.3e} A, fmax {card['fire_fmax']:.4f} / {cpu['fire_fmax']:.4f} eV/A "
+        f"(card {card['s']:.1f} s, cpu {cpu['s']:.1f} s)")
+    if de > REL_TOL or dx > 1e-4 or dfire > 1e-4:
+        raise SystemExit(f"FAIL: MD or FIRE on the card and on the CPU disagree on {label}")
+    return {"epot_rel": de, "coord_A": dx, "fire_coord_A": dfire, "card_s": card["s"], "cpu_s": cpu["s"]}
 
 
 def main() -> None:
@@ -768,6 +1029,18 @@ def main() -> None:
     results["layers"] = phase_layers(calc_d3, coord, numbers, cell)
     results["check"] = phase_card_vs_cpu("flagship", params, cfg)
     results["check_d3"] = phase_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
+    results["reuse"] = phase_reuse("wb97m-d3", params_d3, cfg_d3)
+
+    peaks = {"flagship-10k": results["main"]["peak_bytes"], "wb97m-d3-10k": results["main_d3"]["peak_bytes"]}
+    md_runs = phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, peaks)
+    results["md"] = md_runs
+    results["md_check"] = phase_md_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
+    for k in kernels:
+        k["launches"] += sum(w["launches"][k["name"]] for w in md_runs["windows"].values())
+        k["launches_per_md_step"] = {
+            label: md_runs["windows"][label]["launches_per_step"][k["name"]]
+            for label in ("flagship-10k fast", "wb97m-d3-10k fast")
+        }
 
     if args.out:
         with open(args.out, "w") as fh:

@@ -27,6 +27,17 @@ from aimnetcentral_tpu_torch.models.bridge import params_from_numpy
 NARROW = dict(nfeature=4, ncomb_v=4, hidden=((32, 16), (32, 16), (32, 16)), aim_size=16)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread while this module runs: test files run side by side
+    in worker processes, and the plain versions are many small ops, which
+    several threads per worker only slow down on shared cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _config(cfg_cls, heads, modules):
     outputs = (
         (
@@ -117,9 +128,20 @@ def test_init_builds_the_same_tree(models):
 
 
 @pytest.mark.parametrize("precision", ["fast", "balanced"])
-def test_unported_tiers_raise(models, precision):
-    with pytest.raises(NotImplementedError):
-        TCalculator(models[1], device="cpu", precision=precision)
+def test_unported_tiers_raise(models, results, precision):
+    """The ``fast`` and ``balanced`` tiers (once unported, hence the name)
+    give the ``exact`` tier's results on the CPU, where f32 matmuls are exact
+    whatever the TF32 flag; the flag is restored afterwards."""
+    got, _ref = results
+    flag = torch.backends.cuda.matmul.allow_tf32
+    tiered = TCalculator(models[1], device="cpu", binned_threshold=0, precision=precision).eval(
+        _box(), forces=True, stress=True
+    )
+    assert torch.backends.cuda.matmul.allow_tf32 == flag
+    for key in ("energy", "charges", "forces", "stress"):
+        np.testing.assert_array_equal(tiered[key], got[key])
+    with pytest.raises(ValueError, match="precision"):
+        TCalculator(models[1], device="cpu", precision="f32x3")
 
 
 def test_unported_inputs_raise(models):
@@ -139,3 +161,53 @@ def test_no_card_raises_unless_cpu_asked(models):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         TCalculator(models[1])
+
+
+def test_reuse_is_exact_across_pbc_crossing(models):
+    """An eval after a sub-skin move reuses the binned layout (no rebuild),
+    and an atom that crossed the box boundary keeps a continuous
+    coordinate through the cached wrap: results equal a fresh build's."""
+    tmodel = models[1]
+    data = _box()
+    data["coord"][0] = [0.05, 6.0, 6.0]  # next to the boundary
+    calc = TCalculator(tmodel, device="cpu", binned_threshold=0)
+    fresh = TCalculator(tmodel, device="cpu", binned_threshold=0, reuse_skin=0.0)
+    out0 = calc.eval(data)
+    cached = calc._prep_cache["system"]
+    moved = dict(data, coord=data["coord"].copy())
+    moved["coord"][0, 0] -= 0.1  # crosses x = 0
+    out2 = calc.eval(moved, forces=True, stress=True)
+    assert calc._prep_cache["system"] is cached  # no rebuild happened
+    ref2 = fresh.eval(moved, forces=True, stress=True)
+    assert fresh._prep_cache is None
+    np.testing.assert_allclose(out2["energy"], ref2["energy"], atol=1e-5)
+    np.testing.assert_allclose(out2["forces"], ref2["forces"], atol=1e-4)
+    np.testing.assert_allclose(out2["stress"], ref2["stress"], atol=1e-6)
+    assert out0["energy"][0] != out2["energy"][0]
+
+
+@pytest.mark.parametrize(
+    "change",
+    ["charge", "numbers", "cell", "atom_count", "far_move"],
+)
+def test_reuse_invalidated_by_topology_change(models, change):
+    """Any other change of input than a sub-skin move rebuilds the layout."""
+    tmodel = models[1]
+    data = _box()
+    calc = TCalculator(tmodel, device="cpu", binned_threshold=0)
+    calc.eval(data)
+    cached = calc._prep_cache["system"]
+    other = dict(data)
+    if change == "charge":
+        other["charge"] = 1.0
+    elif change == "numbers":
+        other["numbers"] = np.where(data["numbers"] == 1, 6, data["numbers"])
+    elif change == "cell":
+        other["cell"] = data["cell"] * 1.01
+    elif change == "atom_count":
+        other = {k: (v[:-1] if k in ("coord", "numbers") else v) for k, v in data.items()}
+    else:
+        other["coord"] = data["coord"].copy()
+        other["coord"][3, 1] += 0.31  # one coordinate beyond reuse_skin / 2
+    calc.eval(other)
+    assert calc._prep_cache["system"] is not cached

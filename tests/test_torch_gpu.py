@@ -10,12 +10,18 @@ on a machine without them:
 output's largest magnitude (f32 sums in another order).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from aimnetcentral_tpu_torch import constants
+
 from aimnetcentral_tpu_torch.builders import system_from_molecules
 from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
 from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
 from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
 from aimnetcentral_tpu_torch.kernels.conv_pass import build_conv_tables
@@ -31,6 +37,8 @@ from aimnetcentral_tpu_torch.models.heads import (
 )
 from aimnetcentral_tpu_torch.models.modules import MLPSpec
 from aimnetcentral_tpu_torch.ops import binned as B
+from aimnetcentral_tpu_torch.ops.math import cellmul
+from aimnetcentral_tpu_torch.ops.nb import mol_sum
 
 pytestmark = pytest.mark.gpu
 CPU = torch.device("cpu")
@@ -436,3 +444,98 @@ def test_pair_energy_binned_launches_the_kernels(cuda_device):
     e = eb.coulomb_dsf_binned(sysb.replace(coord=coord), q, 4.6, 0.2, 15.0, "exp", True)
     torch.autograd.grad(e.sum(), coord)
     assert (ps.pair_sweep_forward.launches, ps.pair_sweep_backward.launches) == (1, 1)
+
+
+# ---------------------------------------------------------------------------
+# precision tiers and MD
+
+
+def test_cellmul_is_exact_under_tf32(cuda_device):
+    """The geometry contraction stays within f32 rounding of an f64 product
+    while TF32 matmuls are on (the ``fast`` tier); a TF32 product would be
+    off by about 1e-3 relative."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    coord = 50.0 * torch.rand((4096, 3), generator=gen, device=cuda_device)
+    cell = torch.eye(3, device=cuda_device) * 13.1 + 0.7 * torch.rand((3, 3), generator=gen, device=cuda_device)
+    with ambient_matmul_context("default"):
+        assert torch.backends.cuda.matmul.allow_tf32
+        got = cellmul(coord, cell)
+        strained = cellmul(cell[None], cell[None])[0]
+    ref = coord.double() @ cell.double()
+    assert float((got.double() - ref).abs().max()) <= 4 * 2.0**-24 * float(ref.abs().max())
+    ref2 = cell.double() @ cell.double()
+    assert float((strained.double() - ref2).abs().max()) <= 4 * 2.0**-24 * float(ref2.abs().max())
+
+
+def test_mol_sum_is_exact_under_tf32(cuda_device):
+    """Per-molecule sums (energies, NSE charges) keep full f32 under the
+    ``fast`` tier's TF32 flag, forward and backward."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((4096, 8), generator=gen, device=cuda_device).requires_grad_(True)
+    mol_idx = torch.randint(0, 3, (4096,), generator=gen, device=cuda_device)
+    g = torch.randn((2, 8), generator=gen, device=cuda_device)
+    with ambient_matmul_context("default"):
+        out = mol_sum(x, mol_idx, 2)
+        (grad,) = torch.autograd.grad(out, x, g)
+    ref = torch.stack([x.double()[mol_idx == m].sum(0) for m in range(2)])
+    scale = torch.stack([x.double().abs()[mol_idx == m].sum(0) for m in range(2)])
+    assert bool(((out.double() - ref).abs() <= 1e-6 * scale).all())
+    ref_g = torch.cat([g, torch.zeros_like(g[:1])])[mol_idx]
+    assert torch.equal(grad, ref_g)
+
+
+def test_tier_context_restores_the_flag_after_an_exception(cuda_device):
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with pytest.raises(RuntimeError, match="inside"):
+            with ambient_matmul_context("default"):
+                assert torch.backends.cuda.matmul.allow_tf32
+                raise RuntimeError("inside the fast tier")
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        with ambient_matmul_context("highest"):
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _md_run(device, precision="exact", thermostat="nve", steps=10):
+    """A 60-atom MD run from the same injected 300 K velocities (numpy, seed
+    3): the observables, the final frame and the driver."""
+    params, cfg = _narrow_model(CPU)  # the same weights on both devices: the driver moves them
+    mol = _box()
+    system = system_from_molecules([mol], device, n_pad=64)
+    drv = MDDriver(params, cfg, system, MDConfig(dt_fs=0.5, thermostat=thermostat, skin=0.2,
+                                                 precision=precision), device=device)
+    masses = np.clip(constants.get_masses()[system.numbers.cpu().numpy()], 1.0, None)  # padding rows: 1
+    sigma = np.sqrt(constants.kB * 300.0 / masses)[:, None]
+    v0 = torch.tensor((sigma * np.random.default_rng(3).normal(size=(64, 3))).astype(np.float32), device=device)
+    real = drv._state.system.numbers > 0
+    drv._state = dataclasses.replace(drv._state, veloc=torch.where(real[:, None], v0[drv._state.atom_id], 0.0))
+    obs = drv.run(steps, chunk=5)
+    return obs, drv.snapshot(), drv
+
+
+def test_md_repeats_bit_for_bit(cuda_device):
+    """Langevin MD on the card, twice from the same seed: the kernels have
+    no float atomics and the generator restarts, so the runs are equal."""
+    a, snap_a, _ = _md_run(cuda_device, precision=None, thermostat="langevin")
+    b, snap_b, _ = _md_run(cuda_device, precision=None, thermostat="langevin")
+    np.testing.assert_array_equal(snap_a["coord"], snap_b["coord"])
+    np.testing.assert_array_equal(a["epot"], b["epot"])
+
+
+def test_md_card_matches_cpu(cuda_device):
+    """10 NVE steps at the exact tier: per-step potential energy within 1e-5
+    relative, final coordinates within 1e-4 A; the kernels ran every step."""
+    counters = (cs.conv_stencil_forward, cs.conv_stencil_backward,
+                ps.pair_sweep_forward, ps.pair_sweep_backward)
+    cpu, snap_cpu, _ = _md_run(CPU)
+    for fn in counters:
+        fn.launches = 0
+    card, snap_card, drv = _md_run(cuda_device)
+    evals = 10 + 1  # the steps and the initial forces
+    assert [fn.launches for fn in counters] == [3 * evals, 3 * evals, evals, evals]
+    assert drv.rebins >= 1
+    np.testing.assert_allclose(card["epot"], cpu["epot"], rtol=1e-5)
+    np.testing.assert_allclose(snap_card["coord"], snap_cpu["coord"], atol=1e-4)

@@ -1,0 +1,35 @@
+"""The port imports neither JAX nor the JAX package: every module of
+``aimnetcentral_tpu_torch`` (dynamics included) and ``chip_smoke.py`` import
+in a fresh interpreter where both are blocked."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax, or of a jax submodule, raises
+sys.modules["aimnetcentral_tpu"] = None
+import aimnetcentral_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(aimnetcentral_tpu_torch.__path__, "aimnetcentral_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(k == "jax" or k.startswith(("jax.", "aimnetcentral_tpu.")) for k in sys.modules if sys.modules[k])
+print(" ".join(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    for must in ("aimnetcentral_tpu_torch.dynamics.md", "aimnetcentral_tpu_torch.dynamics.optimize",
+                 "aimnetcentral_tpu_torch.dynamics.trajectory", "aimnetcentral_tpu_torch.calculators.calculator",
+                 "aimnetcentral_tpu_torch.kernels.pair_sweep", "aimnetcentral_tpu_torch.models.engine_binned"):
+        assert must in names
