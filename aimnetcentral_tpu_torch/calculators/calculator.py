@@ -36,24 +36,22 @@ _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 ATOM_BUCKET = 16  # the compact atom count is padded to a multiple of this
 
 
-def precision_tiers(precision: str) -> tuple[str, str | None]:
-    """Map a precision tier to ``(matmul_precision, conv_precision)``, the
-    JAX package's mapping (calculators/calculator.py::precision_tiers):
+def precision_tiers(precision: str) -> str:
+    """Map a precision tier to the matmul precision of its force
+    evaluation, after the JAX package's mapping
+    (calculators/calculator.py::precision_tiers):
 
-    - ``exact``    -> ("highest", None): full f32 matmuls (TF32 off);
-    - ``balanced`` -> ("highest", "f32x3"): exact outside the conv kernels,
-      which on the TPU split each operand for three bf16 passes.  The
-      port's conv kernels contract in FP32 on the CUDA cores, at least as
-      exact as that split, so ``balanced`` computes what ``exact`` does
-      until a kernel uses the tensor cores;
-    - ``fast``     -> ("default", None): TF32 matmuls.
+    - ``exact``    -> "highest": full f32 matmuls (TF32 off);
+    - ``balanced`` -> "highest": exact outside the conv kernels, which on
+      the TPU split each operand for three bf16 passes.  The port's conv
+      kernels contract in FP32 on the CUDA cores, at least as exact as that
+      split, so ``balanced`` computes what ``exact`` does until a kernel
+      uses the tensor cores (and then reads a conv precision of its own);
+    - ``fast``     -> "default": TF32 matmuls.
     """
     if precision not in ("exact", "balanced", "fast"):
         raise ValueError(f"precision must be 'exact', 'balanced' or 'fast', got {precision!r}")
-    return (
-        "default" if precision == "fast" else "highest",
-        "f32x3" if precision == "balanced" else None,
-    )
+    return "default" if precision == "fast" else "highest"
 
 
 @contextlib.contextmanager
@@ -236,7 +234,7 @@ class AIMNet2Calculator:
                 else None
             )
             sysb, perm, ovf = B.to_binned_system(system, grid, lr_grid)
-            if int(ovf) == 0:  # one host sync per prepare
+            if not bool(ovf.any()):  # one host sync per prepare
                 break
             safety *= 1.5
             lr_safety *= 1.5
@@ -258,7 +256,7 @@ class AIMNet2Calculator:
         fn = derivatives.make_eval_fn(
             cfg_eff, forces=forces, stress=stress, hessian=hessian, sae_external=True
         )
-        with ambient_matmul_context(precision_tiers(self.precision)[0]):
+        with ambient_matmul_context(precision_tiers(self.precision)):
             out = fn(self.params, system)
         return self._postprocess(out, system)
 

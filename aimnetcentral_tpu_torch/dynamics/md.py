@@ -54,7 +54,6 @@ from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config, aimnet2_apply
 from aimnetcentral_tpu_torch.models.bridge import params_to
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
 from aimnetcentral_tpu_torch.ops import binned as B
-from aimnetcentral_tpu_torch.ops.math import cellmul
 from aimnetcentral_tpu_torch.system import System
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
@@ -211,7 +210,7 @@ class MDDriver:
                 else None
             )
             sysb, atom_id, ovf = B.to_binned_system(system, grid, lr_grid)
-            if int(ovf) == 0:
+            if not bool(ovf.any()):
                 break
             safety *= 1.5
             lr_safety *= 1.5
@@ -279,7 +278,7 @@ class MDDriver:
         """The tier's matmul context; it wraps the forward and
         ``torch.autograd.grad``, whose backward GEMMs run when the gradient
         is pulled."""
-        return ambient_matmul_context(precision_tiers(self.md.precision or "fast")[0])
+        return ambient_matmul_context(precision_tiers(self.md.precision or "fast"))
 
     def _energy(self, params: Any, system: System) -> torch.Tensor:
         return aimnet2_apply(params, self.cfg, system, sae_external=True)["energy"]
@@ -309,24 +308,22 @@ class MDDriver:
 
     # -- one MD step --------------------------------------------------------
 
-    def _rebin(self, state: MDState, c: torch.Tensor, v: torch.Tensor):
-        """Re-bin the slot layout at coordinates ``c`` (SR and LR), carrying
-        velocities, masses and ``atom_id`` through the permutation."""
-        system = state.system
-        cell0 = system.cell[0]
-        perm, wrap, ovf = B.bin_atoms(c, system.numbers, self.grid, cell0)
-        sys2 = system.replace(
-            coord=B.to_slots(c - cellmul(wrap, cell0), perm),
-            numbers=B.to_slots(system.numbers, perm),
-            mol_idx=B.to_slots(system.mol_idx, perm),
-        )
-        lr_ovf = torch.zeros_like(ovf)
-        if self.lr_grid is not None:
-            lr_perm, _lrw, lr_ovf = B.bin_atoms(sys2.coord, sys2.numbers, self.lr_grid, cell0)
-            lr_real = sys2.numbers[lr_perm] > 0
-            sys2 = sys2.replace(lr_slot=lr_perm, lr_inv=B.invert_slot_map(lr_perm, lr_real, sys2.natoms))
-        return (sys2, B.to_slots(v, perm), B.to_slots(state.masses, perm), torch.stack([ovf, lr_ovf]),
-                B.to_slots(state.atom_id, perm))
+    def _rebin(self, state: MDState, coord: torch.Tensor) -> tuple[MDState, torch.Tensor]:
+        """``state`` re-binned at ``coord`` into the current ``self.grid`` and
+        ``self.lr_grid`` (``to_binned_system`` on the slot layout, which
+        carries velocities, forces, masses and ``atom_id`` through its
+        permutation), and the (2,) ``[sr, lr]`` overflow of that binning."""
+        sysb, perm, ovf = B.to_binned_system(state.system.replace(coord=coord), self.grid, self.lr_grid)
+        return dataclasses.replace(
+            state,
+            coord=sysb.coord,
+            veloc=B.to_slots(state.veloc, perm),
+            forces=B.to_slots(state.forces, perm),
+            masses=B.to_slots(state.masses, perm),
+            system=sysb,
+            ref_coord=sysb.coord,
+            atom_id=B.to_slots(state.atom_id, perm),
+        ), ovf
 
     def _step(self, state: MDState) -> tuple[MDState, dict, bool]:
         """One velocity-Verlet step; returns the new state, the step's
@@ -345,8 +342,9 @@ class MDDriver:
         need = torch.where(real[:, 0], disp2, 0.0).max() > (md.skin * 0.5) ** 2
         rebinned = bool(need)  # the step's one host sync
         if rebinned:
-            system, v_half, masses, ovf, atom_id = self._rebin(state, coord, v_half)
-            coord = ref_coord = system.coord
+            moved, ovf = self._rebin(dataclasses.replace(state, veloc=v_half), coord)
+            system, v_half, masses = moved.system, moved.veloc, moved.masses
+            coord, ref_coord, atom_id = moved.coord, moved.ref_coord, moved.atom_id
         else:
             system = state.system.replace(coord=coord)
             masses, ref_coord, atom_id = state.masses, state.ref_coord, state.atom_id
@@ -441,40 +439,11 @@ class MDDriver:
         """Re-bin the carried dynamical state into the CURRENT ``self.grid``/
         ``self.lr_grid`` layouts.  Returns None if either layout overflows
         (the caller decides how to re-plan)."""
-        system = state.system
-        cell0 = system.cell[0]
-        perm, wrap, ovf = B.bin_atoms(state.coord, system.numbers, self.grid, cell0)
-        if int(ovf) > 0:
+        state2, ovf = self._rebin(state, state.coord)
+        if bool(ovf.any()):
             return None
-        sys2 = system.replace(
-            coord=B.to_slots(state.coord - cellmul(wrap, cell0), perm),
-            numbers=B.to_slots(system.numbers, perm),
-            mol_idx=B.to_slots(system.mol_idx, perm),
-            bins=self.grid,
-        )
-        if self.lr_grid is not None:
-            lr_perm, _lrw, lr_ovf = B.bin_atoms(sys2.coord, sys2.numbers, self.lr_grid, cell0)
-            if int(lr_ovf) > 0:
-                return None
-            lr_real = sys2.numbers[lr_perm] > 0
-            sys2 = sys2.replace(
-                lr_bins=self.lr_grid,
-                lr_slot=lr_perm,
-                lr_inv=B.invert_slot_map(lr_perm, lr_real, sys2.natoms),
-            )
         self._occ_window.clear()
-        return MDState(
-            coord=sys2.coord,
-            veloc=B.to_slots(state.veloc, perm),
-            forces=B.to_slots(state.forces, perm),
-            masses=B.to_slots(state.masses, perm),
-            system=sys2,
-            ref_coord=sys2.coord,
-            rng_state=state.rng_state,
-            overflow=torch.zeros_like(state.overflow),
-            epot=state.epot,
-            atom_id=B.to_slots(state.atom_id, perm),
-        )
+        return dataclasses.replace(state2, overflow=torch.zeros_like(state.overflow))
 
     def _maybe_shrink(self, state: MDState) -> MDState:
         """Shrink-back hysteresis, called after every good chunk: records the
@@ -593,7 +562,7 @@ class MDDriver:
             compact = compact.replace(cell=torch.as_tensor(ckpt["cell"], dtype=torch.float32, device=dev)[None])
         while True:
             sysb, atom_id, ovf = B.to_binned_system(compact, self.grid, self.lr_grid)
-            if int(ovf) == 0:
+            if not bool(ovf.any()):
                 break
             self.grid = _grown(self.grid, 1.25)
             if self.lr_grid is not None:

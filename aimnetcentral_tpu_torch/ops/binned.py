@@ -214,12 +214,14 @@ def invert_slot_map(lr_perm: torch.Tensor, lr_real: torch.Tensor, n_src: int) ->
 
 
 def to_binned_system(system, grid: BinGrid, lr_grid: BinGrid | None = None):
-    """Convert a compact flat System into the slot-padded binned layout.
+    """Convert a flat System into the slot-padded binned layout.
 
-    Returns ``(binned_system, perm, overflow)``; ``perm`` maps slots to
-    compact rows.  Coordinates are wrapped into the cell.  ``lr_grid``
-    attaches the coarse long-range twin layout; its overflow is folded into
-    the returned count.  Single shared cell only.
+    Returns ``(binned_system, perm, overflow)``: ``perm`` maps the new slots
+    to rows of ``system``, ``overflow`` is the (2,) int64 pair of dropped
+    atoms ``[sr, lr]``.  Coordinates are wrapped into the cell.  ``lr_grid``
+    attaches the coarse long-range twin layout.  Single shared cell only.
+    ``system`` may itself be binned: MD re-bins its slot layout this way and
+    carries its other per-atom arrays through ``perm``.
     """
     cell0 = system.cell[0] if system.cell is not None else None
     perm, wrap, overflow = bin_atoms(system.coord, system.numbers, grid, cell0)
@@ -235,6 +237,7 @@ def to_binned_system(system, grid: BinGrid, lr_grid: BinGrid | None = None):
         lr_slot=None,
         lr_inv=None,
     )
+    lr_ovf = torch.zeros_like(overflow)
     if lr_grid is not None:
         lr_perm, _lr_wrap, lr_ovf = bin_atoms(binned.coord, binned.numbers, lr_grid, cell0)
         lr_real = binned.numbers[lr_perm] > 0
@@ -243,5 +246,4 @@ def to_binned_system(system, grid: BinGrid, lr_grid: BinGrid | None = None):
             lr_slot=lr_perm,
             lr_inv=invert_slot_map(lr_perm, lr_real, binned.coord.shape[0]),
         )
-        overflow = overflow + lr_ovf
-    return binned, perm, overflow
+    return binned, perm, torch.stack([overflow, lr_ovf])

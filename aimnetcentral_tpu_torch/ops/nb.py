@@ -3,9 +3,9 @@
 Sums over molecules are one-hot matrix products: deterministic on every
 device (``index_add_`` on CUDA is a float atomic whose order changes from
 run to run), and the slot layout interleaves molecules, so ``mol_idx`` is
-not sorted there.  They run in full f32 at every precision tier, as the JAX
-package's ``segment_sum`` does: the product turns TF32 off for itself, and
-its backward is a gather.
+not sorted there.  The product runs in f64 and is rounded to the input's
+type once: no precision tier's TF32 flag reaches it, and the order in which
+a device's GEMM adds leaves the f32 result as it is.
 """
 
 from __future__ import annotations
@@ -26,31 +26,11 @@ def mol_onehot(mol_idx: torch.Tensor, num_mol: int, dtype: torch.dtype) -> torch
     return (mol_idx[None, :] == ids[:, None]).to(dtype)
 
 
-class _MolSum(torch.autograd.Function):
-    """``onehot @ x`` with TF32 off (the ``fast`` tier turns it on for the
-    model's matmuls); the backward ``onehot.T @ g`` is the gather
-    ``expand_mol(g)``, which no matmul flag touches."""
-
-    @staticmethod
-    def forward(ctx, x2d: torch.Tensor, mol_idx: torch.Tensor, num_mol: int) -> torch.Tensor:
-        ctx.save_for_backward(mol_idx)
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return mol_onehot(mol_idx, num_mol, x2d.dtype) @ x2d
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        (mol_idx,) = ctx.saved_tensors
-        return expand_mol(g, mol_idx), None, None
-
-
 def mol_sum(x: torch.Tensor, mol_idx: torch.Tensor, num_mol: int) -> torch.Tensor:
     """Per-molecule sum: (N, ...) -> (num_mol, ...)."""
-    out = _MolSum.apply(x.reshape(x.shape[0], -1), mol_idx, num_mol)
-    return out.reshape((num_mol,) + x.shape[1:])
+    x2d = x.reshape(x.shape[0], -1)
+    out = mol_onehot(mol_idx, num_mol, torch.float64) @ x2d.double()
+    return out.to(x.dtype).reshape((num_mol,) + x.shape[1:])
 
 
 def expand_mol(x_mol: torch.Tensor, mol_idx: torch.Tensor) -> torch.Tensor:

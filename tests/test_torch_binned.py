@@ -84,7 +84,7 @@ def _both_binned(n, a, edge, safety, seed=3):
 @pytest.mark.parametrize("n,a,edge,safety", CASES)
 def test_to_binned_system_matches(n, a, edge, safety):
     bj, perm_j, ovf_j, bt, perm_t, ovf_t = _both_binned(n, a, edge, safety)
-    assert int(ovf_t) == int(ovf_j)
+    assert int(ovf_t.sum()) == int(ovf_j)
     np.testing.assert_array_equal(perm_t.numpy(), np.asarray(perm_j))
     np.testing.assert_allclose(bt.coord.numpy(), np.asarray(bj.coord), atol=1e-6)
     np.testing.assert_array_equal(bt.numbers.numpy(), np.asarray(bj.numbers))
@@ -104,7 +104,8 @@ def test_capacity_overflow_counted():
     tg = tB.BinGrid(nbins=(2, 2, 2), capacity=8, edge_hint=5.6, periodic=True)
     _bj, perm_j, ovf_j = j_to_binned_system(sys_j, jg, None)
     _bt, perm_t, ovf_t = tB.to_binned_system(sys_t, tg)
-    assert int(ovf_t) == int(ovf_j) > 0
+    assert int(ovf_t.sum()) == int(ovf_j) > 0
+    assert ovf_t.shape == (2,) and int(ovf_t[1]) == 0  # [sr, lr]: no LR grid, nothing dropped there
     np.testing.assert_array_equal(perm_t.numpy(), np.asarray(perm_j))
 
 
