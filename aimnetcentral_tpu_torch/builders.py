@@ -1,31 +1,64 @@
-"""Host-side System builder (counterpart of aimnetcentral_tpu/builders.py).
+"""Host-side System builders (counterpart of aimnetcentral_tpu/builders.py).
 
-Only the path that feeds the binned engine is ported (``build_nbmat=False``
-there): no neighbor matrices are built; the caller converts the compact
-System into the slot layout with ops/binned.py::to_binned_system.
+``system_from_molecules`` packs molecules into one flat padded System and,
+with ``build_nbmat=True``, builds the indexed layout's neighbor matrices on
+the host (``host_nbmat``: brute force for small systems, the O(N) cell list
+above ``_HOST_CELL_LIST_THRESHOLD`` atoms).  Without it the caller converts
+the compact System into the slot layout with ops/binned.py::to_binned_system.
+The JAX builder builds the matrices unless told not to; the port's default is
+the other way round because its binned callers (calculator, MD driver) are
+the older ones.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from aimnetcentral_tpu_torch.ops.neighbors import allpairs_nbmat, brute_force_nbmat, cell_list_nbmat
 from aimnetcentral_tpu_torch.system import System
+
+# above this atom count, host neighbor builds use the O(N) cell list
+_HOST_CELL_LIST_THRESHOLD = 512
+
+
+def host_nbmat(coord, mol_idx, cutoff, max_neighbors=None, cell=None, n_pad=None, pbc_mol=None):
+    """Dispatch host neighbor builds: the O(N) cell list for large systems,
+    brute force below the threshold (lower constant cost)."""
+    build = cell_list_nbmat if coord.shape[0] > _HOST_CELL_LIST_THRESHOLD else brute_force_nbmat
+    return build(
+        coord, mol_idx, cutoff, max_neighbors=max_neighbors, cell=cell, n_pad=n_pad, pbc_mol=pbc_mol
+    )
 
 
 def system_from_molecules(
-    molecules: list[dict], device: torch.device, n_pad: int | None = None
+    molecules: list[dict],
+    device: torch.device,
+    n_pad: int | None = None,
+    *,
+    cutoff: float | None = None,
+    lr_cutoff: float | None = None,
+    coulomb_cutoff: float | None = None,
+    dftd3_cutoff: float | None = None,
+    max_neighbors: int | None = None,
+    build_nbmat: bool = False,
 ) -> System:
     """Pack molecules into one flat padded System on ``device``.
 
     Each molecule dict: ``coord`` (n, 3), ``numbers`` (n,), optional
     ``charge``, ``mult`` and ``cell`` (3, 3).  Periodic molecules are stored
     in the wrapped frame (coordinates inside the cell), as in the JAX
-    package.
+    package.  With ``build_nbmat``: ``cutoff=None`` on a gas-phase input
+    gives the intra-molecular all-pairs matrix, otherwise a cutoff-bounded
+    build; ``lr_cutoff`` adds the shared long-range list ``nbmat_lr``,
+    ``coulomb_cutoff`` and ``dftd3_cutoff`` the split ones.
     """
     coords = [np.asarray(m["coord"], dtype=np.float32) for m in molecules]
     numbers = [np.asarray(m["numbers"], dtype=np.int64) for m in molecules]
-    n_real = sum(len(c) for c in coords)
+    sizes = [len(c) for c in coords]
+    n_real = sum(sizes)
     n_pad = n_pad or (n_real + 1)
     if n_pad <= n_real:
         raise ValueError("need at least one padding row")
@@ -47,8 +80,9 @@ def system_from_molecules(
         mult = np.array([m.get("mult", 1.0) for m in molecules], dtype=np.float32)
 
     cells = [m.get("cell") for m in molecules]
+    has_cell = any(c is not None for c in cells)
     cell = None
-    if any(c is not None for c in cells):
+    if has_cell:
         cell = np.stack(
             [np.asarray(c if c is not None else np.eye(3), dtype=np.float32) for c in cells]
         )
@@ -62,14 +96,78 @@ def system_from_molecules(
             off += len(c)
 
     def t(x):
-        return torch.as_tensor(x, device=device)
+        return None if x is None else torch.as_tensor(x, device=device)
 
-    return System(
+    def t_nb(nb):
+        return None if nb is None else torch.as_tensor(nb.astype(np.int64), device=device)
+
+    system = System(
         coord=t(coord),
         numbers=t(zs),
         charge=t(charge),
         mol_idx=t(mol_idx),
-        mult=t(mult) if mult is not None else None,
-        cell=t(cell) if cell is not None else None,
+        mult=t(mult),
+        cell=t(cell),
         species=tuple(sorted(int(z) for z in np.unique(zs) if z > 0)),
     )
+    if not build_nbmat:
+        return system
+
+    # per-molecule periodicity for mixed batches
+    pbc_mol = np.array([c is not None for c in cells]) if has_cell else None
+    real_mol_idx = mol_idx[:n_real]
+    if cutoff is None and not has_cell:
+        nbmat, shifts = allpairs_nbmat(sizes, n_pad), None
+    else:
+        if cutoff is None:
+            raise ValueError("periodic systems need an explicit cutoff")
+        nbmat, shifts, _ = host_nbmat(
+            coord[:n_real], real_mol_idx, cutoff, max_neighbors=max_neighbors,
+            cell=cell, n_pad=n_pad, pbc_mol=pbc_mol,
+        )
+
+    def lr_build(rc):
+        if rc is None:
+            return None, None
+        nb, sh, _ = host_nbmat(coord[:n_real], real_mol_idx, rc, cell=cell, n_pad=n_pad, pbc_mol=pbc_mol)
+        return t_nb(nb), t(sh)
+
+    # a shared LR list, or split per-module lists when the Coulomb and D3
+    # cutoffs diverge (the caller decides which)
+    nbmat_lr, shifts_lr = lr_build(lr_cutoff)
+    nbmat_coulomb, shifts_coulomb = lr_build(coulomb_cutoff)
+    nbmat_dftd3, shifts_dftd3 = lr_build(dftd3_cutoff)
+    return dataclasses.replace(
+        system,
+        nbmat=t_nb(nbmat),
+        shifts=t(shifts),
+        nbmat_lr=nbmat_lr,
+        shifts_lr=shifts_lr,
+        nbmat_coulomb=nbmat_coulomb,
+        shifts_coulomb=shifts_coulomb,
+        nbmat_dftd3=nbmat_dftd3,
+        shifts_dftd3=shifts_dftd3,
+    )
+
+
+def stack_systems(systems: list[System]) -> System:
+    """Stack same-shape Systems on a leading microbatch axis (counterpart of
+    the JAX ``stack_systems``): every tensor field gains a leading axis, and
+    the species sets are unified so that all microbatches share one static
+    structure.  Static fields other than ``species`` must agree."""
+    all_species = sorted({z for s in systems for z in (s.species or ())})
+    species = tuple(all_species) if all_species else None
+    out = {}
+    for f in dataclasses.fields(System):
+        vals = [getattr(s, f.name) for s in systems]
+        if f.name == "species":
+            out[f.name] = species
+        elif all(v is None for v in vals):
+            out[f.name] = None
+        elif all(isinstance(v, torch.Tensor) for v in vals):
+            out[f.name] = torch.stack(vals)
+        elif all(v == vals[0] for v in vals):
+            out[f.name] = vals[0]
+        else:
+            raise ValueError(f"cannot stack Systems whose {f.name} differ")
+    return System(**out)

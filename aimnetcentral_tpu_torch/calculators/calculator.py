@@ -1,17 +1,21 @@
 """AIMNet2Calculator: the inference facade (counterpart of
 aimnetcentral_tpu/calculators/calculator.py, cut down to this port's slice).
 
-One periodic structure at or above ``binned_threshold`` atoms goes onto the
-binned layout (SR grid plus the coarse LR twin for DSF Coulomb), with a
-capacity-regrow loop on bin overflow; ``eval`` returns energy, charges,
+Inputs are one molecule or periodic box, a list of molecule dicts, or a
+dense (B, N, 3) batch.  One structure at or above ``binned_threshold`` atoms
+goes onto the binned layout (SR grid plus the coarse LR twin grid, planned
+on the cell or on a gas-phase cluster's extent, with a capacity-regrow loop
+on bin overflow) when it is periodic or its Coulomb is DSF or absent;
+molecules, batches and small boxes go onto the indexed layout (host
+neighbor matrices).  ``eval`` returns per-molecule energies and charges,
 forces and stress in input atom order, with the self-atomic energies added
-in float64 on the host.  The LR twin grid is planned on the largest
-long-range cutoff (DSF Coulomb, DFT-D3).  While the topology is unchanged
-and no atom moved more than ``reuse_skin / 2``, the prepared layout is
-reused (the grids carry the skin as their stencil margin, so the result is
-exact).  Every force evaluation runs inside its precision tier's context
-(``precision_tiers``).  Gas-phase inputs, batches, the molecule-bin layout,
-Hessians and Ewald/PME raise with a pointer to ROADMAP.md.
+in float64 on the host.  While the topology is unchanged and no atom moved
+farther than ``reuse_skin / 2``, the prepared layout is reused (grids and
+lists reach the skin beyond every cutoff, so the result is exact).  Every
+force evaluation runs inside its precision tier's context
+(``precision_tiers``).  Gas-phase batches at or above ``binned_threshold``
+(the molecule-bin layout), Hessians and Ewald/PME raise with a pointer to
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -74,27 +78,51 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _as_molecules(data: Mapping[str, Any]) -> list[dict]:
-    """One structure: coord (N, 3) or (1, N, 3), numbers, charge, mult, cell."""
+def _as_molecules(data: Mapping[str, Any] | list | tuple) -> list[dict]:
+    """Normalize user input into a list of molecule dicts.
+
+    Accepted: one structure (coord (N, 3)), a dense batch (coord (B, N, 3),
+    padding atoms with ``numbers == 0``), or a list / tuple of per-molecule
+    dicts (sizes and cells may differ); charge and mult scalar or (B,),
+    cell (3, 3) or (B, 3, 3)."""
     if isinstance(data, (list, tuple)):
-        raise NotImplementedError(f"batched inputs: the molecule-bin layout {_NOT_PORTED}")
+        mols = []
+        for m in data:
+            mol = {
+                "coord": np.asarray(m["coord"], dtype=np.float32),
+                "numbers": np.asarray(m["numbers"]),
+                "charge": float(np.asarray(m.get("charge", 0.0)).reshape(())),
+            }
+            if m.get("mult") is not None:
+                mol["mult"] = float(np.asarray(m["mult"]).reshape(()))
+            if m.get("cell") is not None:
+                mol["cell"] = np.asarray(m["cell"], dtype=np.float32)
+            mols.append(mol)
+        return mols
     coord = np.asarray(data["coord"], dtype=np.float32)
     numbers = np.asarray(data["numbers"])
-    if coord.ndim == 3:
-        if coord.shape[0] != 1:
-            raise NotImplementedError(f"batched inputs: the molecule-bin layout {_NOT_PORTED}")
-        coord, numbers = coord[0], numbers[0]
-    real = numbers > 0
-    mol = {
-        "coord": coord[real],
-        "numbers": numbers[real],
-        "charge": float(np.asarray(data.get("charge", 0.0)).reshape(())),
-    }
-    if data.get("mult") is not None:
-        mol["mult"] = float(np.asarray(data["mult"]).reshape(()))
-    if data.get("cell") is not None:
-        mol["cell"] = np.asarray(data["cell"], dtype=np.float32).reshape(3, 3)
-    return [mol]
+    if coord.ndim == 2:
+        coord, numbers = coord[None], numbers[None]
+    b = coord.shape[0]
+    charge = np.broadcast_to(np.asarray(data.get("charge", 0.0), dtype=np.float32).reshape(-1), (b,))
+    mult = data.get("mult")
+    if mult is not None:
+        mult = np.broadcast_to(np.asarray(mult, dtype=np.float32).reshape(-1), (b,))
+    cell = data.get("cell")
+    if cell is not None:
+        cell = np.asarray(cell, dtype=np.float32)
+        if cell.ndim == 2:
+            cell = np.broadcast_to(cell[None], (b, 3, 3))
+    mols = []
+    for i in range(b):
+        real = numbers[i] > 0
+        mol = {"coord": coord[i][real], "numbers": numbers[i][real], "charge": float(charge[i])}
+        if mult is not None:
+            mol["mult"] = float(mult[i])
+        if cell is not None:
+            mol["cell"] = cell[i]
+        mols.append(mol)
+    return mols
 
 
 def _prep_key(mols: list[dict]) -> tuple:
@@ -112,14 +140,17 @@ def _prep_key(mols: list[dict]) -> tuple:
 
 
 class AIMNet2Calculator:
-    """Single-point energy / forces / stress on the binned periodic path.
+    """Single-point energy / forces / stress of molecules, batches and
+    periodic boxes.
 
     ``model`` is ``(params, cfg)`` or ``(params, cfg, aux)``; ``aux['sae']``
     holds float64 self-atomic-energy tables applied on the host.  Runs on
     ``device`` ("cuda" unless the caller asks for "cpu"); CUDA tensors run
     the hand-written conv and pair kernels, CPU tensors their plain versions.
-    ``precision`` is a tier of ``precision_tiers``; ``reuse_skin`` (Angstrom)
-    the Verlet skin of the prepared-layout reuse, 0 to rebuild every call.
+    ``binned_threshold`` is the atom count from which one structure goes
+    onto the binned layout; ``precision`` is a tier of ``precision_tiers``;
+    ``reuse_skin`` (Angstrom) the Verlet skin of the prepared-layout reuse,
+    0 to rebuild every call.
     """
 
     def __init__(
@@ -154,82 +185,127 @@ class AIMNet2Calculator:
         """Periodic cells switch simple -> DSF Coulomb."""
         return auto_switch_simple_to_dsf(self.cfg) if has_cell else self.cfg
 
+    def _d3_head(self) -> DFTD3Head | None:
+        return next((h for _n, h in self.cfg.outputs if isinstance(h, DFTD3Head)), None)
+
     # -- Verlet-style prepared-system reuse ---------------------------------
 
-    def _store_prep(self, mols: list[dict], system: System, n_pad: int, perm: np.ndarray) -> None:
-        """Keep the binned layout with the input it was built from and the
-        per-atom lattice wrap of that input (padding rows at 1, as the
-        builder fills them)."""
+    def _store_prep(
+        self,
+        mols: list[dict],
+        system: System,
+        kind: str,
+        n_pad: int,
+        perm: np.ndarray | None = None,
+        wrap: np.ndarray | None = None,
+        cell: np.ndarray | None = None,
+    ) -> None:
+        """Keep the prepared layout (``kind`` "binned" or "indexed") with
+        the input it was built from, the slot permutation of a binned
+        layout, and the lattice wrap the builder applied: per atom as image
+        counts against ``cell`` (binned) or as a Cartesian offset
+        (indexed), None in the gas phase."""
         if self.reuse_skin <= 0:
             return
-        ref = np.concatenate([np.asarray(m["coord"], np.float32) for m in mols])
-        cell = np.asarray(mols[0]["cell"], np.float32)
-        compact0 = np.ones((n_pad, 3), np.float32)
-        compact0[: len(ref)] = ref
-        wrap = np.floor(compact0 @ np.linalg.inv(cell)).astype(np.float32)
         self._prep_cache = {
-            "key": _prep_key(mols), "system": system, "ref": ref, "n_pad": n_pad,
-            "perm": perm, "wrap": wrap, "cell": cell,
+            "key": _prep_key(mols), "kind": kind, "system": system,
+            "ref": np.concatenate([np.asarray(m["coord"], np.float32) for m in mols]),
+            "n_pad": n_pad, "perm": perm, "wrap": wrap, "cell": cell,
         }
 
     def _reuse_prepared(self, mols: list[dict]) -> System | None:
-        """The cached layout with the new coordinates slotted in, while the
-        topology is unchanged and no coordinate moved more than
-        ``reuse_skin / 2`` since the build (the grids reach ``reuse_skin``
-        beyond every cutoff, and every term masks at its own cutoff, so the
-        result is exact); None otherwise."""
+        """The cached layout with the new coordinates in it, while the
+        topology is unchanged and no atom moved farther than ``reuse_skin /
+        2`` since the build; None otherwise.  Lists and grids reach
+        ``reuse_skin`` beyond every cutoff and every term masks at its own
+        cutoff, so the result is exact: a pair's distance changes by at
+        most the sum of its two atoms' moves.  The move is the Euclidean
+        length of each atom's displacement (a per-coordinate test lets an
+        atom move sqrt(3) times as far along a diagonal, or along the plane
+        normal of a skewed cell, and drop pairs); the JAX package tests each
+        coordinate, so the port rebuilds where it reuses."""
         c = self._prep_cache
         if c is None or self.reuse_skin <= 0 or c["key"] != _prep_key(mols):
             return None
         new = np.concatenate([np.asarray(m["coord"], np.float32) for m in mols])
-        if new.shape != c["ref"].shape or np.abs(new - c["ref"]).max() > 0.5 * self.reuse_skin:
+        if new.shape != c["ref"].shape or np.linalg.norm(new - c["ref"], axis=1).max() > 0.5 * self.reuse_skin:
             return None
         compact = np.ones((c["n_pad"], 3), np.float32)
         compact[: len(new)] = new
-        # the wrap CACHED at build time keeps an atom that crossed the box
-        # boundary since continuous (its bin is stale by less than the skin,
-        # which the grids' margin covers)
-        compact = compact - c["wrap"] @ c["cell"]
-        self._last_perm = c["perm"]
-        return c["system"].replace(coord=torch.as_tensor(compact[c["perm"]], device=self.device))
+        if c["kind"] == "binned":
+            if c["wrap"] is not None:
+                # the wrap CACHED at build time keeps an atom that crossed
+                # the box boundary since continuous (its bin is stale by
+                # less than the skin, which the grids' margin covers)
+                compact = compact - c["wrap"] @ c["cell"]
+            self._last_perm = c["perm"]
+            return c["system"].replace(coord=torch.as_tensor(compact[c["perm"]], device=self.device))
+        self._last_perm = None
+        if c["wrap"] is not None:
+            # indexed periodic systems live in the wrapped frame: the cached
+            # Cartesian wrap keeps the stale-but-exact shift matrices valid
+            compact = compact - c["wrap"]
+        return c["system"].replace(coord=torch.as_tensor(compact, device=self.device))
 
-    def prepare_system(self, data: Mapping[str, Any]) -> System:
+    # -- layouts ------------------------------------------------------------
+
+    def prepare_system(self, data: Mapping[str, Any] | list | tuple) -> System:
+        """The System a request runs on, following the JAX package's
+        routing: one structure at or above ``binned_threshold`` atoms goes
+        onto the binned layout when it is periodic or its Coulomb is DSF or
+        absent (a gas-phase grid then spans the atoms' extent); a gas-phase
+        batch at or above it would go onto the molecule-bin layout, which
+        raises; everything else goes onto the indexed layout."""
         mols = _as_molecules(data)
         reused = self._reuse_prepared(mols)
         if reused is not None:
             return reused
-        mol = mols[0]
-        n_real = len(mol["numbers"])
-        if "cell" not in mol:
-            raise NotImplementedError(f"gas-phase inputs: the indexed layout {_NOT_PORTED}")
-        if n_real < self.binned_threshold:
-            raise NotImplementedError(
-                f"{n_real} atoms is below binned_threshold={self.binned_threshold}: "
-                f"the indexed layout {_NOT_PORTED}"
-            )
-        h_eff = next(
-            (h for _n, h in self._effective_cfg(True).outputs if isinstance(h, LRCoulombHead)),
-            None,
-        )
-        if h_eff is not None and h_eff.method != "dsf":
-            raise NotImplementedError(f"{h_eff.method} Coulomb {_NOT_PORTED}")
+        n_real = sum(len(m["numbers"]) for m in mols)
         n_pad = _round_up(n_real + 1, ATOM_BUCKET)
-        system = system_from_molecules(mols, self.device, n_pad=n_pad)
-        cell_np = np.asarray(mol["cell"])
+        has_cell = any("cell" in m for m in mols)
+        self._last_perm = None
+        h_eff = next(
+            (h for _n, h in self._effective_cfg(has_cell).outputs if isinstance(h, LRCoulombHead)), None
+        )
+        if h_eff is not None and h_eff.method in ("ewald", "pme"):
+            raise NotImplementedError(f"{h_eff.method} Coulomb is not ported yet (ROADMAP.md, queue 1, item 4)")
+        if not has_cell and len(mols) > 1 and n_real >= self.binned_threshold:
+            cap = max(8, _round_up(max(len(m["numbers"]) for m in mols), 8))
+            if cap * len(mols) <= 4 * n_real:
+                raise NotImplementedError(
+                    f"a gas-phase batch of {len(mols)} molecules and {n_real} atoms, at or above "
+                    f"binned_threshold={self.binned_threshold}: the molecule-bin layout {_NOT_PORTED}"
+                )
+        binned_ok = has_cell or h_eff is None or h_eff.method == "dsf"
+        if binned_ok and len(mols) == 1 and n_real >= self.binned_threshold:
+            return self._prepare_binned(mols[0], n_real, n_pad, h_eff)
+        return self._prepare_indexed(mols, n_real, n_pad, has_cell, h_eff)
+
+    def _prepare_binned(self, mol: dict, n_real: int, n_pad: int, h_eff: LRCoulombHead | None) -> System:
+        """One structure on the binned layout: SR grid plus the coarse LR
+        twin, planned on the cell or, in the gas phase, on the extent of the
+        atoms, with a capacity-regrow loop on bin overflow."""
+        system = system_from_molecules([mol], self.device, n_pad=n_pad)
+        if "cell" in mol:
+            cell_np, extent = np.asarray(mol["cell"]), None
+        else:
+            coord_np = np.asarray(mol["coord"])
+            cell_np, extent = None, (coord_np.min(axis=0), coord_np.max(axis=0))
         # the coarse LR twin layout is sized by the largest LR cutoff, so its
         # stencil stays at radius 2
         lr_cuts = [h_eff.dsf_rc] if h_eff is not None else []
-        lr_cuts += [h.cutoff for _n, h in self.cfg.outputs if isinstance(h, DFTD3Head)]
+        d3 = self._d3_head()
+        lr_cuts += [d3.cutoff] if d3 is not None else []
         lr_cut = max(lr_cuts) if lr_cuts else None
 
         safety = lr_safety = 1.5
         skin = max(self.reuse_skin, 0.0)
         while True:
             grid = dataclasses.replace(
-                B.plan_bins(cell_np, n_real, self.cutoff + skin, safety=safety), margin=skin
+                B.plan_bins(cell_np, n_real, self.cutoff + skin, extent=extent, safety=safety), margin=skin
             )
             lr_grid = (
-                B.plan_lr_bins(cell_np, n_real, lr_cut, safety=lr_safety, margin=skin)
+                B.plan_lr_bins(cell_np, n_real, lr_cut, extent=extent, safety=lr_safety, margin=skin)
                 if lr_cut is not None
                 else None
             )
@@ -241,12 +317,67 @@ class AIMNet2Calculator:
             if safety > 32:
                 raise RuntimeError("bin capacity planning failed")
         self._last_perm = perm.cpu().numpy()
-        self._store_prep(mols, sysb, n_pad, self._last_perm)
+        wrap = None
+        if cell_np is not None:
+            compact0 = np.ones((n_pad, 3), np.float32)
+            compact0[:n_real] = np.asarray(mol["coord"], np.float32)
+            wrap = np.floor(compact0 @ np.linalg.inv(cell_np)).astype(np.float32)
+        self._store_prep([mol], sysb, "binned", n_pad, perm=self._last_perm, wrap=wrap, cell=cell_np)
         return sysb
+
+    def _prepare_indexed(
+        self, mols: list[dict], n_real: int, n_pad: int, has_cell: bool, h_eff: LRCoulombHead | None
+    ) -> System:
+        """Molecules, batches and small boxes on the indexed layout.  The SR
+        list is all intra-molecular pairs for gas-phase inputs up to 2,048
+        atoms, else bounded by the cutoff (host cell list above 512 atoms).
+        Long-range terms read one shared list, or a Coulomb and a D3 list
+        when their cutoffs differ by more than 20%; simple Coulomb on a
+        cutoff-bounded SR list needs all pairs (cutoff 1e6).  Every list
+        reaches ``reuse_skin`` beyond its cutoff."""
+        cutoff = self.cutoff if (has_cell or n_real > 2048) else None
+        d3 = self._d3_head()
+        d3_cut = d3.cutoff if d3 is not None else None
+        coul_cut = None
+        if h_eff is not None:
+            if h_eff.method == "dsf":
+                coul_cut = h_eff.dsf_rc
+            elif cutoff is not None:  # simple Coulomb on a cutoff-bounded base list
+                coul_cut = 1e6
+        lr_cutoff = coulomb_cutoff = dftd3_cutoff = None
+        if cutoff is not None:
+            if d3_cut is not None and coul_cut is not None and max(d3_cut, coul_cut) / min(d3_cut, coul_cut) > 1.2:
+                coulomb_cutoff, dftd3_cutoff = coul_cut, d3_cut
+            elif d3_cut is not None or coul_cut is not None:
+                lr_cutoff = max(c for c in (d3_cut, coul_cut) if c is not None)
+
+        skin = max(self.reuse_skin, 0.0)
+
+        def reach(c: float | None) -> float | None:
+            return None if c is None else c + skin
+
+        system = system_from_molecules(
+            mols, self.device, n_pad=n_pad, cutoff=reach(cutoff), lr_cutoff=reach(lr_cutoff),
+            coulomb_cutoff=reach(coulomb_cutoff), dftd3_cutoff=reach(dftd3_cutoff), build_nbmat=True,
+        )
+        # the Cartesian wrap the builder applied (wrapped frame), to re-wrap
+        # new coordinates the same way on reuse
+        wrap_cart = None
+        if has_cell:
+            wrap_cart = np.zeros((n_pad, 3), np.float32)
+            off = 0
+            for m in mols:
+                c = np.asarray(m["coord"], np.float64)
+                if m.get("cell") is not None:
+                    cb = np.asarray(m["cell"], np.float64)
+                    wrap_cart[off : off + len(c)] = (np.floor(c @ np.linalg.inv(cb)) @ cb).astype(np.float32)
+                off += len(c)
+        self._store_prep(mols, system, "indexed", n_pad, wrap=wrap_cart)
+        return system
 
     def eval(
         self,
-        data: Mapping[str, Any],
+        data: Mapping[str, Any] | list | tuple,
         forces: bool = False,
         stress: bool = False,
         hessian: bool = False,
@@ -263,8 +394,9 @@ class AIMNet2Calculator:
     __call__ = eval
 
     def _postprocess(self, out: Mapping[str, torch.Tensor], system: System) -> dict[str, np.ndarray]:
-        """Host copies in input atom order (through ``perm``), plus the
-        float64 SAE from the per-molecule element counts."""
+        """Host copies in input atom order (through ``perm`` on the binned
+        layout; the indexed layout keeps it, real atoms first), per-molecule
+        energies with the float64 SAE from the element counts."""
         fetched = {k: v.cpu().numpy() for k, v in out.items()}
         numbers_np = system.numbers.cpu().numpy()
         valid = numbers_np > 0
@@ -280,9 +412,12 @@ class AIMNet2Calculator:
         for k in ("charges", "spin_charges", "forces"):
             if k in fetched:
                 x = fetched[k]
-                compact = np.zeros((n_real,) + x.shape[1:], dtype=x.dtype)
-                compact[self._last_perm[valid]] = x[valid]
-                res[k] = compact
+                if self._last_perm is None:
+                    res[k] = x[:n_real]
+                else:
+                    compact = np.zeros((n_real,) + x.shape[1:], dtype=x.dtype)
+                    compact[self._last_perm[valid]] = x[valid]
+                    res[k] = compact
         if "stress" in fetched:
             res["stress"] = fetched["stress"]
         return res

@@ -5,9 +5,11 @@ Element embedding -> shifted-Gaussian scalar+vector AEV -> message passes
 deltas, the last emits the ``aim`` vector) -> output heads.  NSE charge
 equilibration enforces the exact total charge every pass.
 
-Only the binned (stencil) layout is ported; there the ConvSV contraction is
+Two layouts.  On the binned (stencil) layout the ConvSV contraction is
 kernels/conv_pass.py, which runs the CUDA kernels for CUDA tensors and the
 plain versions for CPU tensors (the analogue of ``_resolve_conv_engine``).
+On the indexed layout it is ``_conv_sv``: a gather over the neighbor matrix
+and an einsum, as in the JAX package, where it is plain XLA too.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.kernels.conv_pass import conv_pass
 from aimnetcentral_tpu_torch.models.heads import HeadSpec, head_apply, head_init
 from aimnetcentral_tpu_torch.models.modules import MLPSpec, mlp_apply, mlp_init
+from aimnetcentral_tpu_torch.ops import math as aops
 from aimnetcentral_tpu_torch.ops.math import nse
-from aimnetcentral_tpu_torch.ops.nb import mask_pad_atoms, mol_sum
+from aimnetcentral_tpu_torch.ops.nb import gather_nb, mask_pad_atoms, mol_sum, pair_mask
 from aimnetcentral_tpu_torch.system import System
 
 
@@ -141,21 +144,53 @@ def aimnet2_init(cfg: AIMNet2Config, seed: int = 0, device: str | torch.device =
     return params
 
 
+def _calc_aev(params: dict, d_ij: torch.Tensor, r_ij: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Scalar + vector atomic environment vectors on the indexed layout,
+    (N, M, G, 4)."""
+    p = params["aev"]
+    fc = aops.cosine_cutoff(d_ij, p["rc_s"])
+    fc = torch.where(valid, fc, torch.zeros_like(fc))
+    gs = aops.exp_expand(d_ij, p["shifts_s"], p["eta_s"]) * fc[..., None]  # (N, M, G)
+    u = r_ij / d_ij[..., None]
+    gv = gs[..., None] * u[..., None, :]  # (N, M, G, 3)
+    return torch.cat([gs[..., None], gv], dim=-1)
+
+
+def _conv_sv(agh: torch.Tensor, a: torch.Tensor, g_sv: torch.Tensor, nbmat: torch.Tensor, d2features: bool) -> torch.Tensor:
+    """The AIMNet2 convolution on the indexed layout: gather the neighbors'
+    features and contract them with the environment basis.
+
+    a: (N, C, G) if d2features else (N, C); g_sv: (N, M, G, 4); agh:
+    (C, G, H).  Returns (N, C*G + C*H).  ``a_j`` is (N, M, C, G): on an
+    all-pairs list that is N^2 C G floats, as in the JAX package."""
+    a_j = gather_nb(a, nbmat)
+    if d2features:
+        avf = torch.einsum("nmcg,nmgd->ncgd", a_j, g_sv)
+    else:
+        avf = torch.einsum("nmc,nmgd->ncgd", a_j, g_sv)
+    avf_s = avf[..., 0]  # (N, C, G)
+    avf_v = torch.einsum("cgh,ncgd->nchd", agh, avf[..., 1:])
+    avf_v = (avf_v * avf_v).sum(-1)  # (N, C, H)
+    n = a.shape[0]
+    return torch.cat([avf_s.reshape(n, -1), avf_v.reshape(n, -1)], dim=-1)
+
+
 def aimnet2_apply(params: dict, cfg: AIMNet2Config, system: System, sae_external: bool = False) -> dict:
-    """Full forward pass on a binned System.  Returns the data dict with
-    ``energy`` (num_mol,) [without SAE when ``sae_external``], ``charges``
-    (N,), ``aim`` (N, aim_size), ``_delta_Q`` and, when SAE is external,
-    ``mol_element_counts``."""
-    if system.bins is None:
+    """Full forward pass on a binned or an indexed System.  Returns the data
+    dict with ``energy`` (num_mol,) [without SAE when ``sae_external``],
+    ``charges`` (N,), ``aim`` (N, aim_size), ``_delta_Q`` and, when SAE is
+    external, ``mol_element_counts``."""
+    binned = system.bins is not None
+    if binned and not cfg.d2features:
         raise NotImplementedError(
-            "the indexed (non-binned) layout is not ported yet (ROADMAP.md, "
-            "queue 1: the indexed / gas-phase path)"
+            "the stencil conv kernels take d2features models only; without d2features "
+            "the binned layout is not ported yet (ROADMAP.md, queue 1: the rest of long range)"
         )
-    if not cfg.d2features:
-        raise NotImplementedError("the stencil conv kernels take d2features models only")
     n = system.natoms
     c = cfg.num_charge_channels
-    a = params["afv"]["weight"][system.numbers].reshape(n, cfg.nfeature, cfg.nshifts)
+    a = params["afv"]["weight"][system.numbers]
+    if cfg.d2features:
+        a = a.reshape(n, cfg.nfeature, cfg.nshifts)
 
     if c == 2:
         if system.mult is None:
@@ -166,21 +201,32 @@ def aimnet2_apply(params: dict, cfg: AIMNet2Config, system: System, sae_external
     else:
         big_q = system.charge[:, None]
 
-    data: dict = {"_sae_external": sae_external}
+    if binned:
+        data: dict = {"_sae_external": sae_external}
+    else:
+        d_ij, r_ij = aops.calc_distances(system.coord, system.nbmat, system.shifts, system.cell, system.mol_idx)
+        g_sv = _calc_aev(params, d_ij, r_ij, pair_mask(system.nbmat))
+        data = {"d_ij": d_ij, "g_sv": g_sv, "_sae_external": sae_external}
     charges = None
     delta_q_log = []
     npass = len(cfg.hidden)
     a_flat = a.reshape(n, -1)
     for ipass in range(npass):
-        conv_a, conv_q = conv_pass(
-            system,
-            params["aev"],
-            a,
-            charges if ipass > 0 else None,
-            params["conv_a"]["agh"],
-            params["conv_q"]["agh"],
-            rc_static=cfg.aev.rc_s,
-        )
+        if binned:
+            conv_a, conv_q = conv_pass(
+                system,
+                params["aev"],
+                a,
+                charges if ipass > 0 else None,
+                params["conv_a"]["agh"],
+                params["conv_q"]["agh"],
+                rc_static=cfg.aev.rc_s,
+            )
+        else:
+            conv_a = _conv_sv(params["conv_a"]["agh"], a, g_sv, system.nbmat, cfg.d2features)
+            conv_q = (
+                _conv_sv(params["conv_q"]["agh"], charges, g_sv, system.nbmat, False) if ipass > 0 else None
+            )
         if ipass == 0:
             x = torch.cat([a_flat, conv_a], dim=-1)
         else:

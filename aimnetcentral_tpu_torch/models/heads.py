@@ -2,10 +2,13 @@
 
 Each head is a frozen spec plus ``head_init``/``head_apply`` over an
 explicit parameter dict; ``head_apply`` takes and returns the data dict.
-This slice carries the flagship's heads: the energy MLP, the atomic shift
+This port carries the flagship's heads: the energy MLP, the atomic shift
 (SAE, applied in float64 by the calculator), the atomic sum, long-range
-Coulomb on the binned DSF branch, and the external DFT-D3(BJ) head of the
-released ``-d3`` families on the binned branch.
+Coulomb (DSF on both layouts, simple on the indexed layout), the
+short-range Coulomb subtraction (indexed layout), and the external
+DFT-D3(BJ) head of the released ``-d3`` families on both layouts.  The
+binned branches sweep through the pair kernels (models/engine_binned.py),
+the indexed ones run models/lr.py over the neighbor matrices.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from aimnetcentral_tpu_torch import constants
 from aimnetcentral_tpu_torch.models import engine_binned as eb
+from aimnetcentral_tpu_torch.models import lr
 from aimnetcentral_tpu_torch.models.modules import MLPSpec, mlp_apply, mlp_init
 from aimnetcentral_tpu_torch.ops.nb import mask_pad_atoms, mol_sum
 from aimnetcentral_tpu_torch.system import System
@@ -74,6 +78,22 @@ class LRCoulombHead:
 
 
 @dataclasses.dataclass(frozen=True)
+class SRCoulombHead:
+    """Subtracts the embedded short-range Coulomb when the full Coulomb is
+    computed outside the model."""
+
+    rc: float = 4.6
+    key_in: str = "charges"
+    key_out: str = "energy"
+    envelope: str = "exp"
+    kind: str = dataclasses.field(default="srcoulomb", init=False)
+
+    def __post_init__(self):
+        if self.envelope not in ("exp", "cosine"):
+            raise ValueError(f"Unknown envelope {self.envelope!r}, must be 'exp' or 'cosine'")
+
+
+@dataclasses.dataclass(frozen=True)
 class DFTD3Head:
     """External DFT-D3(BJ) dispersion with an S5 switch-off over the last
     ``smoothing_fraction`` of ``cutoff``; its parameters carry the D3
@@ -89,7 +109,7 @@ class DFTD3Head:
     kind: str = dataclasses.field(default="dftd3", init=False)
 
 
-HeadSpec = OutputHead | AtomicShiftHead | AtomicSumHead | LRCoulombHead | DFTD3Head
+HeadSpec = OutputHead | AtomicShiftHead | AtomicSumHead | LRCoulombHead | SRCoulombHead | DFTD3Head
 
 
 def auto_switch_simple_to_dsf(cfg):
@@ -151,44 +171,56 @@ def head_apply(head: HeadSpec, params: dict, data: dict, system: System) -> dict
         return {**data, head.key_out: mol_sum(data[head.key_in], system.mol_idx, system.num_mol)}
 
     if head.kind == "lrcoulomb":
-        if system.bins is None:
+        if head.method in ("ewald", "pme"):
             raise NotImplementedError(
-                "Coulomb on the indexed layout is not ported yet (ROADMAP.md, "
-                "queue 1: the indexed / gas-phase path)"
+                f"{head.method} Coulomb is not ported yet (ROADMAP.md, queue 1: the rest of long range)"
             )
-        if head.method != "dsf":
-            raise NotImplementedError(
-                f"Coulomb method {head.method!r} on the binned engine is not ported "
-                "(periodic simple Coulomb switches to dsf; ewald and pme: ROADMAP.md "
-                "queue 1, the rest of long range)"
+        if system.bins is not None:
+            if head.method != "dsf":
+                raise NotImplementedError(
+                    f"Coulomb method {head.method!r} on the binned engine is not ported "
+                    "(periodic simple Coulomb switches to dsf; simple on the molecule-bin "
+                    "layout: ROADMAP.md queue 1)"
+                )
+            e = eb.coulomb_dsf_binned(
+                system,
+                data[head.key_in],
+                head.rc,
+                head.dsf_alpha,
+                head.dsf_rc,
+                head.envelope,
+                head.subtract_sr,
             )
-        e = eb.coulomb_dsf_binned(
-            system,
-            data[head.key_in],
-            head.rc,
-            head.dsf_alpha,
-            head.dsf_rc,
-            head.envelope,
-            head.subtract_sr,
-        )
+        elif head.method == "simple":
+            e = lr.coulomb_simple(data, system, head.rc, head.envelope, head.subtract_sr, head.key_in)
+        else:
+            e = lr.coulomb_dsf(
+                data, system, head.rc, head.dsf_alpha, head.dsf_rc, head.envelope, head.subtract_sr,
+                head.key_in,
+            )
         return _add_energy(data, head.key_out, e)
 
-    if head.kind == "dftd3":
-        if system.bins is None:
+    if head.kind == "srcoulomb":
+        if system.bins is not None:
             raise NotImplementedError(
-                "D3 on the indexed layout is not ported yet (ROADMAP.md, queue 1: "
-                "the indexed / gas-phase path)"
+                "SR Coulomb on the binned engine is not ported yet (ROADMAP.md, queue 2: "
+                "coulomb_sr_binned)"
             )
-        e = eb.dftd3_binned(
-            system,
-            params,
-            head.a1,
-            head.a2,
-            head.s8,
-            head.s6,
-            smoothing_on=head.cutoff * (1.0 - head.smoothing_fraction),
-            smoothing_off=head.cutoff,
-        )
+        e_sr = lr.coulomb_sr(data, system, head.rc, head.envelope, head.key_in)
+        return _add_energy(data, head.key_out, -e_sr)
+
+    if head.kind == "dftd3":
+        smoothing_on = head.cutoff * (1.0 - head.smoothing_fraction)
+        if system.bins is not None:
+            e = eb.dftd3_binned(
+                system, params, head.a1, head.a2, head.s8, head.s6,
+                smoothing_on=smoothing_on, smoothing_off=head.cutoff,
+            )
+        else:
+            e = lr.dftd3_energy(
+                data, system, params, head.a1, head.a2, head.s8, head.s6,
+                smoothing_on=smoothing_on, smoothing_off=head.cutoff,
+            )
         return _add_energy(data, head.key_out, e)
 
     raise ValueError(f"unknown head kind {head.kind}")

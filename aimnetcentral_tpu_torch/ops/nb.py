@@ -1,5 +1,9 @@
 """Per-atom / per-molecule primitives (counterpart of aimnetcentral_tpu/ops/nb.py).
 
+Neighbor gathers are advanced indexing, ``x[nbmat]``: its backward on CUDA
+is PyTorch's sort-based deterministic accumulation, where ``index_select``,
+``gather`` or ``take`` would differentiate through float atomics.
+
 Sums over molecules are one-hot matrix products: deterministic on every
 device (``index_add_`` on CUDA is a float atomic whose order changes from
 run to run), and the slot layout interleaves molecules, so ``mol_idx`` is
@@ -11,6 +15,18 @@ a device's GEMM adds leaves the f32 result as it is.
 from __future__ import annotations
 
 import torch
+
+
+def gather_nb(x: torch.Tensor, nbmat: torch.Tensor) -> torch.Tensor:
+    """Per-neighbor values ``x[nbmat]`` -> (N, M, ...).  The fill value
+    N - 1 points at the guaranteed padding row, so every index is in range
+    and unused slots read the padding atom's values."""
+    return x[nbmat]
+
+
+def pair_mask(nbmat: torch.Tensor) -> torch.Tensor:
+    """(N, M) bool, True for real pairs (fill entries ``N - 1`` are False)."""
+    return nbmat != (nbmat.shape[0] - 1)
 
 
 def mask_pad_atoms(x: torch.Tensor, numbers: torch.Tensor, fill: float = 0.0) -> torch.Tensor:

@@ -1,10 +1,17 @@
 """The ``System`` dataclass: one flat padded atom layout, as tensors.
 
 Counterpart of aimnetcentral_tpu/system.py.  Atoms are a flat padded array;
-padding atoms have ``numbers == 0`` and ``mol_idx == num_mol``.  This port
-carries only the binned (stencil) layout: ``bins`` describes the SR bin grid
-the slot rows are sorted into, and ``lr_bins``/``lr_slot``/``lr_inv`` the
-coarse long-range twin grid (see ops/binned.py).
+padding atoms have ``numbers == 0`` and ``mol_idx == num_mol``.  Two
+layouts:
+
+- indexed: pair terms run over neighbor matrices ``nbmat`` (N, M) int64
+  whose fill value ``N - 1`` points at the guaranteed padding last row, with
+  integer lattice image counts ``shifts`` (N, M, 3) under PBC, and optional
+  long-range matrices (``nbmat_lr``, ``nbmat_coulomb``, ``nbmat_dftd3``)
+  picked by ``resolve_nb``;
+- binned (stencil): ``bins`` describes the SR bin grid the slot rows are
+  sorted into, and ``lr_bins``/``lr_slot``/``lr_inv`` the coarse long-range
+  twin grid (see ops/binned.py).
 """
 
 from __future__ import annotations
@@ -26,6 +33,14 @@ class System:
     mol_idx: torch.Tensor  # (N,) int64 in [0, num_mol]
     mult: torch.Tensor | None = None  # (num_mol,) float32 (NSE models)
     cell: torch.Tensor | None = None  # (num_mol, 3, 3) float32, row vectors
+    nbmat: torch.Tensor | None = None  # (N, M) int64, fill N - 1 (indexed layout)
+    shifts: torch.Tensor | None = None  # (N, M, 3) int8 lattice image counts
+    nbmat_lr: torch.Tensor | None = None  # (N, M_lr) shared long-range list
+    shifts_lr: torch.Tensor | None = None
+    nbmat_coulomb: torch.Tensor | None = None  # split lists, when the Coulomb
+    shifts_coulomb: torch.Tensor | None = None  # and D3 cutoffs differ by > 20%
+    nbmat_dftd3: torch.Tensor | None = None
+    shifts_dftd3: torch.Tensor | None = None
     bins: "BinGrid | None" = None  # static SR grid of the slot layout
     lr_bins: "BinGrid | None" = None  # static coarse LR twin grid
     lr_slot: torch.Tensor | None = None  # (lr num_slots,) LR slot -> SR slot
@@ -45,6 +60,20 @@ class System:
     @property
     def device(self) -> torch.device:
         return self.coord.device
+
+    @property
+    def pad_idx(self) -> int:
+        """Index of the guaranteed padding row (the neighbor fill value)."""
+        return self.coord.shape[0] - 1
+
+    def resolve_nb(self, *suffixes: str) -> tuple[torch.Tensor, torch.Tensor | None, str]:
+        """The first (nbmat, shifts, suffix) present among ``suffixes``;
+        suffix "" is the base SR matrices."""
+        for s in suffixes:
+            nb = getattr(self, f"nbmat{s}")
+            if nb is not None:
+                return nb, getattr(self, f"shifts{s}"), s
+        raise KeyError(f"no neighbor matrix found for suffixes {suffixes}")
 
     def replace(self, **kwargs: Any) -> "System":
         return dataclasses.replace(self, **kwargs)

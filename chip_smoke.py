@@ -6,7 +6,8 @@
 Two configurations at full width on the same 10,000-atom periodic box,
 random weights from seed 0: flagship-10k (the flagship head set, DSF
 Coulomb) and wb97m-d3-10k (the same heads plus the external DFT-D3(BJ) head
-of the released ``aimnet2-wb97m-d3_*`` models).
+of the released ``aimnet2-wb97m-d3_*`` models); the same two on molecules,
+batches, a small box and gas-phase clusters cut from the same geometry.
 
 Phases (any failure exits nonzero; nothing is caught):
 
@@ -59,14 +60,25 @@ Phases (any failure exits nonzero; nothing is caught):
    after 50 steps; on the 1,200-atom box, 10 NVE steps and 10 FIRE steps
    of wb97m-d3 on the card at the exact tier against the CPU, per-step
    energies and forces and final coordinates within ``CHECK_ABS``, with the
-   same steps at ``fast`` as the control that must exceed them.
+   same steps at ``fast`` as the control that must exceed them;
+8. gas: molecules, batches, small boxes and gas-phase clusters at full
+   width through ``AIMNet2Calculator.eval(forces=True)`` (``phase_gas``):
+   mol-113 on both configurations, batch-8 (eight clusters of 40-120
+   atoms as a list), periodic-500 (wb97m-d3, with stress), cluster-2000
+   and cluster-3000 on the indexed layout, and cluster-10k-dsf (the
+   flagship with DSF Coulomb) on the gas-phase binned grid; each gated on
+   its launches (none on the indexed layout; A, B 3 and D, E 1 on the
+   grid) and a bitwise repeat, with request times built and reused, peak
+   memory and a profiled request; A, B, D and E against their plain
+   versions on the 10k gas-phase grid as in phase 3; the card against the
+   CPU on mol-113, batch-8, periodic-500 and a 1,200-atom DSF cluster.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
 request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
 error); ``launches`` counts every main-path run (both configurations'
-requests and MD windows) and ``launches_per_md_step`` the launches per MD
+requests, the gas phase's requests and MD windows) and ``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
 per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
 JAX.
@@ -260,11 +272,13 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
     tab = build_conv_tables(grid, stencil_radius(cfg.aev.rc_s, grid))
     b, c, g = grid.total_bins, grid.capacity, cfg.nshifts
     params = calc.params
+    shift = torch.as_tensor(tab["push"], device=dev)
+    if sysb.cell is not None:
+        shift = shift + cellmul(torch.as_tensor(tab["wraps"], device=dev), sysb.cell[0])
     base = dict(
         coord=sysb.coord.detach().reshape(b, c, 3).contiguous(),
         mask=(sysb.numbers > 0).float().reshape(b, c).contiguous(),
-        shift=(torch.as_tensor(tab["push"], device=dev)
-               + cellmul(torch.as_tensor(tab["wraps"], device=dev), sysb.cell[0])).contiguous(),
+        shift=shift.contiguous(),
         nbr=torch.as_tensor(tab["nbr"], device=dev),
         shifts_g=params["aev"]["shifts_s"].contiguous(),
         scal=torch.stack([params["aev"]["eta_s"], params["aev"]["rc_s"]]).contiguous(),
@@ -408,33 +422,35 @@ OPS_PER_PAIR = {  # FP32 operations per unordered pair within the cutoff (csrc/p
 
 
 def pair_terms(calc, sysb) -> dict:
-    """The three pair sweeps of a wb97m-d3 request, as ``{name: (term,
-    cutoff, extras)}`` on the binned system: DSF with random charges (seed
-    4), the D3 coordination number, and the D3 energy over the C6 vectors
-    of this box's coordination numbers."""
+    """The pair sweeps of a request on the binned system ``sysb``, as
+    ``{name: (term, cutoff, extras)}``: DSF with random charges (seed 4)
+    where the request's Coulomb is DSF, and with a D3 head the coordination
+    number and the D3 energy over the C6 vectors of this system's
+    coordination numbers (a wb97m-d3 request: all three)."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
     from aimnetcentral_tpu_torch.models import engine_binned as eb
     from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead
 
-    heads = [h for _n, h in calc._effective_cfg(True).outputs]
-    lr = next(h for h in heads if isinstance(h, LRCoulombHead))
-    d3 = next(h for h in heads if isinstance(h, DFTD3Head))
-    tables = calc.params["outputs"]["external_dftd3"]
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
-    rcov = tables["rcov"][sysb.numbers]
-    cn = eb.pair_sum_binned(sysb, d3.cutoff, ps.D3CNTerm(), {"rcov": rcov}, layout="lr")
-    r_on = d3.cutoff * (1.0 - d3.smoothing_fraction)
-    dsf = ps.DSFTerm(alpha=lr.dsf_alpha, dsf_rc=lr.dsf_rc, rc=lr.rc, envelope=lr.envelope,
-                     subtract_sr=lr.subtract_sr)
-    d3e = ps.D3EnergyTerm(a1=d3.a1, a2=d3.a2, s8=d3.s8, s6=d3.s6, r_on=r_on, r_off=d3.cutoff)
-    sweeps = (
-        (dsf, lr.dsf_rc, {"q": q}),
-        (ps.D3CNTerm(), d3.cutoff, {"rcov": rcov}),
-        (d3e, d3.cutoff, eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables)),
-    )
+    heads = [h for _n, h in calc._effective_cfg(sysb.cell is not None).outputs]
+    lr = next((h for h in heads if isinstance(h, LRCoulombHead) and h.method == "dsf"), None)
+    d3 = next((h for h in heads if isinstance(h, DFTD3Head)), None)
+    sweeps = []
+    if lr is not None:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
+        dsf = ps.DSFTerm(alpha=lr.dsf_alpha, dsf_rc=lr.dsf_rc, rc=lr.rc, envelope=lr.envelope,
+                         subtract_sr=lr.subtract_sr)
+        sweeps.append((dsf, lr.dsf_rc, {"q": q}))
+    if d3 is not None:
+        tables = calc.params["outputs"]["external_dftd3"]
+        rcov = tables["rcov"][sysb.numbers]
+        cn = eb.pair_sum_binned(sysb, d3.cutoff, ps.D3CNTerm(), {"rcov": rcov}, layout="lr")
+        r_on = d3.cutoff * (1.0 - d3.smoothing_fraction)
+        d3e = ps.D3EnergyTerm(a1=d3.a1, a2=d3.a2, s8=d3.s8, s6=d3.s6, r_on=r_on, r_off=d3.cutoff)
+        sweeps.append((ps.D3CNTerm(), d3.cutoff, {"rcov": rcov}))
+        sweeps.append((d3e, d3.cutoff, eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables)))
     return {term.name: (term, cutoff, extras) for term, cutoff, extras in sweeps}
 
 
@@ -486,11 +502,12 @@ def _slot_tests(st, ops) -> int:
     return walked * st.c
 
 
-def phase_pair_kernels(calc, sysb) -> tuple[list[dict], dict]:
+def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], dict]:
     """Kernels D and E against their plain versions on the LR layout of the
-    binned system ``sysb`` (a wb97m-d3-10k request's), for each of the three
-    pair terms: errors, the same against an f64 plain run, the pairs each
-    kernel contracted, E's scratch, times."""
+    binned system ``sysb`` (a wb97m-d3-10k request's: three pair terms; a
+    gas-phase DSF cluster's: one), for each pair term of ``pair_terms``:
+    errors, the same against an f64 plain run, the pairs each kernel
+    contracted, E's scratch, times."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
@@ -511,7 +528,7 @@ def phase_pair_kernels(calc, sysb) -> tuple[list[dict], dict]:
         ps.pair_sweep_forward(st, term, **ops, pair_counts=counts_d)
         ps.pair_sweep_backward(st, term, **ops, ct=ct, pair_counts=counts_e)
         torch.cuda.synchronize()
-        log(f"[kernels] {name}: LR grid B={st.b_tot} C={st.c} S={st.s_tot} K={st.k}; "
+        log(f"[kernels {label}] {name}: LR grid B={st.b_tot} C={st.c} S={st.s_tot} K={st.k}; "
             f"{n_pairs} unordered pairs within {cutoff} A; ordered pairs contracted (full stencil, "
             f"each pair at both ends): D {int(counts_d.sum())}, E {int(counts_e.sum())}, "
             f"2 x unordered = {2 * n_pairs}; slot tests {_slot_tests(st, ops)} of "
@@ -519,7 +536,7 @@ def phase_pair_kernels(calc, sysb) -> tuple[list[dict], dict]:
             f"(real receivers x {2 * st.s_tot - 1} offsets x capacity)")
         for key, counts in (("D", counts_d), ("E", counts_e)):
             if not torch.equal(counts.long(), plain_rows) or int(counts.sum()) != 2 * n_pairs:
-                raise SystemExit(f"FAIL: kernel {key} contracted other pairs than the plain count for {name}")
+                raise SystemExit(f"FAIL: kernel {key} contracted other pairs than the plain count for {name} ({label})")
 
         out_k = ps.pair_sweep_forward(st, term, **ops)
         torch.cuda.synchronize()
@@ -533,14 +550,14 @@ def phase_pair_kernels(calc, sysb) -> tuple[list[dict], dict]:
             k: (float((x - y).abs().max()), float(y.abs().max()))
             for k, x, y in zip(names, got, ref)
         }
-        log(f"[kernels] {name} D: max_abs_err {err_d:.3e} rel {err_d / scale_d:.3e}")
+        log(f"[kernels {label}] {name} D: max_abs_err {err_d:.3e} rel {err_d / scale_d:.3e}")
         for k, (e, sc) in errs_e.items():
-            log(f"[kernels] {name} E {k}: max_abs_err {e:.3e} rel {e / sc:.3e}")
+            log(f"[kernels {label}] {name} E {k}: max_abs_err {e:.3e} rel {e / sc:.3e}")
         if err_d > REL_TOL * scale_d:
-            raise SystemExit(f"FAIL: kernel D disagrees with its plain version for {name}")
+            raise SystemExit(f"FAIL: kernel D disagrees with its plain version for {name} ({label})")
         for k, (e, sc) in errs_e.items():
             if e > REL_TOL * sc:
-                raise SystemExit(f"FAIL: kernel E {k} disagrees with its plain version for {name}")
+                raise SystemExit(f"FAIL: kernel E {k} disagrees with its plain version for {name} ({label})")
 
         # which side the differences come from: the kernels and the f32 plain
         # versions, each against the plain versions in f64
@@ -549,11 +566,11 @@ def phase_pair_kernels(calc, sysb) -> tuple[list[dict], dict]:
         ref64 = ps.pair_backward_plain(st, term, **ops64, ct=ct.double())
         f64 = {"D out": (rel64(out_k, out64), rel64(out_p, out64))}
         f64.update({f"E {k}": (rel64(x, z), rel64(y, z)) for k, x, y, z in zip(names, got, ref, ref64)})
-        log(f"[kernels] {name} against f64, relative to the largest magnitude: "
+        log(f"[kernels {label}] {name} against f64, relative to the largest magnitude: "
             + "; ".join(f"{k}: kernel {a:.2e}, plain {b:.2e}" for k, (a, b) in f64.items()))
         for k, (a, b) in f64.items():
             if a > max(2.0 * b, F64_FLOOR):
-                raise SystemExit(f"FAIL: kernel {k} of {name} is farther from f64 than twice the f32 plain")
+                raise SystemExit(f"FAIL: kernel {k} of {name} is farther from f64 than twice the f32 plain ({label})")
         del ops64, out64, ref64
 
         ms_d = time_cuda(lambda: ps.pair_sweep_forward(st, term, **ops), reps=20)
@@ -570,11 +587,11 @@ def phase_pair_kernels(calc, sysb) -> tuple[list[dict], dict]:
         bound_d, by_d = bound(bytes_d, flops_d)
         bound_e, by_e = bound(bytes_e, flops_e)
         scratch = ps.bwd_scratch_bytes(st)
-        log(f"[kernels] {name} D: {ms_d:.3f} ms (plain {plain_d:.3f} ms), bound {bound_d:.4f} ms "
+        log(f"[kernels {label}] {name} D: {ms_d:.3f} ms (plain {plain_d:.3f} ms), bound {bound_d:.4f} ms "
             f"by {by_d}; {ps.blocks(st)} blocks of {ps.WARPS} receiver rows (a warp each), "
             f"{ps.smem_bytes(st, adjoint=False)} B shared memory; no single PyTorch call "
             f"computes this function (library_ms null)")
-        log(f"[kernels] {name} E: {ms_e:.3f} ms (plain {plain_e:.3f} ms), bound {bound_e:.4f} ms "
+        log(f"[kernels {label}] {name} E: {ms_e:.3f} ms (plain {plain_e:.3f} ms), bound {bound_e:.4f} ms "
             f"by {by_e}; {ps.smem_bytes(st, adjoint=True)} B shared memory; device scratch "
             f"{scratch} B (the per-receiver shift rows, {scratch / 2**20:.2f} MiB)")
         detail[name] = {
@@ -697,9 +714,6 @@ def phase_main_path(label: str, calc, coord, numbers, cell, per_request: dict) -
             raise SystemExit(f"FAIL: a repeated request gave another {key} on {label}")
     log(f"[main {label}] a repeated request gives the same energy and forces bit for bit")
 
-    def dev_us(e) -> float:  # the attribute was renamed across torch versions
-        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
-
     # kernel-level events only: their op-level parents carry the same time
     events = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_total = sum(dev_us(e) for e in events) / 1e3  # ms
@@ -779,7 +793,8 @@ def phase_layers(calc, coord, numbers, cell) -> dict:
 
 def energy_terms_abs(params, cfg, sysb) -> float:
     """The magnitude of the terms a configuration's energy sums on the
-    binned system ``sysb``: the sum of |atomic energy| over the real atoms
+    system ``sysb`` (either layout; all molecules): the sum of |atomic
+    energy| over the real atoms
     (the heads up to the atomic sum), plus |E - their sum| for the
     long-range heads.  Rounding each term once in f32 moves the energy by
     at most ``F32_EPS`` times this: the floor of an energy gate."""
@@ -788,7 +803,8 @@ def energy_terms_abs(params, cfg, sysb) -> float:
     from aimnetcentral_tpu_torch.models import aimnet2_apply
     from aimnetcentral_tpu_torch.models.heads import AtomicSumHead, auto_switch_simple_to_dsf
 
-    cfg = auto_switch_simple_to_dsf(cfg)
+    if sysb.cell is not None:
+        cfg = auto_switch_simple_to_dsf(cfg)
     k = next(i for i, (_n, h) in enumerate(cfg.outputs) if isinstance(h, AtomicSumHead))
     with torch.no_grad():
         e_atom = aimnet2_apply(params, dataclasses.replace(cfg, outputs=cfg.outputs[:k]), sysb,
@@ -899,11 +915,14 @@ def md_system(coord, numbers, cell, device):
     return system_from_molecules([{"coord": coord, "numbers": numbers, "cell": cell}], device, n_pad=n_pad)
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time (us); the attribute was renamed
+    across torch versions."""
+    return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+
+
 def device_busy_ms(prof) -> float:
     """Device time of a profile's kernel-level events (ms)."""
-    def dev_us(e) -> float:  # the attribute was renamed across torch versions
-        return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
-
     return sum(dev_us(e) for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
 
 
@@ -1132,6 +1151,213 @@ def phase_md_card_vs_cpu(label: str, params, cfg) -> dict:
     return {"diffs": diffs, "fire_coord_A": dfire, "card_s": runs["card"]["s"], "cpu_s": cpu["s"]}
 
 
+def gas_cluster(n_atoms: int, seed: int = 0) -> dict:
+    """A gas-phase cluster: the ``n_atoms`` atoms of a ``build_box`` box (of
+    twice as many atoms) nearest its centre, their numbers kept."""
+    coord, numbers, cell = build_box(2 * n_atoms + 64, seed=seed)
+    keep = np.argsort(np.linalg.norm(coord - np.diag(cell) / 2, axis=1), kind="stable")[:n_atoms]
+    return {"coord": coord[keep], "numbers": numbers[keep]}
+
+
+def dsf_config(cfg):
+    """``cfg`` with its Coulomb head's method set to DSF."""
+    from aimnetcentral_tpu_torch.models.heads import LRCoulombHead
+
+    return dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, method="dsf") if isinstance(h, LRCoulombHead) else h) for n, h in cfg.outputs
+    ))
+
+
+def nudged(data, rng, scale: float = 0.02):
+    """``data`` (one structure or a list) with every coordinate moved by a
+    normal draw of ``scale`` A: well inside the calculator's reuse skin."""
+    if isinstance(data, list):
+        return [nudged(m, rng, scale) for m in data]
+    return {**data, "coord": (data["coord"] + rng.normal(scale=scale, size=data["coord"].shape)).astype(np.float32)}
+
+
+def gas_request(label: str, calc, data, stress: bool, per_request: dict) -> dict:
+    """Two requests on ``data`` with every kernel's launches counted around
+    them (the second reuses the layout and must repeat the first bit for
+    bit), then ten timed reusing the layout and ten each building it,
+    cycling over three inputs; peak device memory of the first two."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    inputs = [data] + [nudged(data, rng) for _ in range(2)]
+    wrappers = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    first = calc.eval(data, forces=True, stress=stress)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    layout = calc._prep_cache["system"]
+    again = calc.eval(data, forces=True, stress=stress)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if calc._prep_cache["system"] is not layout:
+        raise SystemExit(f"FAIL: a repeated request rebuilt the layout on {label}")
+    for key in first:
+        if not np.array_equal(first[key], again[key]):
+            raise SystemExit(f"FAIL: a repeated request gave another {key} on {label}")
+    for name, n in launches.items():
+        if n != 2 * per_request[name]:
+            raise SystemExit(f"FAIL: {name} launched {n} times in two requests on {label}, expected "
+                             f"{per_request[name]} each")
+    sizes = [len(m["numbers"]) for m in data] if isinstance(data, list) else [len(data["numbers"])]
+    e, f_ = first["energy"], first["forces"]
+    if e.shape != (len(sizes),) or f_.shape != (sum(sizes), 3) or not (np.isfinite(e).all() and np.isfinite(f_).all()):
+        raise SystemExit(f"FAIL: energy {e.shape} or forces {f_.shape} wrong or not finite on {label}")
+    if stress and (first["stress"].shape != (1, 3, 3) or not np.isfinite(first["stress"]).all()):
+        raise SystemExit(f"FAIL: stress wrong or not finite on {label}")
+    for k, start in enumerate(np.cumsum([0] + sizes[:-1])):
+        fm = f_[start : start + sizes[k]].astype(np.float64)
+        if np.abs(fm.sum(0)).max() > 1e-5 * np.abs(fm).sum():
+            raise SystemExit(f"FAIL: net force on molecule {k} of {label}")
+    reused, built = [], []
+    for k in range(N_TIMED):
+        t0 = time.perf_counter()
+        calc.eval(inputs[k % 3], forces=True, stress=stress)
+        torch.cuda.synchronize()
+        reused.append(time.perf_counter() - t0)
+        if calc._prep_cache["system"] is not layout:
+            raise SystemExit(f"FAIL: a sub-skin move rebuilt the layout on {label}")
+    for k in range(N_TIMED):
+        calc._prep_cache = None
+        t0 = time.perf_counter()
+        calc.eval(inputs[k % 3], forces=True, stress=stress)
+        torch.cuda.synchronize()
+        built.append(time.perf_counter() - t0)
+    # one more request under the profiler: device busy against the
+    # unprofiled median, and the kernels that take the device time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        calc.eval(data, forces=True, stress=stress)
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof)
+    idle = max(0.0, 1 - busy / (np.median(reused) * 1e3))
+    top = sorted((e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                 key=dev_us, reverse=True)[:5]
+    kind = "binned" if layout.bins is not None else "indexed"
+    shape = (f"grid {layout.bins.nbins} C={layout.bins.capacity}, LR grid {layout.lr_bins.nbins} "
+             f"C={layout.lr_bins.capacity}" if kind == "binned" else
+             "lists " + ", ".join(f"nbmat{s} {tuple(getattr(layout, f'nbmat{s}').shape)}"
+                                  for s in ("", "_lr", "_coulomb", "_dftd3") if getattr(layout, f"nbmat{s}") is not None))
+    log(f"[gas {label}] {len(sizes)} molecule(s), {sum(sizes)} atoms, {kind} layout ({shape}); E[0] = {e[0]:.6f} eV; "
+        f"first request {t_first * 1e3:.1f} ms; {N_TIMED} reusing the layout: median {np.median(reused) * 1e3:.2f} ms "
+        f"(min {min(reused) * 1e3:.2f}, max {max(reused) * 1e3:.2f}); {N_TIMED} building it: median "
+        f"{np.median(built) * 1e3:.2f} ms (min {min(built) * 1e3:.2f}, max {max(built) * 1e3:.2f}); peak memory "
+        f"{peak / 2**30:.3f} GiB; launches per request {({k: v // 2 for k, v in launches.items()})}; a repeated "
+        f"request gives the same results bit for bit")
+    log(f"[gas {label}] profiled request: device busy {busy:.2f} ms, idle share against the unprofiled median "
+        f"{idle:.3f}; most device time: " + "; ".join(f"{dev_us(e) / 1e3:.2f} ms x{e.count} {e.key[:60]}" for e in top))
+    return {"layout": kind, "atoms": sum(sizes), "molecules": len(sizes), "launches": launches,
+            "device_busy_ms": busy, "idle_share": idle,
+            "top": [{"name": e.key[:90], "ms": dev_us(e) / 1e3, "count": e.count} for e in top],
+            "first_s": t_first, "reused_s": reused, "reused_median_s": float(np.median(reused)),
+            "built_s": built, "built_median_s": float(np.median(built)), "peak_bytes": peak}
+
+
+def gas_card_vs_cpu(label: str, params, cfg, data, stress: bool, binned_threshold: int = 1024) -> dict:
+    """One request on the card against the port's CPU run: per-molecule
+    energy within 1e-5 relative with the floor of one f32 rounding of every
+    summed term, forces 1e-4 eV/A, stress 1e-6 eV/A^3."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+
+    calc = AIMNet2Calculator((params, cfg), device="cuda", binned_threshold=binned_threshold)
+    system = calc.prepare_system(data)
+    floor = F32_EPS * energy_terms_abs(params, cfg, system)
+    t0 = time.perf_counter()
+    card = calc.eval(data, forces=True, stress=stress)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = AIMNet2Calculator((params_to(params, torch.device("cpu")), cfg), device="cpu",
+                            binned_threshold=binned_threshold).eval(data, forces=True, stress=stress)
+    t_cpu = time.perf_counter() - t0
+    de = np.abs(card["energy"] - cpu["energy"])
+    e_tol = np.maximum(REL_TOL * np.abs(cpu["energy"]), floor)
+    df = float(np.abs(card["forces"] - cpu["forces"]).max())
+    ds = float(np.abs(card["stress"] - cpu["stress"]).max()) if stress else 0.0
+    log(f"[gas check {label}] {'binned' if system.bins is not None else 'indexed'} layout, "
+        f"{len(card['forces'])} atoms: largest |dE| {de.max():.3e} eV (limit {e_tol.min():.3e}: 1e-5 relative, floor "
+        f"{floor:.3e}); max |dF| {df:.3e} eV/A" + (f"; max |dstress| {ds:.3e} eV/A^3" if stress else "")
+        + f" (card {t_card:.2f} s, cpu {t_cpu:.2f} s)")
+    if (de > e_tol).any() or df > 1e-4 or ds > 1e-6:
+        raise SystemExit(f"FAIL: the card and the CPU run disagree on {label}")
+    return {"dE": float(de.max()), "dE_limit": float(e_tol.min()), "dF": df, "dstress": ds,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+GAS_BATCH = (40, 57, 74, 91, 108, 120, 65, 83)  # batch-8: 638 atoms
+
+
+def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
+    """Molecules, batches, small boxes and gas-phase clusters through
+    ``AIMNet2Calculator.eval(forces=True)`` at full width (clusters cut from
+    ``build_box`` geometry): mol-113 (flagship and wb97m-d3: the indexed
+    all-pairs layout), batch-8 (eight clusters of 40-120 atoms as a list),
+    periodic-500 (wb97m-d3 with stress: shifts, DSF by the periodic switch),
+    cluster-2000 (the largest all-pairs SR list, for its memory),
+    cluster-3000 (the host cell list's cutoff-bounded SR list and the
+    all-pairs LR list of simple Coulomb) and cluster-10k-dsf (the flagship
+    with DSF Coulomb: the gas-phase binned grid).  Each: launches (none on
+    the indexed layout; A, B 3 and D, E 1 a request on the grid), a bitwise
+    repeat, request times built and reused, peak memory.  Kernels A, B, D
+    and E against their plain versions on the 10k gas-phase grid, and the
+    card against the CPU on mol-113, batch-8, periodic-500 and a 1,200-atom
+    DSF cluster on its gas-phase grid."""
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+
+    cfg_dsf = dsf_config(cfg)
+    mol = gas_cluster(113, seed=1)
+    batch = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
+    coord, numbers, cell = build_box(500, seed=2)
+    box = {"coord": coord, "numbers": numbers, "cell": cell}
+    none = {name: 0 for name in counters()}
+    grid = {"conv_stencil_forward": 3, "conv_stencil_backward": 3, "pair_sweep_forward": 1,
+            "pair_sweep_backward": 1}
+    cases = (
+        ("mol-113 flagship", params, cfg, mol, False, none),
+        ("mol-113 wb97m-d3", params_d3, cfg_d3, mol, False, none),
+        ("batch-8 flagship", params, cfg, batch, False, none),
+        ("periodic-500 wb97m-d3", params_d3, cfg_d3, box, True, none),
+        ("cluster-2000 flagship", params, cfg, gas_cluster(2000, seed=4), False, none),
+        ("cluster-3000 flagship", params, cfg, gas_cluster(3000, seed=3), False, none),
+        ("cluster-10k-dsf flagship", params, cfg_dsf, gas_cluster(N_MAIN, seed=5), False, grid),
+    )
+    res: dict = {"requests": {}, "checks": {}}
+    launches = dict(none)
+    for label, p, c, data, stress, per_request in cases:
+        calc = AIMNet2Calculator((p, c), device="cuda")
+        res["requests"][label] = gas_request(label, calc, data, stress, per_request)
+        for name, n in res["requests"][label]["launches"].items():
+            launches[name] += n
+        if per_request is grid:
+            sysb = calc.prepare_system(data)
+            _rows, res["kernels_detail"] = phase_kernels(calc, sysb, "gas 10k")
+            _rows, res["pair_kernels_detail"] = phase_pair_kernels(calc, sysb, "gas 10k")
+        del calc
+    res["launches"] = launches
+    for label, p, c, data, stress, threshold in (
+        ("mol-113 flagship", params, cfg, mol, False, 1024),
+        ("mol-113 wb97m-d3", params_d3, cfg_d3, mol, False, 1024),
+        ("batch-8 flagship", params, cfg, batch, False, 1024),
+        ("periodic-500 wb97m-d3", params_d3, cfg_d3, box, True, 1024),
+        ("cluster-1200-dsf flagship", params, cfg_dsf, gas_cluster(N_CHECK, seed=5), False, 1024),
+    ):
+        res["checks"][label] = gas_card_vs_cpu(label, p, c, data, stress, threshold)
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
@@ -1188,6 +1414,9 @@ def main() -> None:
     results["check"] = phase_card_vs_cpu("flagship", params, cfg)
     results["check_d3"] = phase_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
     results["reuse"] = phase_reuse("wb97m-d3", params_d3, cfg_d3)
+    results["gas"] = phase_gas(params, cfg, params_d3, cfg_d3)
+    for k in kernels:
+        k["launches"] += results["gas"]["launches"][k["name"]]
 
     peaks = {"flagship-10k": results["main"]["peak_bytes"], "wb97m-d3-10k": results["main_d3"]["peak_bytes"]}
     md_runs = phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, peaks)

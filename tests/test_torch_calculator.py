@@ -6,6 +6,8 @@ bridge, on a 60-atom 12 A periodic box through the binned engine.
 Tolerances: energy 1e-5 relative, charges 1e-5, forces 1e-5 eV/A, stress
 1e-6 eV/A^3."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -145,15 +147,25 @@ def test_unported_tiers_raise(models, results, precision):
 
 
 def test_unported_inputs_raise(models):
+    """What the port does not run yet raises, naming ROADMAP.md: Hessians,
+    a gas-phase batch at or above ``binned_threshold`` (the molecule-bin
+    layout) and Ewald Coulomb.  Gas-phase inputs and structures below the
+    threshold, which raised before the indexed layout was ported, now run."""
     calc = TCalculator(models[1], device="cpu", binned_threshold=0)
     gas = {k: v for k, v in _box().items() if k != "cell"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calc.eval(gas, forces=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         calc.eval(_box(), hessian=True)
-    small = TCalculator(models[1], device="cpu")  # 60 atoms < binned_threshold 1024
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        small.eval(_box())
+        calc.eval([gas, gas])
+    params, cfg, aux = models[1]
+    ewald = dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, method="ewald") if n == "lrcoulomb" else h) for n, h in cfg.outputs))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TCalculator((params, ewald, aux), device="cpu").eval(_box())
+    assert np.isfinite(calc.eval(gas, forces=True)["forces"]).all()
+    small = TCalculator(models[1], device="cpu")  # 60 atoms < binned_threshold 1024: indexed
+    assert np.isfinite(small.eval(_box())["energy"]).all()
+    assert small._prep_cache["system"].bins is None
 
 
 def test_no_card_raises_unless_cpu_asked(models):
@@ -211,3 +223,86 @@ def test_reuse_invalidated_by_topology_change(models, change):
         other["coord"][3, 1] += 0.31  # one coordinate beyond reuse_skin / 2
     calc.eval(other)
     assert calc._prep_cache["system"] is not cached
+
+
+def _with_pair(base: dict, ri: np.ndarray, rj: np.ndarray) -> dict:
+    """``base`` with two atoms (C, O) placed at ``ri`` and ``rj`` and every
+    atom within 1.6 A of either removed; the pair comes first."""
+    coord, numbers = base["coord"], base["numbers"]
+    far = (np.linalg.norm(coord - ri, axis=1) > 1.6) & (np.linalg.norm(coord - rj, axis=1) > 1.6)
+    return {
+        "coord": np.concatenate([[ri, rj], coord[far]]).astype(np.float32),
+        "numbers": np.concatenate([[6, 8], numbers[far]]),
+        "cell": base["cell"],
+    }
+
+
+def _diagonal_move(data: dict) -> dict:
+    """The pair's atoms moved 0.299 A along every coordinate, towards each
+    other along (1, 1, 1): under ``reuse_skin / 2`` = 0.3 A per coordinate,
+    0.518 A each in length."""
+    moved = dict(data, coord=data["coord"].copy())
+    moved["coord"][0] += 0.299
+    moved["coord"][1] -= 0.299
+    return moved
+
+
+def _normal_111_box() -> dict:
+    """A cell whose first plane normal is (1, 1, 1): rows 28.5 n1, 17 n2 and
+    17 n3 of an orthonormal frame with n1 along (1, 1, 1), so the SR grid at
+    cutoff + skin 5.6 A is 5 x 3 x 3 bins (stencil radius 1).  A jittered
+    3 A lattice in that frame, and a pair on n1 at u = 11.35 (bin 1) and
+    17.15 A (bin 3): 5.8 A apart, no SR pair at the build."""
+    n1 = np.ones(3) / np.sqrt(3.0)
+    n2 = np.array([1.0, -1.0, 0.0]) / np.sqrt(2.0)
+    frame = np.stack([n1, n2, np.cross(n1, n2)])
+    lengths = np.array([28.5, 17.0, 17.0])
+    rng = np.random.default_rng(5)
+    counts = (9, 5, 5)
+    grid = np.stack(np.meshgrid(*[np.arange(k) for k in counts], indexing="ij"), axis=-1).reshape(-1, 3)
+    uvw = (grid + 0.5 + rng.uniform(-0.15, 0.15, size=grid.shape)) * (lengths / counts)
+    base = {
+        "coord": uvw @ frame,
+        "numbers": rng.choice([1, 6, 7, 8], size=len(grid), p=[0.5, 0.35, 0.05, 0.1]),
+        "cell": (lengths[:, None] * frame).astype(np.float32),
+    }
+    return _with_pair(base, np.array([11.35, 8.5, 8.5]) @ frame, np.array([17.15, 8.5, 8.5]) @ frame)
+
+
+def _corner_pair_box() -> dict:
+    """The 12 A test box with a pair on the cube's diagonal, 5.7 A apart:
+    beyond the SR list's reach (cutoff + skin 5.6 A) at the build."""
+    ri = np.array([3.0, 3.0, 3.0])
+    return _with_pair(_box(), ri, ri + 5.7 / np.sqrt(3.0))
+
+
+@pytest.mark.parametrize("layout", ["binned-skewed", "indexed-diagonal"])
+def test_reuse_rebuilds_after_a_diagonal_move(models, layout):
+    """Two atoms move 0.299 A along each coordinate towards each other: no
+    coordinate moves more than ``reuse_skin / 2``, but each atom moves
+    0.518 A, and the pair comes within the cutoff (5.8 -> 4.76 A along the
+    skewed cell's plane normal, whose bins 1 and 3 the radius-1 stencil does
+    not join; 5.7 -> 4.66 A on the indexed layout's SR list).  The reuse
+    test takes the Euclidean move, so the layout is rebuilt and the result
+    is a fresh build's, bit for bit, and the JAX package's fresh build's
+    within the tolerances.  A reuse test on the largest coordinate would
+    keep the stale layout and drop the pair."""
+    jmodel, tmodel = models
+    data = _normal_111_box() if layout == "binned-skewed" else _corner_pair_box()
+    threshold = 0 if layout == "binned-skewed" else 1024
+    moved = _diagonal_move(data)
+    calc = TCalculator(tmodel, device="cpu", binned_threshold=threshold)
+    calc.eval(data)
+    cached = calc._prep_cache["system"]
+    assert (cached.bins is not None) == (layout == "binned-skewed")
+    if cached.bins is not None:
+        assert cached.bins.nbins == (5, 3, 3)
+    got = calc.eval(moved, forces=True, stress=True)
+    assert calc._prep_cache["system"] is not cached
+    fresh = TCalculator(tmodel, device="cpu", binned_threshold=threshold).eval(moved, forces=True, stress=True)
+    for key in ("energy", "forces", "stress"):
+        np.testing.assert_array_equal(got[key], fresh[key])
+    ref = JCalculator(jmodel, binned_threshold=threshold).eval(moved, forces=True, stress=True)
+    np.testing.assert_allclose(got["energy"], ref["energy"], rtol=1e-5)
+    np.testing.assert_allclose(got["forces"], ref["forces"], atol=1e-5)
+    np.testing.assert_allclose(got["stress"], ref["stress"], atol=1e-6)

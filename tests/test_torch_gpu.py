@@ -539,3 +539,53 @@ def test_md_card_matches_cpu(cuda_device):
     assert drv.rebins >= 1
     np.testing.assert_allclose(card["epot"], cpu["epot"], rtol=1e-5)
     np.testing.assert_allclose(snap_card["coord"], snap_cpu["coord"], atol=1e-4)
+
+
+def _cluster(n, seed=0, spacing=2.2):
+    """The ``n`` atoms nearest the centre of a jittered CHNO lattice."""
+    rng = np.random.default_rng(seed)
+    m = int(np.ceil((3 * n) ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), axis=-1).reshape(-1, 3)
+    coord = (grid + rng.uniform(-0.15, 0.15, size=grid.shape)) * spacing
+    numbers = rng.choice([1, 6, 7, 8], size=len(grid), p=[0.5, 0.35, 0.05, 0.1])
+    keep = np.argsort(np.linalg.norm(coord - coord.mean(0), axis=1), kind="stable")[:n]
+    return {"coord": coord[keep].astype(np.float32), "numbers": numbers[keep]}
+
+
+GAS_INPUTS = {  # name -> (input, binned_threshold, stress, Coulomb method)
+    "molecule": (_cluster(23, 1), 1024, False, "simple"),
+    "batch": ([_cluster(n, 2 + n) for n in (7, 19, 12)], 1024, False, "simple"),
+    "box": (_box(), 1024, True, "simple"),
+    "cluster-dsf": (_cluster(80, 4), 64, False, "dsf"),
+}
+
+
+@pytest.mark.parametrize("name", list(GAS_INPUTS))
+def test_gas_and_indexed_requests_card_match_cpu(cuda_device, name):
+    """Molecules, a batch and a small box on the indexed layout (no kernel
+    launch), and a gas-phase DSF cluster on the binned grid (A, B, D and E
+    three times a request), wB97M-D3 head set: card against CPU
+    (energy 1e-5 relative or 1e-5 eV, forces 1e-4 eV/A, stress 1e-6
+    eV/A^3), and a repeated request equal bit for bit."""
+    data, threshold, stress, method = GAS_INPUTS[name]
+    params, cfg = _narrow_model(CPU, d3=True)
+    cfg = dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, method=method) if isinstance(h, LRCoulombHead) else h) for n, h in cfg.outputs))
+    cpu = AIMNet2Calculator((params, cfg), device="cpu", binned_threshold=threshold).eval(
+        data, forces=True, stress=stress)
+    counters = (cs.conv_stencil_forward, cs.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
+    for fn in counters:
+        fn.launches = 0
+    calc = AIMNet2Calculator((params, cfg), device=cuda_device, binned_threshold=threshold)
+    card = calc.eval(data, forces=True, stress=stress)
+    again = calc.eval(data, forces=True, stress=stress)
+    binned = name == "cluster-dsf"
+    assert (calc._prep_cache["system"].bins is not None) == binned
+    # two requests; on the grid D and E sweep DSF, the D3 CN and the D3 energy
+    assert [fn.launches for fn in counters] == ([6, 6, 6, 6] if binned else [0, 0, 0, 0])
+    for key in card:
+        np.testing.assert_array_equal(card[key], again[key])
+    np.testing.assert_allclose(card["energy"], cpu["energy"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(card["forces"], cpu["forces"], atol=1e-4)
+    if stress:
+        np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)

@@ -1,6 +1,8 @@
 """The port imports neither JAX nor the JAX package: every module of
-``aimnetcentral_tpu_torch`` (dynamics included) and ``chip_smoke.py`` import
-in a fresh interpreter where both are blocked."""
+``aimnetcentral_tpu_torch`` (dynamics and the indexed layout's neighbor
+builders included) and ``chip_smoke.py`` import in a fresh interpreter where
+both are blocked.  scipy is imported inside the kd-tree build only, never
+when a module is imported."""
 
 import os
 import subprocess
@@ -18,6 +20,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "aimnetcentral_tpu.")) for k in sys.modules if sys.modules[k])
+assert not any(k == "scipy" or k.startswith("scipy.") for k in sys.modules)
 print(" ".join(names))
 """
 
@@ -31,5 +34,7 @@ def test_port_imports_no_jax():
     names = set(out.stdout.split())
     for must in ("aimnetcentral_tpu_torch.dynamics.md", "aimnetcentral_tpu_torch.dynamics.optimize",
                  "aimnetcentral_tpu_torch.dynamics.trajectory", "aimnetcentral_tpu_torch.calculators.calculator",
-                 "aimnetcentral_tpu_torch.kernels.pair_sweep", "aimnetcentral_tpu_torch.models.engine_binned"):
+                 "aimnetcentral_tpu_torch.kernels.pair_sweep", "aimnetcentral_tpu_torch.models.engine_binned",
+                 "aimnetcentral_tpu_torch.ops.neighbors", "aimnetcentral_tpu_torch.builders",
+                 "aimnetcentral_tpu_torch.models.lr"):
         assert must in names

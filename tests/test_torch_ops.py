@@ -97,3 +97,18 @@ def test_mlp_apply(rng, last_linear):
     y_t = tmodules.mlp_apply([{k: torch.tensor(v) for k, v in lay.items()} for lay in layers_np], torch.tensor(x), spec_t)
     # matmul sums run in another order: 1e-6 of the output's magnitude
     _close(y_t, y_j, atol=RTOL * float(np.abs(np.asarray(y_j)).max()))
+
+
+def test_exp_cutoff(rng):
+    d = rng.uniform(0.0, 6.0, size=(40, 7)).astype(np.float32)
+    _close(tmath.exp_cutoff(torch.tensor(d), 4.6), jmath.exp_cutoff(d, 4.6), atol=1e-7)
+
+
+def test_coulomb_matrix_dsf(rng):
+    d = rng.uniform(0.5, 18.0, size=(30, 9)).astype(np.float32)
+    valid = rng.uniform(size=d.shape) > 0.2
+    _close(
+        tmath.coulomb_matrix_dsf(torch.tensor(d), 15.0, 0.2, torch.tensor(valid)),
+        jmath.coulomb_matrix_dsf(d, 15.0, 0.2, valid),
+        atol=1e-7,
+    )
