@@ -139,6 +139,23 @@ def _prep_key(mols: list[dict]) -> tuple:
     )
 
 
+def _builder_wrap(mols: list[dict], n_pad: int) -> np.ndarray | None:
+    """The Cartesian lattice offset ``system_from_molecules`` subtracts from
+    each atom of a periodic molecule to wrap it into its cell, in float64
+    and computed as the builder computes it; None without a cell."""
+    if not any(m.get("cell") is not None for m in mols):
+        return None
+    wrap = np.zeros((n_pad, 3), np.float64)
+    off = 0
+    for m in mols:
+        c = np.asarray(m["coord"], np.float32).astype(np.float64)
+        if m.get("cell") is not None:
+            cb = np.asarray(m["cell"], np.float64)
+            wrap[off : off + len(c)] = np.floor(c @ np.linalg.inv(cb)) @ cb
+        off += len(c)
+    return wrap
+
+
 class AIMNet2Calculator:
     """Single-point energy / forces / stress of molecules, batches and
     periodic boxes.
@@ -197,20 +214,17 @@ class AIMNet2Calculator:
         kind: str,
         n_pad: int,
         perm: np.ndarray | None = None,
-        wrap: np.ndarray | None = None,
-        cell: np.ndarray | None = None,
     ) -> None:
         """Keep the prepared layout (``kind`` "binned" or "indexed") with
         the input it was built from, the slot permutation of a binned
-        layout, and the lattice wrap the builder applied: per atom as image
-        counts against ``cell`` (binned) or as a Cartesian offset
-        (indexed), None in the gas phase."""
+        layout, and the lattice wrap the builder applied as a float64
+        Cartesian offset per atom (None in the gas phase)."""
         if self.reuse_skin <= 0:
             return
         self._prep_cache = {
             "key": _prep_key(mols), "kind": kind, "system": system,
             "ref": np.concatenate([np.asarray(m["coord"], np.float32) for m in mols]),
-            "n_pad": n_pad, "perm": perm, "wrap": wrap, "cell": cell,
+            "n_pad": n_pad, "perm": perm, "wrap": _builder_wrap(mols, n_pad),
         }
 
     def _reuse_prepared(self, mols: list[dict]) -> System | None:
@@ -232,19 +246,16 @@ class AIMNet2Calculator:
             return None
         compact = np.ones((c["n_pad"], 3), np.float32)
         compact[: len(new)] = new
-        if c["kind"] == "binned":
-            if c["wrap"] is not None:
-                # the wrap CACHED at build time keeps an atom that crossed
-                # the box boundary since continuous (its bin is stale by
-                # less than the skin, which the grids' margin covers)
-                compact = compact - c["wrap"] @ c["cell"]
-            self._last_perm = c["perm"]
-            return c["system"].replace(coord=torch.as_tensor(compact[c["perm"]], device=self.device))
-        self._last_perm = None
         if c["wrap"] is not None:
-            # indexed periodic systems live in the wrapped frame: the cached
-            # Cartesian wrap keeps the stale-but-exact shift matrices valid
-            compact = compact - c["wrap"]
+            # periodic systems live in the wrapped frame: the wrap CACHED at
+            # build time, subtracted in float64 as the builder does, keeps an
+            # atom that crossed the box boundary since continuous (its bin is
+            # stale by less than the skin, which the grids' margin covers, and
+            # the indexed shift matrices stay exact)
+            compact = (compact.astype(np.float64) - c["wrap"]).astype(np.float32)
+        self._last_perm = c["perm"]
+        if c["kind"] == "binned":
+            compact = compact[c["perm"]]
         return c["system"].replace(coord=torch.as_tensor(compact, device=self.device))
 
     # -- layouts ------------------------------------------------------------
@@ -317,12 +328,7 @@ class AIMNet2Calculator:
             if safety > 32:
                 raise RuntimeError("bin capacity planning failed")
         self._last_perm = perm.cpu().numpy()
-        wrap = None
-        if cell_np is not None:
-            compact0 = np.ones((n_pad, 3), np.float32)
-            compact0[:n_real] = np.asarray(mol["coord"], np.float32)
-            wrap = np.floor(compact0 @ np.linalg.inv(cell_np)).astype(np.float32)
-        self._store_prep([mol], sysb, "binned", n_pad, perm=self._last_perm, wrap=wrap, cell=cell_np)
+        self._store_prep([mol], sysb, "binned", n_pad, perm=self._last_perm)
         return sysb
 
     def _prepare_indexed(
@@ -360,19 +366,7 @@ class AIMNet2Calculator:
             mols, self.device, n_pad=n_pad, cutoff=reach(cutoff), lr_cutoff=reach(lr_cutoff),
             coulomb_cutoff=reach(coulomb_cutoff), dftd3_cutoff=reach(dftd3_cutoff), build_nbmat=True,
         )
-        # the Cartesian wrap the builder applied (wrapped frame), to re-wrap
-        # new coordinates the same way on reuse
-        wrap_cart = None
-        if has_cell:
-            wrap_cart = np.zeros((n_pad, 3), np.float32)
-            off = 0
-            for m in mols:
-                c = np.asarray(m["coord"], np.float64)
-                if m.get("cell") is not None:
-                    cb = np.asarray(m["cell"], np.float64)
-                    wrap_cart[off : off + len(c)] = (np.floor(c @ np.linalg.inv(cb)) @ cb).astype(np.float32)
-                off += len(c)
-        self._store_prep(mols, system, "indexed", n_pad, wrap=wrap_cart)
+        self._store_prep(mols, system, "indexed", n_pad)
         return system
 
     def eval(

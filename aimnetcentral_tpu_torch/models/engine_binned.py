@@ -228,21 +228,11 @@ def d3_pair_extras(
     zmap_t, nref, cnref, m_mat = _d3_device_tables(tuple(species), dev)
     spec_idx = zmap_t[numbers]
     k_ids = torch.arange(5, device=dev)
-    has_ref = k_ids[None, :] < nref[spec_idx][:, None]
-    arg = -4.0 * (cn[:, None] - cnref[spec_idx]) ** 2
-    w = torch.where(has_ref, torch.exp(arg), 0.0)
+    w = torch.exp(-4.0 * (cn[:, None] - cnref[spec_idx]) ** 2)
+    w = torch.where(k_ids[None, :] < nref[spec_idx][:, None], w, 0.0)
     wsum = w.sum(-1)
-    # an atom whose coordination number lies far above every reference
-    # (|cn - cnref| > 2.6) has weights that sum below 1e-12: there the
-    # weights are shifted by their largest exponent, which the
-    # normalisation cancels (unshifted, its C6 would drop to 0)
-    top = torch.where(has_ref, arg, -math.inf).amax(dim=-1, keepdim=True)
-    w_top = torch.where(has_ref, torch.exp(arg - torch.where(torch.isfinite(top), top, 0.0)), 0.0)
-    v = torch.where(
-        (wsum > 1e-12)[:, None],
-        w / torch.clamp(wsum, min=1e-12)[:, None],
-        w_top / torch.clamp(w_top.sum(-1), min=1e-12)[:, None],
-    )
+    v = w / torch.clamp(wsum, min=1e-12)[:, None]
+    v = torch.where((wsum > 1e-12)[:, None], v, 0.0)
     onehot = (spec_idx[:, None] == torch.arange(s_count, device=dev)).to(v.dtype)  # no host sync
     p_vec = (v[:, :, None] * onehot[:, None, :]).reshape(-1, 5 * s_count)
     r_vec = p_vec @ m_mat.T

@@ -1168,6 +1168,15 @@ def dsf_config(cfg):
     ))
 
 
+def d3_cutoff_config(cfg, cutoff: float):
+    """``cfg`` with its D3 head's cutoff set to ``cutoff``."""
+    from aimnetcentral_tpu_torch.models.heads import DFTD3Head
+
+    return dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, cutoff=cutoff) if isinstance(h, DFTD3Head) else h) for n, h in cfg.outputs
+    ))
+
+
 def nudged(data, rng, scale: float = 0.02):
     """``data`` (one structure or a list) with every coordinate moved by a
     normal draw of ``scale`` A: well inside the calculator's reuse skin."""
@@ -1305,7 +1314,10 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
     ``AIMNet2Calculator.eval(forces=True)`` at full width (clusters cut from
     ``build_box`` geometry): mol-113 (flagship and wb97m-d3: the indexed
     all-pairs layout), batch-8 (eight clusters of 40-120 atoms as a list),
-    periodic-500 (wb97m-d3 with stress: shifts, DSF by the periodic switch),
+    periodic-500 (wb97m-d3 with stress: shifts, DSF by the periodic switch,
+    one LR list shared by Coulomb and D3 at 15 A), periodic-500-split (its
+    D3 cutoff at 8 A: a Coulomb and a D3 list, as the 1.2 ratio rule splits
+    them),
     cluster-2000 (the largest all-pairs SR list, for its memory),
     cluster-3000 (the host cell list's cutoff-bounded SR list and the
     all-pairs LR list of simple Coulomb) and cluster-10k-dsf (the flagship
@@ -1313,11 +1325,12 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
     the indexed layout; A, B 3 and D, E 1 a request on the grid), a bitwise
     repeat, request times built and reused, peak memory.  Kernels A, B, D
     and E against their plain versions on the 10k gas-phase grid, and the
-    card against the CPU on mol-113, batch-8, periodic-500 and a 1,200-atom
-    DSF cluster on its gas-phase grid."""
+    card against the CPU on mol-113, batch-8, periodic-500 (both) and a
+    1,200-atom DSF cluster on its gas-phase grid."""
     from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
 
     cfg_dsf = dsf_config(cfg)
+    cfg_split = d3_cutoff_config(cfg_d3, 8.0)
     mol = gas_cluster(113, seed=1)
     batch = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
     coord, numbers, cell = build_box(500, seed=2)
@@ -1330,6 +1343,7 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
         ("mol-113 wb97m-d3", params_d3, cfg_d3, mol, False, none),
         ("batch-8 flagship", params, cfg, batch, False, none),
         ("periodic-500 wb97m-d3", params_d3, cfg_d3, box, True, none),
+        ("periodic-500-split wb97m-d3", params_d3, cfg_split, box, True, none),
         ("cluster-2000 flagship", params, cfg, gas_cluster(2000, seed=4), False, none),
         ("cluster-3000 flagship", params, cfg, gas_cluster(3000, seed=3), False, none),
         ("cluster-10k-dsf flagship", params, cfg_dsf, gas_cluster(N_MAIN, seed=5), False, grid),
@@ -1339,6 +1353,11 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
     for label, p, c, data, stress, per_request in cases:
         calc = AIMNet2Calculator((p, c), device="cuda")
         res["requests"][label] = gas_request(label, calc, data, stress, per_request)
+        if label.startswith("periodic-500"):
+            system = calc._prep_cache["system"]
+            split = "split" in label
+            if (system.nbmat_lr is None) != split or (system.nbmat_dftd3 is not None) != split:
+                raise SystemExit(f"FAIL: {label} ran {'shared' if split else 'split'} long-range lists")
         for name, n in res["requests"][label]["launches"].items():
             launches[name] += n
         if per_request is grid:
@@ -1352,6 +1371,7 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
         ("mol-113 wb97m-d3", params_d3, cfg_d3, mol, False, 1024),
         ("batch-8 flagship", params, cfg, batch, False, 1024),
         ("periodic-500 wb97m-d3", params_d3, cfg_d3, box, True, 1024),
+        ("periodic-500-split wb97m-d3", params_d3, cfg_split, box, True, 1024),
         ("cluster-1200-dsf flagship", params, cfg_dsf, gas_cluster(N_CHECK, seed=5), False, 1024),
     ):
         res["checks"][label] = gas_card_vs_cpu(label, p, c, data, stress, threshold)

@@ -149,8 +149,7 @@ def test_unported_tiers_raise(models, results, precision):
 def test_unported_inputs_raise(models):
     """What the port does not run yet raises, naming ROADMAP.md: Hessians,
     a gas-phase batch at or above ``binned_threshold`` (the molecule-bin
-    layout) and Ewald Coulomb.  Gas-phase inputs and structures below the
-    threshold, which raised before the indexed layout was ported, now run."""
+    layout) and Ewald Coulomb."""
     calc = TCalculator(models[1], device="cpu", binned_threshold=0)
     gas = {k: v for k, v in _box().items() if k != "cell"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -162,7 +161,16 @@ def test_unported_inputs_raise(models):
         (n, dataclasses.replace(h, method="ewald") if n == "lrcoulomb" else h) for n, h in cfg.outputs))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TCalculator((params, ewald, aux), device="cpu").eval(_box())
+
+
+def test_gas_and_small_inputs_run(models):
+    """A gas-phase structure with simple Coulomb (the indexed all-pairs
+    layout, whatever the threshold) and a box below the threshold (the
+    indexed layout with shifts) run."""
+    calc = TCalculator(models[1], device="cpu", binned_threshold=0)
+    gas = {k: v for k, v in _box().items() if k != "cell"}
     assert np.isfinite(calc.eval(gas, forces=True)["forces"]).all()
+    assert calc._prep_cache["system"].bins is None
     small = TCalculator(models[1], device="cpu")  # 60 atoms < binned_threshold 1024: indexed
     assert np.isfinite(small.eval(_box())["energy"]).all()
     assert small._prep_cache["system"].bins is None
@@ -196,6 +204,35 @@ def test_reuse_is_exact_across_pbc_crossing(models):
     np.testing.assert_allclose(out2["forces"], ref2["forces"], atol=1e-4)
     np.testing.assert_allclose(out2["stress"], ref2["stress"], atol=1e-6)
     assert out0["energy"][0] != out2["energy"][0]
+
+
+def _skewed(data: dict) -> dict:
+    """``data`` in a non-orthogonal cell at the same fractional coordinates
+    (some outside the cell, so the builder wraps them).  The cell's entries
+    use all of float32's bits, so a lattice vector sum is not a float32."""
+    cell = np.array([[12.0, 0.0, 0.0], [2.71828, 11.4142, 0.0], [-1.73205, 1.41421, 11.0905]], np.float32)
+    frac = data["coord"].astype(np.float64) / 12.0
+    return {**data, "coord": (frac @ cell).astype(np.float32), "cell": cell}
+
+
+@pytest.mark.parametrize("cell", ["cubic", "skewed"])
+@pytest.mark.parametrize("layout", ["indexed", "binned"])
+def test_reuse_repeats_the_build(models, layout, cell):
+    """The same box again reuses the layout and gives the built request's
+    coordinates and results bit for bit, for atoms the builder wrapped into
+    the cell: the reuse re-wraps as the builder does."""
+    data = _box() if cell == "cubic" else _skewed(_box())
+    threshold = 1024 if layout == "indexed" else 0  # 60 atoms
+    calc = TCalculator(models[1], device="cpu", binned_threshold=threshold)
+    built_out = calc.eval(data, forces=True, stress=True)
+    built = calc._prep_cache["system"]
+    assert (built.bins is None) == (layout == "indexed")
+    reused = calc.prepare_system(data)
+    assert calc._prep_cache["system"] is built  # no rebuild happened
+    assert torch.equal(reused.coord, built.coord)
+    reused_out = calc.eval(data, forces=True, stress=True)
+    for key in ("energy", "charges", "forces", "stress"):
+        np.testing.assert_array_equal(reused_out[key], built_out[key])
 
 
 @pytest.mark.parametrize(

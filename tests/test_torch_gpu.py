@@ -556,6 +556,7 @@ GAS_INPUTS = {  # name -> (input, binned_threshold, stress, Coulomb method)
     "molecule": (_cluster(23, 1), 1024, False, "simple"),
     "batch": ([_cluster(n, 2 + n) for n in (7, 19, 12)], 1024, False, "simple"),
     "box": (_box(), 1024, True, "simple"),
+    "box-split": (_box(), 1024, True, "simple"),  # D3 cutoff 8 A: a Coulomb and a D3 list
     "cluster-dsf": (_cluster(80, 4), 64, False, "dsf"),
 }
 
@@ -563,7 +564,8 @@ GAS_INPUTS = {  # name -> (input, binned_threshold, stress, Coulomb method)
 @pytest.mark.parametrize("name", list(GAS_INPUTS))
 def test_gas_and_indexed_requests_card_match_cpu(cuda_device, name):
     """Molecules, a batch and a small box on the indexed layout (no kernel
-    launch), and a gas-phase DSF cluster on the binned grid (A, B, D and E
+    launch; the box with a shared LR list, and with split Coulomb and D3
+    lists), and a gas-phase DSF cluster on the binned grid (A, B, D and E
     three times a request), wB97M-D3 head set: card against CPU
     (energy 1e-5 relative or 1e-5 eV, forces 1e-4 eV/A, stress 1e-6
     eV/A^3), and a repeated request equal bit for bit."""
@@ -571,6 +573,9 @@ def test_gas_and_indexed_requests_card_match_cpu(cuda_device, name):
     params, cfg = _narrow_model(CPU, d3=True)
     cfg = dataclasses.replace(cfg, outputs=tuple(
         (n, dataclasses.replace(h, method=method) if isinstance(h, LRCoulombHead) else h) for n, h in cfg.outputs))
+    if name == "box-split":
+        cfg = dataclasses.replace(cfg, outputs=tuple(
+            (n, dataclasses.replace(h, cutoff=8.0) if isinstance(h, DFTD3Head) else h) for n, h in cfg.outputs))
     cpu = AIMNet2Calculator((params, cfg), device="cpu", binned_threshold=threshold).eval(
         data, forces=True, stress=stress)
     counters = (cs.conv_stencil_forward, cs.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
@@ -580,7 +585,9 @@ def test_gas_and_indexed_requests_card_match_cpu(cuda_device, name):
     card = calc.eval(data, forces=True, stress=stress)
     again = calc.eval(data, forces=True, stress=stress)
     binned = name == "cluster-dsf"
-    assert (calc._prep_cache["system"].bins is not None) == binned
+    system = calc._prep_cache["system"]
+    assert (system.bins is not None) == binned
+    assert (system.nbmat_dftd3 is not None) == (name == "box-split")
     # two requests; on the grid D and E sweep DSF, the D3 CN and the D3 energy
     assert [fn.launches for fn in counters] == ([6, 6, 6, 6] if binned else [0, 0, 0, 0])
     for key in card:

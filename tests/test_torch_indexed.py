@@ -35,10 +35,12 @@ from aimnetcentral_tpu import builders as jbuilders
 from aimnetcentral_tpu.calculators.calculator import AIMNet2Calculator as JCalculator
 from aimnetcentral_tpu.models import AIMNet2Config as JConfig
 from aimnetcentral_tpu.models import aimnet2 as jaimnet2
+from aimnetcentral_tpu.models import engine_binned as jeb
 from aimnetcentral_tpu.models import aimnet2_init as j_init
 from aimnetcentral_tpu.models import heads as jheads
 from aimnetcentral_tpu.models import lr as jlr
 from aimnetcentral_tpu.models import modules as jmodules
+from aimnetcentral_tpu.ops import binned as jB
 from aimnetcentral_tpu.ops import math as jmath
 from aimnetcentral_tpu.ops import neighbors as jneighbors
 from aimnetcentral_tpu.validation.observables import reference_systems
@@ -125,6 +127,7 @@ INPUTS = {
     "batch-list": (MOLS, 1024, False, "simple"),
     "batch-dense": (_dense(MOLS), 1024, False, "simple"),
     "box": (_box(), 1024, True, "simple"),  # periodic: switches to dsf
+    "box-split": (_box(), 1024, True, "simple"),  # D3 cutoff 8 A: split lists
     "cluster-dsf": (_mol(80, 4), 64, False, "dsf"),  # gas phase, binned grid
 }
 
@@ -175,17 +178,39 @@ def _compare(got: dict, ref: dict, keys=("energy", "forces", "charges")):
         np.testing.assert_allclose(got[k], ref[k], atol=TOL[k], rtol=0, err_msg=k)
 
 
-@pytest.mark.parametrize("config", ["flagship", "wb97m-d3"])
-@pytest.mark.parametrize("name", list(INPUTS))
+def _d3_cutoff(model, cutoff: float):
+    """``model`` with its D3 head's cutoff set to ``cutoff``."""
+    params, cfg, aux = model
+    outputs = tuple((n, dataclasses.replace(h, cutoff=cutoff) if n == "external_dftd3" else h) for n, h in cfg.outputs)
+    return params, dataclasses.replace(cfg, outputs=outputs), aux
+
+
+@pytest.mark.parametrize(
+    "name,config",
+    [
+        pytest.param(name, config, id=f"{name}-{config}")
+        for name in INPUTS
+        for config in ("flagship", "wb97m-d3")
+        if not (name == "box-split" and config == "flagship")  # no D3 list to split off
+    ],
+)
 def test_calculator_matches_jax(models, config, name):
     data, threshold, stress, method = INPUTS[name]
     jmodel, tmodel = models[config, method]
+    if name == "box-split":
+        # DSF at 15 A and D3 at 8 A differ by more than 20%: Coulomb and D3
+        # read a list each
+        jmodel, tmodel = _d3_cutoff(jmodel, 8.0), _d3_cutoff(tmodel, 8.0)
     ref = JCalculator(jmodel, binned_threshold=threshold).eval(data, forces=True, stress=stress)
     calc = TCalculator(tmodel, device="cpu", binned_threshold=threshold)
     got = calc.eval(data, forces=True, stress=stress)
     _compare(got, ref, ("energy", "forces", "charges") + (("stress",) if stress else ()))
     system = calc._prep_cache["system"]
     assert (system.bins is not None) == (name == "cluster-dsf")
+    if name.startswith("box"):
+        split = name == "box-split"
+        assert (system.nbmat_lr is None) == split
+        assert (system.nbmat_coulomb is not None) == (system.nbmat_dftd3 is not None) == split
     if system.bins is None:
         # the fill value is the padding last row, never a real atom
         assert system.natoms % 16 == 0 and int(system.numbers[-1]) == 0
@@ -404,24 +429,33 @@ def test_d3_forces_stay_finite_with_padding_and_isolated_atoms():
         jlr.dftd3_energy({}, jsys, jt, 0.566, 3.128, 0.3908)), rtol=1e-5)
 
 
-def test_binned_d3_keeps_c6_at_high_coordination():
+def test_binned_d3_matches_jax_at_high_coordination():
     """A dense cluster (1.4 A spacing) whose coordination numbers run far
-    above every D3 reference: the binned D3 (factorised C6, gas-phase grid)
-    gives the indexed D3's energy.  Unshifted Gaussian weights there sum
-    below 1e-12 and dropped those atoms' C6 to zero (-3.35 against -9.68 eV
-    on this cluster)."""
+    above every D3 reference, on the gas-phase grid: the port's binned D3
+    energy and coordinate gradient are JAX's ``dftd3_binned``.  Both
+    packages zero the C6 of an atom whose unshifted Gaussian weights sum
+    below 1e-12, where the indexed D3 shifts them and keeps it (ROADMAP.md
+    section 3: -3.35 against -9.68 eV on this cluster)."""
     coord, numbers = _cluster(80, 5, spacing=1.4)
     mol = {"coord": coord, "numbers": numbers}
-    tables = {k: torch.as_tensor(v) for k, v in jheads.head_init(None, jheads.DFTD3Head(**D3)).items()}
-    indexed = tbuilders.system_from_molecules([mol], CPU, n_pad=96, build_nbmat=True)
-    e_ref = tlr.dftd3_energy({}, indexed, tables, 0.566, 3.128, 0.3908)
+    t = jheads.head_init(None, jheads.DFTD3Head(**D3))
     extent = (coord.min(0), coord.max(0))
-    grid = tB.plan_bins(None, 80, 5.6, extent=extent, safety=8.0)
-    lr_grid = tB.plan_lr_bins(None, 80, 15.0, extent=extent, safety=4.0, margin=0.6)
-    sysb, _perm, ovf = tB.to_binned_system(tbuilders.system_from_molecules([mol], CPU, n_pad=96), grid, lr_grid)
-    assert not bool(ovf.any())
-    e = teb.dftd3_binned(sysb, tables, 0.566, 3.128, 0.3908)
-    np.testing.assert_allclose(e.numpy(), e_ref.numpy(), rtol=1e-5)
+    grids = [
+        (B.plan_bins(None, 80, 5.6, extent=extent, safety=8.0),
+         B.plan_lr_bins(None, 80, 15.0, extent=extent, safety=4.0, margin=0.6))
+        for B in (jB, tB)
+    ]
+    bj, _pj, ovf_j = jax.jit(jB.to_binned_system, static_argnums=(1, 2))(
+        jbuilders.system_from_molecules([mol], n_pad=96, build_nbmat=False), *grids[0])
+    bt, _pt, ovf_t = tB.to_binned_system(tbuilders.system_from_molecules([mol], CPU, n_pad=96), *grids[1])
+    assert not bool(np.asarray(ovf_j).any()) and not bool(ovf_t.any())
+    kw = dict(a1=0.566, a2=3.128, s8=0.3908)
+    ej, gj = jax.value_and_grad(lambda c: jeb.dftd3_binned(bj.replace(coord=c), t, **kw).sum())(bj.coord)
+    coord_t = bt.coord.clone().requires_grad_(True)
+    et = teb.dftd3_binned(bt.replace(coord=coord_t), {k: torch.as_tensor(v) for k, v in t.items()}, **kw).sum()
+    (gt,) = torch.autograd.grad(et, [coord_t])
+    np.testing.assert_allclose(float(et.detach()), float(ej), rtol=1e-5)
+    _close(gt, gj)
 
 
 # -- host builders ----------------------------------------------------------------------
@@ -535,8 +569,7 @@ def test_layouts_chosen_as_jax_chooses(models):
     calc = TCalculator((tparams, tcfg, aux), device="cpu")
     box = calc.prepare_system(_box())
     assert box.bins is None and box.nbmat_lr is not None and box.nbmat_coulomb is None
-    outputs = tuple((n, dataclasses.replace(h, cutoff=8.0) if n == "external_dftd3" else h) for n, h in tcfg.outputs)
-    split = TCalculator((tparams, dataclasses.replace(tcfg, outputs=outputs), aux), device="cpu")
+    split = TCalculator(_d3_cutoff((tparams, tcfg, aux), 8.0), device="cpu")
     sysx = split.prepare_system(_box())
     assert sysx.nbmat_lr is None and sysx.nbmat_coulomb is not None and sysx.nbmat_dftd3 is not None
     gas = TCalculator((tparams, tcfg, aux), device="cpu", binned_threshold=64).prepare_system(_mol(80, 4))
