@@ -1,9 +1,11 @@
 """Host-side System builders (counterpart of aimnetcentral_tpu/builders.py).
 
-``system_from_molecules`` packs molecules into one flat padded System and,
-with ``build_nbmat=True``, builds the indexed layout's neighbor matrices on
-the host (``host_nbmat``: brute force for small systems, the O(N) cell list
-above ``_HOST_CELL_LIST_THRESHOLD`` atoms).  Without it the caller converts
+``system_molecule_bins`` packs gas-phase molecules one to a bin (the
+molecule-bin layout of batches and training).  ``system_from_molecules``
+packs molecules into one flat padded System and, with ``build_nbmat=True``,
+builds the indexed layout's neighbor matrices on the host (``host_nbmat``:
+brute force for small systems, the O(N) cell list above
+``_HOST_CELL_LIST_THRESHOLD`` atoms).  Without it the caller converts
 the compact System into the slot layout with ops/binned.py::to_binned_system.
 The JAX builder builds the matrices unless told not to; the port's default is
 the other way round because its binned callers (calculator, MD driver) are
@@ -17,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from aimnetcentral_tpu_torch.ops.binned import BinGrid
 from aimnetcentral_tpu_torch.ops.neighbors import allpairs_nbmat, brute_force_nbmat, cell_list_nbmat
 from aimnetcentral_tpu_torch.system import System
 
@@ -147,6 +150,60 @@ def system_from_molecules(
         shifts_coulomb=shifts_coulomb,
         nbmat_dftd3=nbmat_dftd3,
         shifts_dftd3=shifts_dftd3,
+    )
+
+
+def system_molecule_bins(
+    molecules: list[dict],
+    device: torch.device,
+    capacity: int | None = None,
+    pad_mols: int | None = None,
+) -> System:
+    """Pack gas-phase molecules into the molecule-bin layout: a
+    (num_mol, 1, 1) grid whose bin k holds molecule k, of capacity C = the
+    largest molecule rounded up to a multiple of 8.  Rows are molecule-major,
+    each molecule's padded to C (coordinate 1.0, number 0, ``mol_idx`` =
+    num_mol).  Every pair is within its bin, so every sweep runs at radius 0
+    (``ops/binned.py::stencil_radius``) and an unbounded pair term (simple
+    Coulomb) sums every pair of a molecule.  ``capacity`` and ``pad_mols``
+    fix the shapes across batches; padding molecules hold no atoms."""
+    num_real = len(molecules)
+    num_mol = pad_mols or num_real
+    if num_mol < num_real:
+        raise ValueError(f"pad_mols={num_mol} is below the {num_real} molecules given")
+    sizes = [len(np.asarray(m["numbers"])) for m in molecules]
+    c = capacity or max(8, int(np.ceil(max(sizes) / 8)) * 8)
+    if max(sizes) > c:
+        raise ValueError(f"a molecule of {max(sizes)} atoms exceeds capacity {c}")
+    if any(m.get("cell") is not None for m in molecules):
+        raise ValueError("the molecule-bin layout is for gas-phase molecules")
+
+    n_slots = num_mol * c
+    coord = np.ones((n_slots, 3), dtype=np.float32)
+    zs = np.zeros(n_slots, dtype=np.int64)
+    mol_idx = np.full(n_slots, num_mol, dtype=np.int64)
+    for i, m in enumerate(molecules):
+        n = sizes[i]
+        coord[i * c : i * c + n] = np.asarray(m["coord"], dtype=np.float32)
+        zs[i * c : i * c + n] = np.asarray(m["numbers"], dtype=np.int64)
+        mol_idx[i * c : i * c + n] = i
+
+    charge = np.zeros(num_mol, dtype=np.float32)
+    charge[:num_real] = [float(m.get("charge", 0.0)) for m in molecules]
+    mult = None
+    if any("mult" in m for m in molecules):
+        mult = np.ones(num_mol, dtype=np.float32)
+        mult[:num_real] = [float(m.get("mult", 1.0)) for m in molecules]
+    # edge_hint is not read: the radius is 0 whatever the cutoff
+    grid = BinGrid(nbins=(num_mol, 1, 1), capacity=c, edge_hint=1e30, periodic=False, molecule_bins=True)
+    return System(
+        coord=torch.as_tensor(coord, device=device),
+        numbers=torch.as_tensor(zs, device=device),
+        charge=torch.as_tensor(charge, device=device),
+        mol_idx=torch.as_tensor(mol_idx, device=device),
+        mult=None if mult is None else torch.as_tensor(mult, device=device),
+        species=tuple(sorted(int(z) for z in np.unique(zs) if z > 0)),
+        bins=grid,
     )
 
 

@@ -5,17 +5,19 @@ Inputs are one molecule or periodic box, a list of molecule dicts, or a
 dense (B, N, 3) batch.  One structure at or above ``binned_threshold`` atoms
 goes onto the binned layout (SR grid plus the coarse LR twin grid, planned
 on the cell or on a gas-phase cluster's extent, with a capacity-regrow loop
-on bin overflow) when it is periodic or its Coulomb is DSF or absent;
-molecules, batches and small boxes go onto the indexed layout (host
-neighbor matrices).  ``eval`` returns per-molecule energies and charges,
-forces and stress in input atom order, with the self-atomic energies added
-in float64 on the host.  While the topology is unchanged and no atom moved
-farther than ``reuse_skin / 2``, the prepared layout is reused (grids and
-lists reach the skin beyond every cutoff, so the result is exact).  Every
-force evaluation runs inside its precision tier's context
-(``precision_tiers``).  Gas-phase batches at or above ``binned_threshold``
-(the molecule-bin layout), Hessians and Ewald/PME raise with a pointer to
-ROADMAP.md.
+on bin overflow) when it is periodic or its Coulomb is DSF or absent; a
+gas-phase batch at or above it goes onto the molecule-bin layout (one
+molecule a bin, every sweep at radius 0) unless its slots would be less
+than a quarter full; molecules, other batches and small boxes go onto the
+indexed layout (host neighbor matrices).  ``eval`` returns per-molecule
+energies and charges, forces and stress in input atom order, with the
+self-atomic energies added in float64 on the host.  While the topology is
+unchanged and no atom moved farther than ``reuse_skin / 2``, the prepared
+layout is reused (grids and lists reach the skin beyond every cutoff, so
+the result is exact); the molecule-bin layout is reused after any move (its
+bins are the molecules).  Every force evaluation runs inside its precision
+tier's context (``precision_tiers``).  Hessians and Ewald/PME raise with a
+pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Any, Iterator, Mapping
 import numpy as np
 import torch
 
-from aimnetcentral_tpu_torch.builders import system_from_molecules
+from aimnetcentral_tpu_torch.builders import system_from_molecules, system_molecule_bins
 from aimnetcentral_tpu_torch.calculators import derivatives
 from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
@@ -36,7 +38,6 @@ from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_
 from aimnetcentral_tpu_torch.ops import binned as B
 from aimnetcentral_tpu_torch.system import System
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 ATOM_BUCKET = 16  # the compact atom count is padded to a multiple of this
 
 
@@ -215,10 +216,11 @@ class AIMNet2Calculator:
         n_pad: int,
         perm: np.ndarray | None = None,
     ) -> None:
-        """Keep the prepared layout (``kind`` "binned" or "indexed") with
-        the input it was built from, the slot permutation of a binned
-        layout, and the lattice wrap the builder applied as a float64
-        Cartesian offset per atom (None in the gas phase)."""
+        """Keep the prepared layout (``kind`` "binned", "packed" or
+        "indexed") with the input it was built from, the slot permutation of
+        a binned or packed layout (slot -> row of the input atoms padded to
+        ``n_pad`` rows of 1.0), and the lattice wrap the builder applied as
+        a float64 Cartesian offset per atom (None in the gas phase)."""
         if self.reuse_skin <= 0:
             return
         self._prep_cache = {
@@ -237,12 +239,16 @@ class AIMNet2Calculator:
         length of each atom's displacement (a per-coordinate test lets an
         atom move sqrt(3) times as far along a diagonal, or along the plane
         normal of a skewed cell, and drop pairs); the JAX package tests each
-        coordinate, so the port rebuilds where it reuses."""
+        coordinate, so the port rebuilds where it reuses.  The molecule-bin
+        layout ("packed") holds whatever the move: its bins are the
+        molecules, and every sweep on it meets every pair of a molecule."""
         c = self._prep_cache
         if c is None or self.reuse_skin <= 0 or c["key"] != _prep_key(mols):
             return None
         new = np.concatenate([np.asarray(m["coord"], np.float32) for m in mols])
-        if new.shape != c["ref"].shape or np.linalg.norm(new - c["ref"], axis=1).max() > 0.5 * self.reuse_skin:
+        if new.shape != c["ref"].shape:
+            return None
+        if c["kind"] != "packed" and np.linalg.norm(new - c["ref"], axis=1).max() > 0.5 * self.reuse_skin:
             return None
         compact = np.ones((c["n_pad"], 3), np.float32)
         compact[: len(new)] = new
@@ -254,7 +260,7 @@ class AIMNet2Calculator:
             # the indexed shift matrices stay exact)
             compact = (compact.astype(np.float64) - c["wrap"]).astype(np.float32)
         self._last_perm = c["perm"]
-        if c["kind"] == "binned":
+        if c["kind"] != "indexed":
             compact = compact[c["perm"]]
         return c["system"].replace(coord=torch.as_tensor(compact, device=self.device))
 
@@ -265,8 +271,9 @@ class AIMNet2Calculator:
         routing: one structure at or above ``binned_threshold`` atoms goes
         onto the binned layout when it is periodic or its Coulomb is DSF or
         absent (a gas-phase grid then spans the atoms' extent); a gas-phase
-        batch at or above it would go onto the molecule-bin layout, which
-        raises; everything else goes onto the indexed layout."""
+        batch at or above it goes onto the molecule-bin layout when its
+        slots are at least a quarter full; everything else goes onto the
+        indexed layout."""
         mols = _as_molecules(data)
         reused = self._reuse_prepared(mols)
         if reused is not None:
@@ -283,14 +290,26 @@ class AIMNet2Calculator:
         if not has_cell and len(mols) > 1 and n_real >= self.binned_threshold:
             cap = max(8, _round_up(max(len(m["numbers"]) for m in mols), 8))
             if cap * len(mols) <= 4 * n_real:
-                raise NotImplementedError(
-                    f"a gas-phase batch of {len(mols)} molecules and {n_real} atoms, at or above "
-                    f"binned_threshold={self.binned_threshold}: the molecule-bin layout {_NOT_PORTED}"
-                )
+                return self._prepare_packed(mols, n_real, cap)
         binned_ok = has_cell or h_eff is None or h_eff.method == "dsf"
         if binned_ok and len(mols) == 1 and n_real >= self.binned_threshold:
             return self._prepare_binned(mols[0], n_real, n_pad, h_eff)
         return self._prepare_indexed(mols, n_real, n_pad, has_cell, h_eff)
+
+    def _prepare_packed(self, mols: list[dict], n_real: int, cap: int) -> System:
+        """A gas-phase batch on the molecule-bin layout (capacity ``cap``):
+        no neighbor build and no pair gathers; ``perm`` maps each slot to
+        its input atom, padding slots to the row after the last."""
+        system = system_molecule_bins(mols, self.device, capacity=cap)
+        perm = np.full(system.natoms, n_real, dtype=np.int64)
+        off = 0
+        for k, m in enumerate(mols):
+            n = len(m["numbers"])
+            perm[k * cap : k * cap + n] = np.arange(off, off + n)
+            off += n
+        self._last_perm = perm
+        self._store_prep(mols, system, "packed", n_real + 1, perm=perm)
+        return system
 
     def _prepare_binned(self, mol: dict, n_real: int, n_pad: int, h_eff: LRCoulombHead | None) -> System:
         """One structure on the binned layout: SR grid plus the coarse LR

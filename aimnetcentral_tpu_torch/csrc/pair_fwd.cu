@@ -19,6 +19,7 @@
 // FP32 operations of the real pairs within the cutoff, counted per
 // unordered pair as
 //     DSF (exp envelope, SR part subtracted)   38
+//     simple Coulomb (the same envelope)       22
 //     D3 coordination number                   18
 //     D3(BJ) energy, V = 5 S                   40 + 2 V  (80 at S = 4)
 // (geometry 9: three differences, the square sum and the sqrt; a special
@@ -38,7 +39,8 @@
 
 #include "pair_walk.cuh"
 
-// term: 0 DSF Coulomb, 1 D3 coordination number, 2 D3(BJ) energy.
+// term: 0 DSF Coulomb, 1 D3 coordination number, 2 D3(BJ) energy,
+// 3 simple Coulomb.
 // consts: host pointer to 8 floats (the cutoff, then the term's constants).
 extern "C" int pair_fwd_launch(const float* consts, const float* coord, const float* mask,
                                const float* ext, const float* shift, const int* nbr,

@@ -37,6 +37,25 @@ __device__ inline void erfc_as(float x, float& f, float& df) {
   df = (q + t * dq) * (-0.3275911f * t * t) * ex - 2.0f * x * f;
 }
 
+// The SR envelope fc(d) of the Coulomb terms and its derivative: env 1 the
+// exp mollifier (zero from rc on, through its clamp), 2 the cosine cutoff
+// (zero from rc on), 0 none (fc = 0).
+__device__ inline void envelope(int env, float rc, float d, float& fc, float& dfc) {
+  fc = 0.0f;
+  dfc = 0.0f;
+  if (env == 1) {
+    const float xr = d / rc;
+    const float x = fminf(fmaxf(xr, 0.0f), kXmax);
+    const float den = 1.0f - x * x;
+    fc = expf(-1.0f / den) / kInvE;
+    dfc = (xr >= 0.0f && xr <= kXmax) ? fc * (-2.0f * x / (den * den)) / rc : 0.0f;
+  } else if (env == 2 && d < rc) {
+    const float arg = fminf(fmaxf(d, 1e-6f), rc) * (kPi / rc);
+    fc = 0.5f * (cosf(arg) + 1.0f);
+    dfc = (d >= 1e-6f) ? -0.5f * sinf(arg) * (kPi / rc) : 0.0f;
+  }
+}
+
 // DSF Coulomb: g = q_i q_j h(d), h = erfc(a d)/d - shift_val
 // + (d - dsf_rc) shift_slope - fc(d)/d (the SR envelope, env 1 = exp,
 // 2 = cosine, 0 = not subtracted).
@@ -51,22 +70,41 @@ struct DsfTerm {
     const float inv_d = 1.0f / d;
     hv = ea * inv_d - k.c[2] + (d - k.c[4]) * k.c[3];
     dh = a * dea * inv_d - ea * inv_d * inv_d + k.c[3];
-    const int env = int(k.c[6]);
-    const float rc = k.c[5];
-    float fc = 0.0f, dfc = 0.0f;
-    if (env == 1) {
-      const float xr = d / rc;
-      const float x = fminf(fmaxf(xr, 0.0f), kXmax);
-      const float den = 1.0f - x * x;
-      fc = expf(-1.0f / den) / kInvE;
-      dfc = (xr >= 0.0f && xr <= kXmax) ? fc * (-2.0f * x / (den * den)) / rc : 0.0f;
-    } else if (env == 2 && d < rc) {
-      const float arg = fminf(fmaxf(d, 1e-6f), rc) * (kPi / rc);
-      fc = 0.5f * (cosf(arg) + 1.0f);
-      dfc = (d >= 1e-6f) ? -0.5f * sinf(arg) * (kPi / rc) : 0.0f;
-    }
+    float fc, dfc;
+    envelope(int(k.c[6]), k.c[5], d, fc, dfc);
     hv -= fc * inv_d;
     dh -= dfc * inv_d - fc * inv_d * inv_d;
+  }
+
+  __device__ static float g(const TermConsts& k, float d, float si, float sj) {
+    float hv, dh;
+    h(k, d, hv, dh);
+    return si * sj * hv;
+  }
+
+  __device__ static void grad(const TermConsts& k, float d, float si, float sj, float& g,
+                              float& gd, float& gsi, float& gsj) {
+    float hv, dh;
+    h(k, d, hv, dh);
+    g = si * sj * hv;
+    gd = si * sj * dh;
+    gsi = sj * hv;
+    gsj = si * hv;
+  }
+};
+
+// Simple (unbounded) Coulomb: g = q_i q_j h(d), h = 1/d - fc(d)/d with the
+// SR envelope (env 0: 1/d alone).  Swept at cutoff inf on the molecule-bin
+// layout (radius 0): every pair of a molecule.  c = [cutoff, rc, env]
+struct CoulombSimpleTerm {
+  static constexpr bool kBilinear = false;
+
+  __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
+    float fc, dfc;
+    envelope(int(k.c[2]), k.c[1], d, fc, dfc);
+    const float inv_d = 1.0f / d;
+    hv = inv_d - fc * inv_d;
+    dh = -inv_d * inv_d - (dfc * inv_d - fc * inv_d * inv_d);
   }
 
   __device__ static float g(const TermConsts& k, float d, float si, float sj) {

@@ -78,7 +78,9 @@ struct Args {
 
 // The least float x with sqrtf(x) >= c.  sqrtf is correctly rounded on the
 // host and the card, so sqrtf(d2) < c exactly when d2 < d2_limit(c): the
-// distance test without a square root.
+// distance test without a square root.  d2_limit(inf) is inf (the first
+// loop stops at once: sqrtf of the largest float is finite), so an
+// unbounded sweep tests every finite d2 true and prunes no offset.
 inline float d2_limit(float c) {
   float x = c * c;
   while (x > 0.0f && std::sqrt(std::nextafter(x, 0.0f)) >= c) x = std::nextafter(x, 0.0f);
@@ -421,6 +423,8 @@ int launch_term(int term, const Args& a, cudaStream_t stream) {
       return launch_width<pair_terms::D3CnTerm, kAdjoint>(a, stream);
     case 2:
       return launch_width<pair_terms::D3EnergyTerm, kAdjoint>(a, stream);
+    case 3:
+      return launch_width<pair_terms::CoulombSimpleTerm, kAdjoint>(a, stream);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -1,15 +1,26 @@
-"""Molecular dynamics on the binned periodic engine (counterpart of
-aimnetcentral_tpu/dynamics/md.py).
+"""Molecular dynamics (counterpart of aimnetcentral_tpu/dynamics/md.py).
+
+Two engines, as in the JAX package:
+
+- ``binned`` (the default for periodic systems; gas-phase clusters on
+  request, on a grid planned over the atoms' extent): the slot layout of
+  ops/binned.py.  A rebuild re-bins the SR and LR layouts, carrying
+  velocities, masses and ``atom_id`` through the permutation.  Every step
+  launches the conv kernels A and B three times each and the pair kernels
+  D and E once per long-range sweep (DSF; D3 adds two).
+- ``indexed`` (the default without a cell): neighbor matrices built on the
+  device by ops/cell_list.py (an SR list at ``rc + skin``, an LR list at
+  the largest long-range cutoff plus ``lr_skin``); a rebuild writes new
+  lists and permutes nothing, so ``atom_id`` is the identity.  No kernel of
+  the port runs: the conv is ``_conv_sv``'s gather, as on the calculator's
+  indexed layout.
 
 One step is velocity Verlet: a half kick, the drift, the Verlet-skin test,
-a re-bin of the slot layout when an atom moved more than ``skin / 2`` since
-the last one (SR and LR layouts, carrying velocities, masses and ``atom_id``
-through the permutation), the forces, the second half kick, then the
-thermostat (Langevin, Berendsen or none) and the optional isotropic
-Berendsen barostat.  The forces come from ``aimnet2_apply(...,
-sae_external=True)`` through autograd, so every step launches the conv
-kernels A and B three times each and the pair kernels D and E once per
-long-range sweep (DSF; D3 adds two), inside the precision tier's context.
+the rebuild when an atom moved more than ``skin / 2`` since the last one,
+the forces, the second half kick, then the thermostat (Langevin, Berendsen
+or none) and the optional isotropic Berendsen barostat.  The forces come
+from ``aimnet2_apply(..., sae_external=True)`` through autograd, inside the
+precision tier's context.
 
 The JAX driver fuses a chunk of steps into one ``lax.scan`` executable and
 decides the re-bin on the device (``lax.cond``).  Here a chunk is a Python
@@ -17,10 +28,12 @@ loop of eager steps: the skin test's one-byte answer is read on the host
 once per step, the only host sync inside a chunk; the overflow counter and
 the observables reach the host once per chunk.  A chunk whose re-binning
 overflowed a bin is retried from the last good state after growing the
-capacity; after every good chunk the shrink-back hysteresis may re-plan the
-capacity down.  Each step builds new tensors and never updates the carried
-ones in place, so the chunk-start state stays valid for that retry; every
-carried tensor is detached, so no autograd graph outlives its step.
+capacity (on the indexed engine, whose list shapes are fixed, an overflow
+raises ``RuntimeError``); after every good chunk the binned engine's
+shrink-back hysteresis may re-plan the capacity down.  Each step builds new
+tensors and never updates the carried ones in place, so the chunk-start
+state stays valid for that retry; every carried tensor is detached, so no
+autograd graph outlives its step.
 
 Random numbers (initial velocities, Langevin noise) come from a
 ``torch.Generator`` on the device and are drawn per compact atom, then
@@ -29,8 +42,7 @@ or the capacity, so a restored checkpoint continues the same trajectory.
 The JAX package draws other numbers, so Langevin runs of the two packages
 agree only in distribution.
 
-Only the binned periodic engine is ported: ``engine="indexed"``, gas
-phase, ensembles and Ewald/PME heads raise ``NotImplementedError`` naming
+Ensembles and Ewald/PME heads raise ``NotImplementedError`` naming
 ROADMAP.md.  Units: Angstrom / eV / amu; ``dt`` in fs via the ASE time
 conversion.
 """
@@ -54,6 +66,7 @@ from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config, aimnet2_apply
 from aimnetcentral_tpu_torch.models.bridge import params_to
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
 from aimnetcentral_tpu_torch.ops import binned as B
+from aimnetcentral_tpu_torch.ops.cell_list import build_cell_list, plan_cell_list
 from aimnetcentral_tpu_torch.system import System
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
@@ -69,7 +82,7 @@ class MDConfig:
     friction_fs: float = 0.01  # Langevin gamma in 1/fs
     berendsen_tau_fs: float = 100.0
     skin: float = 1.0  # Verlet skin (Angstrom)
-    lr_skin: float = 1.0  # indexed engine only
+    lr_skin: float = 1.0  # the indexed engine's LR list reaches this beyond the LR cutoff
     # capacity shrink-back hysteresis: after a transient occupancy excursion
     # grew the bin capacity, shrink back once the observed max occupancy
     # (+ shrink_margin slots) has fit in a smaller capacity for
@@ -94,12 +107,12 @@ class MDState:
     veloc: torch.Tensor  # ASE velocity units (Angstrom / ASE-time)
     forces: torch.Tensor  # forces at `coord` (velocity-Verlet carry: 1 eval/step)
     masses: torch.Tensor  # (N,) amu, carried so a re-bin permutes them with the atoms
-    system: System  # current binned layout
+    system: System  # current layout: binned slots, or the indexed lists
     ref_coord: torch.Tensor  # coordinates at the last re-bin
     rng_state: torch.Tensor  # the driver's torch.Generator state (JAX: the key)
     overflow: torch.Tensor  # (2,) accumulated dropped-atom counts [sr, lr]
     epot: torch.Tensor  # last potential energy per molecule
-    atom_id: torch.Tensor  # (N,) slot -> compact row, carried through every re-bin
+    atom_id: torch.Tensor  # (N,) slot -> compact row, carried through every re-bin (indexed: identity)
 
 
 def maxwell_boltzmann_velocities(
@@ -147,15 +160,38 @@ def _grown(grid: B.BinGrid, factor: float) -> B.BinGrid:
     return dataclasses.replace(grid, capacity=int(np.ceil(grid.capacity * factor / 8.0)) * 8)
 
 
+def _fitted_spec(system: System, cell_np, n_real: int, cutoff: float, extent: float | None):
+    """The indexed engine's cell-list plan at ``cutoff``: the JAX package's
+    ``plan_cell_list`` where its lists hold the initial geometry, else
+    re-planned with 1.5 times the density safety until they do (as the
+    binned engine's planning grows its bin safety).  The gas-phase plan
+    takes the density over the extent's cube, about half a compact
+    molecule's own, so JAX's driver overflows at construction on a
+    113-atom cluster cut from a 0.09 atoms/A^3 box; the port plans again."""
+    cell0 = system.cell[0] if system.cell is not None else None
+    safety = 2.0  # plan_cell_list's density_safety
+    while True:
+        spec = plan_cell_list(cell_np, n_real, cutoff, extent=extent, density_safety=safety)
+        _nb, _sh, ovf = build_cell_list(system.coord, system.numbers, spec, cell0)
+        if int(ovf) == 0:  # one host sync per plan
+            return spec
+        safety *= 1.5
+        if safety > 32:
+            raise RuntimeError(f"cell-list planning failed at cutoff {cutoff}")
+
+
 class MDDriver:
-    """MD over a fixed-size periodic system on the binned engine.
+    """MD over a fixed-size system.
 
     Parameters
     ----------
     params : the port's model parameters (moved to ``device``)
     cfg : AIMNet2Config (SAE externalized; absolute offsets don't move atoms)
-    system : initial compact periodic System (defines shapes); converted to
-        the binned layout
+    system : initial compact System (defines shapes; the last row padding);
+        converted to the binned layout, or given cell lists on the indexed
+        engine
+    engine : "auto" (binned with a cell, indexed without), "binned" or
+        "indexed"
     device : "cuda" unless the caller asks for "cpu"; CUDA tensors run the
         hand-written kernels, CPU tensors their plain versions
     """
@@ -176,11 +212,12 @@ class MDDriver:
             raise NotImplementedError(f"ensemble MD (models/ensemble_fused.py) {_NOT_PORTED}")
         if engine == "auto":
             engine = "binned" if system.cell is not None else "indexed"
-        if engine != "binned" or system.cell is None:
-            raise NotImplementedError(
-                f"engine={engine!r}: gas-phase MD, the indexed engine and ops/cell_list.py {_NOT_PORTED}"
-            )
-        cfg = auto_switch_simple_to_dsf(cfg)
+        if engine not in ("binned", "indexed"):
+            raise ValueError(f"engine must be 'auto', 'binned' or 'indexed', got {engine!r}")
+        if system.cell is not None:
+            cfg = auto_switch_simple_to_dsf(cfg)
+        elif md.barostat is not None:
+            raise ValueError("the barostat needs a periodic cell")
         for _n, h in cfg.outputs:
             if isinstance(h, LRCoulombHead) and h.method in ("ewald", "pme"):
                 raise NotImplementedError(f"{h.method} Coulomb in MD {_NOT_PORTED}")
@@ -193,29 +230,45 @@ class MDDriver:
 
         system = system.to(self.device)
         n_real = int((system.numbers > 0).sum())
-        cell_np = system.cell[0].cpu().numpy()
-        self._compact_system = system  # kept for checkpoint restore (re-bin)
+        cell_np = system.cell[0].cpu().numpy() if system.cell is not None else None
+        self._compact_system = system  # kept for checkpoint restore (rebuild)
         mass_table = np.clip(constants.get_masses(), 1e-6, None).astype(np.float32)
         self._mass_table = torch.as_tensor(mass_table, device=self.device)
 
-        edge = cfg.aev.rc_s + md.skin
         lr_cut = self._lr_cutoff()
-        safety = bin_safety
-        lr_safety = 1.5
-        while True:
-            grid = dataclasses.replace(B.plan_bins(cell_np, n_real, edge, safety=safety), margin=md.skin)
-            lr_grid = (
-                B.plan_lr_bins(cell_np, n_real, lr_cut, safety=lr_safety, margin=md.skin)
-                if lr_cut is not None
-                else None
+        if engine == "binned":
+            edge = cfg.aev.rc_s + md.skin
+            extent = self._extent(system) if cell_np is None else None
+            safety = bin_safety
+            lr_safety = 1.5
+            while True:
+                grid = dataclasses.replace(
+                    B.plan_bins(cell_np, n_real, edge, extent=extent, safety=safety), margin=md.skin
+                )
+                lr_grid = (
+                    B.plan_lr_bins(cell_np, n_real, lr_cut, extent=extent, safety=lr_safety, margin=md.skin)
+                    if lr_cut is not None
+                    else None
+                )
+                sysb, atom_id, ovf = B.to_binned_system(system, grid, lr_grid)
+                if not bool(ovf.any()):
+                    break
+                safety *= 1.5
+                lr_safety *= 1.5
+                if safety > 32:
+                    raise RuntimeError("bin capacity planning failed")
+        else:
+            grid = lr_grid = None
+            extent = None
+            if cell_np is None:  # a cube over the atoms' span, 1 A of margin a side
+                c = system.coord[:n_real].cpu().numpy()
+                extent = float((c.max(0) - c.min(0)).max()) + 2.0
+            self.sr_spec = _fitted_spec(system, cell_np, n_real, cfg.aev.rc_s + md.skin, extent)
+            self.lr_spec = (
+                _fitted_spec(system, cell_np, n_real, lr_cut + md.lr_skin, extent) if lr_cut is not None else None
             )
-            sysb, atom_id, ovf = B.to_binned_system(system, grid, lr_grid)
-            if not bool(ovf.any()):
-                break
-            safety *= 1.5
-            lr_safety *= 1.5
-            if safety > 32:
-                raise RuntimeError("bin capacity planning failed")
+            sysb = self._rebuild_indexed(system)
+            atom_id = torch.arange(sysb.natoms, device=self.device)
         self.grid = grid
         self.lr_grid = lr_grid
         self._n_compact = system.natoms
@@ -242,7 +295,9 @@ class MDDriver:
         # per-chunk (sr, lr) max-occupancy history for shrink-back hysteresis
         self._occ_window: list[tuple[int, int]] = []
         # ctor plan capacities: the shrink floor (never shrink below plan)
-        self._plan_capacity = (grid.capacity, lr_grid.capacity if lr_grid is not None else 0)
+        self._plan_capacity = (
+            grid.capacity if grid is not None else 0, lr_grid.capacity if lr_grid is not None else 0
+        )
         # what run() did, for measurement: re-binnings inside good chunks,
         # and chunks retried after a capacity regrow
         self.rebins = 0
@@ -263,6 +318,14 @@ class MDDriver:
         self._state = value
         self._primed = True
 
+    @staticmethod
+    def _extent(system: System) -> tuple[np.ndarray, np.ndarray]:
+        """The real atoms' box with 0.5 A of margin a side: a gas-phase
+        grid's plan."""
+        c = system.coord.cpu().numpy()
+        real = system.numbers.cpu().numpy() > 0
+        return c[real].min(0) - 0.5, c[real].max(0) + 0.5
+
     def _lr_cutoff(self) -> float | None:
         cuts = []
         for _n, h in self.cfg.outputs:
@@ -271,6 +334,31 @@ class MDDriver:
             elif isinstance(h, DFTD3Head):
                 cuts.append(h.cutoff)
         return max(cuts) if cuts else None
+
+    # -- the indexed engine's lists -------------------------------------------
+
+    def _build_nb_indexed(self, coord: torch.Tensor, system: System) -> tuple[System, torch.Tensor]:
+        """``system`` at ``coord`` with new cell lists (SR, and the shared LR
+        list when a long-range head exists; split lists a caller built are
+        dropped, since they would go stale), and their overflow count."""
+        cell0 = system.cell[0] if system.cell is not None else None
+        nbmat, shifts, ovf = build_cell_list(coord, system.numbers, self.sr_spec, cell0)
+        nb_lr = sh_lr = None
+        if self.lr_spec is not None:
+            nb_lr, sh_lr, ovf_lr = build_cell_list(coord, system.numbers, self.lr_spec, cell0)
+            ovf = ovf + ovf_lr
+        new = system.replace(
+            coord=coord, nbmat=nbmat, shifts=shifts, nbmat_lr=nb_lr, shifts_lr=sh_lr,
+            nbmat_coulomb=None, shifts_coulomb=None, nbmat_dftd3=None, shifts_dftd3=None,
+        )
+        return new, ovf
+
+    def _rebuild_indexed(self, system: System) -> System:
+        """``system`` with new cell lists; an overflow raises."""
+        new, ovf = self._build_nb_indexed(system.coord, system)
+        if int(ovf) > 0:
+            raise RuntimeError(f"neighbor capacity overflow at initialization ({int(ovf)} pairs)")
+        return new
 
     # -- energy/forces ------------------------------------------------------
 
@@ -327,7 +415,7 @@ class MDDriver:
 
     def _step(self, state: MDState) -> tuple[MDState, dict, bool]:
         """One velocity-Verlet step; returns the new state, the step's
-        observables (device scalars) and whether it re-binned."""
+        observables (device scalars) and whether it rebuilt the layout."""
         md = self.md
         dt_fs = md.dt_fs
         dt = float(np.float32(dt_fs) * np.float32(constants.fs))  # f32, as the JAX driver's traced dt
@@ -341,7 +429,11 @@ class MDDriver:
         disp2 = ((coord - state.ref_coord) ** 2).sum(dim=-1)
         need = torch.where(real[:, 0], disp2, 0.0).max() > (md.skin * 0.5) ** 2
         rebinned = bool(need)  # the step's one host sync
-        if rebinned:
+        if rebinned and self.engine == "indexed":
+            system, ovf_sr = self._build_nb_indexed(coord, state.system)
+            masses, ref_coord, atom_id = state.masses, coord, state.atom_id
+            ovf = torch.stack([ovf_sr, torch.zeros_like(ovf_sr)])
+        elif rebinned:
             moved, ovf = self._rebin(dataclasses.replace(state, veloc=v_half), coord)
             system, v_half, masses = moved.system, moved.veloc, moved.masses
             coord, ref_coord, atom_id = moved.coord, moved.ref_coord, moved.atom_id
@@ -423,7 +515,12 @@ class MDDriver:
         self, state: MDState, factor: float = 1.25, grow_sr: bool = True, grow_lr: bool = False
     ) -> MDState:
         """Re-plan the binned grid with more slot capacity and re-bin the
-        carried state (across chunk boundaries; the chunk is then retried)."""
+        carried state (across chunk boundaries; the chunk is then retried).
+        The indexed engine's list shapes are fixed: an overflow raises."""
+        if self.engine != "binned":
+            raise RuntimeError(
+                "neighbor capacity overflow on the indexed engine; reconstruct the driver with a larger plan"
+            )
         if grow_sr:
             # growing the SR grid makes every conv pair block bigger: only
             # when the SR layout actually overflowed
@@ -452,7 +549,7 @@ class MDDriver:
         capacity at least one 8-slot step smaller, re-plans down (never
         below the constructor's plan) and re-bins the carried state."""
         md = self.md
-        if md.shrink_patience <= 0:
+        if self.engine != "binned" or md.shrink_patience <= 0:
             return state
         occ_sr = _max_bin_occupancy(state.system.numbers, self.grid.capacity)
         occ_lr = 0
@@ -496,8 +593,8 @@ class MDDriver:
 
     def snapshot(self, state: MDState | None = None) -> dict[str, np.ndarray]:
         """Current frame in the CALLER's atom order (undoes the slot
-        permutation via the carried ``atom_id``): coord (wrapped), numbers,
-        velocities, plus the cell."""
+        permutation via the carried ``atom_id``): coord (wrapped on the
+        binned engine), numbers, velocities, plus the cell if periodic."""
         state = self._state if state is None else state
         numbers = state.system.numbers.cpu().numpy()
         real = numbers > 0
@@ -511,23 +608,26 @@ class MDDriver:
         out["coord"][ids] = state.coord.cpu().numpy()[real]
         out["veloc"][ids] = state.veloc.cpu().numpy()[real]
         out["numbers"][ids] = numbers[real]
-        out["cell"] = state.system.cell[0].cpu().numpy()
+        if state.system.cell is not None:
+            out["cell"] = state.system.cell[0].cpu().numpy()
         return out
 
     # -- checkpoint / resume -------------------------------------------------
 
     def save_checkpoint(self, path: str) -> None:
         """Write the dynamical state (coord/veloc in CALLER atom order, the
-        cell, the generator state) as one .npz, layout-independent: restore
-        re-bins from scratch.  Atomic write (temp file + ``os.replace``)."""
+        cell if periodic, the generator state) as one .npz,
+        layout-independent: restore rebuilds the layout from scratch.  Atomic
+        write (temp file + ``os.replace``)."""
         snap = self.snapshot()
         payload = {
             "coord": snap["coord"],
             "veloc": snap["veloc"],
             "numbers": snap["numbers"],
-            "cell": snap["cell"],
             _GEN_KEY: self.state.rng_state.cpu().numpy(),
         }
+        if "cell" in snap:
+            payload["cell"] = snap["cell"]
         d = os.path.dirname(os.path.abspath(path)) or "."
         fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz")
         os.close(fd)
@@ -539,10 +639,11 @@ class MDDriver:
                 os.remove(tmp)
 
     def restore_checkpoint(self, path: str) -> None:
-        """Resume from ``save_checkpoint``: rebuilds the slot layout from the
-        restored coordinates and cell (growing capacity if the new geometry
-        overflows), injects the velocities into the new layout and restores
-        the generator; forces are evaluated again at the next ``run``."""
+        """Resume from ``save_checkpoint``: rebuilds the layout from the
+        restored coordinates and cell (the binned engine grows its capacity
+        if the new geometry overflows; the indexed engine raises), injects
+        the velocities into the new layout and restores the generator;
+        forces are evaluated again at the next ``run``."""
         with np.load(path) as d:
             ckpt = {k: d[k] for k in d.files}
         numbers_now = self._compact_system.numbers.cpu().numpy()
@@ -560,7 +661,10 @@ class MDDriver:
         compact = self._compact_system.replace(coord=torch.as_tensor(ckpt["coord"], dtype=torch.float32, device=dev))
         if "cell" in ckpt:
             compact = compact.replace(cell=torch.as_tensor(ckpt["cell"], dtype=torch.float32, device=dev)[None])
-        while True:
+        if self.engine == "indexed":
+            sysb = self._rebuild_indexed(compact)
+            atom_id = torch.arange(sysb.natoms, device=dev)
+        while self.engine == "binned":
             sysb, atom_id, ovf = B.to_binned_system(compact, self.grid, self.lr_grid)
             if not bool(ovf.any()):
                 break

@@ -6,8 +6,8 @@ it is a Python loop of eager steps whose scalars (time step, mixing,
 uphill count) stay on the device, and the loop reads the largest force norm
 on the host once per step to decide whether to go on.  The layout is fixed:
 the neighbor structure is not rebuilt inside the loop (relaxations move
-atoms far less than the skin); for large displacements, re-invoke on a
-re-binned system.
+atoms far less than the skin; the molecule-bin layout holds whatever the
+move); for large displacements, re-invoke on a rebuilt system.
 """
 
 from __future__ import annotations
@@ -34,9 +34,9 @@ def fire_relax(
     alpha_start: float = 0.1,
     f_alpha: float = 0.99,
 ) -> tuple[System, dict[str, Any]]:
-    """FIRE relaxation (Bitzek et al. 2006) of a binned ``System`` on its
-    device.  Returns (relaxed system, info with ``steps``, ``fmax`` and
-    ``converged``)."""
+    """FIRE relaxation (Bitzek et al. 2006) of a ``System`` on its device,
+    on any layout: binned, molecule-bin or indexed.  Returns (relaxed
+    system, info with ``steps``, ``fmax`` and ``converged``)."""
     real = (system.numbers > 0)[:, None]
 
     def force_of(coord: torch.Tensor) -> torch.Tensor:

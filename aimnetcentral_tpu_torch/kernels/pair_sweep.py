@@ -27,8 +27,9 @@ one specialisation per term.  Every term here has the form
 with one scalar extra ``s`` per atom and, for a bilinear term, two per-atom
 vectors ``p`` (read on the receiver) and ``r`` (read on the candidate) of
 width V.  The extras are packed per atom as ``[p (V), r (V), s]``, K = 2V+1.
-Terms: DSF Coulomb (s = q), the D3 coordination number (s = rcov) and the
-D3(BJ) energy over the factorised C6 (p, r, s = r4r2).  Each term has its
+Terms: DSF Coulomb (s = q), simple (unbounded) Coulomb (s = q), the D3
+coordination number (s = rcov) and the D3(BJ) energy over the factorised
+C6 (p, r, s = r4r2).  Each term has its
 plain ``g`` (differentiated by autograd in the plain versions) and its hand
 derivatives ``g_grad``, the formulas the CUDA functors (csrc/pair_terms.cuh)
 compute; the tests hold the latter to autograd.
@@ -96,6 +97,37 @@ def _inside(x: torch.Tensor, lo: float, hi: float | None = None) -> torch.Tensor
     return ok if hi is None else ok & (x <= hi)
 
 
+def _envelope(d, rc: float, envelope: str):
+    """The SR envelope fc(d) of the Coulomb heads: the exp mollifier (zero
+    from rc on, through its clamp) or the cosine cutoff (zero from rc on)."""
+    if envelope == "exp":
+        x = torch.clamp(d / rc, 0.0, _XMAX)
+        return torch.exp(-1.0 / (1.0 - x * x)) / _INV_E
+    fc = 0.5 * (torch.cos(torch.clamp(d, 1e-6, rc) * (math.pi / rc)) + 1.0)
+    return torch.where(d < rc, fc, 0.0)
+
+
+def _envelope_grad(d, rc: float, envelope: str):
+    """``(fc(d), dfc/dd)`` of :func:`_envelope`, zero where its clamps stop
+    the gradient."""
+    if envelope == "exp":
+        xr = d / rc
+        x = torch.clamp(xr, 0.0, _XMAX)
+        den = 1.0 - x * x
+        fc = torch.exp(-1.0 / den) / _INV_E
+        return fc, torch.where(_inside(xr, 0.0, _XMAX), fc * (-2.0 * x / (den * den)) / rc, 0.0)
+    arg = torch.clamp(d, 1e-6, rc) * (math.pi / rc)
+    inside = d < rc
+    fc = torch.where(inside, 0.5 * (torch.cos(arg) + 1.0), 0.0)
+    dfc = torch.where(inside & _inside(d, 1e-6, rc), -0.5 * torch.sin(arg) * (math.pi / rc), 0.0)
+    return fc, dfc
+
+
+def _envelope_code(envelope: str, subtract_sr: bool) -> float:
+    """The envelope as the CUDA functors read it: 0 none, 1 exp, 2 cosine."""
+    return 0.0 if not subtract_sr else (1.0 if envelope == "exp" else 2.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class DSFTerm:
     """Damped-shifted-force Coulomb, ``q_i q_j h(d)`` with
@@ -123,35 +155,13 @@ class DSFTerm:
         return math.erfc(a * rc) / rc**2 + 2.0 * a / math.sqrt(math.pi) * math.exp(-((a * rc) ** 2)) / rc
 
     def consts(self) -> tuple[float, ...]:
-        env = 0.0 if not self.subtract_sr else (1.0 if self.envelope == "exp" else 2.0)
+        env = _envelope_code(self.envelope, self.subtract_sr)
         return (self.alpha, self.shift_val, self.shift_slope, self.dsf_rc, self.rc, env)
-
-    def _fc(self, d):
-        rc = self.rc
-        if self.envelope == "exp":
-            x = torch.clamp(d / rc, 0.0, _XMAX)
-            return torch.exp(-1.0 / (1.0 - x * x)) / _INV_E
-        fc = 0.5 * (torch.cos(torch.clamp(d, 1e-6, rc) * (math.pi / rc)) + 1.0)
-        return torch.where(d < rc, fc, 0.0)
-
-    def _fc_grad(self, d):
-        rc = self.rc
-        if self.envelope == "exp":
-            xr = d / rc
-            x = torch.clamp(xr, 0.0, _XMAX)
-            den = 1.0 - x * x
-            fc = torch.exp(-1.0 / den) / _INV_E
-            return fc, torch.where(_inside(xr, 0.0, _XMAX), fc * (-2.0 * x / (den * den)) / rc, 0.0)
-        arg = torch.clamp(d, 1e-6, rc) * (math.pi / rc)
-        inside = d < rc
-        fc = torch.where(inside, 0.5 * (torch.cos(arg) + 1.0), 0.0)
-        dfc = torch.where(inside & _inside(d, 1e-6, rc), -0.5 * torch.sin(arg) * (math.pi / rc), 0.0)
-        return fc, dfc
 
     def _h(self, d):
         h = erfc_approx(self.alpha * d) / d - self.shift_val + (d - self.dsf_rc) * self.shift_slope
         if self.subtract_sr:
-            h = h - self._fc(d) / d
+            h = h - _envelope(d, self.rc, self.envelope) / d
         return h
 
     def g(self, d, si, sj, valid):
@@ -163,7 +173,40 @@ class DSFTerm:
         h = ea / d - self.shift_val + (d - self.dsf_rc) * self.shift_slope
         dh = a * dea / d - ea / (d * d) + self.shift_slope
         if self.subtract_sr:
-            fc, dfc = self._fc_grad(d)
+            fc, dfc = _envelope_grad(d, self.rc, self.envelope)
+            h = h - fc / d
+            dh = dh - (dfc / d - fc / (d * d))
+        return si * sj * h, si * sj * dh, sj * h, si * h
+
+
+@dataclasses.dataclass(frozen=True)
+class CoulombSimpleTerm:
+    """Unbounded Coulomb, ``q_i q_j (1/d - fc(d)/d)``, the SR envelope part
+    subtracted when ``subtract_sr`` (engine_binned.coulomb_simple_binned in
+    the JAX package).  Swept at cutoff inf on the molecule-bin layout, where
+    the radius-0 sweep meets every pair of a molecule."""
+
+    rc: float
+    envelope: str = "exp"
+    subtract_sr: bool = True
+    name: ClassVar[str] = "coulomb_simple"
+    code: ClassVar[int] = 3
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+    scalar_key: ClassVar[str] = "q"
+
+    def consts(self) -> tuple[float, ...]:
+        return (self.rc, _envelope_code(self.envelope, self.subtract_sr))
+
+    def g(self, d, si, sj, valid):
+        h = 1.0 / d
+        if self.subtract_sr:
+            h = h - _envelope(d, self.rc, self.envelope) / d
+        return si * sj * h
+
+    def g_grad(self, d, si, sj, valid):
+        h, dh = 1.0 / d, -1.0 / (d * d)
+        if self.subtract_sr:
+            fc, dfc = _envelope_grad(d, self.rc, self.envelope)
             h = h - fc / d
             dh = dh - (dfc / d - fc / (d * d))
         return si * sj * h, si * sj * dh, sj * h, si * h
@@ -276,7 +319,7 @@ class D3EnergyTerm:
         return -damping * sw, dd, drr * sj, drr * si
 
 
-PairTerm = DSFTerm | D3CNTerm | D3EnergyTerm
+PairTerm = DSFTerm | CoulombSimpleTerm | D3CNTerm | D3EnergyTerm
 
 
 def pack_extras(term: PairTerm, extras: dict[str, torch.Tensor]) -> torch.Tensor:

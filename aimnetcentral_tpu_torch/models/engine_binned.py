@@ -5,8 +5,10 @@
 kernels/pair_sweep.py: the CUDA kernels D and E for CUDA tensors, their plain
 versions for CPU tensors.  On it sit DSF Coulomb and DFT-D3(BJ): the
 coordination-number sweep, the factorised per-atom C6 vectors, and the
-energy sweep, all on the coarse long-range twin layout.  The ConvSV message
-pass lives in kernels/conv_pass.py.
+energy sweep, all on the coarse long-range twin layout; and simple Coulomb
+on the molecule-bin layout, which has no twin (the sweeps fall back to its
+one grid, at radius 0).  The ConvSV message pass lives in
+kernels/conv_pass.py.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from aimnetcentral_tpu_torch import constants
 from aimnetcentral_tpu_torch.kernels.pair_sweep import (
+    CoulombSimpleTerm,
     D3CNTerm,
     D3EnergyTerm,
     DSFTerm,
@@ -154,6 +157,21 @@ def coulomb_dsf_binned(
     self_coeff = -(term.shift_val / 2.0 + dsf_alpha / math.sqrt(math.pi))
     q_real = torch.where(system.numbers > 0, q, 0.0)
     return e + 2.0 * FACTOR * mol_sum(self_coeff * q_real * q_real, system.mol_idx, system.num_mol)
+
+
+def coulomb_simple_binned(
+    system: System, q: torch.Tensor, rc: float, envelope: str, subtract_sr: bool
+) -> torch.Tensor:
+    """Unbounded pairwise Coulomb, optionally minus the SR-envelope part
+    (per-molecule energies; the counterpart of models/lr.py::coulomb_simple).
+    Exact only on the molecule-bin layout, where the radius-0 sweep at
+    cutoff inf meets every pair of a molecule; on a spatial grid the stencil
+    would cut 1/r off (periodic systems switch to DSF)."""
+    if system.bins is None or not system.bins.molecule_bins:
+        raise ValueError("simple Coulomb on the binned engine needs the molecule-bin layout")
+    term = CoulombSimpleTerm(rc=rc, envelope=envelope, subtract_sr=subtract_sr)
+    e_i = pair_energy_binned(system, math.inf, term, {"q": q})
+    return FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
 
 
 def dftd3_binned(

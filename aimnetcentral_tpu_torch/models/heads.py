@@ -4,9 +4,9 @@ Each head is a frozen spec plus ``head_init``/``head_apply`` over an
 explicit parameter dict; ``head_apply`` takes and returns the data dict.
 This port carries the flagship's heads: the energy MLP, the atomic shift
 (SAE, applied in float64 by the calculator), the atomic sum, long-range
-Coulomb (DSF on both layouts, simple on the indexed layout), the
-short-range Coulomb subtraction (indexed layout), and the external
-DFT-D3(BJ) head of the released ``-d3`` families on both layouts.  The
+Coulomb (DSF on both layouts, simple on the indexed and the molecule-bin
+layouts), the short-range Coulomb subtraction (indexed layout), and the
+external DFT-D3(BJ) head of the released ``-d3`` families on both layouts.  The
 binned branches sweep through the pair kernels (models/engine_binned.py),
 the indexed ones run models/lr.py over the neighbor matrices.
 """
@@ -175,12 +175,15 @@ def head_apply(head: HeadSpec, params: dict, data: dict, system: System) -> dict
             raise NotImplementedError(
                 f"{head.method} Coulomb is not ported yet (ROADMAP.md, queue 1: the rest of long range)"
             )
-        if system.bins is not None:
+        if system.bins is not None and head.method == "simple" and system.bins.molecule_bins:
+            # one molecule a bin: the radius-0 sweep is every pair of a molecule
+            e = eb.coulomb_simple_binned(system, data[head.key_in], head.rc, head.envelope, head.subtract_sr)
+        elif system.bins is not None:
             if head.method != "dsf":
                 raise NotImplementedError(
-                    f"Coulomb method {head.method!r} on the binned engine is not ported "
-                    "(periodic simple Coulomb switches to dsf; simple on the molecule-bin "
-                    "layout: ROADMAP.md queue 1)"
+                    f"Coulomb method {head.method!r} on a spatial binned grid: the stencil would cut "
+                    "1/r off (periodic simple Coulomb switches to dsf; gas-phase batches take the "
+                    "molecule-bin layout, where simple Coulomb runs)"
                 )
             e = eb.coulomb_dsf_binned(
                 system,

@@ -33,6 +33,9 @@ class BinGrid:
     edge_hint: float  # targeted bin edge (Angstrom); a lower bound on the true edge
     periodic: bool
     margin: float = 0.0  # extra stencil reach for stale binnings (the reuse skin)
+    # one molecule per bin (builders.system_molecule_bins): every pair is
+    # within its bin, so every sweep runs at radius 0
+    molecule_bins: bool = False
 
     @property
     def total_bins(self) -> int:
@@ -91,7 +94,12 @@ def plan_lr_bins(
 def stencil_radius(cutoff: float, grid: BinGrid) -> int:
     """Offsets needed to cover ``cutoff`` plus the grid's stale-binning
     margin (engine_binned.py::stencil_radius in the JAX package);
-    ``edge_hint`` is a lower bound on the true bin edge."""
+    ``edge_hint`` is a lower bound on the true bin edge.  Molecule-bin
+    grids sweep at radius 0 whatever the cutoff: each molecule sits in its
+    own frame, so a neighbouring bin holds another molecule, never a
+    neighbour (and ``cutoff`` may be inf there)."""
+    if grid.molecule_bins:
+        return 0
     return max(1, int(math.ceil((cutoff + grid.margin) / grid.edge_hint)))
 
 

@@ -174,42 +174,16 @@ def cell_list_nbmat(
     n_pad: int | None = None,
     pbc_mol: np.ndarray | None = None,
 ) -> tuple[np.ndarray, np.ndarray | None, int]:
-    """O(N) host-side neighbor builder — same contract as
-    ``brute_force_nbmat`` (the reference's host analogue is the O(N) device
-    kernel behind aimnet/calculators/neighbors.py:21-147; the repo's indexed
-    facade path previously had only the O(N^2) brute-force host build, which
-    cost minutes at 10k atoms).
-
-    Primary path: scipy cKDTree over wrapped coordinates + ghost periodic
-    images (C-implemented pair query; 10k atoms at 15 A in <1 s).  Fallback
-    when scipy is absent: the pure-numpy binned sweep below.  Per-molecule
-    cells; gas-phase molecules use the tree directly.  Returns
-    ``(nbmat, shifts_frac, max_seen)`` with shifts defined against the
-    ORIGINAL (unwrapped) coordinates, matching brute_force_nbmat exactly
-    (pair sets equal; slot order may differ).
+    """O(N) host-side neighbor builder with the contract of
+    ``brute_force_nbmat``: a scipy cKDTree over wrapped coordinates plus
+    ghost periodic images (the JAX package's ``_cell_list_nbmat_kdtree``;
+    its numpy fallback for machines without scipy is not carried, since
+    scipy is on every machine the port runs on).  Per-molecule cells;
+    gas-phase molecules use the tree directly.  Returns ``(nbmat,
+    shifts_frac, max_seen)`` with shifts defined against the ORIGINAL
+    (unwrapped) coordinates, matching brute_force_nbmat exactly (pair sets
+    equal; slot order may differ).
     """
-    try:
-        from scipy.spatial import cKDTree  # noqa: F401
-    except ImportError:  # pragma: no cover — scipy is in the image
-        return _cell_list_nbmat_numpy(
-            coord, mol_idx, cutoff, max_neighbors=max_neighbors, cell=cell,
-            n_pad=n_pad, pbc_mol=pbc_mol,
-        )
-    return _cell_list_nbmat_kdtree(
-        coord, mol_idx, cutoff, max_neighbors=max_neighbors, cell=cell,
-        n_pad=n_pad, pbc_mol=pbc_mol,
-    )
-
-
-def _cell_list_nbmat_kdtree(
-    coord: np.ndarray,
-    mol_idx: np.ndarray,
-    cutoff: float,
-    max_neighbors: int | None = None,
-    cell: np.ndarray | None = None,
-    n_pad: int | None = None,
-    pbc_mol: np.ndarray | None = None,
-) -> tuple[np.ndarray, np.ndarray | None, int]:
     from scipy.spatial import cKDTree
 
     n_real = coord.shape[0]
@@ -285,156 +259,16 @@ def _cell_list_nbmat_kdtree(
         lj, s_w = src[rj], sft[rj]
         all_i.append(sel[ri] if len(sel) < n_real else ri)
         all_j.append(sel[lj] if len(sel) < n_real else lj)
-        # shift vs ORIGINAL coords (see _cell_list_nbmat_numpy for the
-        # derivation); when inputs arrive pre-wrapped the ghost image IS the
-        # shift and the two per-pair wrap gathers are skipped entirely
+        # shift vs ORIGINAL coords: r_ij = (x_j - wrap_j cb + s_w cb) -
+        # (x_i - wrap_i cb), so the image count is s_w - wrap_j + wrap_i;
+        # when inputs arrive pre-wrapped the ghost image IS the shift and the
+        # two per-pair wrap gathers are skipped entirely
         if already_wrapped:
             all_s.append(s_w)
         else:
             all_s.append(
                 (s_w.astype(np.float64) - wrap[lj] + wrap[ri]).astype(np.int8)
             )
-
-    ii = np.concatenate(all_i) if all_i else np.zeros(0, dtype=int)
-    jj = np.concatenate(all_j) if all_j else np.zeros(0, dtype=int)
-    ss = np.concatenate(all_s) if all_s else None
-    return _fill_nbmat(ii, jj, ss, n_pad, max_neighbors)
-
-
-def _cell_list_nbmat_numpy(
-    coord: np.ndarray,
-    mol_idx: np.ndarray,
-    cutoff: float,
-    max_neighbors: int | None = None,
-    cell: np.ndarray | None = None,
-    n_pad: int | None = None,
-    pbc_mol: np.ndarray | None = None,
-) -> tuple[np.ndarray, np.ndarray | None, int]:
-    """Pure-numpy binned fallback: grid with edge >= cutoff (per perpendicular
-    height for triclinic cells), candidates from the neighboring bin shell."""
-    n_real = coord.shape[0]
-    n_pad = n_pad or (n_real + 1)
-    coord = np.asarray(coord, dtype=np.float64)
-
-    all_i: list[np.ndarray] = []
-    all_j: list[np.ndarray] = []
-    all_s: list[np.ndarray] = []
-    has_cell = cell is not None
-    cells = None if cell is None else (cell if cell.ndim == 3 else cell[None])
-
-    for b in np.unique(mol_idx):
-        sel = np.nonzero(mol_idx == b)[0]
-        xyz = coord[sel]
-        n = len(sel)
-        periodic = has_cell and (pbc_mol is None or bool(pbc_mol[b]))
-        if periodic:
-            cb = np.asarray(cells[b if cells.shape[0] > 1 else 0], dtype=np.float64)
-            inv = np.linalg.inv(cb)
-            frac = xyz @ inv
-            wrap = np.floor(frac)
-            frac_w = frac - wrap
-            # perpendicular heights -> bins with edge >= cutoff where possible
-            vol = abs(np.linalg.det(cb))
-            heights = vol / np.linalg.norm(
-                np.cross(np.roll(cb, -1, axis=0), np.roll(cb, -2, axis=0)), axis=1
-            )
-            nbins = np.maximum(1, (heights // cutoff).astype(int))
-            while nbins.prod() > max(4096, 64 * n):  # sparse-geometry guard
-                nbins = np.maximum(1, nbins // 2)
-            # offsets must reach the cutoff even when a cell height < cutoff
-            reach = np.ceil(cutoff / (heights / nbins)).astype(int)
-        else:
-            lo = xyz.min(axis=0)
-            span = np.maximum(xyz.max(axis=0) - lo, 1e-9)
-            nbins = np.maximum(1, (span // cutoff).astype(int))
-            while nbins.prod() > max(4096, 64 * n):  # sparse-geometry guard
-                nbins = np.maximum(1, nbins // 2)
-            frac_w = np.clip((xyz - lo) / span, 0.0, 1.0 - 1e-12)
-            wrap = None
-            reach = np.ceil(cutoff * nbins / span).astype(int)
-
-        bidx = np.minimum((frac_w * nbins).astype(int), nbins - 1)  # (n, 3)
-        lin = (bidx[:, 0] * nbins[1] + bidx[:, 1]) * nbins[2] + bidx[:, 2]
-        total_bins = int(nbins.prod())
-
-        order = np.argsort(lin, kind="stable")
-        counts = np.bincount(lin, minlength=total_bins)
-        cap = int(counts.max()) if n else 0
-        table = np.full((total_bins, cap), -1, dtype=np.int64)
-        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
-        rank = np.arange(n) - starts[lin[order]]
-        table[lin[order], rank] = order  # local indices into sel
-
-        offs = np.stack(
-            np.meshgrid(*[np.arange(-r, r + 1) for r in reach], indexing="ij"),
-            axis=-1,
-        ).reshape(-1, 3)
-        tgt = bidx[:, None, :] + offs[None, :, :]  # (n, n_off, 3)
-        if periodic:
-            # lattice image of the target bin; dedupe (bin, image) aliases
-            # that arise when an axis has fewer than 2*reach+1 bins (two
-            # offsets landing on the same bin with the same image are exact
-            # duplicates)
-            img = np.floor(tgt / nbins).astype(int)
-            tgt_mod = tgt - img * nbins
-            key = (
-                (tgt_mod[..., 0] * nbins[1] + tgt_mod[..., 1]) * nbins[2]
-                + tgt_mod[..., 2]
-            ) * (64**3) + ((img[..., 0] + 32) * 64 + (img[..., 1] + 32)) * 64 + (
-                img[..., 2] + 32
-            )
-            srt = np.argsort(key, axis=1, kind="stable")
-            ks = np.take_along_axis(key, srt, axis=1)
-            d = np.zeros_like(ks, dtype=bool)
-            d[:, 1:] = ks[:, 1:] == ks[:, :-1]
-            dup = np.zeros_like(d)
-            np.put_along_axis(dup, srt, d, axis=1)
-            ok_off = ~dup
-        else:
-            ok_off = ((tgt >= 0) & (tgt < nbins)).all(axis=-1)  # (n, n_off)
-            img = np.zeros_like(tgt)
-            tgt_mod = np.where(ok_off[..., None], tgt, 0)
-
-        tgt_lin = (tgt_mod[..., 0] * nbins[1] + tgt_mod[..., 1]) * nbins[2] + tgt_mod[..., 2]
-
-        for o in range(offs.shape[0]):
-            valid_rows = np.nonzero(ok_off[:, o])[0]
-            if len(valid_rows) == 0:
-                continue
-            cand = table[tgt_lin[valid_rows, o]]  # (rows, cap) local idx or -1
-            cand_ok = cand >= 0
-            cand_safe = np.where(cand_ok, cand, 0)
-            if periodic:
-                img_o = img[valid_rows, o]  # (rows, 3)
-                disp = (
-                    frac_w[cand_safe] + img_o[:, None, :] - frac_w[valid_rows][:, None, :]
-                ) @ cb
-            else:
-                img_o = None
-                disp = xyz[cand_safe] - xyz[valid_rows][:, None, :]
-            d2 = np.einsum("rck,rck->rc", disp, disp)
-            hit = cand_ok & (d2 < cutoff * cutoff)
-            # exclude self: same atom index is d==0 only at zero total image
-            self_pair = cand_safe == valid_rows[:, None]
-            if periodic:
-                self_pair &= (img_o == 0).all(axis=-1)[:, None]
-            hit &= ~self_pair
-            ri, ci = np.nonzero(hit)
-            if len(ri) == 0:
-                continue
-            li = valid_rows[ri]
-            lj = cand_safe[ri, ci]
-            all_i.append(sel[li])
-            all_j.append(sel[lj])
-            if periodic:
-                # shift vs ORIGINAL coords: wrapped x_w = x_orig - wrap @ cell,
-                # disp = x_w_j + img@cell - x_w_i = x_orig_j + (img - wrap_j +
-                # wrap_i)@cell - x_orig_i  =>  s_orig = img - wrap_j + wrap_i
-                s = img_o[ri] - wrap[lj] + wrap[li]
-                all_s.append(s.astype(np.int8))
-            elif has_cell:
-                # mixed batch: zero shifts keep the batch shift array aligned
-                all_s.append(np.zeros((len(ri), 3), np.int8))
 
     ii = np.concatenate(all_i) if all_i else np.zeros(0, dtype=int)
     jj = np.concatenate(all_j) if all_j else np.zeros(0, dtype=int)

@@ -7,7 +7,8 @@ Two configurations at full width on the same 10,000-atom periodic box,
 random weights from seed 0: flagship-10k (the flagship head set, DSF
 Coulomb) and wb97m-d3-10k (the same heads plus the external DFT-D3(BJ) head
 of the released ``aimnet2-wb97m-d3_*`` models); the same two on molecules,
-batches, a small box and gas-phase clusters cut from the same geometry.
+batches, a small box and gas-phase clusters cut from the same geometry, and
+in MD on them.
 
 Phases (any failure exits nonzero; nothing is caught):
 
@@ -71,14 +72,31 @@ Phases (any failure exits nonzero; nothing is caught):
    grid) and a bitwise repeat, with request times built and reused, peak
    memory and a profiled request; A, B, D and E against their plain
    versions on the 10k gas-phase grid as in phase 3; the card against the
-   CPU on mol-113, batch-8, periodic-500 and a 1,200-atom DSF cluster.
+   CPU on mol-113, batch-8, periodic-500 and a 1,200-atom DSF cluster;
+9. packed: gas-phase batches at or above ``binned_threshold`` on the
+   molecule-bin layout (one molecule a bin, capacity 120, every sweep at
+   radius 0; ``phase_packed``): packed-64 (flagship, 64 clusters of 40-120
+   atoms, simple Coulomb through D and E at cutoff inf) and packed-32x113
+   (wb97m-d3), gated on launches (A, B 3; D, E 1 or 3 a request), a
+   bitwise repeat, A, B, D and E against their plain versions on the
+   layout (f64 and pair-count gates), the answer against the card's
+   indexed layout (whose times are printed beside it) and, after a 2 A
+   move of every atom, the kept layout against a fresh build bit for bit;
+   the card against the CPU on an 8-molecule packed batch;
+10. md_gas: MD off the periodic binned path (``phase_md_gas``): the first 50
+   NVE steps of md-mol-113 (flagship, the indexed engine a cell-less
+   system takes), md-periodic-500 (wb97m-d3, ``engine="indexed"``) and
+   md-cluster-10k-dsf (``engine="binned"`` on a gas-phase grid), gated on
+   launches, no overflow, fewer rebuilds than steps, NVE energy and a
+   bitwise repeat; 10 steps of md-mol-113 on the card against the CPU.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
 request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
 error); ``launches`` counts every main-path run (both configurations'
-requests, the gas phase's requests and MD windows) and ``launches_per_md_step`` the launches per MD
+requests, the gas and packed phases' requests and the MD windows) and
+``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
 per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
 JAX.
@@ -89,6 +107,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -100,6 +119,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 10_000
 N_CHECK = 1_200
 N_TIMED = 10  # requests timed a configuration, after the three counted ones
+N_BUILT_GAS = 5  # requests of a phase-gas input timed each building its layout (some take seconds)
 FP32_PEAK = 67e12  # H100 SXM, FP32 outside the tensor cores (FLOP/s)
 HBM_RATE = 3.35e12  # H100 SXM device memory (bytes/s)
 REL_TOL = 1e-5
@@ -416,6 +436,7 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
 
 OPS_PER_PAIR = {  # FP32 operations per unordered pair within the cutoff (csrc/pair_*.cu)
     "dsf": lambda v: (38, 75),
+    "coulomb_simple": lambda v: (22, 51),
     "d3_cn": lambda v: (18, 42),
     "d3_energy": lambda v: (40 + 2 * v, 115 + 4 * v),
 }
@@ -423,10 +444,11 @@ OPS_PER_PAIR = {  # FP32 operations per unordered pair within the cutoff (csrc/p
 
 def pair_terms(calc, sysb) -> dict:
     """The pair sweeps of a request on the binned system ``sysb``, as
-    ``{name: (term, cutoff, extras)}``: DSF with random charges (seed 4)
-    where the request's Coulomb is DSF, and with a D3 head the coordination
-    number and the D3 energy over the C6 vectors of this system's
-    coordination numbers (a wb97m-d3 request: all three)."""
+    ``{name: (term, cutoff, extras)}``: with random charges (seed 4) DSF
+    where the request's Coulomb is DSF, or simple Coulomb at cutoff inf on
+    the molecule-bin layout; with a D3 head the coordination number and
+    the D3 energy over the C6 vectors of this system's coordination numbers
+    (a wb97m-d3 request: all three)."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
@@ -434,15 +456,18 @@ def pair_terms(calc, sysb) -> dict:
     from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead
 
     heads = [h for _n, h in calc._effective_cfg(sysb.cell is not None).outputs]
-    lr = next((h for h in heads if isinstance(h, LRCoulombHead) and h.method == "dsf"), None)
+    lr = next((h for h in heads if isinstance(h, LRCoulombHead)), None)
     d3 = next((h for h in heads if isinstance(h, DFTD3Head)), None)
     sweeps = []
-    if lr is not None:
-        gen = torch.Generator(device="cuda").manual_seed(4)
-        q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
+    if lr is not None and lr.method == "dsf":
         dsf = ps.DSFTerm(alpha=lr.dsf_alpha, dsf_rc=lr.dsf_rc, rc=lr.rc, envelope=lr.envelope,
                          subtract_sr=lr.subtract_sr)
         sweeps.append((dsf, lr.dsf_rc, {"q": q}))
+    elif lr is not None and lr.method == "simple" and sysb.bins.molecule_bins:
+        simple = ps.CoulombSimpleTerm(rc=lr.rc, envelope=lr.envelope, subtract_sr=lr.subtract_sr)
+        sweeps.append((simple, math.inf, {"q": q}))
     if d3 is not None:
         tables = calc.params["outputs"]["external_dftd3"]
         rcov = tables["rcov"][sysb.numbers]
@@ -926,9 +951,10 @@ def device_busy_ms(prof) -> float:
     return sum(dev_us(e) for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
 
 
-def md_window(label: str, drv, per_eval: dict, request_peak: int, n_chunks: int = MD_TIMED) -> dict:
+def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunks: int = MD_TIMED) -> dict:
     """``n_chunks`` chunks of MD_CHUNK steps with every kernel's launches
-    counted around them, then one profiled chunk.  The step time is the
+    counted around them, then one profiled chunk.  The peak memory is gated
+    against ``request_peak`` (a single request's) when one is given.  The step time is the
     window's whole wall time over its steps (host clock ending in a
     synchronize), the chunks' spread beside it.  The total energy
     (potential plus kinetic) is read from the observables; a window whose
@@ -979,11 +1005,12 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int, n_chunks: int 
     log(f"[md {label}] {steps} steps in {total_s:.3f} s: {ms:.2f} ms a step ({1e3 / ms:.2f} steps/s; chunks of "
         f"{MD_CHUNK}: {', '.join(f'{t:.2f}' for t in per_step)} ms a step, median {np.median(per_step):.2f}, min "
         f"{min(per_step):.2f}, max {max(per_step):.2f}); {rebins * 100 / steps:.1f} "
-        f"re-binnings per 100 steps, {regrows} retried chunks; peak memory {peak / 2**30:.3f} GiB "
-        f"(a single request: {request_peak / 2**30:.3f}), held {held / 2**20:+.1f} MiB; mean temperature by "
+        f"re-binnings per 100 steps, {regrows} retried chunks; peak memory {peak / 2**30:.3f} GiB"
+        + (f" (a single request: {request_peak / 2**30:.3f})" if request_peak is not None else "")
+        + f", held {held / 2**20:+.1f} MiB; mean temperature by "
         f"chunk {', '.join(f'{t:.0f}' for t in temps)} K; total energy {etot[0]:.4f} -> {etot[-1]:.4f} eV "
         f"(|change| / |E| {drift:.2e}); launches {launches}{note}")
-    if peak > MD_PEAK_RATIO * request_peak:
+    if request_peak is not None and peak > MD_PEAK_RATIO * request_peak:
         raise SystemExit(f"FAIL: MD peak memory {peak} B above {MD_PEAK_RATIO} x the single request's on {label}")
     if held > MD_HELD_GROWTH:
         raise SystemExit(f"FAIL: MD holds {held} B more after the window than before on {label}")
@@ -996,8 +1023,11 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int, n_chunks: int 
         torch.cuda.synchronize()
     busy = device_busy_ms(prof) / MD_CHUNK
     idle = max(0.0, 1 - busy / ms)
+    top = sorted((e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                 key=dev_us, reverse=True)[:3]
     log(f"[md {label}] profiled chunk: device busy {busy:.2f} ms a step, idle share against the "
-        f"unprofiled step time {idle:.3f}")
+        f"unprofiled step time {idle:.3f}; most device time a step: "
+        + "; ".join(f"{dev_us(e) / 1e3 / MD_CHUNK:.2f} ms {e.key[:60]}" for e in top))
     return {
         "total_s": total_s, "ms_per_step": ms, "steps_per_s": 1e3 / ms, "chunk_ms_per_step": per_step,
         "hot": hot, "rebins_per_100": rebins * 100 / steps, "retried_chunks": regrows, "peak_bytes": peak,
@@ -1065,7 +1095,7 @@ def phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, request_peaks
     return {"windows": windows}
 
 
-def md_trace(drv, n_steps: int) -> dict:
+def md_trace(drv, n_steps: int, n_atoms: int = N_CHECK) -> dict:
     """``n_steps`` MD steps one chunk each: the potential energy and the
     forces (caller atom order) after every step, and the final frame."""
     epot, forces = [], []
@@ -1073,21 +1103,23 @@ def md_trace(drv, n_steps: int) -> dict:
         epot.append(float(drv.run(1, chunk=1)["epot"][0]))
         st = drv.state
         real = st.system.numbers > 0
-        f = np.zeros((N_CHECK, 3), np.float32)
+        f = np.zeros((n_atoms, 3), np.float32)
         f[st.atom_id[real].cpu().numpy()] = st.forces[real].cpu().numpy()
         forces.append(f)
-    return {"epot": np.array(epot), "forces": np.stack(forces), "coord": drv.snapshot()["coord"][:N_CHECK],
+    return {"epot": np.array(epot), "forces": np.stack(forces), "coord": drv.snapshot()["coord"][:n_atoms],
             "rebins": drv.rebins}
 
 
-def phase_md_card_vs_cpu(label: str, params, cfg) -> dict:
+def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> dict:
     """On the 1,200-atom box: MD_CHECK_STEPS NVE steps from the same
     injected 300 K velocities at the exact tier, and 10 FIRE steps, on the
     card and on the CPU.  Per step, the
     potential energy and every force are held to the absolute limits
     ``CHECK_ABS``, and the final coordinates of both runs too; the same
     steps on the card at the ``fast`` tier are the control, which must come
-    out beyond a limit (CPU matmuls are exact f32 at every tier)."""
+    out beyond a limit (CPU matmuls are exact f32 at every tier).  With a
+    gas-phase molecule ``mol`` the same MD check runs on it (the indexed
+    engine), without FIRE."""
     import torch
 
     from aimnetcentral_tpu_torch import constants
@@ -1096,9 +1128,13 @@ def phase_md_card_vs_cpu(label: str, params, cfg) -> dict:
     from aimnetcentral_tpu_torch.models.heads import auto_switch_simple_to_dsf
     from aimnetcentral_tpu_torch.ops import binned as B
 
-    coord, numbers, cell = build_box(N_CHECK, seed=1)
+    if mol is None:
+        coord, numbers, cell = build_box(N_CHECK, seed=1)
+    else:
+        coord, numbers, cell = mol["coord"], mol["numbers"], None
+    n = len(numbers)
     masses = constants.get_masses()[numbers]
-    v0 = np.sqrt(constants.kB * 300.0 / masses)[:, None] * np.random.default_rng(5).normal(size=(N_CHECK, 3))
+    v0 = np.sqrt(constants.kB * 300.0 / masses)[:, None] * np.random.default_rng(5).normal(size=(n, 3))
     runs = {}
     for key, dev, tier in (("card", "cuda", "exact"), ("card fast", "cuda", "fast"), ("cpu", "cpu", "exact")):
         dev = torch.device(dev)
@@ -1110,10 +1146,10 @@ def phase_md_card_vs_cpu(label: str, params, cfg) -> dict:
         st = drv._state
         vel = torch.as_tensor(v0.astype(np.float32), device=dev)
         drv._state = dataclasses.replace(
-            st, veloc=torch.where((st.system.numbers > 0)[:, None], vel[st.atom_id.clamp(max=N_CHECK - 1)], 0.0)
+            st, veloc=torch.where((st.system.numbers > 0)[:, None], vel[st.atom_id.clamp(max=n - 1)], 0.0)
         )
-        runs[key] = md_trace(drv, MD_CHECK_STEPS)
-        if tier == "exact":
+        runs[key] = md_trace(drv, MD_CHECK_STEPS, n)
+        if tier == "exact" and mol is None:
             # FIRE on a fixed binned layout of the same box
             grid = dataclasses.replace(B.plan_bins(cell, N_CHECK, cfg.aev.rc_s + 0.3), margin=0.3)
             lr_grid = B.plan_lr_bins(cell, N_CHECK, drv._lr_cutoff(), margin=0.3)
@@ -1134,14 +1170,17 @@ def phase_md_card_vs_cpu(label: str, params, cfg) -> dict:
             "coord": float(np.abs(run["coord"] - cpu["coord"]).max()),
         }
         d = diffs[key]
-        log(f"[md check {label} {key}] {N_CHECK} atoms, {MD_CHECK_STEPS} NVE steps ({run['rebins']} re-binnings; "
+        log(f"[md check {label} {key}] {n} atoms, {drv.engine} engine, {MD_CHECK_STEPS} NVE steps "
+            f"({run['rebins']} rebuilds; "
             f"{cpu['rebins']} on the CPU), against the CPU at exact: largest per-step |dE| {d['energy']:.3e} eV "
             f"({d['energy'] / np.abs(cpu['epot']).min():.2e} relative), largest per-step |dF| {d['forces']:.3e} "
             f"eV/A, final max |dx| {d['coord']:.3e} A (limits {CHECK_ABS['energy']:.1e}, "
             f"{CHECK_ABS['forces']:.1e}, {CHECK_ABS['coord']:.1e}; card {run['s']:.1f} s, cpu {cpu['s']:.1f} s)")
-    dfire = float(np.abs(runs["card"]["fire"] - cpu["fire"]).max())
-    log(f"[md check {label}] 10 FIRE steps: max |dx| {dfire:.3e} A (limit {CHECK_ABS['coord']:.1e}), fmax "
-        f"{runs['card']['fire_fmax']:.4f} / {cpu['fire_fmax']:.4f} eV/A")
+    dfire = 0.0
+    if mol is None:
+        dfire = float(np.abs(runs["card"]["fire"] - cpu["fire"]).max())
+        log(f"[md check {label}] 10 FIRE steps: max |dx| {dfire:.3e} A (limit {CHECK_ABS['coord']:.1e}), fmax "
+            f"{runs['card']['fire_fmax']:.4f} / {cpu['fire_fmax']:.4f} eV/A")
     limits = {k: CHECK_ABS[k] for k in ("energy", "forces", "coord")}
     if over_limits(diffs["card"], limits) or dfire > CHECK_ABS["coord"]:
         raise SystemExit(f"FAIL: MD or FIRE on the card and on the CPU disagree on {label}: "
@@ -1185,11 +1224,12 @@ def nudged(data, rng, scale: float = 0.02):
     return {**data, "coord": (data["coord"] + rng.normal(scale=scale, size=data["coord"].shape)).astype(np.float32)}
 
 
-def gas_request(label: str, calc, data, stress: bool, per_request: dict) -> dict:
+def gas_request(label: str, calc, data, stress: bool, per_request: dict, n_built: int = N_TIMED) -> dict:
     """Two requests on ``data`` with every kernel's launches counted around
     them (the second reuses the layout and must repeat the first bit for
-    bit), then ten timed reusing the layout and ten each building it,
-    cycling over three inputs; peak device memory of the first two."""
+    bit), then ``N_TIMED`` timed reusing the layout and ``n_built`` each
+    building it, cycling over three inputs; peak device memory of the
+    first two."""
     import torch
 
     rng = np.random.default_rng(6)
@@ -1235,7 +1275,7 @@ def gas_request(label: str, calc, data, stress: bool, per_request: dict) -> dict
         reused.append(time.perf_counter() - t0)
         if calc._prep_cache["system"] is not layout:
             raise SystemExit(f"FAIL: a sub-skin move rebuilt the layout on {label}")
-    for k in range(N_TIMED):
+    for k in range(n_built):
         calc._prep_cache = None
         t0 = time.perf_counter()
         calc.eval(inputs[k % 3], forces=True, stress=stress)
@@ -1252,14 +1292,17 @@ def gas_request(label: str, calc, data, stress: bool, per_request: dict) -> dict
     idle = max(0.0, 1 - busy / (np.median(reused) * 1e3))
     top = sorted((e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")),
                  key=dev_us, reverse=True)[:5]
-    kind = "binned" if layout.bins is not None else "indexed"
-    shape = (f"grid {layout.bins.nbins} C={layout.bins.capacity}, LR grid {layout.lr_bins.nbins} "
-             f"C={layout.lr_bins.capacity}" if kind == "binned" else
-             "lists " + ", ".join(f"nbmat{s} {tuple(getattr(layout, f'nbmat{s}').shape)}"
-                                  for s in ("", "_lr", "_coulomb", "_dftd3") if getattr(layout, f"nbmat{s}") is not None))
+    kind = calc._prep_cache["kind"]
+    if kind == "indexed":
+        lists = [s for s in ("", "_lr", "_coulomb", "_dftd3") if getattr(layout, f"nbmat{s}") is not None]
+        shape = "lists " + ", ".join(f"nbmat{s} {tuple(getattr(layout, f'nbmat{s}').shape)}" for s in lists)
+    else:
+        shape = f"grid {layout.bins.nbins} C={layout.bins.capacity}"
+        if layout.lr_bins is not None:
+            shape += f", LR grid {layout.lr_bins.nbins} C={layout.lr_bins.capacity}"
     log(f"[gas {label}] {len(sizes)} molecule(s), {sum(sizes)} atoms, {kind} layout ({shape}); E[0] = {e[0]:.6f} eV; "
         f"first request {t_first * 1e3:.1f} ms; {N_TIMED} reusing the layout: median {np.median(reused) * 1e3:.2f} ms "
-        f"(min {min(reused) * 1e3:.2f}, max {max(reused) * 1e3:.2f}); {N_TIMED} building it: median "
+        f"(min {min(reused) * 1e3:.2f}, max {max(reused) * 1e3:.2f}); {n_built} building it: median "
         f"{np.median(built) * 1e3:.2f} ms (min {min(built) * 1e3:.2f}, max {max(built) * 1e3:.2f}); peak memory "
         f"{peak / 2**30:.3f} GiB; launches per request {({k: v // 2 for k, v in launches.items()})}; a repeated "
         f"request gives the same results bit for bit")
@@ -1296,7 +1339,7 @@ def gas_card_vs_cpu(label: str, params, cfg, data, stress: bool, binned_threshol
     e_tol = np.maximum(REL_TOL * np.abs(cpu["energy"]), floor)
     df = float(np.abs(card["forces"] - cpu["forces"]).max())
     ds = float(np.abs(card["stress"] - cpu["stress"]).max()) if stress else 0.0
-    log(f"[gas check {label}] {'binned' if system.bins is not None else 'indexed'} layout, "
+    log(f"[gas check {label}] {calc._prep_cache['kind']} layout, "
         f"{len(card['forces'])} atoms: largest |dE| {de.max():.3e} eV (limit {e_tol.min():.3e}: 1e-5 relative, floor "
         f"{floor:.3e}); max |dF| {df:.3e} eV/A" + (f"; max |dstress| {ds:.3e} eV/A^3" if stress else "")
         + f" (card {t_card:.2f} s, cpu {t_cpu:.2f} s)")
@@ -1352,7 +1395,7 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
     launches = dict(none)
     for label, p, c, data, stress, per_request in cases:
         calc = AIMNet2Calculator((p, c), device="cuda")
-        res["requests"][label] = gas_request(label, calc, data, stress, per_request)
+        res["requests"][label] = gas_request(label, calc, data, stress, per_request, N_BUILT_GAS)
         if label.startswith("periodic-500"):
             system = calc._prep_cache["system"]
             split = "split" in label
@@ -1375,6 +1418,195 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
         ("cluster-1200-dsf flagship", params, cfg_dsf, gas_cluster(N_CHECK, seed=5), False, 1024),
     ):
         res["checks"][label] = gas_card_vs_cpu(label, p, c, data, stress, threshold)
+    return res
+
+
+PACKED_SIZES_SEED = 7  # packed-64: 64 clusters of 40-120 atoms, one of 120 (capacity 120)
+
+
+def moved_batch(mols: list[dict], scale: float, seed: int = 12) -> list[dict]:
+    """Every atom of every molecule moved by ``scale`` A in a random
+    direction."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for m in mols:
+        step = rng.normal(size=m["coord"].shape)
+        step *= scale / np.linalg.norm(step, axis=1, keepdims=True)
+        out.append({**m, "coord": (m["coord"] + step).astype(np.float32)})
+    return out
+
+
+def agree(label: str, got: dict, ref: dict, floor: float) -> dict:
+    """Per-molecule energies within 1e-5 relative (with the f32 floor) and
+    forces within 1e-4 eV/A of ``ref``."""
+    de = np.abs(got["energy"] - ref["energy"])
+    e_tol = np.maximum(REL_TOL * np.abs(ref["energy"]), floor)
+    df = float(np.abs(got["forces"] - ref["forces"]).max())
+    log(f"[packed {label}] largest |dE| {de.max():.3e} eV (limit {e_tol.min():.3e}: 1e-5 relative, floor "
+        f"{floor:.3e}); max |dF| {df:.3e} eV/A (limit 1e-4)")
+    if (de > e_tol).any() or df > 1e-4:
+        raise SystemExit(f"FAIL: {label} disagree")
+    return {"dE": float(de.max()), "dE_limit": float(e_tol.min()), "dF": df}
+
+
+def phase_packed(params, cfg, params_d3, cfg_d3) -> dict:
+    """Gas-phase batches at or above ``binned_threshold`` through
+    ``AIMNet2Calculator.eval(forces=True)`` on the molecule-bin layout (one
+    molecule a bin, capacity 120, every sweep at radius 0): packed-64 (the
+    flagship: 64 clusters of 40-120 atoms cut from ``build_box`` geometry as
+    batch-8's are; simple Coulomb through kernels D and E at cutoff inf) and
+    packed-32x113 (wb97m-d3: 32 clusters of 113 atoms; D and E three times
+    a request).  Each: launches (A, B 3; D, E 1 or 3 a request), a bitwise
+    repeat, times reused and built, peak memory and a profiled request (as
+    ``gas_request``); A, B (packed-64) and D, E against their plain versions
+    on the layout with the f64 and row-by-row pair-count gates; the packed
+    answer against the same batch on the card's indexed layout, whose
+    request times are printed beside it; the layout kept after a 2 A move
+    of every atom, its answer a fresh build's bit for bit.  Then the card
+    against the CPU on an 8-molecule packed batch (batch-8's clusters,
+    ``binned_threshold`` 512), both configurations."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+
+    sizes = [120] + [int(n) for n in np.random.default_rng(PACKED_SIZES_SEED).integers(40, 121, size=63)]
+    batch64 = [gas_cluster(n, seed=100 + k) for k, n in enumerate(sizes)]
+    batch32 = [gas_cluster(113, seed=200 + k) for k in range(32)]
+    conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
+    none = {name: 0 for name in counters()}
+    cases = (
+        ("packed-64 flagship", params, cfg, batch64, {**conv, "pair_sweep_forward": 1, "pair_sweep_backward": 1}),
+        ("packed-32x113 wb97m-d3", params_d3, cfg_d3, batch32,
+         {**conv, "pair_sweep_forward": 3, "pair_sweep_backward": 3}),
+    )
+    res: dict = {"requests": {}, "indexed": {}, "against_indexed": {}, "checks": {}, "kernels_detail": {}}
+    launches = dict(none)
+    for label, p, c, batch, per_request in cases:
+        calc = AIMNet2Calculator((p, c), device="cuda")
+        res["requests"][label] = gas_request(label, calc, batch, False, per_request)
+        for name, n in res["requests"][label]["launches"].items():
+            launches[name] += n
+        layout = calc._prep_cache["system"]
+        if calc._prep_cache["kind"] != "packed" or layout.bins.nbins != (len(batch), 1, 1) \
+                or layout.bins.capacity != 120:
+            raise SystemExit(f"FAIL: {label} did not run on the molecule-bin layout of capacity 120")
+        if label.startswith("packed-64"):
+            _rows, res["kernels_detail"]["conv"] = phase_kernels(calc, layout, label)
+        _rows, res["kernels_detail"][label] = phase_pair_kernels(calc, layout, label)
+
+        # the same batch on the card's indexed layout (all-pairs lists)
+        packed = calc.eval(batch, forces=True)
+        calc_i = AIMNet2Calculator((p, c), device="cuda", binned_threshold=10**9)
+        res["indexed"][label] = gas_request(f"{label} indexed", calc_i, batch, False, none)
+        floor = F32_EPS * energy_terms_abs(p, c, layout)
+        res["against_indexed"][label] = agree(f"{label} against the indexed layout", packed,
+                                              calc_i.eval(batch, forces=True), floor)
+        del calc_i
+
+        # a 2 A move of every atom: the molecule-bin layout holds
+        moved = moved_batch(batch, 2.0)
+        got = calc.eval(moved, forces=True)
+        if calc._prep_cache["system"] is not layout:
+            raise SystemExit(f"FAIL: a 2 A move rebuilt the molecule-bin layout on {label}")
+        fresh = AIMNet2Calculator((p, c), device="cuda").eval(moved, forces=True)
+        for key in ("energy", "forces", "charges"):
+            if not np.array_equal(got[key], fresh[key]):
+                raise SystemExit(f"FAIL: after a 2 A move the kept layout gave another {key} than a fresh build "
+                                 f"on {label}")
+        log(f"[packed {label}] after a 2 A move of every atom the layout was kept; energy, forces and charges "
+            f"equal a fresh build's bit for bit (largest |dE| against the unmoved batch "
+            f"{np.abs(got['energy'] - packed['energy']).max():.3e} eV)")
+        req, idx = res["requests"][label], res["indexed"][label]
+        log(f"[packed {label}] request median reusing the layout {req['reused_median_s'] * 1e3:.2f} ms, building it "
+            f"{req['built_median_s'] * 1e3:.2f} ms; the indexed layout on the same batch "
+            f"{idx['reused_median_s'] * 1e3:.2f} / {idx['built_median_s'] * 1e3:.2f} ms; peak "
+            f"{req['peak_bytes'] / 2**30:.3f} / {idx['peak_bytes'] / 2**30:.3f} GiB")
+        del calc
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+
+    batch8 = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
+    for label, p, c in (("packed-8 flagship", params, cfg), ("packed-8 wb97m-d3", params_d3, cfg_d3)):
+        layout = AIMNet2Calculator((p, c), device="cuda", binned_threshold=512).prepare_system(batch8)
+        if layout.bins is None or not layout.bins.molecule_bins:
+            raise SystemExit(f"FAIL: {label} is not on the molecule-bin layout")
+        res["checks"][label] = gas_card_vs_cpu(label, p, c, batch8, False, binned_threshold=512)
+    return res
+
+
+MD_GAS = dict(dt_fs=0.5, temperature_K=300.0, thermostat="nve", skin=0.3, precision="exact")
+MD_REPEAT_STEPS = 12  # steps of the md_gas bitwise repeat: a rebuild or two inside
+
+
+def phase_md_gas(params, cfg, params_d3, cfg_d3) -> dict:
+    """MD off the periodic binned path, at full width: md-mol-113 (the
+    flagship on a 113-atom cluster, the indexed engine that a cell-less
+    system takes by default; its 12.5 A diameter keeps every pair inside
+    the 16 A LR list), md-periodic-500 (wb97m-d3 on the 500-atom box,
+    ``engine="indexed"``) and md-cluster-10k-dsf (the flagship with DSF on
+    the 10,000-atom cluster, ``engine="binned"`` on a gas-phase grid).  Each
+    a fresh NVE driver from its Maxwell-Boltzmann start at 300 K (dt 0.5
+    fs, skin 0.3 A, the exact tier), timed over its first 50 steps as
+    ``md_window`` does (ms a step, idle share of a profiled chunk), gated on
+    its launches (none on the indexed engine; A, B 3 and D, E 1 an
+    evaluation on the grid), no overflow, fewer rebuilds than steps, the
+    total energy within ``MD_NVE_DRIFT`` of itself, and two drivers of one
+    seed equal bit for bit after a chunk; then 10 steps of md-mol-113 on
+    the card against the CPU within ``CHECK_ABS``, with a ``fast`` control
+    that must exceed it."""
+    import torch
+
+    from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
+
+    md = MDConfig(**MD_GAS)
+    mol = gas_cluster(113, seed=1)
+    coord, numbers, cell = build_box(500, seed=2)
+    none = {name: 0 for name in counters()}
+    grid = {"conv_stencil_forward": 3, "conv_stencil_backward": 3, "pair_sweep_forward": 1,
+            "pair_sweep_backward": 1}
+    cases = (
+        ("md-mol-113 flagship", params, cfg, mol, "auto", "indexed", none),
+        ("md-periodic-500 wb97m-d3", params_d3, cfg_d3, {"coord": coord, "numbers": numbers, "cell": cell},
+         "indexed", "indexed", none),
+        ("md-cluster-10k-dsf flagship", params, dsf_config(cfg), gas_cluster(N_MAIN, seed=5), "binned", "binned",
+         grid),
+    )
+    res: dict = {"windows": {}}
+    for label, p, c, data, engine, want, per_eval in cases:
+        system = md_system(data["coord"], data["numbers"], data.get("cell"), "cuda")
+        t0 = time.perf_counter()
+        drv = MDDriver(p, c, system, md, seed=0, engine=engine, device="cuda")
+        drv.state  # the initial forces, outside the window
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        if drv.engine != want:
+            raise SystemExit(f"FAIL: {label} ran the {drv.engine} engine, not the {want}")
+        st = drv.state.system
+        shape = (f"SR grid {drv.grid.nbins} C={drv.grid.capacity}, LR grid {drv.lr_grid.nbins} "
+                 f"C={drv.lr_grid.capacity}" if want == "binned" else
+                 f"SR list {tuple(st.nbmat.shape)} (bins {drv.sr_spec.nbins}, capacity {drv.sr_spec.bin_capacity}), "
+                 f"LR list {tuple(st.nbmat_lr.shape)} (bins {drv.lr_spec.nbins}, capacity "
+                 f"{drv.lr_spec.bin_capacity})")
+        log(f"[md_gas {label}] {drv.engine} engine, {shape}; driver and initial forces {setup:.2f} s")
+        w = md_window(label, drv, per_eval, None, n_chunks=MD_WARM)
+        if w["retried_chunks"] or w["rebins_per_100"] >= 100:
+            raise SystemExit(f"FAIL: {label} overflowed or rebuilt every step")
+        if w["etot_drift"] > MD_NVE_DRIFT:
+            raise SystemExit(f"FAIL: NVE total energy moved by more than {MD_NVE_DRIFT} of itself on {label}")
+        res["windows"][label] = {**w, "setup_s": setup}
+        del drv
+        snaps = []
+        for _ in range(2):
+            drv = MDDriver(p, c, system, md, seed=3, engine=engine, device="cuda")
+            drv.run(MD_REPEAT_STEPS, chunk=MD_REPEAT_STEPS)
+            snaps.append((drv.snapshot(), drv.rebins))
+            del drv
+        if not all(np.array_equal(snaps[0][0][k], snaps[1][0][k]) for k in ("coord", "veloc")):
+            raise SystemExit(f"FAIL: two MD drivers of one seed gave other coordinates on {label}")
+        log(f"[md_gas {label}] two drivers of one seed give the same coordinates and velocities bit for bit "
+            f"after {MD_REPEAT_STEPS} steps ({snaps[0][1]} rebuilds)")
+        torch.cuda.empty_cache()
+    res["check"] = phase_md_card_vs_cpu("md-mol-113 flagship", params, cfg, mol)
     return res
 
 
@@ -1442,7 +1674,11 @@ def main() -> None:
     md_runs = phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, peaks)
     results["md"] = md_runs
     results["md_check"] = phase_md_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
+    results["packed"] = phase_packed(params, cfg, params_d3, cfg_d3)
+    results["md_gas"] = phase_md_gas(params, cfg, params_d3, cfg_d3)
     for k in kernels:
+        k["launches"] += results["packed"]["launches"][k["name"]]
+        k["launches"] += sum(w["launches"][k["name"]] for w in results["md_gas"]["windows"].values())
         k["launches"] += sum(w["launches"][k["name"]] for w in md_runs["windows"].values())
         k["launches_per_md_step"] = {
             label: md_runs["windows"][label]["launches_per_step"][k["name"]]

@@ -147,15 +147,16 @@ def test_unported_tiers_raise(models, results, precision):
 
 
 def test_unported_inputs_raise(models):
-    """What the port does not run yet raises, naming ROADMAP.md: Hessians,
-    a gas-phase batch at or above ``binned_threshold`` (the molecule-bin
-    layout) and Ewald Coulomb."""
+    """What the port does not run yet raises, naming ROADMAP.md: Hessians
+    and Ewald Coulomb.  A gas-phase batch at or above ``binned_threshold``,
+    which raised before the molecule-bin layout was ported, runs on it."""
     calc = TCalculator(models[1], device="cpu", binned_threshold=0)
     gas = {k: v for k, v in _box().items() if k != "cell"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         calc.eval(_box(), hessian=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calc.eval([gas, gas])
+    out = calc.eval([gas, gas], forces=True)
+    assert calc._prep_cache["kind"] == "packed" and np.isfinite(out["forces"]).all()
+    np.testing.assert_array_equal(out["energy"][0], out["energy"][1])
     params, cfg, aux = models[1]
     ewald = dataclasses.replace(cfg, outputs=tuple(
         (n, dataclasses.replace(h, method="ewald") if n == "lrcoulomb" else h) for n, h in cfg.outputs))

@@ -296,3 +296,9 @@ def test_kernel_tiles_fit_the_card(f):
     # blocks for B, nine columns a lane
     st = tcs.ConvStatic(b_tot=512, c=40, g=G_DIM, f=17, s_tot=27)
     assert tcs.lane_columns(st) == 9 and tcs.fwd_blocks(st) == 2560 and tcs.bwd_tiles(st) == 5
+    # the molecule-bin layout of 64 molecules (capacity 120, radius 0: one
+    # offset): 7,680 receiver rows in 960 blocks for A, 64 x 15 blocks of B
+    # with 23,040 B of shared memory
+    st = tcs.ConvStatic(b_tot=64, c=120, g=G_DIM, f=17, s_tot=1)
+    assert tcs.lane_columns(st) == 9 and tcs.fwd_blocks(st) == 960 and tcs.bwd_tiles(st) == 15
+    assert tcs.bwd_smem_bytes(st) == 23_040

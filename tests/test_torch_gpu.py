@@ -11,6 +11,7 @@ output's largest magnitude (f32 sums in another order).
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ import torch
 
 from aimnetcentral_tpu_torch import constants
 
-from aimnetcentral_tpu_torch.builders import system_from_molecules
+from aimnetcentral_tpu_torch.builders import system_from_molecules, system_molecule_bins
 from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
 from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
 from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
@@ -84,16 +85,37 @@ def _edge_molecule(rng):
     return {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * EDGE_BOX}
 
 
+def _cluster(n, seed=0, spacing=2.2):
+    """The ``n`` atoms nearest the centre of a jittered CHNO lattice."""
+    rng = np.random.default_rng(seed)
+    m = int(np.ceil((3 * n) ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), axis=-1).reshape(-1, 3)
+    coord = (grid + rng.uniform(-0.15, 0.15, size=grid.shape)) * spacing
+    numbers = rng.choice([1, 6, 7, 8], size=len(grid), p=[0.5, 0.35, 0.05, 0.1])
+    keep = np.argsort(np.linalg.norm(coord - coord.mean(0), axis=1), kind="stable")[:n]
+    return {"coord": coord[keep].astype(np.float32), "numbers": numbers[keep]}
+
+
+def _packed(seed: int = 11):
+    """Five gas-phase molecules of 5-120 atoms on the molecule-bin layout:
+    capacity 120, radius 0."""
+    return system_molecule_bins([_cluster(n, seed + n) for n in (113, 40, 5, 120, 77)], CPU)
+
+
 def _operands(layout: str, f: int, seed: int = 7):
     """Kernel operands on the CPU: a 40-atom box on 2x2x2 or 1x1x1
-    periodic bins, a gas-phase 3x2x2 grid (steps without a candidate), or
-    the edges box of :func:`_edge_molecule`, whose slots are then reversed
-    in every bin (its real atoms a suffix of the slots, not a prefix)."""
+    periodic bins, a gas-phase 3x2x2 grid (steps without a candidate), the
+    edges box of :func:`_edge_molecule`, whose slots are then reversed
+    in every bin (its real atoms a suffix of the slots, not a prefix), or
+    the molecule-bin layout of :func:`_packed` (one offset, C = 120)."""
     rng = np.random.default_rng(seed)
     n, a = 40, 12.0
     coord = rng.uniform(0, a, size=(n, 3)).astype(np.float32)
     numbers = rng.choice([1, 6, 8], size=n)
-    if layout == "gas":
+    if layout == "packed":
+        sysb = _packed()
+        grid = sysb.bins
+    elif layout == "gas":
         mol = {"coord": coord * np.array([1.0, 0.7, 0.7], np.float32), "numbers": numbers}
         grid = B.BinGrid(nbins=(3, 2, 2), capacity=16, edge_hint=4.0, periodic=False)
     elif layout == "edges":
@@ -105,8 +127,9 @@ def _operands(layout: str, f: int, seed: int = 7):
         # split into uneven atom tiles
         edge, safety = {"2x2x2": (5.2, 3.0), "1x1x1": (12.0, 3.4)}[layout]
         grid = B.plan_bins(mol["cell"], n, edge, safety=safety)
-    sysb, _perm, ovf = B.to_binned_system(system_from_molecules([mol], CPU), grid)
-    assert not ovf.any()
+    if layout != "packed":
+        sysb, _perm, ovf = B.to_binned_system(system_from_molecules([mol], CPU), grid)
+        assert not ovf.any()
     tab = build_conv_tables(grid, B.stencil_radius(RC, grid))
     b, c = grid.total_bins, grid.capacity
     shift = torch.tensor(tab["push"])
@@ -134,7 +157,7 @@ def _to(dev, ops):
     return {k: v.to(dev).contiguous() for k, v in ops.items()}
 
 
-LAYOUTS = ["2x2x2", "1x1x1", "gas", "edges"]
+LAYOUTS = ["2x2x2", "1x1x1", "gas", "edges", "packed"]
 
 
 @pytest.mark.parametrize("f", [16, 17, 33])  # 33: the kernels' second build (17 columns a lane)
@@ -287,12 +310,16 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     cutoff rc (a full bin, an empty bin, a bin pair beyond the cutoff, two
     atoms exactly the cutoff apart, capacity 10), every bin's slots then
     reversed; ``gas``: 40 atoms on a gas-phase 3x2x2 grid at radius 2
-    (steps without a candidate bin).  ``d3_energy_v70`` is the D3 energy
+    (steps without a candidate bin); ``packed``: the molecule-bin layout of
+    :func:`_packed` at radius 0, cutoff inf for simple Coulomb (every pair
+    of a molecule) and 15 A for the other terms.  ``d3_energy_v70`` is the D3 energy
     term with random factorised vectors of V = 70, the width of all 14
     elements of the released models."""
     rng = np.random.default_rng(seed)
     lr = None
-    if layout == "edges":
+    if layout == "packed":
+        sysb, cutoff = _packed(), (math.inf if term_name == "coulomb_simple" else 15.0)
+    elif layout == "edges":
         mol, cutoff = _edge_molecule(rng), RC
         grid = B.BinGrid(nbins=(3, 3, 3), capacity=EDGE_CAP, edge_hint=5.2, periodic=True)
     elif layout == "gas":
@@ -311,13 +338,17 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
         else:
             grid = B.plan_bins(cell, n, 5.5, safety=3.0)
         lr = B.plan_lr_bins(cell, n, 15.0, safety=3.0) if layout == "images" else None
-    sysb, _perm, ovf = B.to_binned_system(system_from_molecules([mol], CPU), grid, lr)
-    assert not ovf.any()
+    if layout != "packed":
+        sysb, _perm, ovf = B.to_binned_system(system_from_molecules([mol], CPU), grid, lr)
+        assert not ovf.any()
     where = "lr" if layout == "images" else "sr"
     tables = head_init(None, DFTD3Head(s8=0.3908, a1=0.566, a2=3.128), CPU)
     d3e = ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=0.8 * cutoff, r_off=cutoff)
-    if term_name == "dsf":
-        term = ps.DSFTerm(alpha=0.2, dsf_rc=cutoff, rc=4.6)
+    if term_name in ("dsf", "coulomb_simple"):
+        if term_name == "dsf":
+            term = ps.DSFTerm(alpha=0.2, dsf_rc=cutoff, rc=4.6)
+        else:
+            term = ps.CoulombSimpleTerm(rc=4.6)
         extras = {"q": torch.tensor(rng.normal(size=sysb.natoms).astype(np.float32) * 0.3)
                   * (sysb.numbers > 0)}
     elif term_name == "d3_cn":
@@ -343,8 +374,8 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     return st, term, ops, ct
 
 
-PAIR_LAYOUTS = ["banded", "images", "wide", "edges", "gas"]
-PAIR_TERMS = ["dsf", "d3_cn", "d3_energy"]
+PAIR_LAYOUTS = ["banded", "images", "wide", "edges", "gas", "packed"]
+PAIR_TERMS = ["dsf", "coulomb_simple", "d3_cn", "d3_energy"]
 
 
 @pytest.mark.parametrize("term_name", PAIR_TERMS)
@@ -387,11 +418,19 @@ def test_pair_kernels_take_v70(cuda_device, layout):
         _close(got[1][..., cols], ref[1][..., cols])
 
 
-@pytest.mark.parametrize("layout", PAIR_LAYOUTS)
+@pytest.mark.parametrize("layout", PAIR_LAYOUTS + ["packed-inf"])
 def test_pair_kernels_count_the_plain_pairs(cuda_device, layout):
     """Each receiver row contracts exactly its real pairs within the cutoff,
-    met from both ends: kernels D and E's own counts against the plain."""
-    st, term, ops, ct = _pair_case(layout, "d3_energy")
+    met from both ends: kernels D and E's own counts against the plain
+    (``packed-inf``: simple Coulomb at cutoff inf, every other real atom of
+    the receiver's molecule)."""
+    if layout == "packed-inf":
+        st, term, ops, ct = _pair_case("packed", "coulomb_simple")
+        sizes = torch.tensor([113, 40, 5, 120, 77])
+        want = torch.where(ops["mask"].reshape(-1) > 0.5, (sizes - 1).repeat_interleave(st.c), 0)
+    else:
+        st, term, ops, ct = _pair_case(layout, "d3_energy")
+        want = None
     plain = ps.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"], ops["nbr"], ops["inv"])
     dev_ops = _to(cuda_device, ops)
     counts_d = torch.zeros(st.b_tot * st.c, dtype=torch.int32, device=cuda_device)
@@ -401,6 +440,8 @@ def test_pair_kernels_count_the_plain_pairs(cuda_device, layout):
     torch.cuda.synchronize()
     assert int(plain.sum()) > 0
     assert torch.equal(counts_d.cpu().long(), plain) and torch.equal(counts_e.cpu().long(), plain)
+    if want is not None:
+        assert torch.equal(plain, want)
 
 
 def test_pair_kernels_are_deterministic(cuda_device):
@@ -516,6 +557,54 @@ def _md_run(device, precision="exact", thermostat="nve", steps=10):
     return obs, drv.snapshot(), drv
 
 
+def _md_engine_run(device, engine: str, steps=10):
+    """10 NVE steps at the exact tier on the indexed engine (the 60-atom box
+    with its DSF cutoff at 8 A, or a 40-atom gas-phase cluster) or on the
+    gas-phase binned engine (the cluster, DSF Coulomb), from the same
+    injected 300 K velocities: the observables, the final frame and the
+    driver."""
+    params, cfg = _narrow_model(CPU)
+    periodic = engine == "indexed-periodic"
+    head = {"dsf_rc": 8.0} if periodic else ({"method": "dsf"} if engine == "binned-gas" else {})
+    cfg = dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, **head) if isinstance(h, LRCoulombHead) else h) for n, h in cfg.outputs))
+    mol = _box() if periodic else _cluster(40, 2)
+    system = system_from_molecules([mol], device, n_pad=64)
+    md = MDConfig(dt_fs=0.5, thermostat="nve", skin=0.2, lr_skin=0.5, precision="exact")
+    drv = MDDriver(params, cfg, system, md, engine=engine.split("-")[0], device=device)
+    masses = np.clip(constants.get_masses()[system.numbers.cpu().numpy()], 1.0, None)
+    sigma = np.sqrt(constants.kB * 300.0 / masses)[:, None]
+    v0 = torch.tensor((sigma * np.random.default_rng(3).normal(size=(64, 3))).astype(np.float32), device=device)
+    real = drv._state.system.numbers > 0
+    drv._state = dataclasses.replace(drv._state, veloc=torch.where(real[:, None], v0[drv._state.atom_id], 0.0))
+    obs = drv.run(steps, chunk=5)
+    return obs, drv.snapshot(), drv
+
+
+@pytest.mark.parametrize("engine", ["indexed-gas", "indexed-periodic", "binned-gas"])
+def test_md_engines_card_match_cpu(cuda_device, engine):
+    """The indexed engine (cell lists built on the card inside the step; no
+    kernel launch) and the gas-phase binned engine (A, B three times and D,
+    E once an evaluation): 10 NVE steps at the exact tier, per-step
+    potential energy within 1e-5 relative, final coordinates within 1e-4 A,
+    and a second run on the card equal bit for bit."""
+    counters = (cs.conv_stencil_forward, cs.conv_stencil_backward,
+                ps.pair_sweep_forward, ps.pair_sweep_backward)
+    cpu, snap_cpu, _ = _md_engine_run(CPU, engine)
+    for fn in counters:
+        fn.launches = 0
+    card, snap_card, drv = _md_engine_run(cuda_device, engine)
+    evals = 10 + 1  # the steps and the initial forces
+    want = [3 * evals, 3 * evals, evals, evals] if engine == "binned-gas" else [0, 0, 0, 0]
+    assert [fn.launches for fn in counters] == want
+    assert drv.rebins >= 1
+    np.testing.assert_allclose(card["epot"], cpu["epot"], rtol=1e-5)
+    np.testing.assert_allclose(snap_card["coord"], snap_cpu["coord"], atol=1e-4)
+    again, snap_again, _ = _md_engine_run(cuda_device, engine)
+    np.testing.assert_array_equal(snap_again["coord"], snap_card["coord"])
+    np.testing.assert_array_equal(again["epot"], card["epot"])
+
+
 def test_md_repeats_bit_for_bit(cuda_device):
     """Langevin MD on the card, twice from the same seed: the kernels have
     no float atomics and the generator restarts, so the runs are equal."""
@@ -541,23 +630,13 @@ def test_md_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(snap_card["coord"], snap_cpu["coord"], atol=1e-4)
 
 
-def _cluster(n, seed=0, spacing=2.2):
-    """The ``n`` atoms nearest the centre of a jittered CHNO lattice."""
-    rng = np.random.default_rng(seed)
-    m = int(np.ceil((3 * n) ** (1.0 / 3.0)))
-    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), axis=-1).reshape(-1, 3)
-    coord = (grid + rng.uniform(-0.15, 0.15, size=grid.shape)) * spacing
-    numbers = rng.choice([1, 6, 7, 8], size=len(grid), p=[0.5, 0.35, 0.05, 0.1])
-    keep = np.argsort(np.linalg.norm(coord - coord.mean(0), axis=1), kind="stable")[:n]
-    return {"coord": coord[keep].astype(np.float32), "numbers": numbers[keep]}
-
-
 GAS_INPUTS = {  # name -> (input, binned_threshold, stress, Coulomb method)
     "molecule": (_cluster(23, 1), 1024, False, "simple"),
     "batch": ([_cluster(n, 2 + n) for n in (7, 19, 12)], 1024, False, "simple"),
     "box": (_box(), 1024, True, "simple"),
     "box-split": (_box(), 1024, True, "simple"),  # D3 cutoff 8 A: a Coulomb and a D3 list
     "cluster-dsf": (_cluster(80, 4), 64, False, "dsf"),
+    "packed": ([_cluster(n, 30 + n) for n in (40, 57, 74, 91)], 128, False, "simple"),
 }
 
 
@@ -565,8 +644,9 @@ GAS_INPUTS = {  # name -> (input, binned_threshold, stress, Coulomb method)
 def test_gas_and_indexed_requests_card_match_cpu(cuda_device, name):
     """Molecules, a batch and a small box on the indexed layout (no kernel
     launch; the box with a shared LR list, and with split Coulomb and D3
-    lists), and a gas-phase DSF cluster on the binned grid (A, B, D and E
-    three times a request), wB97M-D3 head set: card against CPU
+    lists), a gas-phase DSF cluster on the binned grid and a batch on the
+    molecule-bin layout (A, B, D and E three times a request; simple
+    Coulomb at radius 0 on the latter), wB97M-D3 head set: card against CPU
     (energy 1e-5 relative or 1e-5 eV, forces 1e-4 eV/A, stress 1e-6
     eV/A^3), and a repeated request equal bit for bit."""
     data, threshold, stress, method = GAS_INPUTS[name]
@@ -584,9 +664,10 @@ def test_gas_and_indexed_requests_card_match_cpu(cuda_device, name):
     calc = AIMNet2Calculator((params, cfg), device=cuda_device, binned_threshold=threshold)
     card = calc.eval(data, forces=True, stress=stress)
     again = calc.eval(data, forces=True, stress=stress)
-    binned = name == "cluster-dsf"
+    binned = name in ("cluster-dsf", "packed")
     system = calc._prep_cache["system"]
     assert (system.bins is not None) == binned
+    assert (calc._prep_cache["kind"] == "packed") == (name == "packed")
     assert (system.nbmat_dftd3 is not None) == (name == "box-split")
     # two requests; on the grid D and E sweep DSF, the D3 CN and the D3 energy
     assert [fn.launches for fn in counters] == ([6, 6, 6, 6] if binned else [0, 0, 0, 0])

@@ -35,6 +35,7 @@ def test_port_imports_no_jax():
     for must in ("aimnetcentral_tpu_torch.dynamics.md", "aimnetcentral_tpu_torch.dynamics.optimize",
                  "aimnetcentral_tpu_torch.dynamics.trajectory", "aimnetcentral_tpu_torch.calculators.calculator",
                  "aimnetcentral_tpu_torch.kernels.pair_sweep", "aimnetcentral_tpu_torch.models.engine_binned",
-                 "aimnetcentral_tpu_torch.ops.neighbors", "aimnetcentral_tpu_torch.builders",
+                 "aimnetcentral_tpu_torch.ops.neighbors", "aimnetcentral_tpu_torch.ops.cell_list",
+                 "aimnetcentral_tpu_torch.builders",
                  "aimnetcentral_tpu_torch.models.lr"):
         assert must in names

@@ -482,7 +482,7 @@ def _skewed_box():
     return {**box, "coord": (frac @ cell).astype(np.float32), "cell": cell}
 
 
-@pytest.mark.parametrize("build", ["brute_force_nbmat", "_cell_list_nbmat_kdtree", "_cell_list_nbmat_numpy"])
+@pytest.mark.parametrize("build", ["brute_force_nbmat", "_cell_list_nbmat_kdtree"])
 @pytest.mark.parametrize("geometry", ["gas", "cubic", "skewed", "mixed"])
 def test_host_builders_match(build, geometry):
     """Every row holds JAX's set of (neighbor, image); so does max_seen."""
@@ -505,7 +505,9 @@ def test_host_builders_match(build, geometry):
     args = (coord, mol_idx, 5.6)
     kw = dict(cell=cell, n_pad=n_pad, pbc_mol=pbc)
     jnb, jsh, jmax = getattr(jneighbors, build)(*args, **kw)
-    tnb_, tsh, tmax = getattr(tneighbors, build)(*args, **kw)
+    # the port's cell_list_nbmat is the kd-tree build itself
+    tbuild = "cell_list_nbmat" if build == "_cell_list_nbmat_kdtree" else build
+    tnb_, tsh, tmax = getattr(tneighbors, tbuild)(*args, **kw)
     assert tmax == jmax and tnb_.shape[0] == n_pad
     assert _row_sets(tnb_, tsh, len(coord)) == _row_sets(jnb, jsh, len(coord))
 
@@ -564,7 +566,7 @@ def test_layouts_chosen_as_jax_chooses(models):
     """Below ``binned_threshold`` and for gas-phase simple Coulomb: indexed;
     the periodic box's lists shared (equal Coulomb and D3 cutoffs) or split
     (D3 cutoff 8 against 15.6); gas-phase batches at or above the threshold
-    raise (the molecule-bin layout); Ewald raises."""
+    take the molecule-bin layout; Ewald raises."""
     _jm, (tparams, tcfg, aux) = models["wb97m-d3", "simple"]
     calc = TCalculator((tparams, tcfg, aux), device="cpu")
     box = calc.prepare_system(_box())
@@ -574,8 +576,8 @@ def test_layouts_chosen_as_jax_chooses(models):
     assert sysx.nbmat_lr is None and sysx.nbmat_coulomb is not None and sysx.nbmat_dftd3 is not None
     gas = TCalculator((tparams, tcfg, aux), device="cpu", binned_threshold=64).prepare_system(_mol(80, 4))
     assert gas.bins is None and gas.nbmat.shape[1] == 79  # simple Coulomb: all pairs, indexed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCalculator((tparams, tcfg, aux), device="cpu", binned_threshold=16).eval(MOLS)
+    packed = TCalculator((tparams, tcfg, aux), device="cpu", binned_threshold=16).prepare_system(MOLS)
+    assert packed.bins.molecule_bins and packed.bins.nbins == (3, 1, 1) and packed.nbmat is None
     ewald = dataclasses.replace(tcfg, outputs=tuple(
         (n, dataclasses.replace(h, method="ewald") if n == "lrcoulomb" else h) for n, h in tcfg.outputs))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

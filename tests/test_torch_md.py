@@ -1,13 +1,17 @@
-"""The port's MD driver and FIRE relaxation against the JAX package's (CPU).
+"""The port's MD driver, its cell lists and FIRE relaxation against the JAX
+package's (CPU).
 
 The narrow model and the 60-atom 12 A periodic box of
 tests/test_torch_calculator.py, JAX parameters carried across by the
 weights bridge, both drivers at ``precision="exact"`` and the same initial
-velocities injected into both states through ``atom_id``.  Tolerances:
-per-step ``epot`` and ``temperature`` 1e-5 relative, final coordinates
-1e-5 A (f32 sums in another order, over 20 steps of chaotic dynamics);
-``pressure`` 1e-6 eV/A^3 and ``volume`` 1e-5 relative; FIRE coordinates
-1e-5 A.  Langevin noise comes from different generators in the two
+velocities injected into both states through ``atom_id``: the binned
+engine on the box, the indexed engine on the box and on a 40-atom
+gas-phase cluster, and the binned engine on that cluster (DSF Coulomb).
+Tolerances: per-step ``epot`` and ``temperature`` 1e-5 relative, final
+coordinates and velocities 1e-5 (f32 sums in another order, over 20 steps
+of chaotic dynamics); ``pressure`` 1e-6 eV/A^3 and ``volume`` 1e-5
+relative; FIRE coordinates 1e-5 A.  ``build_cell_list`` equals JAX's row
+for row.  Langevin noise comes from different generators in the two
 packages, so Langevin runs are held statistically.  Each JAX driver is
 built once per module with one chunk size (one compile each).
 """
@@ -22,6 +26,7 @@ jax = pytest.importorskip("jax")  # the card's machine has no JAX
 import jax.numpy as jnp  # noqa: E402
 
 from aimnetcentral_tpu.builders import system_from_molecules as j_system  # noqa: E402
+from aimnetcentral_tpu.calculators.calculator import AIMNet2Calculator as JCalculator  # noqa: E402
 from aimnetcentral_tpu.dynamics import MDConfig as JMDConfig  # noqa: E402
 from aimnetcentral_tpu.dynamics import MDDriver as JMDDriver  # noqa: E402
 from aimnetcentral_tpu.dynamics import TrajectoryWriter as JTrajectoryWriter  # noqa: E402
@@ -31,6 +36,7 @@ from aimnetcentral_tpu.models import aimnet2_init as j_init  # noqa: E402
 from aimnetcentral_tpu.models import heads as jheads  # noqa: E402
 from aimnetcentral_tpu.models import modules as jmodules  # noqa: E402
 from aimnetcentral_tpu.ops import binned as jB  # noqa: E402
+from aimnetcentral_tpu.ops import cell_list as jcl  # noqa: E402
 from aimnetcentral_tpu_torch import constants  # noqa: E402
 from aimnetcentral_tpu_torch.builders import system_from_molecules as t_system  # noqa: E402
 from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver, TrajectoryWriter, fire_relax, read_frames  # noqa: E402
@@ -39,6 +45,7 @@ from aimnetcentral_tpu_torch.models import heads as theads  # noqa: E402
 from aimnetcentral_tpu_torch.models import modules as tmodules  # noqa: E402
 from aimnetcentral_tpu_torch.models.bridge import params_from_numpy  # noqa: E402
 from aimnetcentral_tpu_torch.ops import binned as tB  # noqa: E402
+from aimnetcentral_tpu_torch.ops import cell_list as tcl  # noqa: E402
 from test_torch_calculator import _box, _config  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -269,12 +276,12 @@ def test_fire_relax_matches_jax(models, systems):
 
 
 def test_unported_paths_raise(models, systems):
+    """What the port's driver does not run yet raises: ensembles, Ewald, an
+    unknown precision and a missing card.  (Gas-phase systems and
+    ``engine="indexed"``, which raised before this slice, run in the
+    trajectory tests below.)"""
     _jm, (tparams, tcfg) = models
     tsys = systems[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MDDriver(tparams, tcfg, tsys.replace(cell=None), MDConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MDDriver(tparams, tcfg, tsys, MDConfig(), engine="indexed", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MDDriver(tparams, tcfg, tsys, MDConfig(), ensemble=True, device="cpu")
     ewald = dataclasses.replace(
@@ -290,3 +297,224 @@ def test_unported_paths_raise(models, systems):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             MDDriver(tparams, tcfg, tsys, MDConfig())
+
+
+# -- the cell lists ------------------------------------------------------------
+
+
+def _padded(coord, numbers, pad=1):
+    coord = np.concatenate([coord, np.full((pad, 3), 1e3, np.float32)]).astype(np.float32)
+    return coord, np.concatenate([numbers, np.zeros(pad, np.int64)])
+
+
+def _cell_list_case(name: str):
+    """The five cases of tests/test_cell_list.py: ``(coord, numbers, plan
+    args, plan kwargs, cell)``."""
+    rng = np.random.default_rng(0)
+    if name == "gas":
+        c, z = _padded(rng.uniform(0, 12, size=(60, 3)), np.full(60, 6))
+        return c, z, (None, 60, 4.0), {"extent": 13.0}, None
+    if name in ("periodic", "wrapped"):
+        n, a = (40, 10.0) if name == "periodic" else (20, 8.0)
+        lo, hi = (0.0, a) if name == "periodic" else (-a, 2 * a)
+        c, z = _padded(rng.uniform(lo, hi, size=(n, 3)), np.full(n, 6))
+        cell = np.eye(3, dtype=np.float32) * a
+        return c, z, (cell, n, 3.0), {}, cell
+    if name == "overflow":
+        c, z = _padded(rng.uniform(0, 2.0, size=(30, 3)), np.full(30, 6))
+        return c, z, (None, 30, 3.0), {"extent": 3.0, "max_neighbors": 4}, None
+    coord = np.ones((16, 3), np.float32)  # several padding rows
+    coord[:3] = [[0, 0, 0.119], [0, 0.763, -0.477], [0, -0.763, -0.477]]
+    numbers = np.zeros(16, np.int64)
+    numbers[:3] = [8, 1, 1]
+    return coord, numbers, (None, 3, 6.0), {"extent": 3.5}, None
+
+
+@pytest.mark.parametrize("name", ["gas", "periodic", "wrapped", "overflow", "padding"])
+def test_build_cell_list_matches_jax(name):
+    """The plan, every row of ``nbmat`` (JAX's order), the shifts and the
+    overflow count equal JAX's; padding rows are never neighbors."""
+    coord, numbers, args, kw, cell = _cell_list_case(name)
+    jspec, tspec = jcl.plan_cell_list(*args, **kw), tcl.plan_cell_list(*args, **kw)
+    assert dataclasses.astuple(tspec) == dataclasses.astuple(jspec)
+    jnb, jsh, jovf = jcl.build_cell_list(jnp.asarray(coord), jnp.asarray(numbers), jspec,
+                                         cell=None if cell is None else jnp.asarray(cell))
+    tnb, tsh, tovf = tcl.build_cell_list(torch.as_tensor(coord), torch.as_tensor(numbers), tspec,
+                                         cell=None if cell is None else torch.as_tensor(cell))
+    assert tnb.dtype == torch.int64
+    np.testing.assert_array_equal(tnb.numpy(), np.asarray(jnb))
+    assert (tsh is None) == (jsh is None) == (cell is None)
+    if tsh is not None:
+        np.testing.assert_array_equal(tsh.numpy(), np.asarray(jsh))
+    assert int(tovf) == int(jovf)
+    assert (int(tovf) > 0) == (name == "overflow")
+    real = numbers > 0
+    assert set(tnb.numpy()[real].ravel().tolist()) <= set(np.flatnonzero(real).tolist()) | {len(coord) - 1}
+
+
+def test_build_cell_list_is_deterministic():
+    """Repeats bit for bit under ``torch.use_deterministic_algorithms``."""
+    coord, numbers, args, kw, cell = _cell_list_case("wrapped")
+    spec = tcl.plan_cell_list(*args, **kw)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [tcl.build_cell_list(torch.as_tensor(coord), torch.as_tensor(numbers), spec, torch.as_tensor(cell))
+                for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+
+
+# -- the indexed engine and gas-phase MD ----------------------------------------
+
+
+def _cluster(n: int = 40, seed: int = 2, spacing: float = 2.2) -> dict:
+    """A gas-phase cluster: the ``n`` atoms nearest the centre of a jittered
+    CHNO lattice."""
+    rng = np.random.default_rng(seed)
+    m = int(np.ceil((3 * n) ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), axis=-1).reshape(-1, 3)
+    coord = (grid + rng.uniform(-0.15, 0.15, size=grid.shape)) * spacing
+    numbers = rng.choice([1, 6, 7, 8], size=len(grid), p=[0.5, 0.35, 0.05, 0.1])
+    keep = np.argsort(np.linalg.norm(coord - coord.mean(0), axis=1), kind="stable")[:n]
+    return {"coord": coord[keep].astype(np.float32), "numbers": numbers[keep]}
+
+
+def _coulomb(cfg, heads, **kw):
+    return dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, **kw) if isinstance(h, heads.LRCoulombHead) else h) for n, h in cfg.outputs))
+
+
+# name -> (periodic box, engine, Coulomb head fields): the box's DSF cutoff
+# at 8 A keeps its LR cell list (8 + lr_skin) inside the 12 A cell
+ENGINES = {
+    "indexed-gas": (False, "indexed", {}),
+    "indexed-periodic": (True, "indexed", {"dsf_rc": 8.0}),
+    "binned-gas": (False, "binned", {"method": "dsf"}),
+}
+NVE_IDX = dict(NVE, lr_skin=0.5)
+
+
+@pytest.fixture(scope="module")
+def engine_runs(models):
+    """20 NVE steps of both drivers on each of ``ENGINES``, chunks of 5."""
+    (jparams, jcfg), (tparams, tcfg) = models
+    out = {}
+    for name, (periodic, engine, coulomb) in ENGINES.items():
+        mol = _box() if periodic else _cluster()
+        jc, tc = _coulomb(jcfg, jheads, **coulomb), _coulomb(tcfg, theads, **coulomb)
+        jd = JMDDriver(jparams, jc, j_system([mol], build_nbmat=False, n_pad=N_PAD), JMDConfig(**NVE_IDX),
+                       engine=engine)
+        td = MDDriver(tparams, tc, t_system([mol], CPU, n_pad=N_PAD), MDConfig(**NVE_IDX), engine=engine,
+                      device="cpu")
+        v0 = _velocities(mol["numbers"])
+        _inject(jd, v0, jnp.asarray)
+        _inject(td, v0, torch.as_tensor)
+        ref0 = td._state.ref_coord
+        out[name] = {"jax": jd, "port": td, "jo": jd.run(20, chunk=5), "to": td.run(20, chunk=5), "ref0": ref0,
+                     "mol": mol}
+    return out
+
+
+@pytest.mark.parametrize("name", list(ENGINES))
+def test_engine_trajectories_match_jax(engine_runs, name):
+    """Per-step potential energy and temperature, final coordinates and
+    velocities in the caller's order; the layout was rebuilt inside the
+    run, and the indexed lists are JAX's row for row."""
+    run = engine_runs[name]
+    td, jd = run["port"], run["jax"]
+    assert td.engine == jd.engine == ENGINES[name][1]
+    assert td.rebins >= 1 and not torch.equal(td.state.ref_coord, run["ref0"])
+    np.testing.assert_allclose(run["to"]["epot"], run["jo"]["epot"], rtol=1e-5)
+    np.testing.assert_allclose(run["to"]["temperature"], run["jo"]["temperature"], rtol=1e-5)
+    got, ref = td.snapshot(), jd.snapshot()
+    np.testing.assert_array_equal(got["numbers"], ref["numbers"])
+    np.testing.assert_allclose(got["coord"], ref["coord"], atol=1e-5)
+    np.testing.assert_allclose(got["veloc"], ref["veloc"], atol=1e-5)
+    assert ("cell" in got) == ("cell" in ref) == ENGINES[name][0]
+    if td.engine == "indexed":
+        assert td.grid is None and td.state.system.bins is None
+        np.testing.assert_array_equal(td.state.atom_id.numpy(), np.arange(N_PAD))
+        for s in ("", "_lr"):
+            np.testing.assert_array_equal(getattr(td.state.system, f"nbmat{s}").numpy(),
+                                          np.asarray(getattr(jd.state.system, f"nbmat{s}")))
+    else:
+        assert _grid_fields(td.grid) == _grid_fields(jd.grid) and not td.grid.periodic
+
+
+def test_indexed_overflow_raises(models):
+    """An indexed engine whose lists overflow raises ``RuntimeError``: at
+    construction, and in a run (its list shapes are fixed)."""
+    _jm, (tparams, tcfg) = models
+    tsys = t_system([_cluster()], CPU, n_pad=N_PAD)
+    drv = MDDriver(tparams, tcfg, tsys, MDConfig(**NVE_IDX), device="cpu")
+    drv.sr_spec = dataclasses.replace(drv.sr_spec, max_neighbors=2)
+    with pytest.raises(RuntimeError, match="indexed engine"):
+        drv.run(20, chunk=20)
+    with pytest.raises(RuntimeError, match="overflow at initialization"):
+        drv._rebuild_indexed(tsys)
+
+
+def test_indexed_checkpoint_resumes(models, tmp_path):
+    """A gas-phase Langevin run on the indexed engine split by a checkpoint:
+    a driver of another seed restores the file and runs the same steps."""
+    _jm, (tparams, tcfg) = models
+    tsys = t_system([_cluster()], CPU, n_pad=N_PAD)
+    md = MDConfig(**dict(LANGEVIN, lr_skin=0.5))
+    drv_a = MDDriver(tparams, tcfg, tsys, md, seed=11, device="cpu")
+    drv_a.run(4, chunk=4)
+    ckpt = str(tmp_path / "gas.ckpt.npz")
+    drv_a.save_checkpoint(ckpt)
+    with np.load(ckpt) as d:
+        assert "cell" not in d.files
+    second = drv_a.run(4, chunk=4)
+    drv_b = MDDriver(tparams, tcfg, tsys, md, seed=99, device="cpu")
+    drv_b.restore_checkpoint(ckpt)
+    resumed = drv_b.run(4, chunk=4)
+    assert drv_b.engine == "indexed"
+    np.testing.assert_allclose(resumed["epot"], second["epot"], atol=2e-4)
+    np.testing.assert_allclose(resumed["temperature"], second["temperature"], rtol=2e-4, atol=1e-3)
+    np.testing.assert_allclose(drv_b.snapshot()["coord"], drv_a.snapshot()["coord"], atol=1e-5)
+
+
+def test_indexed_plan_grows_where_jax_overflows(models):
+    """A compact 113-atom cluster: the JAX driver's gas-phase plan (density
+    over the extent's cube) overflows its SR list at construction and
+    raises; the port re-plans until the lists hold it, and its first forces
+    are JAX's calculator's on the same molecule (1e-5)."""
+    (jparams, jcfg), (tparams, tcfg) = models
+    mol = _cluster(113, seed=7)
+    n_pad = 128
+    with pytest.raises(RuntimeError, match="overflow at initialization"):
+        JMDDriver(jparams, jcfg, j_system([mol], build_nbmat=False, n_pad=n_pad), JMDConfig(**NVE_IDX))
+    drv = MDDriver(tparams, tcfg, t_system([mol], CPU, n_pad=n_pad), MDConfig(**NVE_IDX), device="cpu")
+    extent = float((mol["coord"].max(0) - mol["coord"].min(0)).max()) + 2.0
+    first = tcl.plan_cell_list(None, 113, drv.sr_spec.cutoff, extent=extent)
+    assert drv.engine == "indexed" and drv.sr_spec.max_neighbors > first.max_neighbors
+    ref = JCalculator((jparams, jcfg), binned_threshold=10**9).eval(mol, forces=True)
+    st = drv.state
+    np.testing.assert_allclose(st.epot.numpy(), ref["energy"], rtol=1e-5)
+    np.testing.assert_allclose(st.forces.numpy()[:113], ref["forces"], atol=1e-5)
+
+
+def test_indexed_md_truncates_simple_coulomb_as_jax(models):
+    """Simple Coulomb on the indexed engine reads the LR list, built at
+    dsf_rc + lr_skin (16 A): a 26 A chain loses its far pairs in MD, as in
+    the JAX driver (a fault shared with the reference; ROADMAP.md), while
+    the calculator sums every pair.  The port's MD energy and forces are
+    JAX's MD ones."""
+    (jparams, jcfg), (tparams, tcfg) = models
+    rng = np.random.default_rng(4)
+    coord = np.zeros((14, 3), np.float32)
+    coord[:, 0] = 2.0 * np.arange(14)
+    coord[:, 1:] = rng.uniform(-0.2, 0.2, size=(14, 2))
+    mol = {"coord": coord, "numbers": rng.choice([1, 6, 7, 8], size=14)}
+    md = dict(NVE)  # lr_skin 1.0: the LR list at 16 A
+    jd = JMDDriver(jparams, jcfg, j_system([mol], build_nbmat=False, n_pad=16), JMDConfig(**md))
+    td = MDDriver(tparams, tcfg, t_system([mol], CPU, n_pad=16), MDConfig(**md), device="cpu")
+    np.testing.assert_allclose(td.state.epot.numpy(), np.asarray(jd.state.epot), rtol=1e-5)
+    np.testing.assert_allclose(td.state.forces.numpy(), np.asarray(jd.state.forces), atol=1e-5)
+    full = JCalculator((jparams, jcfg), binned_threshold=10**9).eval(mol)["energy"]
+    assert abs(float(td.state.epot[0]) - float(full[0])) > 1e-4  # the far pairs are missing

@@ -302,6 +302,9 @@ def _distances(term) -> np.ndarray:
     if isinstance(term, ps.DSFTerm):
         rc = term.rc
         d += [rc * (1.0 - 1e-6), rc, rc - 1e-3, rc + 1e-3, term.dsf_rc - 1e-3, term.dsf_rc + 0.5]
+    elif isinstance(term, ps.CoulombSimpleTerm):
+        rc = term.rc
+        d += [rc * (1.0 - 1e-6), rc, rc - 1e-3, rc + 1e-3, 40.0]
     elif isinstance(term, ps.D3CNTerm):
         d += [1e-13, 0.5e-12, 0.2, 15.0]
     else:
@@ -314,6 +317,9 @@ HAND_TERMS = {
     "dsf_exp": ps.DSFTerm(alpha=0.2, dsf_rc=15.0, rc=4.6),
     "dsf_cosine": ps.DSFTerm(alpha=0.2, dsf_rc=15.0, rc=4.6, envelope="cosine"),
     "dsf_no_sr": ps.DSFTerm(alpha=0.2, dsf_rc=15.0, rc=4.6, subtract_sr=False),
+    "simple_exp": ps.CoulombSimpleTerm(rc=4.6),
+    "simple_cosine": ps.CoulombSimpleTerm(rc=4.6, envelope="cosine"),
+    "simple_no_sr": ps.CoulombSimpleTerm(rc=4.6, subtract_sr=False),
     "d3_cn": ps.D3CNTerm(),
     "d3_energy": ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=12.0, r_off=15.0),
 }
