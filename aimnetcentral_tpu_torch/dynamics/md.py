@@ -167,17 +167,28 @@ def _fitted_spec(system: System, cell_np, n_real: int, cutoff: float, extent: fl
     binned engine's planning grows its bin safety).  The gas-phase plan
     takes the density over the extent's cube, about half a compact
     molecule's own, so JAX's driver overflows at construction on a
-    113-atom cluster cut from a 0.09 atoms/A^3 box; the port plans again."""
+    113-atom cluster cut from a 0.09 atoms/A^3 box; the port plans again.
+    Returns the plan and the ``(nbmat, shifts)`` of its build."""
     cell0 = system.cell[0] if system.cell is not None else None
     safety = 2.0  # plan_cell_list's density_safety
     while True:
         spec = plan_cell_list(cell_np, n_real, cutoff, extent=extent, density_safety=safety)
-        _nb, _sh, ovf = build_cell_list(system.coord, system.numbers, spec, cell0)
+        nbmat, shifts, ovf = build_cell_list(system.coord, system.numbers, spec, cell0)
         if int(ovf) == 0:  # one host sync per plan
-            return spec
+            return spec, nbmat, shifts
         safety *= 1.5
         if safety > 32:
             raise RuntimeError(f"cell-list planning failed at cutoff {cutoff}")
+
+
+def _with_lists(system: System, coord, nbmat, shifts, nb_lr, sh_lr) -> System:
+    """``system`` at ``coord`` with the indexed engine's SR and shared LR
+    lists; split lists a caller built are dropped, since they would go
+    stale."""
+    return system.replace(
+        coord=coord, nbmat=nbmat, shifts=shifts, nbmat_lr=nb_lr, shifts_lr=sh_lr,
+        nbmat_coulomb=None, shifts_coulomb=None, nbmat_dftd3=None, shifts_dftd3=None,
+    )
 
 
 class MDDriver:
@@ -263,11 +274,13 @@ class MDDriver:
             if cell_np is None:  # a cube over the atoms' span, 1 A of margin a side
                 c = system.coord[:n_real].cpu().numpy()
                 extent = float((c.max(0) - c.min(0)).max()) + 2.0
-            self.sr_spec = _fitted_spec(system, cell_np, n_real, cfg.aev.rc_s + md.skin, extent)
-            self.lr_spec = (
-                _fitted_spec(system, cell_np, n_real, lr_cut + md.lr_skin, extent) if lr_cut is not None else None
+            self.sr_spec, nbmat, shifts = _fitted_spec(system, cell_np, n_real, cfg.aev.rc_s + md.skin, extent)
+            self.lr_spec, nb_lr, sh_lr = (
+                _fitted_spec(system, cell_np, n_real, lr_cut + md.lr_skin, extent)
+                if lr_cut is not None
+                else (None, None, None)
             )
-            sysb = self._rebuild_indexed(system)
+            sysb = _with_lists(system, system.coord, nbmat, shifts, nb_lr, sh_lr)
             atom_id = torch.arange(sysb.natoms, device=self.device)
         self.grid = grid
         self.lr_grid = lr_grid
@@ -339,19 +352,14 @@ class MDDriver:
 
     def _build_nb_indexed(self, coord: torch.Tensor, system: System) -> tuple[System, torch.Tensor]:
         """``system`` at ``coord`` with new cell lists (SR, and the shared LR
-        list when a long-range head exists; split lists a caller built are
-        dropped, since they would go stale), and their overflow count."""
+        list when a long-range head exists), and their overflow count."""
         cell0 = system.cell[0] if system.cell is not None else None
         nbmat, shifts, ovf = build_cell_list(coord, system.numbers, self.sr_spec, cell0)
         nb_lr = sh_lr = None
         if self.lr_spec is not None:
             nb_lr, sh_lr, ovf_lr = build_cell_list(coord, system.numbers, self.lr_spec, cell0)
             ovf = ovf + ovf_lr
-        new = system.replace(
-            coord=coord, nbmat=nbmat, shifts=shifts, nbmat_lr=nb_lr, shifts_lr=sh_lr,
-            nbmat_coulomb=None, shifts_coulomb=None, nbmat_dftd3=None, shifts_dftd3=None,
-        )
-        return new, ovf
+        return _with_lists(system, coord, nbmat, shifts, nb_lr, sh_lr), ovf
 
     def _rebuild_indexed(self, system: System) -> System:
         """``system`` with new cell lists; an overflow raises."""

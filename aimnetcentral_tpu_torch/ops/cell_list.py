@@ -99,7 +99,6 @@ def build_cell_list(
     numbers: torch.Tensor,
     spec: CellListSpec,
     cell: torch.Tensor | None = None,
-    origin: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """``(nbmat (N, M) int64, shifts (N, M, 3) | None, overflow ())`` on the
     device of ``coord``.
@@ -124,7 +123,7 @@ def build_cell_list(
         bin_idx3 = torch.clamp(((frac_raw - atom_wrap) * nbins).to(torch.int64), min=torch.zeros_like(nbins),
                                max=nbins - 1)
     else:
-        lo = torch.where(real[:, None], coord, math.inf).amin(0) if origin is None else origin
+        lo = torch.where(real[:, None], coord, math.inf).amin(0)
         rel = (coord - lo) / spec.cutoff
         bin_idx3 = torch.clamp(rel.to(torch.int64), min=torch.zeros_like(nbins), max=nbins - 1)
 

@@ -1551,11 +1551,13 @@ def phase_md_gas(params, cfg, params_d3, cfg_d3) -> dict:
     its launches (none on the indexed engine; A, B 3 and D, E 1 an
     evaluation on the grid), no overflow, fewer rebuilds than steps, the
     total energy within ``MD_NVE_DRIFT`` of itself, and two drivers of one
-    seed equal bit for bit after a chunk; then 10 steps of md-mol-113 on
-    the card against the CPU within ``CHECK_ABS``, with a ``fast`` control
-    that must exceed it."""
+    seed equal bit for bit after a chunk; A, B, D and E held to their plain
+    versions on md-cluster-10k-dsf's SR and LR grids; then 10 steps of
+    md-mol-113 on the card against the CPU within ``CHECK_ABS``, with a
+    ``fast`` control that must exceed it."""
     import torch
 
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
     from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
 
     md = MDConfig(**MD_GAS)
@@ -1588,6 +1590,14 @@ def phase_md_gas(params, cfg, params_d3, cfg_d3) -> dict:
                  f"LR list {tuple(st.nbmat_lr.shape)} (bins {drv.lr_spec.nbins}, capacity "
                  f"{drv.lr_spec.bin_capacity})")
         log(f"[md_gas {label}] {drv.engine} engine, {shape}; driver and initial forces {setup:.2f} s")
+        if want == "binned":
+            # A, B, D and E at the shapes this driver gives them (its skin
+            # makes other grids than a request's); the window below fails
+            # on a regrow, so these shapes are the ones it runs
+            check = AIMNet2Calculator((p, c), device="cuda")
+            _rows, res["kernels_detail"] = phase_kernels(check, st, "md gas 10k")
+            _rows, res["pair_kernels_detail"] = phase_pair_kernels(check, st, "md gas 10k")
+            del check
         w = md_window(label, drv, per_eval, None, n_chunks=MD_WARM)
         if w["retried_chunks"] or w["rebins_per_100"] >= 100:
             raise SystemExit(f"FAIL: {label} overflowed or rebuilt every step")

@@ -47,6 +47,7 @@ from aimnetcentral_tpu_torch.models.bridge import params_from_numpy  # noqa: E40
 from aimnetcentral_tpu_torch.ops import binned as tB  # noqa: E402
 from aimnetcentral_tpu_torch.ops import cell_list as tcl  # noqa: E402
 from test_torch_calculator import _box, _config  # noqa: E402
+from test_torch_gpu import _cluster  # noqa: E402
 
 CPU = torch.device("cpu")
 N_PAD = 64
@@ -370,18 +371,6 @@ def test_build_cell_list_is_deterministic():
 # -- the indexed engine and gas-phase MD ----------------------------------------
 
 
-def _cluster(n: int = 40, seed: int = 2, spacing: float = 2.2) -> dict:
-    """A gas-phase cluster: the ``n`` atoms nearest the centre of a jittered
-    CHNO lattice."""
-    rng = np.random.default_rng(seed)
-    m = int(np.ceil((3 * n) ** (1.0 / 3.0)))
-    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), axis=-1).reshape(-1, 3)
-    coord = (grid + rng.uniform(-0.15, 0.15, size=grid.shape)) * spacing
-    numbers = rng.choice([1, 6, 7, 8], size=len(grid), p=[0.5, 0.35, 0.05, 0.1])
-    keep = np.argsort(np.linalg.norm(coord - coord.mean(0), axis=1), kind="stable")[:n]
-    return {"coord": coord[keep].astype(np.float32), "numbers": numbers[keep]}
-
-
 def _coulomb(cfg, heads, **kw):
     return dataclasses.replace(cfg, outputs=tuple(
         (n, dataclasses.replace(h, **kw) if isinstance(h, heads.LRCoulombHead) else h) for n, h in cfg.outputs))
@@ -403,7 +392,7 @@ def engine_runs(models):
     (jparams, jcfg), (tparams, tcfg) = models
     out = {}
     for name, (periodic, engine, coulomb) in ENGINES.items():
-        mol = _box() if periodic else _cluster()
+        mol = _box() if periodic else _cluster(40, seed=2)
         jc, tc = _coulomb(jcfg, jheads, **coulomb), _coulomb(tcfg, theads, **coulomb)
         jd = JMDDriver(jparams, jc, j_system([mol], build_nbmat=False, n_pad=N_PAD), JMDConfig(**NVE_IDX),
                        engine=engine)
@@ -448,7 +437,7 @@ def test_indexed_overflow_raises(models):
     """An indexed engine whose lists overflow raises ``RuntimeError``: at
     construction, and in a run (its list shapes are fixed)."""
     _jm, (tparams, tcfg) = models
-    tsys = t_system([_cluster()], CPU, n_pad=N_PAD)
+    tsys = t_system([_cluster(40, seed=2)], CPU, n_pad=N_PAD)
     drv = MDDriver(tparams, tcfg, tsys, MDConfig(**NVE_IDX), device="cpu")
     drv.sr_spec = dataclasses.replace(drv.sr_spec, max_neighbors=2)
     with pytest.raises(RuntimeError, match="indexed engine"):
@@ -461,7 +450,7 @@ def test_indexed_checkpoint_resumes(models, tmp_path):
     """A gas-phase Langevin run on the indexed engine split by a checkpoint:
     a driver of another seed restores the file and runs the same steps."""
     _jm, (tparams, tcfg) = models
-    tsys = t_system([_cluster()], CPU, n_pad=N_PAD)
+    tsys = t_system([_cluster(40, seed=2)], CPU, n_pad=N_PAD)
     md = MDConfig(**dict(LANGEVIN, lr_skin=0.5))
     drv_a = MDDriver(tparams, tcfg, tsys, md, seed=11, device="cpu")
     drv_a.run(4, chunk=4)
