@@ -11,7 +11,12 @@ molecule a bin, every sweep at radius 0) unless its slots would be less
 than a quarter full; molecules, other batches and small boxes go onto the
 indexed layout (host neighbor matrices).  ``eval`` returns per-molecule
 energies and charges, forces and stress in input atom order, with the
-self-atomic energies added in float64 on the host.  While the topology is
+self-atomic energies added in float64 on the host (and the dipole and
+quadrupole of models that carry those heads).  ``model`` is a parameter
+tuple, a ``LoadedModel`` or a registry name, alias, ``.pt`` path or Hugging
+Face directory (models/loader.py), whose metadata decides the external
+long-range heads and the species and charge checks of ``eval``.  While the
+topology is
 unchanged and no atom moved farther than ``reuse_skin / 2``, the prepared
 layout is reused (grids and lists reach the skin beyond every cutoff, so
 the result is exact); the molecule-bin layout is reused after any move (its
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import Any, Iterator, Mapping
 
 import numpy as np
@@ -35,6 +41,8 @@ from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
 from aimnetcentral_tpu_torch.models.bridge import params_to
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
+from aimnetcentral_tpu_torch.models.loader import LoadedModel, attach_external_lr, init_missing_heads, load_model
+from aimnetcentral_tpu_torch.models.validation import validate_runtime_model_metadata
 from aimnetcentral_tpu_torch.ops import binned as B
 from aimnetcentral_tpu_torch.system import System
 
@@ -157,12 +165,37 @@ def _builder_wrap(mols: list[dict], n_pad: int) -> np.ndarray | None:
     return wrap
 
 
+def _apply_external_lr_flags(
+    params: dict, cfg: AIMNet2Config, metadata: Mapping[str, Any], needs_coulomb: bool, needs_dispersion: bool
+) -> tuple[dict, AIMNet2Config]:
+    """Strip or attach the external long-range heads so that the model
+    matches the calculator's resolved flags; the metadata itself is never
+    changed."""
+    outputs = tuple(
+        (n, h)
+        for n, h in cfg.outputs
+        if not (n == "external_coulomb" and not needs_coulomb) and not (n == "external_dftd3" and not needs_dispersion)
+    )
+    cfg = dataclasses.replace(cfg, outputs=outputs)
+    names = {n for n, _ in outputs}
+    attach_c = needs_coulomb and "external_coulomb" not in names
+    attach_d = needs_dispersion and "external_dftd3" not in names
+    if attach_c or attach_d:
+        cfg = attach_external_lr(cfg, {**metadata, "needs_coulomb": attach_c, "needs_dispersion": attach_d})
+    kept = {n: p for n, p in params.get("outputs", {}).items() if n in {n for n, _ in cfg.outputs}}
+    return init_missing_heads({**params, "outputs": kept}, cfg), cfg
+
+
 class AIMNet2Calculator:
     """Single-point energy / forces / stress of molecules, batches and
     periodic boxes.
 
-    ``model`` is ``(params, cfg)`` or ``(params, cfg, aux)``; ``aux['sae']``
-    holds float64 self-atomic-energy tables applied on the host.  Runs on
+    ``model`` is ``(params, cfg)``, ``(params, cfg, aux)``, a
+    ``LoadedModel`` or a registry name, alias, ``.pt`` path or Hugging Face
+    directory; ``aux['sae']`` holds float64 self-atomic-energy tables
+    applied on the host, ``aux['metadata']`` the artifact's metadata.
+    ``needs_coulomb`` / ``needs_dispersion`` override the metadata's
+    external long-range heads (None follows it).  Runs on
     ``device`` ("cuda" unless the caller asks for "cpu"); CUDA tensors run
     the hand-written conv and pair kernels, CPU tensors their plain versions.
     ``binned_threshold`` is the atom count from which one structure goes
@@ -173,31 +206,177 @@ class AIMNet2Calculator:
 
     def __init__(
         self,
-        model: tuple,
+        model: tuple | str | LoadedModel,
         device: str | torch.device = "cuda",
         binned_threshold: int = 1024,
         reuse_skin: float = 0.6,
         precision: str = "exact",
+        needs_coulomb: bool | None = None,
+        needs_dispersion: bool | None = None,
     ):
         precision_tiers(precision)  # validate
         self.precision = precision
         self.device = resolve_device(device)
+        if isinstance(model, str):
+            from aimnetcentral_tpu_torch.calculators.registry import registry_family, resolve_model
+
+            model = load_model(resolve_model(model), registry_family=registry_family(model))
+        if isinstance(model, LoadedModel):
+            model = model.as_calculator_model()
         if len(model) == 2:
             params, cfg = model
             aux: dict = {"sae": {}}
         else:
             params, cfg, aux = model
+        self.aux = aux
+        self.metadata: dict = dict(aux.get("metadata") or {})
+        # the effective external long-range flags: an explicit override,
+        # else the metadata, else the heads the config already has
+        names = {n for n, _ in cfg.outputs}
+        eff_coulomb = bool(self.metadata.get("needs_coulomb", "external_coulomb" in names))
+        eff_dispersion = bool(self.metadata.get("needs_dispersion", "external_dftd3" in names))
+        eff_coulomb = eff_coulomb if needs_coulomb is None else bool(needs_coulomb)
+        eff_dispersion = eff_dispersion if needs_dispersion is None else bool(needs_dispersion)
+        if self.metadata or needs_coulomb is not None or needs_dispersion is not None:
+            validate_runtime_model_metadata(
+                self.metadata, needs_coulomb=eff_coulomb, needs_dispersion=eff_dispersion
+            )
+        if (eff_coulomb, eff_dispersion) != ("external_coulomb" in names, "external_dftd3" in names):
+            params, cfg = _apply_external_lr_flags(params, cfg, self.metadata, eff_coulomb, eff_dispersion)
         self.params = params_to(params, self.device)
         self.cfg: AIMNet2Config = cfg
-        self.aux = aux
         self.binned_threshold = binned_threshold
         self.reuse_skin = reuse_skin
         self._last_perm: np.ndarray | None = None
         self._prep_cache: dict | None = None
+        self._lr_cutoff_override: float | None = None
+        self._dftd3_cutoff_override: float | None = None
+        self._species_cache: tuple | None = None
+        self._mult_warned = False
 
     @property
     def cutoff(self) -> float:
         return self.cfg.aev.rc_s
+
+    @property
+    def is_nse(self) -> bool:
+        """True for two-channel (spin-resolved NSE) models."""
+        return self.cfg.num_charge_channels == 2
+
+    @property
+    def has_external_coulomb(self) -> bool:
+        """True when long-range Coulomb is an external head (v2 artifacts
+        with ``needs_coulomb``)."""
+        return any(n == "external_coulomb" for n, _h in self.cfg.outputs)
+
+    @property
+    def has_external_dftd3(self) -> bool:
+        """True when D3 dispersion is an external head."""
+        return any(n == "external_dftd3" for n, _h in self.cfg.outputs)
+
+    @property
+    def coulomb_method(self) -> str | None:
+        """The external Coulomb head's configured method, or None without
+        one (the per-request periodic switch to DSF is not reflected)."""
+        return next((h.method for n, h in self.cfg.outputs if n == "external_coulomb"), None)
+
+    @property
+    def coulomb_cutoff(self) -> float | None:
+        """The external Coulomb's real-space cutoff: inf for simple, the
+        DSF cutoff (or ``set_lr_cutoff``'s) for DSF, None for Ewald / PME."""
+        method = self.coulomb_method
+        if method == "simple":
+            return float("inf")
+        if method == "dsf":
+            h = self._lr_head()
+            return self._lr_cutoff_override or (h.dsf_rc if h else None)
+        return None
+
+    @property
+    def dftd3_cutoff(self) -> float | None:
+        """The D3 cutoff in Angstrom, or None without a D3 head."""
+        d3 = self._d3_head()
+        return None if d3 is None else self._dftd3_cutoff_override or d3.cutoff
+
+    def _lr_head(self) -> LRCoulombHead | None:
+        return next((h for _n, h in self.cfg.outputs if isinstance(h, LRCoulombHead)), None)
+
+    def _replace_heads(self, kind: type, **changes: Any) -> None:
+        """Every head of type ``kind`` with ``changes``; drops the prepared
+        layout, whose reach followed the old cutoffs."""
+        outputs = tuple(
+            (n, dataclasses.replace(h, **changes) if isinstance(h, kind) else h) for n, h in self.cfg.outputs
+        )
+        self.cfg = dataclasses.replace(self.cfg, outputs=outputs)
+        self._prep_cache = None
+
+    def set_lrcoulomb_method(self, method: str, **kwargs: Any) -> None:
+        """Switch the Coulomb method ("simple", "dsf", "ewald" or "pme";
+        Ewald and PME are not ported and raise at ``eval``)."""
+        valid = ("simple", "dsf", "ewald", "pme")
+        if method not in valid:
+            raise ValueError(f"unknown Coulomb method {method!r}; expected one of {valid}")
+        self._replace_heads(LRCoulombHead, method=method, **kwargs)
+
+    def set_lr_cutoff(self, cutoff: float) -> None:
+        """One long-range list cutoff for the Coulomb and D3 sweeps."""
+        self._lr_cutoff_override = float(cutoff)
+        self._dftd3_cutoff_override = float(cutoff)
+        self._prep_cache = None
+
+    def set_dftd3_cutoff(self, cutoff: float | None = None, smoothing_fraction: float | None = None) -> None:
+        """Set the D3 cutoff and its smoothing window (this changes the
+        dispersion energy, not only the list)."""
+        cutoff = 15.0 if cutoff is None else float(cutoff)
+        smoothing_fraction = 0.2 if smoothing_fraction is None else float(smoothing_fraction)
+        self._replace_heads(DFTD3Head, cutoff=cutoff, smoothing_fraction=smoothing_fraction)
+        self._dftd3_cutoff_override = cutoff
+
+    def _validate_species_and_charge(self, data: Mapping[str, Any] | list | tuple) -> None:
+        """Atomic numbers against the metadata's ``implemented_species`` and
+        net charge against the family policy; a warning (once per
+        calculator) for ``mult`` on a closed-shell model.  Nothing to check
+        without metadata."""
+        if isinstance(data, (list, tuple)):
+            for m in data:
+                self._validate_species_and_charge(m)
+            return
+        if (
+            data.get("mult") is not None
+            and self.cfg.num_charge_channels == 1
+            and not self._mult_warned
+            and np.any(np.asarray(data["mult"], dtype=np.float64) != 1.0)
+        ):
+            warnings.warn("mult is ignored by this closed-shell (non-NSE) model", stacklevel=3)
+            self._mult_warned = True
+        impl = self.metadata.get("implemented_species") or []
+        if impl and "numbers" in data:
+            numbers = data["numbers"]
+            key = None
+            if isinstance(numbers, np.ndarray):
+                # a content fingerprint, not identity alone: numpy arrays
+                # change in place under the same id
+                key = (id(numbers), numbers.shape, str(numbers.dtype), hash(numbers.tobytes()))
+            if key is None or self._species_cache != key:
+                seen = {int(z) for z in np.unique(np.asarray(numbers)) if int(z) > 0}
+                unsupported = sorted(seen - {int(z) for z in impl})
+                if unsupported:
+                    raise ValueError(
+                        f"Atomic numbers {unsupported} are not in this model's "
+                        f"implemented_species {sorted(int(z) for z in impl)}. "
+                        "Evaluating untrained elements yields undefined output. "
+                        "Pass validate_species=False to bypass."
+                    )
+                self._species_cache = key
+        if self.metadata.get("supports_charged_systems") is False:
+            charge = np.atleast_1d(np.asarray(data.get("charge", 0.0), dtype=np.float64))
+            if charge.size and np.abs(charge).max() > 1e-6:
+                bad = charge[np.abs(charge) > 1e-6].tolist()
+                raise ValueError(
+                    "This model does not support net-charged systems (got "
+                    f"non-zero charge(s) {bad}). Net-neutral zwitterions are "
+                    "supported. Pass validate_species=False to bypass."
+                )
 
     def _effective_cfg(self, has_cell: bool) -> AIMNet2Config:
         """Periodic cells switch simple -> DSF Coulomb."""
@@ -323,9 +502,9 @@ class AIMNet2Calculator:
             cell_np, extent = None, (coord_np.min(axis=0), coord_np.max(axis=0))
         # the coarse LR twin layout is sized by the largest LR cutoff, so its
         # stencil stays at radius 2
-        lr_cuts = [h_eff.dsf_rc] if h_eff is not None else []
+        lr_cuts = [self._lr_cutoff_override or h_eff.dsf_rc] if h_eff is not None else []
         d3 = self._d3_head()
-        lr_cuts += [d3.cutoff] if d3 is not None else []
+        lr_cuts += [self._dftd3_cutoff_override or d3.cutoff] if d3 is not None else []
         lr_cut = max(lr_cuts) if lr_cuts else None
 
         safety = lr_safety = 1.5
@@ -362,13 +541,13 @@ class AIMNet2Calculator:
         reaches ``reuse_skin`` beyond its cutoff."""
         cutoff = self.cutoff if (has_cell or n_real > 2048) else None
         d3 = self._d3_head()
-        d3_cut = d3.cutoff if d3 is not None else None
+        d3_cut = (self._dftd3_cutoff_override or d3.cutoff) if d3 is not None else None
         coul_cut = None
         if h_eff is not None:
             if h_eff.method == "dsf":
-                coul_cut = h_eff.dsf_rc
+                coul_cut = self._lr_cutoff_override or h_eff.dsf_rc
             elif cutoff is not None:  # simple Coulomb on a cutoff-bounded base list
-                coul_cut = 1e6
+                coul_cut = self._lr_cutoff_override or 1e6
         lr_cutoff = coulomb_cutoff = dftd3_cutoff = None
         if cutoff is not None:
             if d3_cut is not None and coul_cut is not None and max(d3_cut, coul_cut) / min(d3_cut, coul_cut) > 1.2:
@@ -394,7 +573,11 @@ class AIMNet2Calculator:
         forces: bool = False,
         stress: bool = False,
         hessian: bool = False,
+        *,
+        validate_species: bool = True,
     ) -> dict[str, np.ndarray]:
+        if validate_species:
+            self._validate_species_and_charge(data)
         system = self.prepare_system(data)
         cfg_eff = self._effective_cfg(system.cell is not None)
         fn = derivatives.make_eval_fn(
@@ -431,6 +614,7 @@ class AIMNet2Calculator:
                     compact = np.zeros((n_real,) + x.shape[1:], dtype=x.dtype)
                     compact[self._last_perm[valid]] = x[valid]
                     res[k] = compact
-        if "stress" in fetched:
-            res["stress"] = fetched["stress"]
+        for k in ("stress", "dipole", "quadrupole"):
+            if k in fetched:
+                res[k] = fetched[k]
         return res

@@ -27,7 +27,7 @@ def apply_strain(system: System, scaling: torch.Tensor) -> System:
     return system.replace(coord=coord, cell=cell)
 
 
-_KEEP = ("charges", "spin_charges", "mol_element_counts")
+_KEEP = ("charges", "spin_charges", "mol_element_counts", "dipole", "quadrupole")
 
 
 def make_eval_fn(
@@ -40,7 +40,8 @@ def make_eval_fn(
 ) -> Callable[[dict, System], dict]:
     """``f(params, system) -> outputs``: ``energy`` (num_mol,), plus
     ``forces`` (N, 3) and ``stress`` (num_mol, 3, 3) as requested, and
-    ``charges`` (and ``mol_element_counts`` under SAE externalization)."""
+    ``charges`` (and ``mol_element_counts`` under SAE externalization, the
+    dipole and quadrupole of models with those heads)."""
     if hessian:
         raise NotImplementedError(
             "Hessians need the conv kernels' second-order rules (ROADMAP.md, "

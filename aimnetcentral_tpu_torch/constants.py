@@ -36,6 +36,17 @@ def get_masses() -> np.ndarray:
     return _element_tables()["masses"]
 
 
+def get_gfn1_rep() -> tuple[np.ndarray, np.ndarray]:
+    """GFN1-xTB short-range repulsion (alpha, Z_eff) tables, indices 0..86."""
+    t = _element_tables()
+    return t["gfn1_repa"], t["gfn1_repb"]
+
+
+def get_r4r2() -> np.ndarray:
+    """D3 sqrt(0.5 sqrt(Z) <r4>/<r2>) table of the D3TS head."""
+    return _element_tables()["r4r2"]
+
+
 @functools.cache
 def get_d3_tables() -> dict[str, np.ndarray]:
     """DFT-D3 reference data: c6ab (95, 95, 5, 5), cn_ref (95, 95, 5, 5),

@@ -37,6 +37,7 @@
 // the cutoff, counted per unordered pair as
 //     DSF (exp envelope, SR part subtracted)   75
 //     simple Coulomb (the same envelope)       51
+//     short-range Coulomb (the same envelope)  47, in FP64
 //     D3 coordination number                   42
 //     D3(BJ) energy, V = 5 S                   115 + 4 V  (195 at S = 4)
 // (the forward's operations, the derivatives, and the coordinate chain:
@@ -51,7 +52,7 @@
 #include "pair_walk.cuh"
 
 // term: 0 DSF Coulomb, 1 D3 coordination number, 2 D3(BJ) energy,
-// 3 simple Coulomb.
+// 3 simple Coulomb, 4 short-range Coulomb.
 // consts: host pointer to 8 floats (the cutoff, then the term's constants).
 extern "C" int pair_bwd_launch(const float* consts, const float* coord, const float* mask,
                                const float* ext, const float* shift, const int* nbr,

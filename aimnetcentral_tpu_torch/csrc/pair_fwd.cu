@@ -20,6 +20,7 @@
 // unordered pair as
 //     DSF (exp envelope, SR part subtracted)   38
 //     simple Coulomb (the same envelope)       22
+//     short-range Coulomb (the same envelope)  21, in FP64
 //     D3 coordination number                   18
 //     D3(BJ) energy, V = 5 S                   40 + 2 V  (80 at S = 4)
 // (geometry 9: three differences, the square sum and the sqrt; a special
@@ -40,7 +41,7 @@
 #include "pair_walk.cuh"
 
 // term: 0 DSF Coulomb, 1 D3 coordination number, 2 D3(BJ) energy,
-// 3 simple Coulomb.
+// 3 simple Coulomb, 4 short-range Coulomb.
 // consts: host pointer to 8 floats (the cutoff, then the term's constants).
 extern "C" int pair_fwd_launch(const float* consts, const float* coord, const float* mask,
                                const float* ext, const float* shift, const int* nbr,

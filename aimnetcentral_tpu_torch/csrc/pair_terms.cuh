@@ -9,7 +9,10 @@
 // the padding atom's zero extras.
 //
 // Constants (TermConsts.c): c[0] is the cutoff, c[1..] the term's own, in
-// the order of the term's consts() in kernels/pair_sweep.py.
+// the order of the term's consts() in kernels/pair_sweep.py.  ``Real`` is
+// the type a term computes in: float, or double for a term whose float
+// rounding would lose to its plain version (csrc/pair_walk.cuh runs the
+// distance, the chain rule and the receiver's sums in it too).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +65,7 @@ __device__ inline void envelope(int env, float rc, float d, float& fc, float& df
 // c = [cutoff, alpha, shift_val, shift_slope, dsf_rc, rc, env]
 struct DsfTerm {
   static constexpr bool kBilinear = false;
+  using Real = float;  // the type of the term, the chain rule and the sums (csrc/pair_walk.cuh)
 
   __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
     const float a = k.c[1];
@@ -98,6 +102,7 @@ struct DsfTerm {
 // layout (radius 0): every pair of a molecule.  c = [cutoff, rc, env]
 struct CoulombSimpleTerm {
   static constexpr bool kBilinear = false;
+  using Real = float;  // the type of the term, the chain rule and the sums (csrc/pair_walk.cuh)
 
   __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
     float fc, dfc;
@@ -124,10 +129,64 @@ struct CoulombSimpleTerm {
   }
 };
 
+// The SR envelope of `envelope` in double, for a term that runs in double.
+__device__ inline void envelope64(int env, double rc, double d, double& fc, double& dfc) {
+  fc = 0.0;
+  dfc = 0.0;
+  if (env == 1) {
+    const double xr = d / rc;
+    const double x = fmin(fmax(xr, 0.0), 1.0 - 1e-6);
+    const double den = 1.0 - x * x;
+    fc = exp(-1.0 / den) / 0.36787944117144233;
+    dfc = (xr >= 0.0 && xr <= 1.0 - 1e-6) ? fc * (-2.0 * x / (den * den)) / rc : 0.0;
+  } else if (env == 2 && d < rc) {
+    const double arg = fmin(fmax(d, 1e-6), rc) * (3.14159265358979323846 / rc);
+    fc = 0.5 * (cos(arg) + 1.0);
+    dfc = (d >= 1e-6) ? -0.5 * sin(arg) * (3.14159265358979323846 / rc) : 0.0;
+  }
+}
+
+// Short-range Coulomb (the SRCoulomb head of v2 artifacts, which subtracts
+// it): g = q_i q_j fc(d)/d with the SR envelope (env 1 exp, 2 cosine), swept
+// at cutoff rc.  It runs in double (Real), from the distance to the sums:
+// its few pairs a receiver (about 36 within 4.6 A) carry 1/d^2 forces, and
+// in float the rounding of each pair's chain came to more than twice the
+// plain version's distance from an f64 run (2.7e-7 of the largest force on
+// 32 molecules of 113 atoms, H100 80GB HBM3).  c = [cutoff, rc, env]
+struct CoulombSRTerm {
+  static constexpr bool kBilinear = false;
+  using Real = double;
+
+  __device__ static void h(const TermConsts& k, double d, double& hv, double& dh) {
+    double fc, dfc;
+    envelope64(int(k.c[2]), double(k.c[1]), d, fc, dfc);
+    const double inv_d = 1.0 / d;
+    hv = fc * inv_d;
+    dh = dfc * inv_d - fc * inv_d * inv_d;
+  }
+
+  __device__ static double g(const TermConsts& k, double d, float si, float sj) {
+    double hv, dh;
+    h(k, d, hv, dh);
+    return double(si) * double(sj) * hv;
+  }
+
+  __device__ static void grad(const TermConsts& k, double d, float si, float sj, double& g,
+                              double& gd, double& gsi, double& gsj) {
+    double hv, dh;
+    h(k, d, hv, dh);
+    g = double(si) * double(sj) * hv;
+    gd = double(si) * double(sj) * dh;
+    gsi = double(sj) * hv;
+    gsj = double(si) * hv;
+  }
+};
+
 // D3 coordination number: g = sigmoid(16 ((rcov_i + rcov_j) / d_b - 1)),
 // d_b = max(d / Bohr, 1e-12).  c = [cutoff, 1/Bohr]
 struct D3CnTerm {
   static constexpr bool kBilinear = false;
+  using Real = float;  // the type of the term, the chain rule and the sums (csrc/pair_walk.cuh)
 
   __device__ static float g(const TermConsts& k, float d, float si, float sj) {
     const float db = fmaxf(d * k.c[1], 1e-12f);
@@ -152,6 +211,7 @@ struct D3CnTerm {
 // e = (p_i . r_j) g.  c = [cutoff, a1, a2, s8, s6, r_on, r_off, 1/Bohr]
 struct D3EnergyTerm {
   static constexpr bool kBilinear = true;
+  using Real = float;
 
   __device__ static void parts(const TermConsts& k, float d, float si, float sj, float& damp,
                                float& ddamp_db, float& ddamp_drr, float& sw, float& dsw,

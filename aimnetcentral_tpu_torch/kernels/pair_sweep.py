@@ -27,9 +27,9 @@ one specialisation per term.  Every term here has the form
 with one scalar extra ``s`` per atom and, for a bilinear term, two per-atom
 vectors ``p`` (read on the receiver) and ``r`` (read on the candidate) of
 width V.  The extras are packed per atom as ``[p (V), r (V), s]``, K = 2V+1.
-Terms: DSF Coulomb (s = q), simple (unbounded) Coulomb (s = q), the D3
-coordination number (s = rcov) and the D3(BJ) energy over the factorised
-C6 (p, r, s = r4r2).  Each term has its
+Terms: DSF Coulomb (s = q), simple (unbounded) Coulomb (s = q),
+short-range Coulomb (s = q), the D3 coordination number (s = rcov) and the
+D3(BJ) energy over the factorised C6 (p, r, s = r4r2).  Each term has its
 plain ``g`` (differentiated by autograd in the plain versions) and its hand
 derivatives ``g_grad``, the formulas the CUDA functors (csrc/pair_terms.cuh)
 compute; the tests hold the latter to autograd.
@@ -213,6 +213,34 @@ class CoulombSimpleTerm:
 
 
 @dataclasses.dataclass(frozen=True)
+class CoulombSRTerm:
+    """Short-range Coulomb, ``q_i q_j fc(d)/d`` with the SR envelope, swept
+    at cutoff ``rc`` (engine_binned.coulomb_sr_binned in the JAX package):
+    the SRCoulomb head of v2 artifacts, which the head subtracts.  Kernels
+    D and E evaluate it in double, from the distance to the receiver's sums
+    (csrc/pair_terms.cuh::CoulombSRTerm); the plain versions in the
+    inputs' type."""
+
+    rc: float
+    envelope: str = "exp"
+    name: ClassVar[str] = "coulomb_sr"
+    code: ClassVar[int] = 4
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+    scalar_key: ClassVar[str] = "q"
+
+    def consts(self) -> tuple[float, ...]:
+        return (self.rc, _envelope_code(self.envelope, True))
+
+    def g(self, d, si, sj, valid):
+        return si * sj * _envelope(d, self.rc, self.envelope) / d
+
+    def g_grad(self, d, si, sj, valid):
+        fc, dfc = _envelope_grad(d, self.rc, self.envelope)
+        h, dh = fc / d, dfc / d - fc / (d * d)
+        return si * sj * h, si * sj * dh, sj * h, si * h
+
+
+@dataclasses.dataclass(frozen=True)
 class D3CNTerm:
     """D3 coordination number, ``sigmoid(16 ((rcov_i + rcov_j) / d - 1))``
     with d in Bohr (engine_binned.d3_cn_fn in the JAX package)."""
@@ -319,7 +347,7 @@ class D3EnergyTerm:
         return -damping * sw, dd, drr * sj, drr * si
 
 
-PairTerm = DSFTerm | CoulombSimpleTerm | D3CNTerm | D3EnergyTerm
+PairTerm = DSFTerm | CoulombSimpleTerm | CoulombSRTerm | D3CNTerm | D3EnergyTerm
 
 
 def pack_extras(term: PairTerm, extras: dict[str, torch.Tensor]) -> torch.Tensor:

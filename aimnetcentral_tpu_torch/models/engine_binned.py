@@ -5,9 +5,10 @@
 kernels/pair_sweep.py: the CUDA kernels D and E for CUDA tensors, their plain
 versions for CPU tensors.  On it sit DSF Coulomb and DFT-D3(BJ): the
 coordination-number sweep, the factorised per-atom C6 vectors, and the
-energy sweep, all on the coarse long-range twin layout; and simple Coulomb
-on the molecule-bin layout, which has no twin (the sweeps fall back to its
-one grid, at radius 0).  The ConvSV message pass lives in
+energy sweep, all on the coarse long-range twin layout; the short-range
+Coulomb of v2 artifacts on the SR layout; and simple Coulomb on the
+molecule-bin layout, which has no twin (the sweeps fall back to its one
+grid, at radius 0).  The ConvSV message pass lives in
 kernels/conv_pass.py.
 """
 
@@ -22,6 +23,7 @@ import torch
 from aimnetcentral_tpu_torch import constants
 from aimnetcentral_tpu_torch.kernels.pair_sweep import (
     CoulombSimpleTerm,
+    CoulombSRTerm,
     D3CNTerm,
     D3EnergyTerm,
     DSFTerm,
@@ -157,6 +159,15 @@ def coulomb_dsf_binned(
     self_coeff = -(term.shift_val / 2.0 + dsf_alpha / math.sqrt(math.pi))
     q_real = torch.where(system.numbers > 0, q, 0.0)
     return e + 2.0 * FACTOR * mol_sum(self_coeff * q_real * q_real, system.mol_idx, system.num_mol)
+
+
+def coulomb_sr_binned(system: System, q: torch.Tensor, rc: float, envelope: str) -> torch.Tensor:
+    """Short-range Coulomb ``fc(d) q_i q_j / d`` within ``rc`` on the SR
+    layout, spatial or molecule bins (per-molecule energies; the
+    counterpart of models/lr.py::coulomb_sr).  The SR grid's stencil reaches
+    the model cutoff, at or beyond ``rc``."""
+    e_i = pair_energy_binned(system, float(rc), CoulombSRTerm(rc=rc, envelope=envelope), {"q": q})
+    return FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
 
 
 def coulomb_simple_binned(

@@ -2,26 +2,30 @@
 
 Each head is a frozen spec plus ``head_init``/``head_apply`` over an
 explicit parameter dict; ``head_apply`` takes and returns the data dict.
-This port carries the flagship's heads: the energy MLP, the atomic shift
-(SAE, applied in float64 by the calculator), the atomic sum, long-range
-Coulomb (DSF on both layouts, simple on the indexed and the molecule-bin
-layouts), the short-range Coulomb subtraction (indexed layout), and the
-external DFT-D3(BJ) head of the released ``-d3`` families on both layouts.  The
-binned branches sweep through the pair kernels (models/engine_binned.py),
-the indexed ones run models/lr.py over the neighbor matrices.
+This port carries the heads of the flagship and of the released v2
+artifacts: the energy MLP, the atomic shift (SAE, applied in float64 by the
+calculator), the atomic sum, long-range Coulomb (DSF on both layouts, simple
+on the indexed and the molecule-bin layouts), the short-range Coulomb that a
+v2 artifact embeds (on every layout), the external DFT-D3(BJ) head of the
+``-d3`` families on both layouts, and the rxn family's dipole and
+quadrupole.  The binned branches sweep through the pair kernels
+(models/engine_binned.py), the indexed ones run models/lr.py over the
+neighbor matrices.  SRRep, DispParam and D3TS are specs only, so that every
+allowlisted artifact class converts; applying them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from aimnetcentral_tpu_torch import constants
 from aimnetcentral_tpu_torch.models import engine_binned as eb
 from aimnetcentral_tpu_torch.models import lr
 from aimnetcentral_tpu_torch.models.modules import MLPSpec, mlp_apply, mlp_init
-from aimnetcentral_tpu_torch.ops.nb import mask_pad_atoms, mol_sum
+from aimnetcentral_tpu_torch.ops.nb import expand_mol, mask_pad_atoms, mol_sum
 from aimnetcentral_tpu_torch.system import System
 
 
@@ -55,6 +59,31 @@ class AtomicSumHead:
     key_in: str
     key_out: str
     kind: str = dataclasses.field(default="atomic_sum", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class DipoleHead:
+    key_in: str = "charges"
+    key_out: str = "dipole"
+    center_coord: bool = False
+    kind: str = dataclasses.field(default="dipole", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadrupoleHead:
+    key_in: str = "charges"
+    key_out: str = "quadrupole"
+    center_coord: bool = False
+    kind: str = dataclasses.field(default="quadrupole", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class SRRepHead:
+    key_out: str = "e_rep"
+    cutoff_fn: str = "none"
+    rc: float = 5.2
+    reduce_sum: bool = True
+    kind: str = dataclasses.field(default="srrep", init=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +123,24 @@ class SRCoulombHead:
 
 
 @dataclasses.dataclass(frozen=True)
+class DispParamHead:
+    key_in: str = "disp_param"
+    key_out: str = "disp_param"
+    kind: str = dataclasses.field(default="disp_param", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class D3TSHead:
+    a1: float
+    a2: float
+    s8: float
+    s6: float = 1.0
+    key_in: str = "disp_param"
+    key_out: str = "energy"
+    kind: str = dataclasses.field(default="d3ts", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
 class DFTD3Head:
     """External DFT-D3(BJ) dispersion with an S5 switch-off over the last
     ``smoothing_fraction`` of ``cutoff``; its parameters carry the D3
@@ -109,7 +156,19 @@ class DFTD3Head:
     kind: str = dataclasses.field(default="dftd3", init=False)
 
 
-HeadSpec = OutputHead | AtomicShiftHead | AtomicSumHead | LRCoulombHead | SRCoulombHead | DFTD3Head
+HeadSpec = (
+    OutputHead
+    | AtomicShiftHead
+    | AtomicSumHead
+    | DipoleHead
+    | QuadrupoleHead
+    | SRRepHead
+    | LRCoulombHead
+    | SRCoulombHead
+    | DispParamHead
+    | D3TSHead
+    | DFTD3Head
+)
 
 
 def auto_switch_simple_to_dsf(cfg):
@@ -132,9 +191,33 @@ def head_init(gen: torch.Generator, head: HeadSpec, device: torch.device) -> dic
         return {"mlp": mlp_init(gen, head.n_in, head.n_out, head.mlp, device)}
     if head.kind == "atomic_shift":
         return {"weight": torch.zeros(head.num_types, device=device)}
+    if head.kind == "srrep":
+        tab = np.zeros((87, 2), dtype=np.float32)
+        tab[:, 0], tab[:, 1] = constants.get_gfn1_rep()
+        return {"gfn1_ab": torch.tensor(tab, device=device)}
+    if head.kind in ("dipole", "quadrupole"):
+        return {"mass": torch.tensor(constants.get_masses(), dtype=torch.float32, device=device)}
+    if head.kind == "disp_param":
+        ref = np.zeros((87, 2), dtype=np.float32)
+        ref[0, 1] = 1.0
+        return {"disp_param0": torch.tensor(ref, device=device)}
+    if head.kind == "d3ts":
+        return {"r4r2": torch.tensor(constants.get_r4r2(), dtype=torch.float32, device=device)}
     if head.kind == "dftd3":
         return {k: torch.tensor(v, device=device) for k, v in constants.get_d3_tables().items()}
     return {}
+
+
+def _center_coordinates(coord: torch.Tensor, system: System, masses: torch.Tensor | None) -> torch.Tensor:
+    """Coordinates relative to each molecule's centre of mass (or centroid
+    without ``masses``)."""
+    if masses is not None:
+        m = masses[..., None]
+        center = mol_sum(coord * m, system.mol_idx, system.num_mol) / mol_sum(m, system.mol_idx, system.num_mol)
+    else:
+        sizes = mol_sum((system.numbers > 0).to(coord.dtype), system.mol_idx, system.num_mol)
+        center = mol_sum(coord, system.mol_idx, system.num_mol) / sizes[:, None]
+    return coord - expand_mol(center, system.mol_idx)
 
 
 def _add_energy(data: dict, key_out: str, e: torch.Tensor) -> dict:
@@ -170,6 +253,22 @@ def head_apply(head: HeadSpec, params: dict, data: dict, system: System) -> dict
     if head.kind == "atomic_sum":
         return {**data, head.key_out: mol_sum(data[head.key_in], system.mol_idx, system.num_mol)}
 
+    if head.kind in ("dipole", "quadrupole"):
+        q, r = data[head.key_in], system.coord
+        if head.center_coord:
+            r = _center_coordinates(r, system, params["mass"][system.numbers])
+        if head.kind == "dipole":
+            return {**data, head.key_out: mol_sum(q[..., None] * r, system.mol_idx, system.num_mol)}
+        x = torch.cat([r * r, r * torch.roll(r, -1, dims=-1)], dim=-1)
+        quad = mol_sum(q[..., None] * x, system.mol_idx, system.num_mol)
+        x1, x2 = quad[..., :3], quad[..., 3:]
+        return {**data, head.key_out: torch.cat([x1 - x1.mean(dim=-1, keepdim=True), x2], dim=-1)}
+
+    if head.kind in ("srrep", "disp_param", "d3ts"):
+        raise NotImplementedError(
+            f"the {head.kind} head is not ported yet (ROADMAP.md, queue 1, item 4: the rest of long range)"
+        )
+
     if head.kind == "lrcoulomb":
         if head.method in ("ewald", "pme"):
             raise NotImplementedError(
@@ -204,12 +303,10 @@ def head_apply(head: HeadSpec, params: dict, data: dict, system: System) -> dict
         return _add_energy(data, head.key_out, e)
 
     if head.kind == "srcoulomb":
-        if system.bins is not None:
-            raise NotImplementedError(
-                "SR Coulomb on the binned engine is not ported yet (ROADMAP.md, queue 2: "
-                "coulomb_sr_binned)"
-            )
-        e_sr = lr.coulomb_sr(data, system, head.rc, head.envelope, head.key_in)
+        if system.bins is not None:  # spatial and molecule-bin grids alike
+            e_sr = eb.coulomb_sr_binned(system, data[head.key_in], head.rc, head.envelope)
+        else:
+            e_sr = lr.coulomb_sr(data, system, head.rc, head.envelope, head.key_in)
         return _add_energy(data, head.key_out, -e_sr)
 
     if head.kind == "dftd3":

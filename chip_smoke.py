@@ -58,7 +58,7 @@ Phases (any failure exits nonzero; nothing is caught):
    measurements are taken over the first 50 steps of a fresh NVE driver at
    each tier, gated at ``exact`` on the total energy (within 1e-4 of
    itself); two drivers of one seed give the same coordinates bit for bit
-   after 50 steps; on the 1,200-atom box, 10 NVE steps and 10 FIRE steps
+   after 50 steps; on the 1,200-atom box, 5 NVE steps and 5 FIRE steps
    of wb97m-d3 on the card at the exact tier against the CPU, per-step
    energies and forces and final coordinates within ``CHECK_ABS``, with the
    same steps at ``fast`` as the control that must exceed them;
@@ -88,14 +88,27 @@ Phases (any failure exits nonzero; nothing is caught):
    system takes), md-periodic-500 (wb97m-d3, ``engine="indexed"``) and
    md-cluster-10k-dsf (``engine="binned"`` on a gas-phase grid), gated on
    launches, no overflow, fewer rebuilds than steps, NVE energy and a
-   bitwise repeat; 10 steps of md-mol-113 on the card against the CPU.
+   bitwise repeat; 10 steps of md-mol-113 on the card against the CPU;
+11. artifact: a v2 artifact of wb97m-d3's weights, written by the port's
+   ``train.export.export_model`` and loaded by ``AIMNet2Calculator(path)``
+   (``phase_artifact``): its heads (SR Coulomb in the model, external
+   simple Coulomb without its SR part, external D3); artifact-10k (the
+   10,000-atom box, as phase 4, A, B 3 and D, E 4 a request) against the
+   in-memory source model; D and E with the SR Coulomb term and with DSF
+   without its SR part against their plain versions on its layout, and the
+   SR term on molecule bins; artifact-mol-113 and artifact-packed-32x113
+   (launches, times, a bitwise repeat); the card against the CPU on 1,200
+   atoms and an 8-molecule packed batch within ``CHECK_ABS``; a request
+   with an element outside ``implemented_species`` refused without a
+   launch.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
 request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
 error); ``launches`` counts every main-path run (both configurations'
-requests, the gas and packed phases' requests and the MD windows) and
+requests, the gas, packed and artifact phases' requests and the MD
+windows) and
 ``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
 per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
@@ -111,6 +124,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -121,6 +135,7 @@ N_CHECK = 1_200
 N_TIMED = 10  # requests timed a configuration, after the three counted ones
 N_BUILT_GAS = 5  # requests of a phase-gas input timed each building its layout (some take seconds)
 FP32_PEAK = 67e12  # H100 SXM, FP32 outside the tensor cores (FLOP/s)
+FP64_PEAK = 34e12  # H100 SXM, FP64 outside the tensor cores (FLOP/s; NVIDIA's data sheet)
 HBM_RATE = 3.35e12  # H100 SXM device memory (bytes/s)
 REL_TOL = 1e-5
 F64_FLOOR = 2e-7  # two f32 roundings of the largest magnitude
@@ -141,6 +156,10 @@ MD_HELD_GROWTH = 64 * 2**20  # bytes held after a window beyond those held befor
 MD_NVE_DRIFT = 1e-4  # NVE total energy change over the first 50 steps at the exact tier, of itself
 MD_SETTING = dict(dt_fs=0.5, temperature_K=300.0, thermostat="langevin", skin=0.3)  # bench.py:150
 MD_CHECK_STEPS = 10
+# NVE and FIRE steps of the 1,200-atom box's card-against-CPU check: at 10 its
+# CPU side took 287 s of an 802 s run (an H100 80GB HBM3 host, PERF.md), so
+# it runs 5
+BOX_CHECK_STEPS = 5
 LR_CUTOFF = 15.0  # DSF's dsf_rc and the D3 cutoff of both configurations
 
 
@@ -215,9 +234,10 @@ def counters() -> dict:
     }
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time (ms) for ``nbytes`` moved and ``flops`` done."""
-    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / FP32_PEAK * 1e3
+def bound(nbytes: float, flops: float, peak: float = FP32_PEAK) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` moved and ``flops`` done at
+    ``peak`` operations a second."""
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -434,49 +454,57 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
     return kernels, detail
 
 
-OPS_PER_PAIR = {  # FP32 operations per unordered pair within the cutoff (csrc/pair_*.cu)
+OPS_PER_PAIR = {  # operations per unordered pair within the cutoff (csrc/pair_*.cu), FP32 but where OPS_PEAK says
     "dsf": lambda v: (38, 75),
     "coulomb_simple": lambda v: (22, 51),
+    "coulomb_sr": lambda v: (21, 47),
     "d3_cn": lambda v: (18, 42),
     "d3_energy": lambda v: (40 + 2 * v, 115 + 4 * v),
 }
+OPS_PEAK = {"coulomb_sr": FP64_PEAK}  # the SR Coulomb term runs in FP64 (csrc/pair_terms.cuh)
 
 
 def pair_terms(calc, sysb) -> dict:
     """The pair sweeps of a request on the binned system ``sysb``, as
-    ``{name: (term, cutoff, extras)}``: with random charges (seed 4) DSF
-    where the request's Coulomb is DSF, or simple Coulomb at cutoff inf on
-    the molecule-bin layout; with a D3 head the coordination number and
-    the D3 energy over the C6 vectors of this system's coordination numbers
-    (a wb97m-d3 request: all three)."""
+    ``{name: (term, cutoff, extras, layout)}``: with random charges (seed 4)
+    the SR Coulomb of a v2 artifact on the SR layout at its rc, DSF where
+    the request's Coulomb is DSF, or simple Coulomb at cutoff inf on the
+    molecule-bin layout; with a D3 head the coordination number and the D3
+    energy over the C6 vectors of this system's coordination numbers (a
+    wb97m-d3 request: DSF and both D3 sweeps; an artifact's: all four).
+    Every sweep but the SR Coulomb runs on the LR layout (the molecule-bin
+    layout has one grid, which both names take)."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
     from aimnetcentral_tpu_torch.models import engine_binned as eb
-    from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead
+    from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, SRCoulombHead
 
     heads = [h for _n, h in calc._effective_cfg(sysb.cell is not None).outputs]
+    sr = next((h for h in heads if isinstance(h, SRCoulombHead)), None)
     lr = next((h for h in heads if isinstance(h, LRCoulombHead)), None)
     d3 = next((h for h in heads if isinstance(h, DFTD3Head)), None)
     sweeps = []
     gen = torch.Generator(device="cuda").manual_seed(4)
     q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
+    if sr is not None:
+        sweeps.append((ps.CoulombSRTerm(rc=sr.rc, envelope=sr.envelope), sr.rc, {"q": q}, "sr"))
     if lr is not None and lr.method == "dsf":
         dsf = ps.DSFTerm(alpha=lr.dsf_alpha, dsf_rc=lr.dsf_rc, rc=lr.rc, envelope=lr.envelope,
                          subtract_sr=lr.subtract_sr)
-        sweeps.append((dsf, lr.dsf_rc, {"q": q}))
+        sweeps.append((dsf, lr.dsf_rc, {"q": q}, "lr"))
     elif lr is not None and lr.method == "simple" and sysb.bins.molecule_bins:
         simple = ps.CoulombSimpleTerm(rc=lr.rc, envelope=lr.envelope, subtract_sr=lr.subtract_sr)
-        sweeps.append((simple, math.inf, {"q": q}))
+        sweeps.append((simple, math.inf, {"q": q}, "lr"))
     if d3 is not None:
         tables = calc.params["outputs"]["external_dftd3"]
         rcov = tables["rcov"][sysb.numbers]
         cn = eb.pair_sum_binned(sysb, d3.cutoff, ps.D3CNTerm(), {"rcov": rcov}, layout="lr")
         r_on = d3.cutoff * (1.0 - d3.smoothing_fraction)
         d3e = ps.D3EnergyTerm(a1=d3.a1, a2=d3.a2, s8=d3.s8, s6=d3.s6, r_on=r_on, r_off=d3.cutoff)
-        sweeps.append((ps.D3CNTerm(), d3.cutoff, {"rcov": rcov}))
-        sweeps.append((d3e, d3.cutoff, eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables)))
-    return {term.name: (term, cutoff, extras) for term, cutoff, extras in sweeps}
+        sweeps.append((ps.D3CNTerm(), d3.cutoff, {"rcov": rcov}, "lr"))
+        sweeps.append((d3e, d3.cutoff, eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables), "lr"))
+    return {sweep[0].name: sweep for sweep in sweeps}
 
 
 def _half_pair_count(st, ops) -> int:
@@ -527,12 +555,13 @@ def _slot_tests(st, ops) -> int:
     return walked * st.c
 
 
-def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], dict]:
-    """Kernels D and E against their plain versions on the LR layout of the
-    binned system ``sysb`` (a wb97m-d3-10k request's: three pair terms; a
-    gas-phase DSF cluster's: one), for each pair term of ``pair_terms``:
-    errors, the same against an f64 plain run, the pairs each kernel
-    contracted, E's scratch, times."""
+def phase_pair_kernels(calc, sysb, label: str = "request", only: tuple | None = None) -> tuple[list[dict], dict]:
+    """Kernels D and E against their plain versions on the layouts of the
+    binned system ``sysb`` (a wb97m-d3-10k request's: three pair terms on
+    the LR layout; a gas-phase DSF cluster's: one), for each pair term of
+    ``pair_terms`` (those in ``only`` when given): errors, the same against
+    an f64 plain run, the pairs each kernel contracted, E's scratch,
+    times."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
@@ -540,8 +569,10 @@ def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], 
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     detail, sums = {}, {"D": {}, "E": {}}
-    for name, (term, cutoff, extras) in pair_terms(calc, sysb).items():
-        st, ops = eb.pair_operands(sysb, cutoff, term, extras, layout="lr")
+    for name, (term, cutoff, extras, layout) in pair_terms(calc, sysb).items():
+        if only is not None and name not in only:
+            continue
+        st, ops = eb.pair_operands(sysb, cutoff, term, extras, layout=layout)
         ops = {k: v.detach().contiguous() for k, v in ops.items()}
         ct = torch.randn((st.b_tot, st.c), generator=gen, device="cuda")
         n_pairs = _half_pair_count(st, ops)
@@ -553,7 +584,7 @@ def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], 
         ps.pair_sweep_forward(st, term, **ops, pair_counts=counts_d)
         ps.pair_sweep_backward(st, term, **ops, ct=ct, pair_counts=counts_e)
         torch.cuda.synchronize()
-        log(f"[kernels {label}] {name}: LR grid B={st.b_tot} C={st.c} S={st.s_tot} K={st.k}; "
+        log(f"[kernels {label}] {name}: {layout.upper()} grid B={st.b_tot} C={st.c} S={st.s_tot} K={st.k}; "
             f"{n_pairs} unordered pairs within {cutoff} A; ordered pairs contracted (full stencil, "
             f"each pair at both ends): D {int(counts_d.sum())}, E {int(counts_e.sum())}, "
             f"2 x unordered = {2 * n_pairs}; slot tests {_slot_tests(st, ops)} of "
@@ -609,8 +640,9 @@ def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], 
         bytes_e = ins + 4 * st.b_tot * st.c + 4 * (st.b_tot * st.c * (3 + st.k) + st.s_tot * st.b_tot * 3)
         ops_d, ops_e = OPS_PER_PAIR[name](st.v)
         flops_d, flops_e = float(ops_d * n_pairs), float(ops_e * n_pairs)
-        bound_d, by_d = bound(bytes_d, flops_d)
-        bound_e, by_e = bound(bytes_e, flops_e)
+        peak = OPS_PEAK.get(name, FP32_PEAK)
+        bound_d, by_d = bound(bytes_d, flops_d, peak)
+        bound_e, by_e = bound(bytes_e, flops_e, peak)
         scratch = ps.bwd_scratch_bytes(st)
         log(f"[kernels {label}] {name} D: {ms_d:.3f} ms (plain {plain_d:.3f} ms), bound {bound_d:.4f} ms "
             f"by {by_d}; {ps.blocks(st)} blocks of {ps.WARPS} receiver rows (a warp each), "
@@ -620,7 +652,7 @@ def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], 
             f"by {by_e}; {ps.smem_bytes(st, adjoint=True)} B shared memory; device scratch "
             f"{scratch} B (the per-receiver shift rows, {scratch / 2**20:.2f} MiB)")
         detail[name] = {
-            "grid": {"b": st.b_tot, "c": st.c, "s": st.s_tot, "k": st.k}, "pairs": n_pairs,
+            "layout": layout, "grid": {"b": st.b_tot, "c": st.c, "s": st.s_tot, "k": st.k}, "pairs": n_pairs,
             "pairs_contracted": {"D": int(counts_d.sum()), "E": int(counts_e.sum())},
             "f64": f64, "scratch_bytes_e": scratch,
             "D": {"ms": ms_d, "plain_ms": plain_d, "bound_ms": bound_d, "bound_by": by_d,
@@ -795,9 +827,9 @@ def phase_layers(calc, coord, numbers, cell) -> dict:
     tables = calc.params["outputs"]["external_dftd3"]
     r_on = d3.cutoff * (1.0 - d3.smoothing_fraction)
 
-    def sweep(term, cutoff, ex) -> None:
+    def sweep(term, cutoff, ex, layout) -> None:
         c = sysb.coord.detach().requires_grad_(True)
-        e = eb.pair_energy_binned(sysb.replace(coord=c), cutoff, term, ex, layout="lr")
+        e = eb.pair_energy_binned(sysb.replace(coord=c), cutoff, term, ex, layout=layout)
         torch.autograd.grad(e.sum(), c)
 
     def d3_head() -> None:
@@ -806,8 +838,8 @@ def phase_layers(calc, coord, numbers, cell) -> dict:
         torch.autograd.grad(e.sum(), c)
 
     res = {"prepare_s": t_prep, "prepare_reuse_s": t_reuse}
-    for name, (term, cutoff, ex) in terms.items():
-        res[f"{name}_fwd_bwd_s"] = timed(lambda: sweep(term, cutoff, ex))
+    for name, (term, cutoff, ex, layout) in terms.items():
+        res[f"{name}_fwd_bwd_s"] = timed(lambda: sweep(term, cutoff, ex, layout))
     res["d3_head_fwd_bwd_s"] = timed(d3_head)
     log(f"[layers] prepare_system {t_prep * 1e3:.1f} ms built, {t_reuse * 1e3:.1f} ms reusing the "
         f"layout; pair sweeps forward + backward: "
@@ -1111,15 +1143,15 @@ def md_trace(drv, n_steps: int, n_atoms: int = N_CHECK) -> dict:
 
 
 def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> dict:
-    """On the 1,200-atom box: MD_CHECK_STEPS NVE steps from the same
-    injected 300 K velocities at the exact tier, and 10 FIRE steps, on the
+    """On the 1,200-atom box: BOX_CHECK_STEPS NVE steps from the same
+    injected 300 K velocities at the exact tier, and as many FIRE steps, on the
     card and on the CPU.  Per step, the
     potential energy and every force are held to the absolute limits
     ``CHECK_ABS``, and the final coordinates of both runs too; the same
     steps on the card at the ``fast`` tier are the control, which must come
     out beyond a limit (CPU matmuls are exact f32 at every tier).  With a
     gas-phase molecule ``mol`` the same MD check runs on it (the indexed
-    engine), without FIRE."""
+    engine) for MD_CHECK_STEPS steps, without FIRE."""
     import torch
 
     from aimnetcentral_tpu_torch import constants
@@ -1133,6 +1165,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
     else:
         coord, numbers, cell = mol["coord"], mol["numbers"], None
     n = len(numbers)
+    steps = MD_CHECK_STEPS if mol is not None else BOX_CHECK_STEPS
     masses = constants.get_masses()[numbers]
     v0 = np.sqrt(constants.kB * 300.0 / masses)[:, None] * np.random.default_rng(5).normal(size=(n, 3))
     runs = {}
@@ -1148,7 +1181,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
         drv._state = dataclasses.replace(
             st, veloc=torch.where((st.system.numbers > 0)[:, None], vel[st.atom_id.clamp(max=n - 1)], 0.0)
         )
-        runs[key] = md_trace(drv, MD_CHECK_STEPS, n)
+        runs[key] = md_trace(drv, steps, n)
         if tier == "exact" and mol is None:
             # FIRE on a fixed binned layout of the same box
             grid = dataclasses.replace(B.plan_bins(cell, N_CHECK, cfg.aev.rc_s + 0.3), margin=0.3)
@@ -1156,7 +1189,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
             sysb, _perm, ovf = B.to_binned_system(system, grid, lr_grid)
             if bool(ovf.any()):
                 raise SystemExit("FAIL: the FIRE layout overflowed")
-            relaxed, info = fire_relax(p, auto_switch_simple_to_dsf(cfg), sysb, fmax=0.0, max_steps=10)
+            relaxed, info = fire_relax(p, auto_switch_simple_to_dsf(cfg), sysb, fmax=0.0, max_steps=steps)
             real = sysb.numbers > 0
             runs[key].update(fire=relaxed.coord[real].cpu().numpy(), fire_fmax=info["fmax"])
         runs[key]["s"] = time.perf_counter() - t0
@@ -1170,7 +1203,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
             "coord": float(np.abs(run["coord"] - cpu["coord"]).max()),
         }
         d = diffs[key]
-        log(f"[md check {label} {key}] {n} atoms, {drv.engine} engine, {MD_CHECK_STEPS} NVE steps "
+        log(f"[md check {label} {key}] {n} atoms, {drv.engine} engine, {steps} NVE steps "
             f"({run['rebins']} rebuilds; "
             f"{cpu['rebins']} on the CPU), against the CPU at exact: largest per-step |dE| {d['energy']:.3e} eV "
             f"({d['energy'] / np.abs(cpu['epot']).min():.2e} relative), largest per-step |dF| {d['forces']:.3e} "
@@ -1179,7 +1212,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
     dfire = 0.0
     if mol is None:
         dfire = float(np.abs(runs["card"]["fire"] - cpu["fire"]).max())
-        log(f"[md check {label}] 10 FIRE steps: max |dx| {dfire:.3e} A (limit {CHECK_ABS['coord']:.1e}), fmax "
+        log(f"[md check {label}] {steps} FIRE steps: max |dx| {dfire:.3e} A (limit {CHECK_ABS['coord']:.1e}), fmax "
             f"{runs['card']['fire_fmax']:.4f} / {cpu['fire_fmax']:.4f} eV/A")
     limits = {k: CHECK_ABS[k] for k in ("energy", "forces", "coord")}
     if over_limits(diffs["card"], limits) or dfire > CHECK_ABS["coord"]:
@@ -1620,6 +1653,160 @@ def phase_md_gas(params, cfg, params_d3, cfg_d3) -> dict:
     return res
 
 
+ARTIFACT_SAE = {1: -13.6, 6: -1029.8, 7: -1485.3, 8: -2042.6}  # eV, H C N O
+ARTIFACT_SPECIES = [1, 6, 7, 8]
+
+
+def artifact_card_vs_cpu(label: str, path: str, data, stress: bool, binned_threshold: int = 1024) -> dict:
+    """One request of the artifact at ``path`` on the card against the
+    port's CPU run of the same file, within the absolute limits
+    ``CHECK_ABS`` (energy per molecule, forces, stress)."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        calc = AIMNet2Calculator(path, device=dev, binned_threshold=binned_threshold)
+        t0 = time.perf_counter()
+        runs[dev] = calc.eval(data, forces=True, stress=stress)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            kind = calc._prep_cache["kind"]
+        runs[dev + "_s"] = time.perf_counter() - t0
+    diffs = {"energy": float(np.abs(runs["cuda"]["energy"] - runs["cpu"]["energy"]).max()),
+             "forces": float(np.abs(runs["cuda"]["forces"] - runs["cpu"]["forces"]).max())}
+    if stress:
+        diffs["stress"] = float(np.abs(runs["cuda"]["stress"] - runs["cpu"]["stress"]).max())
+    log(f"[artifact check {label}] {kind} layout, {len(runs['cuda']['forces'])} atoms: "
+        + ", ".join(f"max |d{k}| {v:.3e} (limit {CHECK_ABS[k]:.1e})" for k, v in diffs.items())
+        + f" (card {runs['cuda_s']:.2f} s, cpu {runs['cpu_s']:.2f} s)")
+    if over_limits(diffs, CHECK_ABS):
+        raise SystemExit(f"FAIL: the card and the CPU disagree on {label}: {over_limits(diffs, CHECK_ABS)}")
+    return {**diffs, "layout": kind, "card_s": runs["cuda_s"], "cpu_s": runs["cpu_s"]}
+
+
+def phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dict:
+    """A released-style v2 artifact through the port's whole artifact path:
+    ``train.export.export_model`` writes wb97m-d3's full-width random
+    weights (seed 0) with an SAE for H, C, N and O and
+    ``implemented_species`` [1, 6, 7, 8]; ``AIMNet2Calculator(path)`` loads
+    it on the card with the artifact heads (SR Coulomb inside the model,
+    external simple Coulomb without its SR part, external D3).  Then:
+    artifact-10k (the 10,000-atom box: three counted requests, A, B 3 and
+    D, E 4 a request, the SR Coulomb on the SR grid beside DSF, D3 CN and
+    D3 energy on the LR grid; ten timed reusing the layout and ten building
+    it, a bitwise repeat, a profiled request) against the in-memory source
+    model (energy 1e-5 relative with the f32 floor, forces 1e-4 eV/A); D
+    and E with the SR Coulomb and DSF (its SR part not subtracted) against
+    their plain versions on that layout, and the SR Coulomb on
+    packed-32x113's molecule bins; artifact-mol-113 (indexed, no launches)
+    and artifact-packed-32x113 (molecule bins, D and E 4 a request), each
+    with times and a bitwise repeat; the card against the CPU on the
+    1,200-atom box and an 8-molecule packed batch within ``CHECK_ABS``; a
+    request with an element outside ``implemented_species`` (Cl) raises
+    ``ValueError`` and launches nothing."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, SRCoulombHead
+    from aimnetcentral_tpu_torch.train.export import export_model
+
+    path = os.path.join(out_dir, "artifact-wb97m-d3.pt")
+    t0 = time.perf_counter()
+    export_model(params_d3, cfg_d3, path, sae=ARTIFACT_SAE, implemented_species=ARTIFACT_SPECIES)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calc = AIMNet2Calculator(path, device="cuda")
+    t_load = time.perf_counter() - t0
+    heads = dict(calc.cfg.outputs)
+    sr, coul, d3 = heads.get("srcoulomb"), heads.get("external_coulomb"), heads.get("external_dftd3")
+    if not (isinstance(sr, SRCoulombHead) and isinstance(coul, LRCoulombHead) and coul.method == "simple"
+            and not coul.subtract_sr and isinstance(d3, DFTD3Head)):
+        raise SystemExit(f"FAIL: the artifact loaded with other heads: {list(heads)}")
+    log(f"[artifact] exported in {t_export:.2f} s ({os.path.getsize(path) / 2**20:.1f} MiB), loaded onto the card "
+        f"in {t_load:.2f} s; heads {list(heads)}; SR Coulomb rc {sr.rc} A ({sr.envelope}), external Coulomb "
+        f"{coul.method} without its SR part, D3 s8 {d3.s8} a1 {d3.a1} a2 {d3.a2}")
+    res: dict = {"export_s": t_export, "load_s": t_load}
+    launches = {name: 0 for name in counters()}
+    conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
+    four = {**conv, "pair_sweep_forward": 4, "pair_sweep_backward": 4}
+
+    res["main"] = phase_main_path("artifact-10k", calc, coord, numbers, cell, four)
+    for name, n in res["main"]["launches"].items():
+        launches[name] += n
+    data = {"coord": coord, "numbers": numbers, "cell": cell}
+    sysb = calc.prepare_system(data)
+    if calc._prep_cache["kind"] != "binned":
+        raise SystemExit("FAIL: artifact-10k did not run on the binned layout")
+    # the in-memory source model, with the same SAE table
+    table = np.zeros(64)
+    for z, e in ARTIFACT_SAE.items():
+        table[z] += e
+    source = AIMNet2Calculator((params_d3, cfg_d3, {"sae": {"atomic_shift": table}}), device="cuda")
+    got, ref = calc.eval(data, forces=True), source.eval(data, forces=True)
+    floor = F32_EPS * energy_terms_abs(params_d3, cfg_d3, source.prepare_system(data))
+    de = abs(float(got["energy"][0] - ref["energy"][0]))
+    e_tol = max(REL_TOL * abs(float(ref["energy"][0])), floor)
+    df = float(np.abs(got["forces"] - ref["forces"]).max())
+    log(f"[artifact] artifact-10k against the in-memory source model: E {got['energy'][0]:.6f} against "
+        f"{ref['energy'][0]:.6f} eV, |dE| {de:.3e} eV (limit {e_tol:.3e}: 1e-5 relative, floor {floor:.3e}); "
+        f"max |dF| {df:.3e} eV/A (limit 1e-4)")
+    if de > e_tol or df > 1e-4:
+        raise SystemExit("FAIL: the loaded artifact and its source model disagree on artifact-10k")
+    res["against_source"] = {"dE": de, "dE_limit": e_tol, "dF": df}
+    del source
+    torch.cuda.empty_cache()
+    _rows, res["pair_kernels_detail"] = phase_pair_kernels(calc, sysb, "artifact 10k", only=("coulomb_sr", "dsf"))
+
+    mol = gas_cluster(113, seed=1)
+    batch32 = [gas_cluster(113, seed=200 + k) for k in range(32)]
+    none = {name: 0 for name in counters()}
+    res["requests"] = {}
+    for label, data_g, per_request in (("artifact-mol-113", mol, none), ("artifact-packed-32x113", batch32, four)):
+        calc_g = AIMNet2Calculator(path, device="cuda")
+        res["requests"][label] = gas_request(label, calc_g, data_g, False, per_request)
+        for name, n in res["requests"][label]["launches"].items():
+            launches[name] += n
+        if label.startswith("artifact-packed"):
+            layout = calc_g._prep_cache["system"]
+            if calc_g._prep_cache["kind"] != "packed":
+                raise SystemExit(f"FAIL: {label} did not run on the molecule-bin layout")
+            _rows, res["packed_pair_kernels_detail"] = phase_pair_kernels(calc_g, layout, label, only=("coulomb_sr",))
+        del calc_g
+        torch.cuda.empty_cache()
+
+    box_c, numbers_c, cell_c = build_box(N_CHECK, seed=1)
+    batch8 = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
+    res["checks"] = {
+        "artifact-1200": artifact_card_vs_cpu("artifact-1200", path, {"coord": box_c, "numbers": numbers_c,
+                                                                      "cell": cell_c}, True),
+        "artifact-packed-8": artifact_card_vs_cpu("artifact-packed-8", path, batch8, False, binned_threshold=512),
+    }
+    if res["checks"]["artifact-packed-8"]["layout"] != "packed":
+        raise SystemExit("FAIL: artifact-packed-8 did not run on the molecule-bin layout")
+
+    # the species gate: an element outside implemented_species is refused
+    # before any layout is built or kernel launched
+    bad = {"coord": coord, "numbers": numbers.copy(), "cell": cell}
+    bad["numbers"][0] = 17
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    try:
+        calc.eval(bad, forces=True)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise SystemExit("FAIL: a request with Cl passed the species gate")
+    gate = {name: fn.launches for name, fn in wrappers.items()}
+    if any(gate.values()):
+        raise SystemExit(f"FAIL: the refused request launched kernels: {gate}")
+    log(f"[artifact] a request with Cl is refused without a launch: {refused[:90]}")
+    res["launches"] = launches
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
@@ -1686,7 +1873,10 @@ def main() -> None:
     results["md_check"] = phase_md_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
     results["packed"] = phase_packed(params, cfg, params_d3, cfg_d3)
     results["md_gas"] = phase_md_gas(params, cfg, params_d3, cfg_d3)
+    with tempfile.TemporaryDirectory() as out_dir:
+        results["artifact"] = phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir)
     for k in kernels:
+        k["launches"] += results["artifact"]["launches"][k["name"]]
         k["launches"] += results["packed"]["launches"][k["name"]]
         k["launches"] += sum(w["launches"][k["name"]] for w in results["md_gas"]["windows"].values())
         k["launches"] += sum(w["launches"][k["name"]] for w in md_runs["windows"].values())

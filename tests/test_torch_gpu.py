@@ -312,7 +312,9 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     reversed; ``gas``: 40 atoms on a gas-phase 3x2x2 grid at radius 2
     (steps without a candidate bin); ``packed``: the molecule-bin layout of
     :func:`_packed` at radius 0, cutoff inf for simple Coulomb (every pair
-    of a molecule) and 15 A for the other terms.  ``d3_energy_v70`` is the D3 energy
+    of a molecule) and 15 A for the other terms.  ``coulomb_sr`` (the SR
+    Coulomb of v2 artifacts) sweeps at its own rc, 4.6 A, on every layout.
+    ``d3_energy_v70`` is the D3 energy
     term with random factorised vectors of V = 70, the width of all 14
     elements of the released models."""
     rng = np.random.default_rng(seed)
@@ -341,12 +343,16 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     if layout != "packed":
         sysb, _perm, ovf = B.to_binned_system(system_from_molecules([mol], CPU), grid, lr)
         assert not ovf.any()
+    if term_name == "coulomb_sr":
+        cutoff = 4.6
     where = "lr" if layout == "images" else "sr"
     tables = head_init(None, DFTD3Head(s8=0.3908, a1=0.566, a2=3.128), CPU)
     d3e = ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=0.8 * cutoff, r_off=cutoff)
-    if term_name in ("dsf", "coulomb_simple"):
+    if term_name in ("dsf", "coulomb_simple", "coulomb_sr"):
         if term_name == "dsf":
             term = ps.DSFTerm(alpha=0.2, dsf_rc=cutoff, rc=4.6)
+        elif term_name == "coulomb_sr":
+            term = ps.CoulombSRTerm(rc=4.6, envelope="cosine" if layout == "edges" else "exp")
         else:
             term = ps.CoulombSimpleTerm(rc=4.6)
         extras = {"q": torch.tensor(rng.normal(size=sysb.natoms).astype(np.float32) * 0.3)
@@ -375,7 +381,7 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
 
 
 PAIR_LAYOUTS = ["banded", "images", "wide", "edges", "gas", "packed"]
-PAIR_TERMS = ["dsf", "coulomb_simple", "d3_cn", "d3_energy"]
+PAIR_TERMS = ["dsf", "coulomb_simple", "coulomb_sr", "d3_cn", "d3_energy"]
 
 
 @pytest.mark.parametrize("term_name", PAIR_TERMS)

@@ -37,5 +37,8 @@ def test_port_imports_no_jax():
                  "aimnetcentral_tpu_torch.kernels.pair_sweep", "aimnetcentral_tpu_torch.models.engine_binned",
                  "aimnetcentral_tpu_torch.ops.neighbors", "aimnetcentral_tpu_torch.ops.cell_list",
                  "aimnetcentral_tpu_torch.builders",
-                 "aimnetcentral_tpu_torch.models.lr"):
+                 "aimnetcentral_tpu_torch.models.lr", "aimnetcentral_tpu_torch.models.loader",
+                 "aimnetcentral_tpu_torch.models.convert", "aimnetcentral_tpu_torch.models.validation",
+                 "aimnetcentral_tpu_torch.calculators.registry", "aimnetcentral_tpu_torch.train.export",
+                 "aimnetcentral_tpu_torch.config", "aimnetcentral_tpu_torch.io"):
         assert must in names

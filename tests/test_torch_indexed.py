@@ -393,7 +393,8 @@ def test_lr_terms(lists, layout, term):
 
 def test_srcoulomb_head(lists):
     """The SR Coulomb head subtracts ``coulomb_sr`` from the energy on the
-    indexed layout, as JAX's does; the binned layout raises."""
+    indexed layout, as JAX's does, and on the binned layout of the same box
+    (the SR Coulomb term of the pair sweep) gives the same energy."""
     jsys, tsys = lists["box"]
     q = _charges(tsys.natoms)
     jd = {"charges": jnp.asarray(q), "energy": jnp.ones(1)}
@@ -401,8 +402,14 @@ def test_srcoulomb_head(lists):
     ref = jheads.head_apply(jheads.SRCoulombHead(envelope="cosine"), {}, jd, jsys)["energy"]
     got = theads.head_apply(theads.SRCoulombHead(envelope="cosine"), {}, td, tsys)["energy"]
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        theads.head_apply(theads.SRCoulombHead(), {}, td, tsys.replace(bins=tB.BinGrid((1, 1, 1), 64, 5.6, True)))
+    box = _box()
+    grid = tB.plan_bins(box["cell"], len(box["numbers"]), 5.6, safety=3.0)
+    bsys, perm, ovf = tB.to_binned_system(tbuilders.system_from_molecules([box], CPU, n_pad=64), grid, None)
+    assert not ovf.any()
+    q_slots = torch.where(bsys.numbers > 0, torch.tensor(q)[perm], 0.0)
+    binned = theads.head_apply(theads.SRCoulombHead(envelope="cosine"), {},
+                               {"charges": q_slots, "energy": torch.ones(1)}, bsys)["energy"]
+    np.testing.assert_allclose(binned.numpy(), np.asarray(ref), rtol=1e-5)
 
 
 def test_d3_forces_stay_finite_with_padding_and_isolated_atoms():

@@ -8,7 +8,8 @@ One gas-phase molecule a bin, every sweep at radius 0
   tests/test_packed_train.py::test_packed_apply_matches_indexed: energy
   2e-6 eV, charges 1e-6, coordinate gradient 1e-5);
 - ``coulomb_simple_binned`` with both envelopes, the SR part subtracted or
-  not (energy and gradients within 1e-5 of their largest magnitude);
+  not, and ``coulomb_sr_binned`` with both envelopes (energy and gradients
+  within 1e-5 of their largest magnitude);
 - kernels D and E's walk (emulated as in tests/test_torch_pair.py) at
   radius 0, at cutoff inf and at 15 A, against the plain sweep and its
   pair count: each real atom meets every other atom of its molecule;
@@ -168,7 +169,31 @@ def test_coulomb_simple_binned_matches_jax(envelope, subtract_sr):
                                   subtract_sr)
 
 
-@pytest.mark.parametrize("term_name", ["coulomb_simple", "dsf", "d3_cn"])
+@pytest.mark.parametrize("envelope", ["exp", "cosine"])
+def test_coulomb_sr_binned_matches_jax(envelope):
+    """The SR Coulomb of v2 artifacts on molecule bins: per-molecule
+    energies and their coordinate and charge gradients."""
+    jsys = jbuilders.system_molecule_bins(PACKED)
+    tsys = _port_packed(PACKED)
+    rng = np.random.default_rng(10)
+    q = (rng.normal(size=tsys.natoms) * 0.3).astype(np.float32) * (tsys.numbers.numpy() > 0)
+    w = rng.normal(size=tsys.num_mol).astype(np.float32)
+
+    def j_loss(coord, qj):
+        e = jeb.coulomb_sr_binned(jsys.replace(coord=coord), qj, 4.6, envelope)
+        return (e * w).sum(), e
+
+    (_l, je), jg = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(jsys.coord, jnp.asarray(q))
+    coord = tsys.coord.clone().requires_grad_(True)
+    qt = torch.tensor(q, requires_grad=True)
+    te = teb.coulomb_sr_binned(tsys.replace(coord=coord), qt, 4.6, envelope)
+    tg = torch.autograd.grad((te * torch.tensor(w)).sum(), (coord, qt))
+    _close(te, je)
+    _close(tg[0], jg[0])
+    _close(tg[1], jg[1])
+
+
+@pytest.mark.parametrize("term_name", ["coulomb_simple", "dsf", "d3_cn", "coulomb_sr"])
 def test_radius_zero_walk_matches_plain(term_name):
     """Kernels D and E's walk at radius 0 (cutoff inf for simple Coulomb,
     15 A for DSF and the D3 coordination number) against the plain forward,
@@ -184,8 +209,10 @@ def test_radius_zero_walk_matches_plain(term_name):
         "coulomb_simple": (ps.CoulombSimpleTerm(rc=4.6), math.inf, {"q": q}),
         "dsf": (ps.DSFTerm(alpha=0.2, dsf_rc=15.0, rc=4.6), 15.0, {"q": q}),
         "d3_cn": (ps.D3CNTerm(), 15.0, {"rcov": rcov}),
+        "coulomb_sr": (ps.CoulombSRTerm(rc=4.6), 4.6, {"q": q}),
     }[term_name]
-    st, ops = teb.pair_operands(tsys, cutoff, term, extras, layout="lr")  # no LR twin: the one grid
+    layout = "sr" if term_name == "coulomb_sr" else "lr"  # no LR twin: the one grid either way
+    st, ops = teb.pair_operands(tsys, cutoff, term, extras, layout=layout)
     assert (st.s_tot, st.b_tot, st.c) == (1, len(mols), 40) and st.cutoff == cutoff
     args = {k: ops[k] for k in ("coord", "mask", "ext", "shift", "nbr", "inv")}
     ct = torch.tensor(rng.normal(size=(st.b_tot, st.c)), dtype=torch.float32)

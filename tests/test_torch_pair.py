@@ -259,13 +259,17 @@ def _half_pair_count(st, ops) -> int:
     return total
 
 
-@pytest.mark.parametrize("term_name", ["dsf_exp", "d3_cn", "d3_energy"])
+@pytest.mark.parametrize("term_name", ["dsf_exp", "d3_cn", "d3_energy", "coulomb_sr"])
 def test_kernel_algorithm_matches_plain(case, term_name):
     """Kernels D and E's algorithm (full stencil from the receiver's side,
     compacted pairs in lanes of 32) against the plain forward and its
-    autograd, and the pairs it contracts against the plain count."""
+    autograd, and the pairs it contracts against the plain count.  The SR
+    Coulomb term sweeps at its own rc (4.6 A), below the grids' edges."""
     _bj, bt, cutoff, layout, ex = case
-    term = _terms(cutoff)[term_name][0]
+    if term_name == "coulomb_sr":
+        term, cutoff = ps.CoulombSRTerm(rc=4.6), 4.6
+    else:
+        term = _terms(cutoff)[term_name][0]
     extras = {k: torch.tensor(ex[k]) for k in list(term.vector_keys) + [term.scalar_key]}
     st, ops = teb.pair_operands(bt, cutoff, term, extras, layout)
     args = {k: ops[k] for k in ("coord", "mask", "ext", "shift", "nbr", "inv")}
@@ -280,6 +284,29 @@ def test_kernel_algorithm_matches_plain(case, term_name):
             _close(emu_grads[1][..., cols].numpy(), ref[1][..., cols].numpy(), 3e-5)
     assert torch.equal(counts, ps.pair_counts_plain(st, **{k: args[k] for k in args if k != "ext"}))
     assert int(counts.sum()) == 2 * _half_pair_count(st, ops) > 0
+
+
+@pytest.mark.parametrize("envelope", ["exp", "cosine"])
+def test_coulomb_sr_binned_matches_jax(case, envelope):
+    """``coulomb_sr_binned`` on the SR grid (spatial, periodic) against JAX's:
+    per-molecule energy and its coordinate and charge gradients, within
+    1e-5 of their largest magnitude."""
+    bj, bt, _cutoff, _layout, ex = case
+    q = ex["q"]
+
+    def j_energy(coord, qj):
+        e = jeb.coulomb_sr_binned(bj.replace(coord=coord), qj, 4.6, envelope)
+        return e.sum(), e
+
+    (_e, je), jg = jax.value_and_grad(j_energy, argnums=(0, 1), has_aux=True)(bj.coord, jnp.asarray(q))
+    coord = bt.coord.clone().requires_grad_(True)
+    qt = torch.tensor(q, requires_grad=True)
+    te = teb.coulomb_sr_binned(bt.replace(coord=coord), qt, 4.6, envelope)
+    tg = torch.autograd.grad(te.sum(), (coord, qt))
+    _close(te.detach().numpy(), je, 1e-5)
+    _close(tg[0].numpy(), jg[0], 1e-5)
+    _close(tg[1].numpy(), jg[1], 1e-5)
+    assert float(np.abs(np.asarray(je)).max()) > 0.0
 
 
 def test_second_order_raises(case):
@@ -302,7 +329,7 @@ def _distances(term) -> np.ndarray:
     if isinstance(term, ps.DSFTerm):
         rc = term.rc
         d += [rc * (1.0 - 1e-6), rc, rc - 1e-3, rc + 1e-3, term.dsf_rc - 1e-3, term.dsf_rc + 0.5]
-    elif isinstance(term, ps.CoulombSimpleTerm):
+    elif isinstance(term, (ps.CoulombSimpleTerm, ps.CoulombSRTerm)):
         rc = term.rc
         d += [rc * (1.0 - 1e-6), rc, rc - 1e-3, rc + 1e-3, 40.0]
     elif isinstance(term, ps.D3CNTerm):
@@ -320,6 +347,8 @@ HAND_TERMS = {
     "simple_exp": ps.CoulombSimpleTerm(rc=4.6),
     "simple_cosine": ps.CoulombSimpleTerm(rc=4.6, envelope="cosine"),
     "simple_no_sr": ps.CoulombSimpleTerm(rc=4.6, subtract_sr=False),
+    "sr_exp": ps.CoulombSRTerm(rc=4.6),
+    "sr_cosine": ps.CoulombSRTerm(rc=4.6, envelope="cosine"),
     "d3_cn": ps.D3CNTerm(),
     "d3_energy": ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=12.0, r_off=15.0),
 }
