@@ -9,10 +9,7 @@
 // the padding atom's zero extras.
 //
 // Constants (TermConsts.c): c[0] is the cutoff, c[1..] the term's own, in
-// the order of the term's consts() in kernels/pair_sweep.py.  ``Real`` is
-// the type a term computes in: float, or double for a term whose float
-// rounding would lose to its plain version (csrc/pair_walk.cuh runs the
-// distance, the chain rule and the receiver's sums in it too).
+// the order of the term's consts() in kernels/pair_sweep.py.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,7 +62,6 @@ __device__ inline void envelope(int env, float rc, float d, float& fc, float& df
 // c = [cutoff, alpha, shift_val, shift_slope, dsf_rc, rc, env]
 struct DsfTerm {
   static constexpr bool kBilinear = false;
-  using Real = float;  // the type of the term, the chain rule and the sums (csrc/pair_walk.cuh)
 
   __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
     const float a = k.c[1];
@@ -102,7 +98,6 @@ struct DsfTerm {
 // layout (radius 0): every pair of a molecule.  c = [cutoff, rc, env]
 struct CoulombSimpleTerm {
   static constexpr bool kBilinear = false;
-  using Real = float;  // the type of the term, the chain rule and the sums (csrc/pair_walk.cuh)
 
   __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
     float fc, dfc;
@@ -148,37 +143,33 @@ __device__ inline void envelope64(int env, double rc, double d, double& fc, doub
 
 // Short-range Coulomb (the SRCoulomb head of v2 artifacts, which subtracts
 // it): g = q_i q_j fc(d)/d with the SR envelope (env 1 exp, 2 cosine), swept
-// at cutoff rc.  It runs in double (Real), from the distance to the sums:
-// its few pairs a receiver (about 36 within 4.6 A) carry 1/d^2 forces, and
-// in float the rounding of each pair's chain came to more than twice the
-// plain version's distance from an f64 run (2.7e-7 of the largest force on
-// 32 molecules of 113 atoms, H100 80GB HBM3).  c = [cutoff, rc, env]
+// at cutoff rc.  It computes in double from the walk's float distance and
+// rounds its four results to float once each.  c = [cutoff, rc, env]
 struct CoulombSRTerm {
   static constexpr bool kBilinear = false;
-  using Real = double;
 
-  __device__ static void h(const TermConsts& k, double d, double& hv, double& dh) {
+  __device__ static void h(const TermConsts& k, float d, double& hv, double& dh) {
     double fc, dfc;
-    envelope64(int(k.c[2]), double(k.c[1]), d, fc, dfc);
-    const double inv_d = 1.0 / d;
+    envelope64(int(k.c[2]), double(k.c[1]), double(d), fc, dfc);
+    const double inv_d = 1.0 / double(d);
     hv = fc * inv_d;
     dh = dfc * inv_d - fc * inv_d * inv_d;
   }
 
-  __device__ static double g(const TermConsts& k, double d, float si, float sj) {
+  __device__ static float g(const TermConsts& k, float d, float si, float sj) {
     double hv, dh;
     h(k, d, hv, dh);
-    return double(si) * double(sj) * hv;
+    return float(double(si) * double(sj) * hv);
   }
 
-  __device__ static void grad(const TermConsts& k, double d, float si, float sj, double& g,
-                              double& gd, double& gsi, double& gsj) {
+  __device__ static void grad(const TermConsts& k, float d, float si, float sj, float& g,
+                              float& gd, float& gsi, float& gsj) {
     double hv, dh;
     h(k, d, hv, dh);
-    g = double(si) * double(sj) * hv;
-    gd = double(si) * double(sj) * dh;
-    gsi = double(sj) * hv;
-    gsj = double(si) * hv;
+    g = float(double(si) * double(sj) * hv);
+    gd = float(double(si) * double(sj) * dh);
+    gsi = float(double(sj) * hv);
+    gsj = float(double(si) * hv);
   }
 };
 
@@ -186,7 +177,6 @@ struct CoulombSRTerm {
 // d_b = max(d / Bohr, 1e-12).  c = [cutoff, 1/Bohr]
 struct D3CnTerm {
   static constexpr bool kBilinear = false;
-  using Real = float;  // the type of the term, the chain rule and the sums (csrc/pair_walk.cuh)
 
   __device__ static float g(const TermConsts& k, float d, float si, float sj) {
     const float db = fmaxf(d * k.c[1], 1e-12f);
@@ -211,7 +201,6 @@ struct D3CnTerm {
 // e = (p_i . r_j) g.  c = [cutoff, a1, a2, s8, s6, r_on, r_off, 1/Bohr]
 struct D3EnergyTerm {
   static constexpr bool kBilinear = true;
-  using Real = float;
 
   __device__ static void parts(const TermConsts& k, float d, float si, float sj, float& damp,
                                float& ddamp_db, float& ddamp_drr, float& sw, float& dsw,

@@ -44,7 +44,6 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
-#include <type_traits>
 
 #include "pair_terms.cuh"
 
@@ -95,8 +94,7 @@ __host__ __device__ inline int warp_words(int K, int S, bool adjoint) {
   return 5 * kQueue + K + (adjoint ? 3 * S : 0);
 }
 
-template <class R>
-__device__ __forceinline__ R warp_sum(R x) {
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
@@ -152,10 +150,8 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
   // margin far above the rounding of the slot tests keeps this exact
   const float prune_d2 = 1.0001f * a.d2_max + 1e-6f;
 
-  // this lane's partial sums over its pairs, finished by one butterfly, in
-  // the term's type R (float, or double from the distance on)
-  using R = typename Term::Real;
-  R acc_o = 0, acc_x = 0, acc_y = 0, acc_z = 0, acc_s = 0;
+  // this lane's partial sums over its pairs, finished by one butterfly
+  float acc_o = 0.0f, acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f, acc_s = 0.0f;
   constexpr int kM = M > 0 ? M : 1;
   float padj[kM], radj[kM];  // E, bilinear: columns lane + 32 m
 #pragma unroll
@@ -171,12 +167,7 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
     float shx = 0.0f, shy = 0.0f, shz = 0.0f, wp = 0.0f, wr = 0.0f;
     if (on) {
       const float dx = qx[lane], dy = qy[lane], dz = qz[lane];
-      R d;
-      if constexpr (std::is_same_v<R, float>) {
-        d = sqrtf(dist2(dx, dy, dz));
-      } else {
-        d = sqrt(double(dx) * dx + double(dy) * dy + double(dz) * dz);
-      }
+      const float d = sqrtf(dist2(dx, dy, dz));
       const int kind = o == 0 ? 0 : (o < S ? 1 : 2);
       const float* er = a.ext + size_t(jr) * K;  // the candidate's [p, r, s]
       const float sj = __ldg(er + 2 * V);
@@ -197,22 +188,22 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
         acc_o += (kind == 2 ? cji : cij) * Term::g(a.tc, d, si, sj);
       } else {
         const float ctj = a.ct[jr];
-        R g, gd, gsi, gsj;
+        float g, gd, gsi, gsj;
         Term::grad(a.tc, d, si, sj, g, gd, gsi, gsj);
         const float cp = kind == 0 ? cti : (kind == 1 ? cti + ctj : 0.0f);  // on c_ij
         const float cq = kind == 0 ? ctj : (kind == 2 ? cti + ctj : 0.0f);  // on c_ji
-        const R e = R(cp) * cij + R(cq) * cji;
-        const R fd = e * gd / d;
+        const float e = cp * cij + cq * cji;
+        const float fd = e * gd / d;
         acc_x -= fd * dx;
         acc_y -= fd * dy;
         acc_z -= fd * dz;
         acc_s += e * gsi;
-        const R fs = R(cp) * cij * gd / d;  // 0 on the lower half
-        shx = float(fs * dx);
-        shy = float(fs * dy);
-        shz = float(fs * dz);
-        wp = float(cp * g);
-        wr = float(cq * g);
+        const float fs = cp * cij * gd / d;  // 0 on the lower half
+        shx = fs * dx;
+        shy = fs * dy;
+        shz = fs * dz;
+        wp = cp * g;
+        wr = cq * g;
       }
     }
     if (kAdjoint) {
@@ -370,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
 
   if (!kAdjoint) {
     acc_o = warp_sum(acc_o);
-    if (lane == 0) a.out[row] = float(acc_o);
+    if (lane == 0) a.out[row] = acc_o;
   } else {
     acc_x = warp_sum(acc_x);
     acc_y = warp_sum(acc_y);
@@ -378,10 +369,10 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
     acc_s = warp_sum(acc_s);
     float* ge = a.ge + size_t(row) * K;
     if (lane == 0) {
-      a.gc[3 * size_t(row) + 0] = float(acc_x);
-      a.gc[3 * size_t(row) + 1] = float(acc_y);
-      a.gc[3 * size_t(row) + 2] = float(acc_z);
-      ge[2 * V] = float(acc_s);
+      a.gc[3 * size_t(row) + 0] = acc_x;
+      a.gc[3 * size_t(row) + 1] = acc_y;
+      a.gc[3 * size_t(row) + 2] = acc_z;
+      ge[2 * V] = acc_s;
     }
 #pragma unroll
     for (int m = 0; m < kM; ++m) {

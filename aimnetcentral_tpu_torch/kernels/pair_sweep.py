@@ -217,7 +217,7 @@ class CoulombSRTerm:
     """Short-range Coulomb, ``q_i q_j fc(d)/d`` with the SR envelope, swept
     at cutoff ``rc`` (engine_binned.coulomb_sr_binned in the JAX package):
     the SRCoulomb head of v2 artifacts, which the head subtracts.  Kernels
-    D and E evaluate it in double, from the distance to the receiver's sums
+    D and E evaluate the term in double from their float distance
     (csrc/pair_terms.cuh::CoulombSRTerm); the plain versions in the
     inputs' type."""
 

@@ -58,7 +58,7 @@ Phases (any failure exits nonzero; nothing is caught):
    measurements are taken over the first 50 steps of a fresh NVE driver at
    each tier, gated at ``exact`` on the total energy (within 1e-4 of
    itself); two drivers of one seed give the same coordinates bit for bit
-   after 50 steps; on the 1,200-atom box, 5 NVE steps and 5 FIRE steps
+   after 50 steps; on the 1,200-atom box, 10 NVE steps and 10 FIRE steps
    of wb97m-d3 on the card at the exact tier against the CPU, per-step
    energies and forces and final coordinates within ``CHECK_ABS``, with the
    same steps at ``fast`` as the control that must exceed them;
@@ -94,13 +94,14 @@ Phases (any failure exits nonzero; nothing is caught):
    (``phase_artifact``): its heads (SR Coulomb in the model, external
    simple Coulomb without its SR part, external D3); artifact-10k (the
    10,000-atom box, as phase 4, A, B 3 and D, E 4 a request) against the
-   in-memory source model; D and E with the SR Coulomb term and with DSF
-   without its SR part against their plain versions on its layout, and the
-   SR term on molecule bins; artifact-mol-113 and artifact-packed-32x113
-   (launches, times, a bitwise repeat); the card against the CPU on 1,200
-   atoms and an 8-molecule packed batch within ``CHECK_ABS``; a request
-   with an element outside ``implemented_species`` refused without a
-   launch.
+   in-memory source model; D and E with each of its four pair terms (the
+   SR Coulomb on the SR grid, DSF without its SR part and both D3 sweeps on
+   the LR grid) against their plain versions, and again on
+   artifact-packed-32x113's molecule bins; artifact-mol-113 and
+   artifact-packed-32x113 (launches, times, a bitwise repeat, the host's
+   spans); the card against the CPU on 1,200 atoms and an 8-molecule
+   packed batch within ``CHECK_ABS``; a request with an element outside
+   ``implemented_species`` refused without a launch.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
@@ -156,10 +157,6 @@ MD_HELD_GROWTH = 64 * 2**20  # bytes held after a window beyond those held befor
 MD_NVE_DRIFT = 1e-4  # NVE total energy change over the first 50 steps at the exact tier, of itself
 MD_SETTING = dict(dt_fs=0.5, temperature_K=300.0, thermostat="langevin", skin=0.3)  # bench.py:150
 MD_CHECK_STEPS = 10
-# NVE and FIRE steps of the 1,200-atom box's card-against-CPU check: at 10 its
-# CPU side took 287 s of an 802 s run (an H100 80GB HBM3 host, PERF.md), so
-# it runs 5
-BOX_CHECK_STEPS = 5
 LR_CUTOFF = 15.0  # DSF's dsf_rc and the D3 cutoff of both configurations
 
 
@@ -234,10 +231,12 @@ def counters() -> dict:
     }
 
 
-def bound(nbytes: float, flops: float, peak: float = FP32_PEAK) -> tuple[float, str]:
-    """The least time (ms) for ``nbytes`` moved and ``flops`` done at
-    ``peak`` operations a second."""
-    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, flops / peak * 1e3
+def bound(nbytes: float, flops: float, flops64: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` moved, ``flops`` FP32 operations
+    and ``flops64`` FP64 ones (on their own units, so the slower of the two
+    sets the operations' time)."""
+    t_bytes = nbytes / HBM_RATE * 1e3
+    t_ops = max(flops / FP32_PEAK, flops64 / FP64_PEAK) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -454,14 +453,14 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
     return kernels, detail
 
 
-OPS_PER_PAIR = {  # operations per unordered pair within the cutoff (csrc/pair_*.cu), FP32 but where OPS_PEAK says
+OPS_PER_PAIR = {  # FP32 operations (D, E) per unordered pair within the cutoff (csrc/pair_*.cu)
     "dsf": lambda v: (38, 75),
     "coulomb_simple": lambda v: (22, 51),
-    "coulomb_sr": lambda v: (21, 47),
+    "coulomb_sr": lambda v: (9, 22),
     "d3_cn": lambda v: (18, 42),
     "d3_energy": lambda v: (40 + 2 * v, 115 + 4 * v),
 }
-OPS_PEAK = {"coulomb_sr": FP64_PEAK}  # the SR Coulomb term runs in FP64 (csrc/pair_terms.cuh)
+OPS64_PER_PAIR = {"coulomb_sr": (12, 25)}  # FP64 ones: the SR Coulomb term's own (csrc/pair_terms.cuh)
 
 
 def pair_terms(calc, sysb) -> dict:
@@ -555,13 +554,12 @@ def _slot_tests(st, ops) -> int:
     return walked * st.c
 
 
-def phase_pair_kernels(calc, sysb, label: str = "request", only: tuple | None = None) -> tuple[list[dict], dict]:
+def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], dict]:
     """Kernels D and E against their plain versions on the layouts of the
     binned system ``sysb`` (a wb97m-d3-10k request's: three pair terms on
     the LR layout; a gas-phase DSF cluster's: one), for each pair term of
-    ``pair_terms`` (those in ``only`` when given): errors, the same against
-    an f64 plain run, the pairs each kernel contracted, E's scratch,
-    times."""
+    ``pair_terms``: errors, the same against an f64 plain run, the pairs
+    each kernel contracted, E's scratch, times."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
@@ -570,8 +568,6 @@ def phase_pair_kernels(calc, sysb, label: str = "request", only: tuple | None = 
     gen = torch.Generator(device="cuda").manual_seed(4)
     detail, sums = {}, {"D": {}, "E": {}}
     for name, (term, cutoff, extras, layout) in pair_terms(calc, sysb).items():
-        if only is not None and name not in only:
-            continue
         st, ops = eb.pair_operands(sysb, cutoff, term, extras, layout=layout)
         ops = {k: v.detach().contiguous() for k, v in ops.items()}
         ct = torch.randn((st.b_tot, st.c), generator=gen, device="cuda")
@@ -634,15 +630,16 @@ def phase_pair_kernels(calc, sysb, label: str = "request", only: tuple | None = 
         plain_d = time_cuda(lambda: ps.pair_forward_plain(st, term, **ops), reps=3, warmup=1)
         plain_e = time_cuda(lambda: ps.pair_backward_plain(st, term, **ops, ct=ct), reps=3, warmup=1)
         # least time: inputs read once and outputs written once, against
-        # the FP32 operations of the pairs within the cutoff
+        # the operations of the pairs within the cutoff
         ins = 4 * (st.b_tot * st.c * (4 + st.k) + st.s_tot * st.b_tot * 4) + 8 * st.s_tot * st.b_tot
         bytes_d = ins + 4 * st.b_tot * st.c
         bytes_e = ins + 4 * st.b_tot * st.c + 4 * (st.b_tot * st.c * (3 + st.k) + st.s_tot * st.b_tot * 3)
         ops_d, ops_e = OPS_PER_PAIR[name](st.v)
         flops_d, flops_e = float(ops_d * n_pairs), float(ops_e * n_pairs)
-        peak = OPS_PEAK.get(name, FP32_PEAK)
-        bound_d, by_d = bound(bytes_d, flops_d, peak)
-        bound_e, by_e = bound(bytes_e, flops_e, peak)
+        ops64_d, ops64_e = OPS64_PER_PAIR.get(name, (0, 0))
+        flops64_d, flops64_e = float(ops64_d * n_pairs), float(ops64_e * n_pairs)
+        bound_d, by_d = bound(bytes_d, flops_d, flops64_d)
+        bound_e, by_e = bound(bytes_e, flops_e, flops64_e)
         scratch = ps.bwd_scratch_bytes(st)
         log(f"[kernels {label}] {name} D: {ms_d:.3f} ms (plain {plain_d:.3f} ms), bound {bound_d:.4f} ms "
             f"by {by_d}; {ps.blocks(st)} blocks of {ps.WARPS} receiver rows (a warp each), "
@@ -656,19 +653,20 @@ def phase_pair_kernels(calc, sysb, label: str = "request", only: tuple | None = 
             "pairs_contracted": {"D": int(counts_d.sum()), "E": int(counts_e.sum())},
             "f64": f64, "scratch_bytes_e": scratch,
             "D": {"ms": ms_d, "plain_ms": plain_d, "bound_ms": bound_d, "bound_by": by_d,
-                  "max_abs_err": err_d, "rel_err": err_d / scale_d, "bytes": bytes_d, "flops": flops_d},
+                  "max_abs_err": err_d, "rel_err": err_d / scale_d, "bytes": bytes_d, "flops": flops_d,
+                  "flops64": flops64_d},
             "E": {"ms": ms_e, "plain_ms": plain_e, "bound_ms": bound_e, "bound_by": by_e,
-                  "errors": errs_e, "bytes": bytes_e, "flops": flops_e},
+                  "errors": errs_e, "bytes": bytes_e, "flops": flops_e, "flops64": flops64_e},
         }
-        for key, row, nbytes, flops, err in (
-            ("D", detail[name]["D"], bytes_d, flops_d, err_d),
-            ("E", detail[name]["E"], bytes_e, flops_e, max(e for e, _s in errs_e.values())),
+        for key, row, err in (
+            ("D", detail[name]["D"], err_d),
+            ("E", detail[name]["E"], max(e for e, _s in errs_e.values())),
         ):
             acc = sums[key]
             acc["ms"] = acc.get("ms", 0.0) + row["ms"]
             acc["plain_ms"] = acc.get("plain_ms", 0.0) + row["plain_ms"]
-            acc["bytes"] = acc.get("bytes", 0.0) + nbytes
-            acc["flops"] = acc.get("flops", 0.0) + flops
+            for k in ("bytes", "flops", "flops64"):
+                acc[k] = acc.get(k, 0.0) + row[k]
             acc["max_abs_err"] = max(acc.get("max_abs_err", 0.0), err)
         del ops, out_k, out_p, got, ref
         torch.cuda.empty_cache()
@@ -679,7 +677,7 @@ def phase_pair_kernels(calc, sysb, label: str = "request", only: tuple | None = 
         ("E", "pair_sweep_backward", "pair_bwd.cu", 283),
     ):
         acc = sums[key]
-        b_ms, b_by = bound(acc["bytes"], acc["flops"])
+        b_ms, b_by = bound(acc["bytes"], acc["flops"], acc["flops64"])
         rows.append({
             "name": name, "route": "cuda", "source": f"aimnetcentral_tpu_torch/csrc/{src}",
             "replaces": f"aimnetcentral_tpu/kernels/pair_sweep.py:{line}", "launches": None,
@@ -978,9 +976,15 @@ def dev_us(e) -> float:
     return float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
 
 
-def device_busy_ms(prof) -> float:
-    """Device time of a profile's kernel-level events (ms)."""
-    return sum(dev_us(e) for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+def on_device(e) -> bool:
+    """Whether a profiler event is on the device's timeline."""
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def device_busy_ms(prof, spans: tuple = ()) -> float:
+    """Device time of a profile's kernel-level events (ms), leaving out the
+    device side of the ``record_function`` spans named in ``spans``."""
+    return sum(dev_us(e) for e in prof.key_averages() if on_device(e) and e.key not in spans) / 1e3
 
 
 def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunks: int = MD_TIMED) -> dict:
@@ -1143,7 +1147,7 @@ def md_trace(drv, n_steps: int, n_atoms: int = N_CHECK) -> dict:
 
 
 def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> dict:
-    """On the 1,200-atom box: BOX_CHECK_STEPS NVE steps from the same
+    """On the 1,200-atom box: MD_CHECK_STEPS NVE steps from the same
     injected 300 K velocities at the exact tier, and as many FIRE steps, on the
     card and on the CPU.  Per step, the
     potential energy and every force are held to the absolute limits
@@ -1151,7 +1155,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
     steps on the card at the ``fast`` tier are the control, which must come
     out beyond a limit (CPU matmuls are exact f32 at every tier).  With a
     gas-phase molecule ``mol`` the same MD check runs on it (the indexed
-    engine) for MD_CHECK_STEPS steps, without FIRE."""
+    engine), without FIRE."""
     import torch
 
     from aimnetcentral_tpu_torch import constants
@@ -1165,7 +1169,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
     else:
         coord, numbers, cell = mol["coord"], mol["numbers"], None
     n = len(numbers)
-    steps = MD_CHECK_STEPS if mol is not None else BOX_CHECK_STEPS
+    steps = MD_CHECK_STEPS
     masses = constants.get_masses()[numbers]
     v0 = np.sqrt(constants.kB * 300.0 / masses)[:, None] * np.random.default_rng(5).normal(size=(n, 3))
     runs = {}
@@ -1315,16 +1319,53 @@ def gas_request(label: str, calc, data, stress: bool, per_request: dict, n_built
         torch.cuda.synchronize()
         built.append(time.perf_counter() - t0)
     # one more request under the profiler: device busy against the
-    # unprofiled median, and the kernels that take the device time
-    from torch.profiler import ProfilerActivity, profile
+    # unprofiled median, the kernels that take the device time, and the
+    # host's spans: the species check, the layout, the pair sweeps'
+    # operands and the copies back, each a record_function around the
+    # outermost call (inclusive host time under the profiler; the species
+    # check calls itself once a molecule)
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        calc.eval(data, forces=True, stress=stress)
-        torch.cuda.synchronize()
-    busy = device_busy_ms(prof)
+    from aimnetcentral_tpu_torch.models import engine_binned as eb
+
+    def spanned(name, fn):
+        depth = [0]
+
+        def run(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            try:
+                with record_function(name):
+                    return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return run
+
+    spans = {"species check": "_validate_species_and_charge", "prepare": "prepare_system",
+             "postprocess": "_postprocess"}
+    for name, attr in spans.items():
+        setattr(calc, attr, spanned(name, getattr(calc, attr)))
+    operands = eb.pair_operands
+    eb.pair_operands = spanned("pair operands", operands)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            calc.eval(data, forces=True, stress=stress)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eb.pair_operands = operands
+        for attr in spans.values():
+            delattr(calc, attr)
+    names = (*spans, "pair operands")
+    busy = device_busy_ms(prof, names)
+    events = prof.key_averages()
+    host = {e.key: (e.cpu_time_total / 1e3, e.count) for e in events if e.key in names and not on_device(e)}
+    host_launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                              "cudaLaunchKernelExC"))
     idle = max(0.0, 1 - busy / (np.median(reused) * 1e3))
-    top = sorted((e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")),
-                 key=dev_us, reverse=True)[:5]
+    top = sorted((e for e in events if on_device(e) and e.key not in names), key=dev_us, reverse=True)[:5]
     kind = calc._prep_cache["kind"]
     if kind == "indexed":
         lists = [s for s in ("", "_lr", "_coulomb", "_dftd3") if getattr(layout, f"nbmat{s}") is not None]
@@ -1341,8 +1382,11 @@ def gas_request(label: str, calc, data, stress: bool, per_request: dict, n_built
         f"request gives the same results bit for bit")
     log(f"[gas {label}] profiled request: device busy {busy:.2f} ms, idle share against the unprofiled median "
         f"{idle:.3f}; most device time: " + "; ".join(f"{dev_us(e) / 1e3:.2f} ms x{e.count} {e.key[:60]}" for e in top))
+    log(f"[gas {label}] profiled request's host: {profiled_ms:.2f} ms wall, {host_launches} kernel launches; "
+        + "; ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in host.items()))
     return {"layout": kind, "atoms": sum(sizes), "molecules": len(sizes), "launches": launches,
-            "device_busy_ms": busy, "idle_share": idle,
+            "device_busy_ms": busy, "idle_share": idle, "profiled_ms": profiled_ms,
+            "host_spans_ms": {k: ms for k, (ms, _n) in host.items()}, "host_launches": host_launches,
             "top": [{"name": e.key[:90], "ms": dev_us(e) / 1e3, "count": e.count} for e in top],
             "first_s": t_first, "reused_s": reused, "reused_median_s": float(np.median(reused)),
             "built_s": built, "built_median_s": float(np.median(built)), "peak_bytes": peak}
@@ -1698,11 +1742,11 @@ def phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dic
     D3 energy on the LR grid; ten timed reusing the layout and ten building
     it, a bitwise repeat, a profiled request) against the in-memory source
     model (energy 1e-5 relative with the f32 floor, forces 1e-4 eV/A); D
-    and E with the SR Coulomb and DSF (its SR part not subtracted) against
-    their plain versions on that layout, and the SR Coulomb on
-    packed-32x113's molecule bins; artifact-mol-113 (indexed, no launches)
-    and artifact-packed-32x113 (molecule bins, D and E 4 a request), each
-    with times and a bitwise repeat; the card against the CPU on the
+    and E with each of the four pair terms against their plain versions on
+    that layout and on packed-32x113's molecule bins; artifact-mol-113
+    (indexed, no launches) and artifact-packed-32x113 (molecule bins, D and
+    E 4 a request), each with times, a bitwise repeat and the host's spans
+    (as ``gas_request``); the card against the CPU on the
     1,200-atom box and an 8-molecule packed batch within ``CHECK_ABS``; a
     request with an element outside ``implemented_species`` (Cl) raises
     ``ValueError`` and launches nothing."""
@@ -1757,7 +1801,7 @@ def phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dic
     res["against_source"] = {"dE": de, "dE_limit": e_tol, "dF": df}
     del source
     torch.cuda.empty_cache()
-    _rows, res["pair_kernels_detail"] = phase_pair_kernels(calc, sysb, "artifact 10k", only=("coulomb_sr", "dsf"))
+    _rows, res["pair_kernels_detail"] = phase_pair_kernels(calc, sysb, "artifact 10k")
 
     mol = gas_cluster(113, seed=1)
     batch32 = [gas_cluster(113, seed=200 + k) for k in range(32)]
@@ -1772,7 +1816,7 @@ def phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dic
             layout = calc_g._prep_cache["system"]
             if calc_g._prep_cache["kind"] != "packed":
                 raise SystemExit(f"FAIL: {label} did not run on the molecule-bin layout")
-            _rows, res["packed_pair_kernels_detail"] = phase_pair_kernels(calc_g, layout, label, only=("coulomb_sr",))
+            _rows, res["packed_pair_kernels_detail"] = phase_pair_kernels(calc_g, layout, label)
         del calc_g
         torch.cuda.empty_cache()
 
