@@ -11,8 +11,12 @@ the flagship and the wB97M-D3 head sets and for released v2 artifacts
 (``models/loader.py``: ``.pt`` files, Hugging Face directories, registry
 names, behind the JAX package's trust boundary; ``train/export.py`` writes
 them), with the ConvSV stencil contraction, the pair sweep and their
-adjoints as CUDA kernels (``csrc/``); MD and FIRE on the binned and the
-indexed engines.  See ROADMAP.md for what is still to come.
+adjoints as CUDA kernels (``csrc/``); dense Hessians and Hessian-vector
+products on the indexed layout (``calculators/derivatives.py``; the kernels'
+wrappers are twice differentiable on the binned layouts), harmonic
+vibrations, IR intensities and RRHO thermochemistry, transition-state
+search and climbing-image NEB (``dynamics/``); MD and FIRE on the binned
+and the indexed engines.  See ROADMAP.md for what is still to come.
 """
 
 from aimnetcentral_tpu_torch.device import resolve_device  # noqa: F401

@@ -21,8 +21,11 @@ unchanged and no atom moved farther than ``reuse_skin / 2``, the prepared
 layout is reused (grids and lists reach the skin beyond every cutoff, so
 the result is exact); the molecule-bin layout is reused after any move (its
 bins are the molecules).  Every force evaluation runs inside its precision
-tier's context (``precision_tiers``).  Hessians and Ewald/PME raise with a
-pointer to ROADMAP.md.
+tier's context (``precision_tiers``).  Hessians (``eval(hessian=True)``,
+per structure for a batch) and Hessian-vector products
+(``hessian_vector_product``) run on the indexed layout, as in JAX, and never
+reuse a binned or packed layout.  Ewald/PME raise with a pointer to
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -134,10 +137,11 @@ def _as_molecules(data: Mapping[str, Any] | list | tuple) -> list[dict]:
     return mols
 
 
-def _prep_key(mols: list[dict]) -> tuple:
-    """What a reused layout must share with the new input: numbers, charge,
-    mult and cell of every molecule."""
-    return tuple(
+def _prep_key(mols: list[dict], allow_binned: bool) -> tuple:
+    """What a reused layout must share with the new input: the routing's
+    ``allow_binned`` and the numbers, charge, mult and cell of every
+    molecule."""
+    return allow_binned, tuple(
         (
             np.asarray(m["numbers"]).tobytes(),
             float(m.get("charge", 0.0)),
@@ -390,6 +394,7 @@ class AIMNet2Calculator:
     def _store_prep(
         self,
         mols: list[dict],
+        allow_binned: bool,
         system: System,
         kind: str,
         n_pad: int,
@@ -403,15 +408,16 @@ class AIMNet2Calculator:
         if self.reuse_skin <= 0:
             return
         self._prep_cache = {
-            "key": _prep_key(mols), "kind": kind, "system": system,
+            "key": _prep_key(mols, allow_binned), "kind": kind, "system": system,
             "ref": np.concatenate([np.asarray(m["coord"], np.float32) for m in mols]),
             "n_pad": n_pad, "perm": perm, "wrap": _builder_wrap(mols, n_pad),
         }
 
-    def _reuse_prepared(self, mols: list[dict]) -> System | None:
+    def _reuse_prepared(self, mols: list[dict], allow_binned: bool) -> System | None:
         """The cached layout with the new coordinates in it, while the
-        topology is unchanged and no atom moved farther than ``reuse_skin /
-        2`` since the build; None otherwise.  Lists and grids reach
+        routing (``allow_binned``) and the topology are unchanged and no
+        atom moved farther than ``reuse_skin / 2`` since the build; None
+        otherwise.  Lists and grids reach
         ``reuse_skin`` beyond every cutoff and every term masks at its own
         cutoff, so the result is exact: a pair's distance changes by at
         most the sum of its two atoms' moves.  The move is the Euclidean
@@ -422,7 +428,7 @@ class AIMNet2Calculator:
         layout ("packed") holds whatever the move: its bins are the
         molecules, and every sweep on it meets every pair of a molecule."""
         c = self._prep_cache
-        if c is None or self.reuse_skin <= 0 or c["key"] != _prep_key(mols):
+        if c is None or self.reuse_skin <= 0 or c["key"] != _prep_key(mols, allow_binned):
             return None
         new = np.concatenate([np.asarray(m["coord"], np.float32) for m in mols])
         if new.shape != c["ref"].shape:
@@ -445,16 +451,17 @@ class AIMNet2Calculator:
 
     # -- layouts ------------------------------------------------------------
 
-    def prepare_system(self, data: Mapping[str, Any] | list | tuple) -> System:
+    def prepare_system(self, data: Mapping[str, Any] | list | tuple, allow_binned: bool = True) -> System:
         """The System a request runs on, following the JAX package's
         routing: one structure at or above ``binned_threshold`` atoms goes
         onto the binned layout when it is periodic or its Coulomb is DSF or
         absent (a gas-phase grid then spans the atoms' extent); a gas-phase
         batch at or above it goes onto the molecule-bin layout when its
-        slots are at least a quarter full; everything else goes onto the
+        slots are at least a quarter full; everything else, and everything
+        when ``allow_binned`` is false (Hessians and HVPs), goes onto the
         indexed layout."""
         mols = _as_molecules(data)
-        reused = self._reuse_prepared(mols)
+        reused = self._reuse_prepared(mols, allow_binned)
         if reused is not None:
             return reused
         n_real = sum(len(m["numbers"]) for m in mols)
@@ -466,14 +473,14 @@ class AIMNet2Calculator:
         )
         if h_eff is not None and h_eff.method in ("ewald", "pme"):
             raise NotImplementedError(f"{h_eff.method} Coulomb is not ported yet (ROADMAP.md, queue 1, item 4)")
-        if not has_cell and len(mols) > 1 and n_real >= self.binned_threshold:
+        if allow_binned and not has_cell and len(mols) > 1 and n_real >= self.binned_threshold:
             cap = max(8, _round_up(max(len(m["numbers"]) for m in mols), 8))
             if cap * len(mols) <= 4 * n_real:
                 return self._prepare_packed(mols, n_real, cap)
         binned_ok = has_cell or h_eff is None or h_eff.method == "dsf"
-        if binned_ok and len(mols) == 1 and n_real >= self.binned_threshold:
+        if allow_binned and binned_ok and len(mols) == 1 and n_real >= self.binned_threshold:
             return self._prepare_binned(mols[0], n_real, n_pad, h_eff)
-        return self._prepare_indexed(mols, n_real, n_pad, has_cell, h_eff)
+        return self._prepare_indexed(mols, n_real, n_pad, has_cell, h_eff, allow_binned)
 
     def _prepare_packed(self, mols: list[dict], n_real: int, cap: int) -> System:
         """A gas-phase batch on the molecule-bin layout (capacity ``cap``):
@@ -487,7 +494,7 @@ class AIMNet2Calculator:
             perm[k * cap : k * cap + n] = np.arange(off, off + n)
             off += n
         self._last_perm = perm
-        self._store_prep(mols, system, "packed", n_real + 1, perm=perm)
+        self._store_prep(mols, True, system, "packed", n_real + 1, perm=perm)
         return system
 
     def _prepare_binned(self, mol: dict, n_real: int, n_pad: int, h_eff: LRCoulombHead | None) -> System:
@@ -526,11 +533,17 @@ class AIMNet2Calculator:
             if safety > 32:
                 raise RuntimeError("bin capacity planning failed")
         self._last_perm = perm.cpu().numpy()
-        self._store_prep([mol], sysb, "binned", n_pad, perm=self._last_perm)
+        self._store_prep([mol], True, sysb, "binned", n_pad, perm=self._last_perm)
         return sysb
 
     def _prepare_indexed(
-        self, mols: list[dict], n_real: int, n_pad: int, has_cell: bool, h_eff: LRCoulombHead | None
+        self,
+        mols: list[dict],
+        n_real: int,
+        n_pad: int,
+        has_cell: bool,
+        h_eff: LRCoulombHead | None,
+        allow_binned: bool,
     ) -> System:
         """Molecules, batches and small boxes on the indexed layout.  The SR
         list is all intra-molecular pairs for gas-phase inputs up to 2,048
@@ -564,7 +577,7 @@ class AIMNet2Calculator:
             mols, self.device, n_pad=n_pad, cutoff=reach(cutoff), lr_cutoff=reach(lr_cutoff),
             coulomb_cutoff=reach(coulomb_cutoff), dftd3_cutoff=reach(dftd3_cutoff), build_nbmat=True,
         )
-        self._store_prep(mols, system, "indexed", n_pad)
+        self._store_prep(mols, allow_binned, system, "indexed", n_pad)
         return system
 
     def eval(
@@ -576,9 +589,24 @@ class AIMNet2Calculator:
         *,
         validate_species: bool = True,
     ) -> dict[str, np.ndarray]:
+        """Energy (per molecule, with the float64 SAE), charges, and forces,
+        stress and the dense Hessian (n_real, 3, n_real, 3) as requested, in
+        input atom order.  A Hessian runs on the indexed layout; for a batch
+        it is taken per structure, and every key but ``energy`` is then a
+        list over the structures, as in JAX."""
         if validate_species:
             self._validate_species_and_charge(data)
-        system = self.prepare_system(data)
+        if hessian:
+            mols = _as_molecules(data)
+            if len(mols) > 1:
+                outs = [self.eval(m, forces=forces, stress=stress, hessian=True, validate_species=False)
+                        for m in mols]
+                res: dict[str, Any] = {"energy": np.concatenate([o["energy"] for o in outs])}
+                for k in outs[0]:
+                    if k != "energy":
+                        res[k] = [o[k] for o in outs]
+                return res
+        system = self.prepare_system(data, allow_binned=not hessian)
         cfg_eff = self._effective_cfg(system.cell is not None)
         fn = derivatives.make_eval_fn(
             cfg_eff, forces=forces, stress=stress, hessian=hessian, sae_external=True
@@ -588,6 +616,24 @@ class AIMNet2Calculator:
         return self._postprocess(out, system)
 
     __call__ = eval
+
+    def hessian_vector_product(
+        self, data: Mapping[str, Any] | list | tuple, v: np.ndarray, *, validate_species: bool = True
+    ) -> np.ndarray:
+        """Matrix-free ``H v`` (n_real, 3) on the indexed layout, ``v``
+        (n_real, 3) in input atom order; the same Hamiltonian as
+        ``eval(hessian=True)`` (periodic inputs switch simple Coulomb to
+        DSF), at the calculator's precision tier."""
+        if validate_species:
+            self._validate_species_and_charge(data)
+        system = self.prepare_system(data, allow_binned=False)
+        cfg_eff = self._effective_cfg(system.cell is not None)
+        n_real = int((system.numbers > 0).sum())
+        v_pad = torch.zeros((system.natoms, 3), dtype=system.coord.dtype, device=self.device)
+        v_pad[:n_real] = torch.as_tensor(np.asarray(v, dtype=np.float32).reshape(n_real, 3), device=self.device)
+        with ambient_matmul_context(precision_tiers(self.precision)):
+            hv = derivatives.make_hvp_fn(cfg_eff)(self.params, system, v_pad)
+        return hv[:n_real].cpu().numpy()
 
     def _postprocess(self, out: Mapping[str, torch.Tensor], system: System) -> dict[str, np.ndarray]:
         """Host copies in input atom order (through ``perm`` on the binned
@@ -617,4 +663,6 @@ class AIMNet2Calculator:
         for k in ("stress", "dipole", "quadrupole"):
             if k in fetched:
                 res[k] = fetched[k]
+        if "hessian" in fetched:  # the indexed layout: real atoms first
+            res["hessian"] = derivatives.real_atom_hessian(fetched["hessian"], n_real)
         return res

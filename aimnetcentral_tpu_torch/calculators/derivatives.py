@@ -1,9 +1,15 @@
-"""Forces and stress by autograd (counterpart of
-aimnetcentral_tpu/calculators/derivatives.py).
+"""Forces, stress, dense Hessians and Hessian-vector products by autograd
+(counterpart of aimnetcentral_tpu/calculators/derivatives.py).
 
 Forces are ``-dE/dcoord``; stress is the gradient with respect to a
-per-molecule row-vector strain over the cell volume.  The conv kernels'
-backward is first order only, so Hessians and HVPs are still to come.
+per-molecule row-vector strain over the cell volume.  Second derivatives
+are double backward: an HVP is the gradient of ``<dE/dcoord, v>``, and the
+dense Hessian stacks those for the unit vectors of the real atoms' rows,
+batched in chunks (JAX takes ``jacfwd`` of the gradient).  On the indexed
+layout every op is plain torch and twice differentiable; on the binned
+layouts the conv and pair kernels' wrappers carry the K3 second-order rules
+(kernels/conv_pass.py::ConvAcc, kernels/pair_sweep.py::PairAcc).  The
+calculator sends Hessians and HVPs to the indexed layout, as JAX does.
 """
 
 from __future__ import annotations
@@ -15,6 +21,10 @@ import torch
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config, aimnet2_apply
 from aimnetcentral_tpu_torch.ops.math import cellmul
 from aimnetcentral_tpu_torch.system import System
+
+HESSIAN_MEMORY_SHARE = 0.25  # of the card's memory a dense Hessian's chunk of rows may take
+HESSIAN_ROW_COPIES = 4  # a batched row's memory over the first-order graph's (a margin; PERF.md)
+CPU_HESSIAN_CHUNK = 64  # rows a chunk on the CPU
 
 
 def apply_strain(system: System, scaling: torch.Tensor) -> System:
@@ -30,6 +40,52 @@ def apply_strain(system: System, scaling: torch.Tensor) -> System:
 _KEEP = ("charges", "spin_charges", "mol_element_counts", "dipole", "quadrupole")
 
 
+def hessian_chunk(system: System, rows: int, graph_bytes: int) -> int:
+    """Unit rows a batched double backward takes at once.  On the card:
+    ``HESSIAN_MEMORY_SHARE`` of its memory over ``HESSIAN_ROW_COPIES``
+    times the bytes that the first-order graph holds (``graph_bytes``, the
+    memory allocated by the forward and the differentiable gradient); an
+    all-pairs indexed molecule's ``a[nbmat]`` alone is (N, M, 16, 16) f32
+    per row.  The card's total memory, not its free memory, sets it: the
+    free memory moves with what the caching allocator holds, and another
+    chunk adds the rows in another order, so one input would not give the
+    same bits twice.  On the CPU ``CPU_HESSIAN_CHUNK``.  Binned layouts take
+    one row at a time: the second backward runs the kernels' wrappers
+    again (B and E as first adjoints), and they take no vmap-batched
+    tensors."""
+    if system.bins is not None:
+        return 1
+    if system.device.type != "cuda":
+        return min(rows, CPU_HESSIAN_CHUNK)
+    total = torch.cuda.get_device_properties(system.device).total_memory
+    per_row = HESSIAN_ROW_COPIES * max(graph_bytes, 1)
+    return max(1, min(rows, int(HESSIAN_MEMORY_SHARE * total) // per_row))
+
+
+def dense_hessian(grad: torch.Tensor, coord: torch.Tensor, real: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(N, 3, N, 3) Jacobian of ``grad`` (N, 3), a differentiable gradient
+    of ``coord``, over the rows of the real atoms (``real``, (N,) bool); the
+    padding atoms' rows and columns are zero (no energy reads a padding
+    coordinate).  The unit rows go through the double backward ``chunk`` at
+    a time (``is_grads_batched`` when ``chunk`` > 1)."""
+    n = coord.shape[0]
+    flat = (torch.nonzero(real)[:, :1] * 3 + torch.arange(3, device=coord.device)).reshape(-1)
+    rows = flat.shape[0]
+    units = torch.zeros((rows, 3 * n), dtype=coord.dtype, device=coord.device)
+    units[torch.arange(rows, device=coord.device), flat] = 1.0
+    units = units.reshape(rows, n, 3)
+    h = torch.zeros((rows, n, 3), dtype=coord.dtype, device=coord.device)
+    for lo in range(0, rows, chunk):
+        hi = min(rows, lo + chunk)
+        if chunk > 1:
+            (h[lo:hi],) = torch.autograd.grad(grad, coord, units[lo:hi], retain_graph=True, is_grads_batched=True)
+        else:
+            (h[lo],) = torch.autograd.grad(grad, coord, units[lo], retain_graph=True)
+    out = torch.zeros((3 * n, n, 3), dtype=coord.dtype, device=coord.device)
+    out[flat] = h
+    return out.reshape(n, 3, n, 3)
+
+
 def make_eval_fn(
     cfg: AIMNet2Config,
     *,
@@ -39,14 +95,11 @@ def make_eval_fn(
     sae_external: bool = True,
 ) -> Callable[[dict, System], dict]:
     """``f(params, system) -> outputs``: ``energy`` (num_mol,), plus
-    ``forces`` (N, 3) and ``stress`` (num_mol, 3, 3) as requested, and
-    ``charges`` (and ``mol_element_counts`` under SAE externalization, the
-    dipole and quadrupole of models with those heads)."""
-    if hessian:
-        raise NotImplementedError(
-            "Hessians need the conv kernels' second-order rules (ROADMAP.md, "
-            "queue 1: K3 second order)"
-        )
+    ``forces`` (N, 3), ``stress`` (num_mol, 3, 3) and ``hessian`` (N, 3,
+    N, 3) as requested, and ``charges`` (and ``mol_element_counts`` under
+    SAE externalization, the dipole and quadrupole of models with those
+    heads).  As in JAX, a Hessian request without stress also returns the
+    forces."""
 
     def collect(data: dict) -> dict:
         out = {"energy": data["energy"].detach()}
@@ -56,7 +109,7 @@ def make_eval_fn(
         return out
 
     def eval_fn(params: dict, system: System) -> dict:
-        if not (forces or stress):
+        if not (forces or stress or hessian):
             with torch.no_grad():
                 return collect(aimnet2_apply(params, cfg, system, sae_external=sae_external))
         coord = system.coord.detach().requires_grad_(True)
@@ -73,14 +126,42 @@ def make_eval_fn(
             )
             inputs.append(scaling)
             sys2 = apply_strain(sys2, scaling)
+        cuda = coord.device.type == "cuda"
+        held = torch.cuda.memory_allocated(coord.device) if cuda else 0
         data = aimnet2_apply(params, cfg, sys2, sae_external=sae_external)
-        grads = torch.autograd.grad(data["energy"].sum(), inputs)
+        grads = torch.autograd.grad(data["energy"].sum(), inputs, create_graph=hessian)
         out = collect(data)
-        if forces:
-            out["forces"] = -grads[0]
+        if forces or (hessian and not stress):
+            out["forces"] = -grads[0].detach()
         if stress:
             volume = torch.abs(torch.linalg.det(system.cell))[:, None, None]
-            out["stress"] = grads[1] / volume
+            out["stress"] = grads[1].detach() / volume
+        if hessian:
+            graph = torch.cuda.memory_allocated(coord.device) - held if cuda else 0
+            real = system.numbers > 0
+            chunk = hessian_chunk(system, 3 * int(real.sum()), graph)
+            out["hessian"] = dense_hessian(grads[0], coord, real, chunk)
         return out
 
     return eval_fn
+
+
+def make_hvp_fn(cfg: AIMNet2Config, sae_external: bool = True) -> Callable[[dict, System, torch.Tensor], torch.Tensor]:
+    """Matrix-free Hessian-vector product ``hvp(params, system, v) -> H v``
+    (N, 3): the gradient of ``<dE/dcoord, v>``, one double backward.  On a
+    binned layout ``v`` is in slot order and the kernels' K3 rules carry
+    the second order."""
+
+    def hvp(params: dict, system: System, v: torch.Tensor) -> torch.Tensor:
+        coord = system.coord.detach().requires_grad_(True)
+        energy = aimnet2_apply(params, cfg, system.replace(coord=coord), sae_external=sae_external)["energy"]
+        (grad,) = torch.autograd.grad(energy.sum(), coord, create_graph=True)
+        (hv,) = torch.autograd.grad(grad, coord, v.to(coord.dtype))
+        return hv
+
+    return hvp
+
+
+def real_atom_hessian(h: torch.Tensor, n_real: int) -> torch.Tensor:
+    """Slice the padded (N, 3, N, 3) Hessian down to real atoms."""
+    return h[:n_real, :, :n_real, :]

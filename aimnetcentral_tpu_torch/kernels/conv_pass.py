@@ -15,10 +15,10 @@ import functools
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from aimnetcentral_tpu_torch.kernels.conv_stencil import (
     ConvStatic,
+    conv_backward_plain,
     conv_stencil_backward,
     conv_stencil_forward,
 )
@@ -52,9 +52,20 @@ class ConvAcc(torch.autograd.Function):
     """The stencil contraction with its fused adjoint (conv_pallas.conv_acc).
 
     Differentiable in ``a_gmajor``, ``coord`` and ``shift`` (the lattice
-    shifts carry the cell and strain gradients, i.e. stress).  The backward
-    is first order only: a second-order call (HVP, Hessian, force loss)
-    raises instead of giving a wrong answer until the K3 rules are ported.
+    shifts carry the cell and strain gradients, i.e. stress), to second
+    order: the backward is ``ConvAccBwd``, kernel B on the card, whose own
+    backward differentiates :func:`conv_stencil.conv_backward_plain` by
+    autograd.  These are the K3 rules of the JAX package
+    (``conv_pallas._conv_fwd_acc_jvp``, ``_conv_bwd_acc_jvp``) in reverse
+    mode: the primal and the first adjoint stay on kernels A and B, and the
+    second-order tangents (an HVP, a dense Hessian, a force loss) run the
+    plain version, as JAX's run its XLA twin.  That is the reference's
+    design, not a fallback: nothing catches a kernel failure, a first-order
+    request never runs a plain version on the card, and a first-order
+    backward (no ``create_graph``) calls kernel B alone, as before.  An HVP
+    by double backward runs each conv pass's first adjoint (kernel B) in
+    both of its backward passes: the second carries cotangents that depend
+    on the pass's output back through the forward graph.
     """
 
     @staticmethod
@@ -64,13 +75,39 @@ class ConvAcc(torch.autograd.Function):
         return conv_stencil_forward(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, gbar):
         a_gmajor, coord, shift, mask, nbr, mnbr, shifts_g, scal = ctx.saved_tensors
-        grad_a, grad_coord, grad_shift = conv_stencil_backward(
-            ctx.st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar.contiguous()
-        )
-        return grad_a, grad_coord, grad_shift, None, None, None, None, None, None
+        gbar = gbar.contiguous()
+        if torch.is_grad_enabled():  # create_graph: the adjoint must itself be differentiable
+            grads = ConvAccBwd.apply(a_gmajor, coord, shift, gbar, ctx.st, mask, nbr, mnbr, shifts_g, scal)
+        else:  # first order: kernel B alone, no node to record
+            grads = conv_stencil_backward(ctx.st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
+        return (*grads, None, None, None, None, None, None)
+
+
+class ConvAccBwd(torch.autograd.Function):
+    """ConvAcc's adjoint as a differentiable function of ``a_gmajor``,
+    ``coord``, ``shift`` and the cotangent ``gbar``: kernel B (or its plain
+    version on the CPU) forward; backward the VJP of ``conv_backward_plain``
+    in all four, the reverse-mode form of ``jax.jvp`` of the twin's VJP in
+    ``_conv_bwd_acc_jvp`` (conv_pallas.py:378-412).  The shift's tangent is
+    complete: it carries the cell and the strain."""
+
+    @staticmethod
+    def forward(ctx, a_gmajor, coord, shift, gbar, st, mask, nbr, mnbr, shifts_g, scal):
+        ctx.st = st
+        ctx.save_for_backward(a_gmajor, coord, shift, gbar, mask, nbr, shifts_g, scal)
+        return conv_stencil_backward(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
+
+    @staticmethod
+    def backward(ctx, t_a, t_coord, t_shift):
+        a_gmajor, coord, shift, gbar, mask, nbr, shifts_g, scal = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in (a_gmajor, coord, shift, gbar)]
+            adj = conv_backward_plain(ctx.st, leaves[0], leaves[1], mask, leaves[2], nbr, shifts_g, scal,
+                                      leaves[3], create_graph=True)
+            grads = torch.autograd.grad(adj, leaves, (t_a, t_coord, t_shift), allow_unused=True)
+        return (*grads, None, None, None, None, None, None)
 
 
 def conv_pass(

@@ -104,16 +104,21 @@ def conv_forward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts
     return acc.reshape(st.b_tot, 4, st.c, st.g * st.f)
 
 
-def conv_backward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar):
+def conv_backward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar,
+                        create_graph: bool = False):
     """Plain version of kernel B: the VJP of :func:`conv_forward_plain`
     through torch.autograd, in B's output frame ``(grad_a (B, C, G*F),
-    grad_coord (B, C, 3), grad_shift (S, B, 3))``."""
+    grad_coord (B, C, 3), grad_shift (S, B, 3))``.
+
+    With ``create_graph`` the caller's ``a_gmajor``, ``coord``, ``shift``
+    and ``gbar`` (leaves that require grad) stay in the graph, so the adjoint
+    can be differentiated again: the tangents of ConvAcc's second order
+    (kernels/conv_pass.py::ConvAccBwd)."""
     with torch.enable_grad():
-        a_ = a_gmajor.detach().requires_grad_(True)
-        c_ = coord.detach().requires_grad_(True)
-        s_ = shift.detach().requires_grad_(True)
-        out = conv_forward_plain(st, a_, c_, mask, s_, nbr, shifts_g, scal)
-        return torch.autograd.grad(out, (a_, c_, s_), gbar)
+        if not create_graph:
+            a_gmajor, coord, shift = (x.detach().requires_grad_(True) for x in (a_gmajor, coord, shift))
+        out = conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
+        return torch.autograd.grad(out, (a_gmajor, coord, shift), gbar, create_graph=create_graph)
 
 
 def pair_counts_plain(st: ConvStatic, coord, mask, shift, nbr, scal):

@@ -54,7 +54,6 @@ import math
 from typing import ClassVar
 
 import torch
-from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from aimnetcentral_tpu_torch.constants import Bohr_inv
@@ -428,16 +427,19 @@ def pair_forward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv):
     return acc
 
 
-def pair_backward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, ct):
+def pair_backward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, ct, create_graph: bool = False):
     """Plain version of kernel E: the VJP of :func:`pair_forward_plain`
     through torch.autograd, ``(grad_coord (B, C, 3), grad_ext (B, C, K),
-    grad_shift (S, B, 3))`` for the cotangent ``ct`` (B, C)."""
+    grad_shift (S, B, 3))`` for the cotangent ``ct`` (B, C).
+
+    With ``create_graph`` the caller's ``coord``, ``ext``, ``shift`` and
+    ``ct`` (leaves that require grad) stay in the graph: the tangents of
+    PairAcc's second order (``PairAccBwd``)."""
     with torch.enable_grad():
-        c_ = coord.detach().requires_grad_(True)
-        e_ = ext.detach().requires_grad_(True)
-        s_ = shift.detach().requires_grad_(True)
-        out = pair_forward_plain(st, term, c_, mask, e_, s_, nbr, inv)
-        return torch.autograd.grad(out, (c_, e_, s_), ct)
+        if not create_graph:
+            coord, ext, shift = (x.detach().requires_grad_(True) for x in (coord, ext, shift))
+        out = pair_forward_plain(st, term, coord, mask, ext, shift, nbr, inv)
+        return torch.autograd.grad(out, (coord, ext, shift), ct, create_graph=create_graph)
 
 
 # ---------------------------------------------------------------------------
@@ -610,8 +612,17 @@ class PairAcc(torch.autograd.Function):
     """The pair sweep with its fused adjoint (pair_sweep.pair_acc_hb).
 
     Differentiable in ``coord``, ``ext`` and ``shift`` (the lattice shifts
-    carry the cell and strain gradients, i.e. stress).  First order only,
-    like kernels/conv_pass.py::ConvAcc, until the K3 rules are ported.
+    carry the cell and strain gradients, i.e. stress), to second order: the
+    backward is ``PairAccBwd``,
+    kernel E on the card, whose own backward differentiates
+    :func:`pair_backward_plain` by autograd.  JAX's Pallas pair sweep is
+    first order only; its default binned pair route is the XLA scan, which
+    is twice differentiable, and this is that route's analogue: the primal
+    and the first adjoint stay on kernels D and E, and only the
+    second-order tangents (an HVP, a dense Hessian, a force loss) run the
+    plain version, as conv_pass.ConvAcc's do.  Nothing catches a kernel
+    failure, and a first-order backward (no ``create_graph``) calls kernel
+    E alone, as before.
     """
 
     @staticmethod
@@ -621,10 +632,34 @@ class PairAcc(torch.autograd.Function):
         return pair_sweep_forward(st, term, coord, mask, ext, shift, nbr, inv)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, ct):
         coord, ext, shift, mask, nbr, inv = ctx.saved_tensors
-        g_coord, g_ext, g_shift = pair_sweep_backward(
-            ctx.st, ctx.term, coord, mask, ext, shift, nbr, inv, ct.contiguous()
-        )
-        return g_coord, g_ext, g_shift, None, None, None, None, None
+        ct = ct.contiguous()
+        if torch.is_grad_enabled():  # create_graph: the adjoint must itself be differentiable
+            grads = PairAccBwd.apply(coord, ext, shift, ct, ctx.st, ctx.term, mask, nbr, inv)
+        else:  # first order: kernel E alone, no node to record
+            grads = pair_sweep_backward(ctx.st, ctx.term, coord, mask, ext, shift, nbr, inv, ct)
+        return (*grads, None, None, None, None, None)
+
+
+class PairAccBwd(torch.autograd.Function):
+    """PairAcc's adjoint as a differentiable function of ``coord``, ``ext``,
+    ``shift`` and the cotangent ``ct``: kernel E (or its plain version on
+    the CPU) forward; backward the VJP of :func:`pair_backward_plain`, the
+    second-order tangents."""
+
+    @staticmethod
+    def forward(ctx, coord, ext, shift, ct, st, term, mask, nbr, inv):
+        ctx.st, ctx.term = st, term
+        ctx.save_for_backward(coord, ext, shift, ct, mask, nbr, inv)
+        return pair_sweep_backward(st, term, coord, mask, ext, shift, nbr, inv, ct)
+
+    @staticmethod
+    def backward(ctx, t_coord, t_ext, t_shift):
+        coord, ext, shift, ct, mask, nbr, inv = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in (coord, ext, shift, ct)]
+            adj = pair_backward_plain(ctx.st, ctx.term, leaves[0], mask, leaves[1], leaves[2], nbr, inv,
+                                      leaves[3], create_graph=True)
+            grads = torch.autograd.grad(adj, leaves, (t_coord, t_ext, t_shift), allow_unused=True)
+        return (*grads, None, None, None, None, None)

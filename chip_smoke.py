@@ -101,15 +101,32 @@ Phases (any failure exits nonzero; nothing is caught):
    artifact-packed-32x113 (launches, times, a bitwise repeat, the host's
    spans); the card against the CPU on 1,200 atoms and an 8-molecule
    packed batch within ``CHECK_ABS``; a request with an element outside
-   ``implemented_species`` refused without a launch.
+   ``implemented_species`` refused without a launch;
+12. second_order: second derivatives at full width
+   (``phase_second_order``): the dense Hessian of mol-113 (flagship and
+   wb97m-d3) through ``AIMNet2Calculator.eval(hessian=True)`` at ``exact``
+   (indexed, no launch), gated on being finite, symmetric, translation
+   invariant and repeated bit for bit, and on H v for three seeded v (the
+   dense product, ``hessian_vector_product`` on the card and the CPU's)
+   within limits that the ``fast`` tier must exceed; the vibrations of
+   mol-113 flagship (frequencies, IR intensities of every mode but the six
+   projected null ones in one request of 666 molecules on molecule bins,
+   A 3 and D 1 launches, RRHO) with 8 displaced molecules card against
+   CPU; ``ts_search`` (3 steps) and ``neb`` (7 images, 5 iterations), the
+   first Lanczos eigenvalue from one start and the first band's energies
+   and forces card against CPU; and the K3 route, ``make_hvp_fn`` on the
+   1,200-atom flagship box (binned, DSF) and on packed-8 (molecule bins,
+   simple Coulomb): A, B, D and E as the primals (A 3, B 6, D 1, E 1)
+   against the all-plain route on the card within a limit that the ``fast``
+   tier must exceed, and the time of each route.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
 request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
 error); ``launches`` counts every main-path run (both configurations'
-requests, the gas, packed and artifact phases' requests and the MD
-windows) and
+requests, the gas, packed and artifact phases' requests, the MD windows,
+and the second_order phase's IR request and kernel-route HVPs) and
 ``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
 per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
@@ -119,6 +136,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1851,6 +1869,362 @@ def phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dic
     return res
 
 
+SO_V_SEEDS = (31, 32, 33)  # the seeded v of the HVP checks
+SO_LANCZOS_K = 6  # Lanczos steps of the card-against-CPU lambda_min check
+SO_NEB_IMAGES, SO_NEB_STEPS, SO_TS_STEPS = 7, 5, 3
+# limits of the second-order checks, each relative to the largest magnitude,
+# from the noise measured on the card at the exact tier (PERF.md, section 6): H's
+# asymmetry and translation sums 5.1e-7 at most (limit 20x), H v 3.5e-6 card
+# against CPU (3x; the fast-tier control came out at 1.4e-4 and above), the
+# K3 route against the all-plain route 1.6e-6 (6x; control 1.1e-3 and
+# above), the first Lanczos eigenvalue 7.7e-7 (13x)
+SO_SYM_REL = 1e-5  # max |H - H^T| and the translation sums, over max |H|
+SO_HVP_REL = 1e-5  # H v: the dense product, the card's HVP and the CPU's, over max |H v|
+SO_K3_REL = 1e-5  # the K3 route against the all-plain route on the card, over max |H v|
+SO_LAM_REL = 1e-5  # the first Lanczos eigenvalue, card against CPU, over |lambda|
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The binned engine's kernel wrappers swapped for their plain versions,
+    for the K3 check's all-plain route on the card (the port never takes a
+    plain version for a CUDA tensor).  Nothing launches inside."""
+    from aimnetcentral_tpu_torch.kernels import conv_pass as cp
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+
+    saved = (cp.conv_stencil_forward, cp.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
+    cp.conv_stencil_forward = cs.conv_forward_plain
+    cp.conv_stencil_backward = (
+        lambda st, a, c, mask, shift, nbr, _mnbr, shifts_g, scal, gbar:
+        cs.conv_backward_plain(st, a, c, mask, shift, nbr, shifts_g, scal, gbar)
+    )
+    ps.pair_sweep_forward, ps.pair_sweep_backward = ps.pair_forward_plain, ps.pair_backward_plain
+    try:
+        yield
+    finally:
+        cp.conv_stencil_forward, cp.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward = saved
+
+
+def reset_counts() -> dict:
+    """Every kernel's launch count set to 0; returns the wrappers."""
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def read_counts(wrappers: dict) -> dict:
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def hessian_request(label: str, calc, mol: dict) -> dict:
+    """Two ``calc.eval(mol, hessian=True)`` requests at the calculator's
+    tier: wall time of each (the second reuses the layout), peak device
+    memory, launches (none: the indexed layout); the Hessian finite, its
+    largest asymmetry and translation sum (each row summed over the atoms)
+    against its largest entry, and the two bit for bit equal.  By this phase
+    the process has run many backward passes; the first batched double
+    backward of a fresh process was seen one f32 unit off its repeat
+    (PERF.md section 7)."""
+    import torch
+
+    wrappers = reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times, outs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs.append(calc.eval(mol, hessian=True))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = read_counts(wrappers)
+    if calc._prep_cache["kind"] != "indexed" or any(launches.values()):
+        raise SystemExit(f"FAIL: the Hessian of {label} ran on the {calc._prep_cache['kind']} layout ({launches})")
+    h = outs[0]["hessian"]
+    n = len(mol["numbers"])
+    if h.shape != (n, 3, n, 3) or not np.isfinite(h).all():
+        raise SystemExit(f"FAIL: the Hessian of {label} has shape {h.shape} or is not finite")
+    if not np.array_equal(h, outs[1]["hessian"]):
+        raise SystemExit(f"FAIL: two Hessians of {label} differ")
+    flat = h.reshape(3 * n, 3 * n).astype(np.float64)
+    scale = float(np.abs(flat).max())
+    asym = float(np.abs(flat - flat.T).max()) / scale
+    trans = float(np.abs(h.astype(np.float64).sum(axis=2)).max()) / scale
+    log(f"[second_order {label}] dense Hessian ({n} atoms, {3 * n} rows): {times[0]:.3f} s, repeated "
+        f"{times[1]:.3f} s (layout reused), peak {peak / 2**30:.3f} GiB above the {held / 2**30:.3f} held, "
+        f"launches {launches}; max |H| {scale:.4e} eV/A^2, max |H - H^T| {asym:.3e} and max |sum_j H[i,:,j,:]| "
+        f"{trans:.3e} of it; a repeat equal bit for bit")
+    if asym > SO_SYM_REL or trans > SO_SYM_REL:
+        raise SystemExit(f"FAIL: the Hessian of {label} is not symmetric or not translation invariant "
+                         f"(limit {SO_SYM_REL:.0e} of max |H|)")
+    return {"s": times[0], "repeat_s": times[1], "peak_bytes": peak, "launches": launches, "max_abs": scale,
+            "asym_rel": asym, "trans_rel": trans, "hessian": h}
+
+
+def hvp_checks(label: str, params, cfg, mol: dict, h: np.ndarray) -> dict:
+    """H v for the seeded v: the dense Hessian's product against
+    ``hessian_vector_product`` on the card and against the port's CPU HVP,
+    within ``SO_HVP_REL`` of max |H v|; the card's ``fast`` tier (TF32) is
+    the control that must exceed it."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+
+    n = len(mol["numbers"])
+    card = AIMNet2Calculator((params, cfg), device="cuda")
+    fast = AIMNet2Calculator((params, cfg), device="cuda", precision="fast")
+    cpu = AIMNet2Calculator((params_to(params, torch.device("cpu")), cfg), device="cpu")
+    res = {"dense": 0.0, "cpu": 0.0, "fast": float("inf"), "card_ms": [], "cpu_s": []}
+    for seed in SO_V_SEEDS:
+        v = np.random.default_rng(seed).normal(size=(n, 3)).astype(np.float32)
+        t0 = time.perf_counter()
+        hv = card.hessian_vector_product(mol, v)
+        torch.cuda.synchronize()
+        res["card_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        hv_cpu = cpu.hessian_vector_product(mol, v)
+        res["cpu_s"].append(time.perf_counter() - t0)
+        hv_fast = fast.hessian_vector_product(mol, v)
+        dense = (h.reshape(3 * n, 3 * n).astype(np.float64) @ v.reshape(-1)).reshape(n, 3)
+        scale = float(np.abs(hv_cpu).max())
+        res["dense"] = max(res["dense"], float(np.abs(dense - hv).max()) / scale)
+        res["cpu"] = max(res["cpu"], float(np.abs(hv - hv_cpu).max()) / scale)
+        res["fast"] = min(res["fast"], float(np.abs(hv_fast - hv_cpu).max()) / scale)
+    log(f"[second_order {label}] H v for {len(SO_V_SEEDS)} seeded v, largest differences over max |H v|: the dense "
+        f"Hessian's product against hessian_vector_product {res['dense']:.3e}, the card against the CPU "
+        f"{res['cpu']:.3e} (limit {SO_HVP_REL:.0e}); control: the fast tier against the CPU at least "
+        f"{res['fast']:.3e}; HVP on the card {np.median(res['card_ms']):.2f} ms (median), on the CPU "
+        f"{np.median(res['cpu_s']):.2f} s")
+    if max(res["dense"], res["cpu"]) > SO_HVP_REL:
+        raise SystemExit(f"FAIL: H v disagrees on {label}")
+    if res["fast"] <= SO_HVP_REL:
+        raise SystemExit(f"FAIL: the fast-tier control passed the HVP limit on {label}: it cannot see TF32")
+    return res
+
+
+def k3_route(label: str, calc, data, per_request: dict) -> dict:
+    """``make_hvp_fn`` on a binned or packed layout, the K3 route: kernels
+    A, B, D and E as the primals (their launches read around one HVP) and
+    the second-order tangents on the plain versions, against the all-plain
+    route on the card within ``SO_K3_REL`` of max |H v|, which the kernel
+    route at the ``fast`` tier must exceed; the time of each route."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+    from aimnetcentral_tpu_torch.calculators.derivatives import make_hvp_fn
+
+    system = calc.prepare_system(data)
+    if system.bins is None:
+        raise SystemExit(f"FAIL: {label} is not on a binned layout")
+    hvp = make_hvp_fn(calc._effective_cfg(system.cell is not None))
+    real = (system.numbers > 0)[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    v = torch.where(real, torch.randn(system.coord.shape, generator=gen, device="cuda"), 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ambient_matmul_context("highest"):
+        hvp(calc.params, system, v)  # warm-up
+        wrappers = reset_counts()
+        t0 = time.perf_counter()
+        hv = hvp(calc.params, system, v)
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        with plain_route():
+            t0 = time.perf_counter()
+            plain = hvp(calc.params, system, v)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+        if read_counts(wrappers) != launches:
+            raise SystemExit(f"FAIL: the plain route of {label} launched a kernel")
+    with ambient_matmul_context("default"):
+        fast = hvp(calc.params, system, v)
+    peak = torch.cuda.max_memory_allocated()
+    scale = float(plain.abs().max())
+    d = float((hv - plain).abs().max()) / scale
+    d_fast = float((fast - plain).abs().max()) / scale
+    grid = system.bins
+    log(f"[second_order K3 {label}] {int(real.sum())} atoms, grid {grid.nbins} C={grid.capacity}: HVP on the "
+        f"kernel route {t_kernel * 1e3:.1f} ms (launches {launches}), on the all-plain route {t_plain * 1e3:.1f} "
+        f"ms; max |dHv| {d:.3e} of max |H v| {scale:.4e} (limit {SO_K3_REL:.0e}); control: the fast tier "
+        f"{d_fast:.3e}; peak {peak / 2**30:.3f} GiB")
+    if not torch.isfinite(hv).all() or d > SO_K3_REL:
+        raise SystemExit(f"FAIL: the K3 route and the all-plain route disagree on {label}")
+    if d_fast <= SO_K3_REL:
+        raise SystemExit(f"FAIL: the fast-tier control passed the K3 limit on {label}")
+    for name, n in launches.items():
+        if n != per_request[name]:
+            raise SystemExit(f"FAIL: {name} launched {n} times in one HVP on {label}, expected {per_request[name]}")
+    return {"kernel_ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3, "rel": d, "fast_rel": d_fast,
+            "launches": launches, "peak_bytes": peak}
+
+
+def phase_second_order(params, cfg, params_d3, cfg_d3) -> dict:
+    """Second derivatives at full width (``phase_second_order``): the dense
+    Hessian of mol-113 (flagship and wb97m-d3) through
+    ``AIMNet2Calculator.eval(hessian=True)`` at ``exact`` (the indexed
+    layout: no launch), H v checks; vibrations of mol-113 flagship
+    (frequencies, IR intensities of every mode but the six projected null
+    ones in one 666-molecule request on molecule bins: A 3 and D 1, RRHO),
+    8 displaced molecules card against CPU; ``ts_search`` (3 steps) and
+    ``neb`` (7 images, 5 iterations), the first Lanczos eigenvalue from one
+    start and the first band's energies and forces card against CPU; and
+    the K3 route (``make_hvp_fn`` on the 1,200-atom flagship box, binned
+    with DSF, and on packed-8's molecule bins) against the all-plain route
+    on the card."""
+    import torch
+
+    from aimnetcentral_tpu_torch.builders import system_from_molecules
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.calculators.derivatives import make_hvp_fn
+    from aimnetcentral_tpu_torch.dynamics import frequencies_from_calculator, linear_band, neb, ts_search
+    from aimnetcentral_tpu_torch.dynamics.neb import band_energy_forces
+    from aimnetcentral_tpu_torch.dynamics.saddle import lanczos_min_mode
+    from aimnetcentral_tpu_torch.dynamics.vibrations import ir_intensities, rrho_thermochemistry
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+
+    t_phase = time.perf_counter()
+    cpu_dev = torch.device("cpu")
+    mol = gas_cluster(113, seed=1)
+    res: dict = {"hessian": {}, "hvp": {}}
+    launches = {name: 0 for name in counters()}
+    for label, p, c in (("mol-113 flagship", params, cfg), ("mol-113 wb97m-d3", params_d3, cfg_d3)):
+        calc = AIMNet2Calculator((p, c), device="cuda")
+        req = hessian_request(label, calc, mol)
+        res["hvp"][label] = hvp_checks(label, p, c, mol, req.pop("hessian"))
+        res["hessian"][label] = req
+        del calc
+        torch.cuda.empty_cache()
+
+    # vibrations of mol-113 flagship
+    calc = AIMNet2Calculator((params, cfg), device="cuda")
+    t0 = time.perf_counter()
+    freqs, modes = frequencies_from_calculator(calc, mol, project_rotations=True)
+    t_freq = time.perf_counter() - t0
+    keep = np.sort(np.argsort(np.abs(freqs), kind="stable")[6:])  # all but the six projected null modes
+    wrappers = reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    intens = ir_intensities(calc, mol, modes[keep])
+    torch.cuda.synchronize()
+    t_ir = time.perf_counter() - t0
+    ir_launches = read_counts(wrappers)
+    ir_peak = torch.cuda.max_memory_allocated()
+    layout = calc._prep_cache["system"]
+    n_disp = 2 * len(keep)
+    want = {"conv_stencil_forward": 3, "conv_stencil_backward": 0, "pair_sweep_forward": 1, "pair_sweep_backward": 0}
+    if calc._prep_cache["kind"] != "packed" or layout.bins.nbins[0] != n_disp or ir_launches != want:
+        raise SystemExit(f"FAIL: the IR request did not run once on {n_disp} molecule bins ({ir_launches})")
+    if intens.shape != (len(keep),) or not np.isfinite(intens).all() or (intens < 0).any():
+        raise SystemExit("FAIL: IR intensities wrong in shape, not finite or negative")
+    for name, n in ir_launches.items():
+        launches[name] += n
+    thermo = rrho_thermochemistry(freqs, mol["numbers"], mol["coord"])
+    if not all(np.isfinite(v) for v in thermo.values()):
+        raise SystemExit("FAIL: RRHO thermochemistry not finite")
+    log(f"[second_order vibrations] mol-113 flagship: frequencies (rotations projected) {t_freq:.3f} s, "
+        f"{int((freqs < -10).sum())} imaginary below -10 cm^-1 and {int((freqs > 10).sum())} real above 10 "
+        f"(random weights); IR intensities of {len(keep)} modes: one request of {n_disp} molecules, "
+        f"{n_disp * len(mol['numbers'])} atoms on molecule bins (capacity {layout.bins.capacity}), "
+        f"{t_ir * 1e3:.1f} ms, peak {ir_peak / 2**30:.3f} GiB, launches {ir_launches}; largest intensity "
+        f"{intens.max():.4e} km/mol; RRHO at 298.15 K: ZPE {thermo['zpe']:.6f} eV, G {thermo['g']:.6f} eV, "
+        f"{thermo['n_skipped_modes']} modes skipped")
+    res["vibrations"] = {"freq_s": t_freq, "ir_s": t_ir, "ir_peak_bytes": ir_peak, "ir_launches": ir_launches,
+                         "ir_molecules": n_disp, "n_imaginary": int((freqs < -10).sum()),
+                         "zpe": thermo["zpe"], "g": thermo["g"]}
+    # 8 of the displaced molecules (4 modes, both signs) on molecule bins, card against CPU
+    eight = [{**mol, "coord": (mol["coord"] + s * 0.01 * modes[keep[k]]).astype(np.float32)}
+             for s in (1.0, -1.0) for k in range(4)]
+    res["vibrations"]["check"] = gas_card_vs_cpu("ir-8 displaced flagship", params, cfg, eight, False,
+                                                 binned_threshold=512)
+
+    # ts_search and neb on mol-113 flagship
+    system = system_from_molecules([mol], torch.device("cuda"), build_nbmat=True)
+    t0 = time.perf_counter()
+    _moved, ts_info = ts_search(params, cfg, system, fmax=1e-9, max_steps=SO_TS_STEPS)
+    torch.cuda.synchronize()
+    t_ts = time.perf_counter() - t0
+    if ts_info["steps"] != SO_TS_STEPS or not np.isfinite(ts_info["fmax"]) or not np.isfinite(ts_info["lambda_min"]):
+        raise SystemExit(f"FAIL: ts_search on mol-113: {ts_info}")
+    # the first Lanczos eigenvalue from one numpy-seeded start, card against CPU
+    lams = {}
+    p_cpu = params_to(params, cpu_dev)
+    for dev, p in ((torch.device("cuda"), params), (cpu_dev, p_cpu)):
+        sysd = system_from_molecules([mol], dev, build_nbmat=True)
+        real = (sysd.numbers > 0)[:, None]
+        v0 = np.random.default_rng(51).normal(size=tuple(sysd.coord.shape)).astype(np.float32)
+        hvp = make_hvp_fn(cfg)
+        lam, _v = lanczos_min_mode(lambda x, v, p=p, s=sysd: hvp(p, s.replace(coord=x), v), sysd.coord,
+                                   torch.as_tensor(v0, device=dev), real, k=SO_LANCZOS_K)
+        lams[dev.type] = float(lam)
+    d_lam = abs(lams["cuda"] - lams["cpu"])
+    log(f"[second_order ts_search] mol-113 flagship, {SO_TS_STEPS} steps (15 Lanczos HVPs a step, then the "
+        f"closing force and Lanczos): {t_ts:.3f} s, {t_ts / (SO_TS_STEPS + 1) * 1e3:.1f} ms a step (wall over "
+        f"{SO_TS_STEPS + 1}); fmax {ts_info['fmax']:.4e}, lambda_min {ts_info['lambda_min']:.6e}; "
+        f"{SO_LANCZOS_K}-step Lanczos from one start: card {lams['cuda']:.6e}, CPU {lams['cpu']:.6e}, "
+        f"|d| {d_lam:.3e} (limit {SO_LAM_REL:.0e} of |lambda|)")
+    if d_lam > SO_LAM_REL * abs(lams["cpu"]):
+        raise SystemExit("FAIL: the card and the CPU disagree on lambda_min")
+    res["ts"] = {"s": t_ts, "ms_per_step": t_ts / (SO_TS_STEPS + 1) * 1e3, "lambda_card": lams["cuda"],
+                 "lambda_cpu": lams["cpu"]}
+
+    step = np.random.default_rng(61).normal(size=mol["coord"].shape)
+    step *= 0.2 / np.linalg.norm(step, axis=1, keepdims=True)
+    prod = {**mol, "coord": (mol["coord"] + step).astype(np.float32)}
+    t0 = time.perf_counter()
+    band, energies, neb_info = neb(params, cfg, mol, prod, n_images=SO_NEB_IMAGES, max_steps=SO_NEB_STEPS,
+                                   fmax=1e-9, device="cuda")
+    torch.cuda.synchronize()
+    t_neb = time.perf_counter() - t0
+    if neb_info["steps"] != SO_NEB_STEPS or not torch.isfinite(band).all() or not torch.isfinite(energies).all():
+        raise SystemExit(f"FAIL: neb on mol-113: {neb_info}")
+    firsts = {}
+    for dev, p in ((torch.device("cuda"), params), (cpu_dev, p_cpu)):
+        band0 = linear_band(torch.as_tensor(mol["coord"], device=dev), torch.as_tensor(prod["coord"], device=dev),
+                            SO_NEB_IMAGES)
+        e0, f0 = band_energy_forces(p, cfg, mol, SO_NEB_IMAGES, dev)(band0)
+        firsts[dev.type] = (e0.cpu().numpy().astype(np.float64), f0.cpu().numpy())
+    de = float(np.abs(firsts["cuda"][0] - firsts["cpu"][0]).max())
+    df = float(np.abs(firsts["cuda"][1] - firsts["cpu"][1]).max())
+    e_tol = max(REL_TOL * float(np.abs(firsts["cpu"][0]).max()), CHECK_ABS["energy"])
+    log(f"[second_order neb] mol-113 flagship, {SO_NEB_IMAGES} images ({SO_NEB_IMAGES * 113} atoms a band), "
+        f"{SO_NEB_STEPS} iterations: {t_neb:.3f} s, {t_neb / (SO_NEB_STEPS + 1) * 1e3:.1f} ms an iteration (wall "
+        f"over {SO_NEB_STEPS + 1} band evaluations); fmax {neb_info['fmax']:.4e}; first band card against CPU: "
+        f"|dE| {de:.3e} eV (limit {e_tol:.3e}), max |dF| {df:.3e} eV/A (limit 1e-4)")
+    if de > e_tol or df > 1e-4:
+        raise SystemExit("FAIL: the card and the CPU disagree on the first NEB band")
+    res["neb"] = {"s": t_neb, "ms_per_iter": t_neb / (SO_NEB_STEPS + 1) * 1e3, "dE": de, "dF": df}
+    del calc
+    torch.cuda.empty_cache()
+
+    # the K3 route: binned box (DSF) and packed-8 (simple Coulomb)
+    coord, numbers, cell = build_box(N_CHECK, seed=1)
+    # reverse-over-reverse: B runs in both backward passes (the first
+    # adjoint's cotangents depend on every conv pass's output), E in the
+    # first only (Coulomb's cotangent does not depend on its sweep's output)
+    per = {"conv_stencil_forward": 3, "conv_stencil_backward": 6, "pair_sweep_forward": 1, "pair_sweep_backward": 1}
+    batch8 = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
+    res["k3"] = {
+        "box-1200 flagship": k3_route("box-1200 flagship", AIMNet2Calculator((params, cfg), device="cuda"),
+                                      {"coord": coord, "numbers": numbers, "cell": cell}, per),
+        "packed-8 flagship": k3_route("packed-8 flagship",
+                                      AIMNet2Calculator((params, cfg), device="cuda", binned_threshold=512),
+                                      batch8, per),
+    }
+    for run in res["k3"].values():
+        for name, n in run["launches"].items():
+            launches[name] += n
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[second_order] phase {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
@@ -1919,7 +2293,9 @@ def main() -> None:
     results["md_gas"] = phase_md_gas(params, cfg, params_d3, cfg_d3)
     with tempfile.TemporaryDirectory() as out_dir:
         results["artifact"] = phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir)
+    results["second_order"] = phase_second_order(params, cfg, params_d3, cfg_d3)
     for k in kernels:
+        k["launches"] += results["second_order"]["launches"][k["name"]]
         k["launches"] += results["artifact"]["launches"][k["name"]]
         k["launches"] += results["packed"]["launches"][k["name"]]
         k["launches"] += sum(w["launches"][k["name"]] for w in results["md_gas"]["windows"].values())

@@ -147,13 +147,18 @@ def test_unported_tiers_raise(models, results, precision):
 
 
 def test_unported_inputs_raise(models):
-    """What the port does not run yet raises, naming ROADMAP.md: Hessians
-    and Ewald Coulomb.  A gas-phase batch at or above ``binned_threshold``,
-    which raised before the molecule-bin layout was ported, runs on it."""
+    """What the port does not run yet raises, naming ROADMAP.md: Ewald
+    Coulomb.  A gas-phase batch at or above ``binned_threshold``, which
+    raised before the molecule-bin layout was ported, runs on it; so does a
+    Hessian, which raised before the second order was ported: on the
+    indexed layout, whatever the threshold (a 12-atom cut of the box here,
+    to keep the dense Hessian small)."""
     calc = TCalculator(models[1], device="cpu", binned_threshold=0)
     gas = {k: v for k, v in _box().items() if k != "cell"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calc.eval(_box(), hessian=True)
+    small = {"coord": gas["coord"][:12], "numbers": gas["numbers"][:12]}
+    hess = calc.eval(small, hessian=True)
+    assert calc._prep_cache["kind"] == "indexed"
+    assert hess["hessian"].shape == (12, 3, 12, 3) and np.isfinite(hess["hessian"]).all()
     out = calc.eval([gas, gas], forces=True)
     assert calc._prep_cache["kind"] == "packed" and np.isfinite(out["forces"]).all()
     np.testing.assert_array_equal(out["energy"][0], out["energy"][1])

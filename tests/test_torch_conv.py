@@ -266,17 +266,30 @@ def test_kernel_b_algorithm_matches_autograd(case):
 
 
 def test_second_order_raises(case):
-    """The adjoint is first order only: grad-of-grad must raise, not lie."""
-    _sysj, syst, feats = case
-    st, ops, mnbr, _radius = _port_operands(syst, feats)
+    """Grad-of-grad through ConvAcc (it raised while the adjoint was first
+    order only, hence the name): the K3 rules give the JAX twin's second
+    derivative, ``d/dcoord sum(d/dcoord sum(out^2))``, within 1e-5 of its
+    largest magnitude."""
+    sysj, syst, feats = case
+    st, ops, mnbr, radius = _port_operands(syst, feats)
+    twin, (a_gm, _coord_t, shift_cart) = _jax_twin(sysj, feats, radius)
+
+    def j_inner(c):  # c (B, C, 3) -> the twin's coordinate frame
+        coord_t = jnp.concatenate([c.transpose(0, 2, 1), jnp.zeros((st.b_tot, 1, st.c), jnp.float32)], axis=1)
+        return (twin(a_gm, coord_t, shift_cart) ** 2).sum()
+
+    c0 = jnp.asarray(ops["coord"].numpy())
+    ref = jax.jit(jax.grad(lambda c: jax.grad(j_inner)(c).sum()))(c0)
+
     coord = ops["coord"].clone().requires_grad_(True)
     out = ConvAcc.apply(
         ops["a_gmajor"], coord, ops["shift"], st, ops["mask"], ops["nbr"], mnbr,
         ops["shifts_g"], ops["scal"],
     )
     (g,) = torch.autograd.grad((out * out).sum(), coord, create_graph=True)
-    with pytest.raises(RuntimeError):
-        g.sum().backward()
+    (gg,) = torch.autograd.grad(g.sum(), coord)
+    assert torch.isfinite(gg).all()
+    _close(gg.numpy(), ref)
 
 
 @pytest.mark.parametrize("f", [16, 17, 33])

@@ -10,6 +10,7 @@ on a machine without them:
 output's largest magnitude (f32 sums in another order).
 """
 
+import contextlib
 import dataclasses
 import math
 
@@ -23,6 +24,7 @@ from aimnetcentral_tpu_torch.builders import system_from_molecules, system_molec
 from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
 from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
 from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
+from aimnetcentral_tpu_torch.kernels import conv_pass as cp
 from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
 from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
 from aimnetcentral_tpu_torch.kernels.conv_pass import build_conv_tables
@@ -683,3 +685,112 @@ def test_gas_and_indexed_requests_card_match_cpu(cuda_device, name):
     np.testing.assert_allclose(card["forces"], cpu["forces"], atol=1e-4)
     if stress:
         np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# second order: the K3 route and the dense Hessian
+
+
+@contextlib.contextmanager
+def _plain_route():
+    """The binned engine's kernel wrappers swapped for their plain versions:
+    the all-plain route the K3 route is held to on the card (the port
+    itself never takes a plain version for a CUDA tensor)."""
+    saved = (cp.conv_stencil_forward, cp.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
+    cp.conv_stencil_forward = cs.conv_forward_plain
+    cp.conv_stencil_backward = (
+        lambda st, a, c, mask, shift, nbr, _mnbr, shifts_g, scal, gbar:
+        cs.conv_backward_plain(st, a, c, mask, shift, nbr, shifts_g, scal, gbar)
+    )
+    ps.pair_sweep_forward, ps.pair_sweep_backward = ps.pair_forward_plain, ps.pair_backward_plain
+    try:
+        yield
+    finally:
+        cp.conv_stencil_forward, cp.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward = saved
+
+
+@pytest.mark.parametrize("layout", ["binned", "packed"])
+def test_k3_route_matches_plain_route(cuda_device, layout):
+    """An HVP on the binned box (DSF) and on molecule bins (simple Coulomb),
+    wB97M-D3 head set: kernels A, B, D and E as the primals (the tangents on
+    the plain versions) against the all-plain route on the card, within
+    1e-4 of the largest magnitude (second-order sums in another order), and
+    the CPU's HVP.  Launches: A 3 and D 3 (one a conv pass or a sweep); B 6,
+    since reverse-over-reverse runs the first adjoint again in the second
+    backward wherever a cotangent of the first depends on the sweep's
+    output (every conv pass), and E 4, the D3 coordination number's sweep
+    again (the D3 energy's weights depend on it)."""
+    from aimnetcentral_tpu_torch.calculators.derivatives import make_hvp_fn
+
+    params, cfg = _narrow_model(CPU, d3=True)
+    if layout == "binned":
+        data, threshold = _box(), 0
+    else:
+        data, threshold = [_cluster(n, 30 + n) for n in (40, 57, 74, 91)], 128
+    hvs = {}
+    for dev in (CPU, cuda_device):
+        calc = AIMNet2Calculator((params, cfg), device=dev, binned_threshold=threshold)
+        system = calc.prepare_system(data)
+        assert calc._prep_cache["kind"] == layout
+        real = (system.numbers > 0)[:, None].cpu()
+        v = torch.where(real, torch.randn(system.coord.shape, generator=torch.Generator().manual_seed(3)), 0.0)
+        hvp = make_hvp_fn(calc._effective_cfg(system.cell is not None))
+        counters = (cs.conv_stencil_forward, cs.conv_stencil_backward, ps.pair_sweep_forward,
+                    ps.pair_sweep_backward)
+        for fn in counters:
+            fn.launches = 0
+        with ambient_matmul_context("highest"):
+            hvs[dev.type] = hvp(calc.params, system, v.to(dev))
+            if dev.type == "cuda":
+                assert [fn.launches for fn in counters] == [3, 6, 3, 4]
+                with _plain_route():
+                    plain = hvp(calc.params, system, v.to(dev))
+                assert [fn.launches for fn in counters] == [3, 6, 3, 4]
+    assert torch.isfinite(hvs["cuda"]).all()
+    _close(hvs["cuda"], plain, 1e-4)
+    _close(hvs["cuda"], hvs["cpu"], 1e-4)
+
+
+def test_hessian_card_matches_cpu_and_repeats(cuda_device):
+    """A 23-atom molecule's dense Hessian (wB97M-D3 head set, indexed
+    all-pairs layout) on the card against the CPU (1e-4 eV/A^2), finite and
+    symmetric, and two card runs equal bit for bit."""
+    params, cfg = _narrow_model(CPU, d3=True)
+    mol = _cluster(23, 1)
+    cpu = AIMNet2Calculator((params, cfg), device="cpu").eval(mol, hessian=True)
+    calc = AIMNet2Calculator((params, cfg), device=cuda_device)
+    card = calc.eval(mol, hessian=True)
+    again = calc.eval(mol, hessian=True)
+    assert calc._prep_cache["kind"] == "indexed"
+    np.testing.assert_array_equal(card["hessian"], again["hessian"])
+    h = card["hessian"].reshape(69, 69)
+    assert np.isfinite(h).all() and np.abs(h - h.T).max() < 1e-4
+    np.testing.assert_allclose(card["hessian"], cpu["hessian"], atol=1e-4, rtol=0)
+
+
+def test_binned_dense_hessian_card_matches_cpu(cuda_device):
+    """``make_eval_fn(hessian=True)`` on a binned System (which the
+    calculator never sends there, but a caller may): one unit row at a
+    time, since the kernels' wrappers take no vmap-batched tensors; the card
+    against the CPU within 1e-4 eV/A^2 and against the indexed layout's
+    Hessian of the same box."""
+    from aimnetcentral_tpu_torch.calculators.derivatives import make_eval_fn
+
+    params, cfg = _narrow_model(CPU)
+    rng = np.random.default_rng(4)
+    box = {"coord": rng.uniform(0.0, 7.0, size=(6, 3)).astype(np.float32), "numbers": rng.choice([1, 6, 8], size=6),
+           "cell": np.eye(3, dtype=np.float32) * 7.0}
+    hs = {}
+    for dev in (CPU, cuda_device):
+        calc = AIMNet2Calculator((params, cfg), device=dev, binned_threshold=0)
+        system = calc.prepare_system(box)
+        assert system.bins is not None
+        with ambient_matmul_context("highest"):
+            h = make_eval_fn(calc._effective_cfg(True), hessian=True)(calc.params, system)["hessian"]
+        slots = torch.as_tensor(calc._last_perm[(system.numbers > 0).cpu().numpy()])
+        real = torch.nonzero(system.numbers > 0).reshape(-1).cpu()
+        order = real[torch.argsort(slots)]  # the input order of the real slots
+        hs[dev.type] = h.cpu()[order][:, :, order]
+    ref = AIMNet2Calculator((params, cfg), device="cpu").eval(box, hessian=True)["hessian"]
+    np.testing.assert_allclose(hs["cuda"].numpy(), hs["cpu"].numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(hs["cpu"].numpy(), ref, atol=1e-4, rtol=0)

@@ -40,5 +40,7 @@ def test_port_imports_no_jax():
                  "aimnetcentral_tpu_torch.models.lr", "aimnetcentral_tpu_torch.models.loader",
                  "aimnetcentral_tpu_torch.models.convert", "aimnetcentral_tpu_torch.models.validation",
                  "aimnetcentral_tpu_torch.calculators.registry", "aimnetcentral_tpu_torch.train.export",
-                 "aimnetcentral_tpu_torch.config", "aimnetcentral_tpu_torch.io"):
+                 "aimnetcentral_tpu_torch.config", "aimnetcentral_tpu_torch.io",
+                 "aimnetcentral_tpu_torch.dynamics.vibrations", "aimnetcentral_tpu_torch.dynamics.saddle",
+                 "aimnetcentral_tpu_torch.dynamics.neb"):
         assert must in names
