@@ -24,8 +24,12 @@ bins are the molecules).  Every force evaluation runs inside its precision
 tier's context (``precision_tiers``).  Hessians (``eval(hessian=True)``,
 per structure for a batch) and Hessian-vector products
 (``hessian_vector_product``) run on the indexed layout, as in JAX, and never
-reuse a binned or packed layout.  Ewald/PME raise with a pointer to
-ROADMAP.md.
+reuse a binned or packed layout.  Ewald and PME (``set_lrcoulomb_method``)
+run on periodic inputs of every layout: the binned LR grid and the indexed
+Coulomb list reach the real-space cutoff that ``models/ewald.py::
+estimate_ewald_parameters`` gives for the head's accuracy, and the
+discretisation (``attach_ewald``) rides on the prepared System, so a reused
+layout keeps it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from aimnetcentral_tpu_torch.calculators import derivatives
 from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
 from aimnetcentral_tpu_torch.models.bridge import params_to
+from aimnetcentral_tpu_torch.models.ewald import attach_ewald, estimate_ewald_parameters, warn_ewald_above_limit
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
 from aimnetcentral_tpu_torch.models.loader import LoadedModel, attach_external_lr, init_missing_heads, load_model
 from aimnetcentral_tpu_torch.models.validation import validate_runtime_model_metadata
@@ -190,6 +195,17 @@ def _apply_external_lr_flags(
     return init_missing_heads({**params, "outputs": kept}, cfg), cfg
 
 
+def _ewald_real_cutoff(head: LRCoulombHead, mols: list[dict]) -> float:
+    """The largest real-space cutoff of the molecules' cells at the head's
+    accuracy, which the LR layout must reach; exact Ewald warns above
+    ``EWALD_ATOM_GUIDANCE_LIMIT`` atoms."""
+    if head.method == "ewald":
+        warn_ewald_above_limit(sum(len(m["numbers"]) for m in mols))
+    return max(
+        estimate_ewald_parameters(np.asarray(m["cell"]), len(m["numbers"]), head.ewald_accuracy).r_cutoff for m in mols
+    )
+
+
 class AIMNet2Calculator:
     """Single-point energy / forces / stress of molecules, batches and
     periodic boxes.
@@ -316,7 +332,7 @@ class AIMNet2Calculator:
 
     def set_lrcoulomb_method(self, method: str, **kwargs: Any) -> None:
         """Switch the Coulomb method ("simple", "dsf", "ewald" or "pme";
-        Ewald and PME are not ported and raise at ``eval``)."""
+        Ewald and PME need a periodic cell)."""
         valid = ("simple", "dsf", "ewald", "pme")
         if method not in valid:
             raise ValueError(f"unknown Coulomb method {method!r}; expected one of {valid}")
@@ -471,8 +487,6 @@ class AIMNet2Calculator:
         h_eff = next(
             (h for _n, h in self._effective_cfg(has_cell).outputs if isinstance(h, LRCoulombHead)), None
         )
-        if h_eff is not None and h_eff.method in ("ewald", "pme"):
-            raise NotImplementedError(f"{h_eff.method} Coulomb is not ported yet (ROADMAP.md, queue 1, item 4)")
         if allow_binned and not has_cell and len(mols) > 1 and n_real >= self.binned_threshold:
             cap = max(8, _round_up(max(len(m["numbers"]) for m in mols), 8))
             if cap * len(mols) <= 4 * n_real:
@@ -509,7 +523,12 @@ class AIMNet2Calculator:
             cell_np, extent = None, (coord_np.min(axis=0), coord_np.max(axis=0))
         # the coarse LR twin layout is sized by the largest LR cutoff, so its
         # stencil stays at radius 2
-        lr_cuts = [self._lr_cutoff_override or h_eff.dsf_rc] if h_eff is not None else []
+        ewald_on = h_eff is not None and h_eff.method in ("ewald", "pme")  # periodic: binned_ok
+        lr_cuts = []
+        if h_eff is not None and h_eff.method == "dsf":
+            lr_cuts.append(self._lr_cutoff_override or h_eff.dsf_rc)
+        if ewald_on:
+            lr_cuts.append(_ewald_real_cutoff(h_eff, [mol]))
         d3 = self._d3_head()
         lr_cuts += [self._dftd3_cutoff_override or d3.cutoff] if d3 is not None else []
         lr_cut = max(lr_cuts) if lr_cuts else None
@@ -533,6 +552,8 @@ class AIMNet2Calculator:
             if safety > 32:
                 raise RuntimeError("bin capacity planning failed")
         self._last_perm = perm.cpu().numpy()
+        if ewald_on:
+            sysb = attach_ewald(sysb, h_eff.ewald_accuracy, pme=h_eff.method == "pme")
         self._store_prep([mol], True, sysb, "binned", n_pad, perm=self._last_perm)
         return sysb
 
@@ -556,9 +577,15 @@ class AIMNet2Calculator:
         d3 = self._d3_head()
         d3_cut = (self._dftd3_cutoff_override or d3.cutoff) if d3 is not None else None
         coul_cut = None
+        ewald_on = h_eff is not None and h_eff.method in ("ewald", "pme")
         if h_eff is not None:
             if h_eff.method == "dsf":
                 coul_cut = self._lr_cutoff_override or h_eff.dsf_rc
+            elif ewald_on:
+                if not has_cell:
+                    raise ValueError(f"{h_eff.method} Coulomb requires a periodic cell")
+                # attach_ewald carries each molecule's eta and cutoffs
+                coul_cut = _ewald_real_cutoff(h_eff, mols)
             elif cutoff is not None:  # simple Coulomb on a cutoff-bounded base list
                 coul_cut = self._lr_cutoff_override or 1e6
         lr_cutoff = coulomb_cutoff = dftd3_cutoff = None
@@ -577,6 +604,8 @@ class AIMNet2Calculator:
             mols, self.device, n_pad=n_pad, cutoff=reach(cutoff), lr_cutoff=reach(lr_cutoff),
             coulomb_cutoff=reach(coulomb_cutoff), dftd3_cutoff=reach(dftd3_cutoff), build_nbmat=True,
         )
+        if ewald_on:
+            system = attach_ewald(system, h_eff.ewald_accuracy, pme=h_eff.method == "pme")
         self._store_prep(mols, allow_binned, system, "indexed", n_pad)
         return system
 

@@ -40,6 +40,9 @@
 //     short-range Coulomb (the same envelope)  47, in FP64
 //     D3 coordination number                   42
 //     D3(BJ) energy, V = 5 S                   115 + 4 V  (195 at S = 4)
+//     real-space Ewald (SR part subtracted)    70
+//     GFN1 repulsion (cosine cutoff)           60
+//     D3 with the TS combination rule          104 (three scalar adjoints)
 // (the forward's operations, the derivatives, and the coordinate chain:
 // 1/d, three products, nine adds).  The full stencil does the term twice
 // per unordered pair, and the vector adjoints cost two loads, two FMAs and
@@ -52,7 +55,8 @@
 #include "pair_walk.cuh"
 
 // term: 0 DSF Coulomb, 1 D3 coordination number, 2 D3(BJ) energy,
-// 3 simple Coulomb, 4 short-range Coulomb.
+// 3 simple Coulomb, 4 short-range Coulomb, 5 real-space Ewald, 6 GFN1
+// repulsion, 7 D3 with the TS combination rule.
 // consts: host pointer to 8 floats (the cutoff, then the term's constants).
 extern "C" int pair_bwd_launch(const float* consts, const float* coord, const float* mask,
                                const float* ext, const float* shift, const int* nbr,

@@ -23,6 +23,9 @@
 //     short-range Coulomb (the same envelope)  21, in FP64
 //     D3 coordination number                   18
 //     D3(BJ) energy, V = 5 S                   40 + 2 V  (80 at S = 4)
+//     real-space Ewald (SR part subtracted)    35
+//     GFN1 repulsion (cosine cutoff)           26
+//     D3 with the TS combination rule          40
 // (geometry 9: three differences, the square sum and the sqrt; a special
 // function or a division counts one).  The full stencil meets every pair
 // from both ends, so it does that work twice, and it tests each real
@@ -41,7 +44,8 @@
 #include "pair_walk.cuh"
 
 // term: 0 DSF Coulomb, 1 D3 coordination number, 2 D3(BJ) energy,
-// 3 simple Coulomb, 4 short-range Coulomb.
+// 3 simple Coulomb, 4 short-range Coulomb, 5 real-space Ewald, 6 GFN1
+// repulsion, 7 D3 with the TS combination rule.
 // consts: host pointer to 8 floats (the cutoff, then the term's constants).
 extern "C" int pair_fwd_launch(const float* consts, const float* coord, const float* mask,
                                const float* ext, const float* shift, const int* nbr,

@@ -1,12 +1,14 @@
 // The pair terms of kernels D and E (csrc/pair_fwd.cu, csrc/pair_bwd.cu).
 //
-// A term is e_ij = c_ij g(d, s_i, s_j): one scalar extra s per atom and, for
-// a bilinear term, c_ij = p_i . r_j (computed by the kernels).  Each functor
-// gives g and its hand derivatives (g, dg/dd, dg/ds_i, dg/ds_j), the same
-// formulas as the plain versions' g_grad in kernels/pair_sweep.py, which the
-// CPU tests hold to torch.autograd.  Only valid pairs (both atoms real, not
-// the self pair, d < cutoff) reach a functor, so no guard is needed here for
-// the padding atom's zero extras.
+// A term is e_ij = c_ij g(d, s_i, s_j): kScalars scalar extras s per atom
+// and, for a bilinear term, c_ij = p_i . r_j (computed by the kernels).  Each
+// functor gives g and its hand derivatives (g, dg/dd, dg/ds_i, dg/ds_j), the
+// same formulas as the plain versions' g_grad in kernels/pair_sweep.py, which
+// the CPU tests hold to torch.autograd.  A functor of one scalar takes floats;
+// one of several takes arrays and gives only the receiver's dg/ds_i (the
+// walk meets every pair from both ends, so dg/ds_j is never read).  Only
+// valid pairs (both atoms real, not the self pair, d < cutoff) reach a
+// functor, so no guard is needed here for the padding atom's zero extras.
 //
 // Constants (TermConsts.c): c[0] is the cutoff, c[1..] the term's own, in
 // the order of the term's consts() in kernels/pair_sweep.py.
@@ -62,6 +64,7 @@ __device__ inline void envelope(int env, float rc, float d, float& fc, float& df
 // c = [cutoff, alpha, shift_val, shift_slope, dsf_rc, rc, env]
 struct DsfTerm {
   static constexpr bool kBilinear = false;
+  static constexpr int kScalars = 1;
 
   __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
     const float a = k.c[1];
@@ -98,6 +101,7 @@ struct DsfTerm {
 // layout (radius 0): every pair of a molecule.  c = [cutoff, rc, env]
 struct CoulombSimpleTerm {
   static constexpr bool kBilinear = false;
+  static constexpr int kScalars = 1;
 
   __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
     float fc, dfc;
@@ -147,6 +151,7 @@ __device__ inline void envelope64(int env, double rc, double d, double& fc, doub
 // rounds its four results to float once each.  c = [cutoff, rc, env]
 struct CoulombSRTerm {
   static constexpr bool kBilinear = false;
+  static constexpr int kScalars = 1;
 
   __device__ static void h(const TermConsts& k, float d, double& hv, double& dh) {
     double fc, dfc;
@@ -177,6 +182,7 @@ struct CoulombSRTerm {
 // d_b = max(d / Bohr, 1e-12).  c = [cutoff, 1/Bohr]
 struct D3CnTerm {
   static constexpr bool kBilinear = false;
+  static constexpr int kScalars = 1;
 
   __device__ static float g(const TermConsts& k, float d, float si, float sj) {
     const float db = fmaxf(d * k.c[1], 1e-12f);
@@ -195,12 +201,34 @@ struct D3CnTerm {
   }
 };
 
+// Becke-Johnson damping s6/(d^6 + r0^6) + s8 rr/(d^8 + r0^8) with
+// r0 = a1 sqrt(rr) + a2 (d in Bohr) and its derivatives in d and rr.
+__device__ inline void bj_damping(float db, float rr, float a1, float a2, float s6, float s8,
+                                  float& damp, float& ddamp_db, float& ddamp_drr) {
+  const float sq = sqrtf(rr);
+  const float r0 = a1 * sq + a2;
+  const float d2 = db * db;
+  const float d6 = d2 * d2 * d2;
+  const float d8 = d6 * d2;
+  const float r0_2 = r0 * r0;
+  const float r0_6 = r0_2 * r0_2 * r0_2;
+  const float r0_8 = r0_6 * r0_2;
+  const float den6 = d6 + r0_6;
+  const float den8 = d8 + r0_8;
+  damp = s6 / den6 + s8 * rr / den8;
+  ddamp_db = -6.0f * s6 * (d6 / db) / (den6 * den6) - 8.0f * s8 * rr * (d8 / db) / (den8 * den8);
+  const float dr0 = a1 / (2.0f * sq);
+  ddamp_drr = -6.0f * s6 * (r0_6 / r0) * dr0 / (den6 * den6) + s8 / den8 -
+              8.0f * s8 * rr * (r0_8 / r0) * dr0 / (den8 * den8);
+}
+
 // D3(BJ) energy, scalar part: g = -damping(d_b, rr) switch(d_b) with
 // rr = 3 s_i s_j, r0 = a1 sqrt(rr) + a2, damping = s6/(d^6 + r0^6)
 // + s8 rr/(d^8 + r0^8) and the quintic S5 switch from r_on to r_off (Bohr);
 // e = (p_i . r_j) g.  c = [cutoff, a1, a2, s8, s6, r_on, r_off, 1/Bohr]
 struct D3EnergyTerm {
   static constexpr bool kBilinear = true;
+  static constexpr int kScalars = 1;
 
   __device__ static void parts(const TermConsts& k, float d, float si, float sj, float& damp,
                                float& ddamp_db, float& ddamp_drr, float& sw, float& dsw,
@@ -209,22 +237,7 @@ struct D3EnergyTerm {
     const float r_on = k.c[5], r_off = k.c[6];
     dr = d * k.c[7];
     const float db = fmaxf(dr, 1e-12f);
-    const float rr = 3.0f * si * sj;
-    const float sq = sqrtf(rr);
-    const float r0 = a1 * sq + a2;
-    const float d2 = db * db;
-    const float d6 = d2 * d2 * d2;
-    const float d8 = d6 * d2;
-    const float r0_2 = r0 * r0;
-    const float r0_6 = r0_2 * r0_2 * r0_2;
-    const float r0_8 = r0_6 * r0_2;
-    const float den6 = d6 + r0_6;
-    const float den8 = d8 + r0_8;
-    damp = s6 / den6 + s8 * rr / den8;
-    ddamp_db = -6.0f * s6 * (d6 / db) / (den6 * den6) - 8.0f * s8 * rr * (d8 / db) / (den8 * den8);
-    const float dr0 = a1 / (2.0f * sq);
-    ddamp_drr = -6.0f * s6 * (r0_6 / r0) * dr0 / (den6 * den6) + s8 / den8 -
-                8.0f * s8 * rr * (r0_8 / r0) * dr0 / (den8 * den8);
+    bj_damping(db, 3.0f * si * sj, a1, a2, s6, s8, damp, ddamp_db, ddamp_drr);
     sw = 1.0f;
     dsw = 0.0f;
     if (r_off > r_on && db > r_on) {
@@ -254,6 +267,119 @@ struct D3EnergyTerm {
     const float drr = -sw * ddrr * 3.0f;
     gsi = drr * sj;
     gsj = drr * si;
+  }
+};
+
+// Real-space Ewald: g = q_i q_j h(d), h = erfc(c d)/d - fc(d)/d with
+// c = 1/(sqrt(2) eta), a launch constant, the rational erfc of erfc_as and
+// the SR envelope the head subtracts (env 1 exp, 2 cosine, 0 none).
+// c = [cutoff, c, rc, env]
+struct EwaldRealTerm {
+  static constexpr bool kBilinear = false;
+  static constexpr int kScalars = 1;
+
+  __device__ static void h(const TermConsts& k, float d, float& hv, float& dh) {
+    float ea, dea;
+    erfc_as(k.c[1] * d, ea, dea);
+    const float inv_d = 1.0f / d;
+    hv = ea * inv_d;
+    dh = k.c[1] * dea * inv_d - ea * inv_d * inv_d;
+    float fc, dfc;
+    envelope(int(k.c[3]), k.c[2], d, fc, dfc);
+    hv -= fc * inv_d;
+    dh -= dfc * inv_d - fc * inv_d * inv_d;
+  }
+
+  __device__ static float g(const TermConsts& k, float d, float si, float sj) {
+    float hv, dh;
+    h(k, d, hv, dh);
+    return si * sj * hv;
+  }
+
+  __device__ static void grad(const TermConsts& k, float d, float si, float sj, float& g,
+                              float& gd, float& gsi, float& gsj) {
+    float hv, dh;
+    h(k, d, hv, dh);
+    g = si * sj * hv;
+    gd = si * sj * dh;
+    gsi = sj * hv;
+    gsj = si * hv;
+  }
+};
+
+// GFN1 short-range repulsion: g = exp(-a_i a_j d^1.5) z_i z_j fc(d) / d with
+// s = (alpha, zeff) and fc the optional cutoff at rc (code 0 none, 1 the exp
+// mollifier, 2 the cosine cutoff; envelope()'s two).  c = [cutoff, rc, code]
+struct SRRepTerm {
+  static constexpr bool kBilinear = false;
+  static constexpr int kScalars = 2;
+
+  __device__ static void parts(const TermConsts& k, float d, const float* si, const float* sj,
+                               float& h, float& dh, float& p) {
+    const float a = si[0] * sj[0];
+    const float sq = sqrtf(d);
+    p = d * sq;  // d^1.5
+    const float ex = expf(-a * p);
+    float fc = 1.0f, dfc = 0.0f;
+    const int code = int(k.c[2]);
+    if (code != 0) envelope(code, k.c[1], d, fc, dfc);
+    const float inv_d = 1.0f / d;
+    h = ex * fc * inv_d;  // g / (z_i z_j)
+    dh = ex * (-1.5f * a * sq * fc * inv_d + dfc * inv_d - fc * inv_d * inv_d);
+  }
+
+  __device__ static float g(const TermConsts& k, float d, const float* si, const float* sj) {
+    float h, dh, p;
+    parts(k, d, si, sj, h, dh, p);
+    return si[1] * sj[1] * h;
+  }
+
+  __device__ static void grad(const TermConsts& k, float d, const float* si, const float* sj,
+                              float& g, float& gd, float* gsi) {
+    float h, dh, p;
+    parts(k, d, si, sj, h, dh, p);
+    const float z = si[1] * sj[1];
+    g = z * h;
+    gd = z * dh;
+    gsi[0] = -sj[0] * p * g;
+    gsi[1] = sj[1] * h;
+  }
+};
+
+// D3 with the TS combination rule: g = -c6_ij damping(d_b, rr), no switch,
+// with s = (c6, alpha, r4r2), c6_ij = 2 c6_i c6_j / max(den, 1e-4),
+// den = c6_i a_j/a_i + c6_j a_i/a_j, rr = 3 r4r2_i r4r2_j and bj_damping.
+// Its scalar adjoints carry the forces through the network's C6 and alpha.
+// c = [cutoff, a1, a2, s8, s6, 1/Bohr]
+struct D3TSTerm {
+  static constexpr bool kBilinear = false;
+  static constexpr int kScalars = 3;
+
+  __device__ static float g(const TermConsts& k, float d, const float* si, const float* sj) {
+    const float den = si[0] * sj[1] / si[1] + sj[0] * si[1] / sj[1];
+    const float c6ij = 2.0f * si[0] * sj[0] / fmaxf(den, 1e-4f);
+    float damp, ddb, ddrr;
+    bj_damping(d * k.c[5], 3.0f * si[2] * sj[2], k.c[1], k.c[2], k.c[4], k.c[3], damp, ddb, ddrr);
+    return -c6ij * damp;
+  }
+
+  __device__ static void grad(const TermConsts& k, float d, const float* si, const float* sj,
+                              float& g, float& gd, float* gsi) {
+    const float c6i = si[0], ai = si[1], c6j = sj[0], aj = sj[1];
+    const float den = c6i * aj / ai + c6j * ai / aj;
+    const bool on = den >= 1e-4f;  // where the clamp passes the gradient
+    const float cl = fmaxf(den, 1e-4f);
+    const float c6ij = 2.0f * c6i * c6j / cl;
+    float damp, ddb, ddrr;
+    bj_damping(d * k.c[5], 3.0f * si[2] * sj[2], k.c[1], k.c[2], k.c[4], k.c[3], damp, ddb, ddrr);
+    g = -c6ij * damp;
+    gd = -c6ij * ddb * k.c[5];
+    const float kk = c6ij / cl;
+    const float dcl_dc6 = on ? aj / ai : 0.0f;
+    const float dcl_da = on ? -c6i * aj / (ai * ai) + c6j / aj : 0.0f;
+    gsi[0] = -damp * (2.0f * c6j / cl - kk * dcl_dc6);
+    gsi[1] = damp * kk * dcl_da;
+    gsi[2] = -c6ij * ddrr * 3.0f * sj[2];
   }
 };
 

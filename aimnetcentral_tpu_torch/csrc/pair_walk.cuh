@@ -25,7 +25,8 @@
 // atomics, so a repeated call is identical bit for bit.
 //
 // Per pair (i receiver, j candidate), with c_ij = p_i . r_j (1 for a term
-// without vectors) and g = g(d, s_i, s_j) (terms are symmetric in s):
+// without vectors) and g = g(d, s_i, s_j) (terms are symmetric in s; s is
+// NS scalars an atom, and each has its adjoint):
 //   o = 0:      out_i += c_ij g;  the loss holds ct_i c_ij g + ct_j c_ji g
 //   o upper:    out_i += c_ij g;  the pair cotangent is ct_i + ct_j on c_ij
 //   o lower:    out_i += c_ji g;  the pair cotangent is ct_i + ct_j on c_ji
@@ -57,11 +58,34 @@ constexpr int kMaxCols = 3;   // vector columns a lane owns in E: V <= 96
 constexpr int kMaxV = 32 * kMaxCols;
 constexpr int kAhead = 4;     // candidate rows E loads ahead of their sums
 
+// The functor's g and its receiver-side derivatives for NS scalars an atom:
+// a functor of one scalar takes floats, one of several arrays.
+template <class Term>
+__device__ __forceinline__ float term_g(const TermConsts& k, float d, const float* si,
+                                        const float* sj) {
+  if constexpr (Term::kScalars == 1) {
+    return Term::g(k, d, si[0], sj[0]);
+  } else {
+    return Term::g(k, d, si, sj);
+  }
+}
+
+template <class Term>
+__device__ __forceinline__ void term_grad(const TermConsts& k, float d, const float* si,
+                                          const float* sj, float& g, float& gd, float* gsi) {
+  if constexpr (Term::kScalars == 1) {
+    float gsj;
+    Term::grad(k, d, si[0], sj[0], g, gd, gsi[0], gsj);
+  } else {
+    Term::grad(k, d, si, sj, g, gd, gsi);
+  }
+}
+
 struct Args {
   TermConsts tc;
   const float* coord;     // (B*C, 3)
   const float* mask;      // (B*C)
-  const float* ext;       // (B*C, K) = [p (V), r (V), s]
+  const float* ext;       // (B*C, K) = [p (V), r (V), s (NS)]
   const float* shift;     // (S, B, 3) half stencil
   const int* nbr;         // (S, B) half stencil, -1 = no candidate
   const long long* inv;   // (S, B) inverse of nbr, B (or -1) = none
@@ -113,7 +137,8 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
   const int row = blockIdx.x * kWarps + w;
   const int B = a.B, C = a.C, K = a.K, S = a.S;
   if (row >= B * C) return;  // whole warps only; no block barrier below
-  const int V = (K - 1) / 2;
+  constexpr int NS = Term::kScalars;
+  const int V = (K - NS) / 2;
   float* qx = smem + w * warp_words(K, S, kAdjoint);
   float* qy = qx + kQueue;
   float* qz = qy + kQueue;
@@ -145,13 +170,17 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
     for (int t = lane; t < 3 * S; t += 32) srow[t] = 0.0f;
   }
   __syncwarp();
-  const float si = rec[2 * V];
+  float si[NS];
+#pragma unroll
+  for (int t = 0; t < NS; ++t) si[t] = rec[2 * V + t];
   // an offset whose candidate box lies beyond the cutoff is skipped: a
   // margin far above the rounding of the slot tests keeps this exact
   const float prune_d2 = 1.0001f * a.d2_max + 1e-6f;
 
   // this lane's partial sums over its pairs, finished by one butterfly
-  float acc_o = 0.0f, acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f, acc_s = 0.0f;
+  float acc_o = 0.0f, acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f, acc_s[NS];
+#pragma unroll
+  for (int t = 0; t < NS; ++t) acc_s[t] = 0.0f;
   constexpr int kM = M > 0 ? M : 1;
   float padj[kM], radj[kM];  // E, bilinear: columns lane + 32 m
 #pragma unroll
@@ -170,7 +199,9 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
       const float d = sqrtf(dist2(dx, dy, dz));
       const int kind = o == 0 ? 0 : (o < S ? 1 : 2);
       const float* er = a.ext + size_t(jr) * K;  // the candidate's [p, r, s]
-      const float sj = __ldg(er + 2 * V);
+      float sj[NS];
+#pragma unroll
+      for (int t = 0; t < NS; ++t) sj[t] = __ldg(er + 2 * V + t);
       float cij = 1.0f, cji = 1.0f;
       if (Term::kBilinear) {  // the products the pair needs: c_ij, c_ji or both
         cij = 0.0f;
@@ -185,11 +216,11 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
         }
       }
       if (!kAdjoint) {
-        acc_o += (kind == 2 ? cji : cij) * Term::g(a.tc, d, si, sj);
+        acc_o += (kind == 2 ? cji : cij) * term_g<Term>(a.tc, d, si, sj);
       } else {
         const float ctj = a.ct[jr];
-        float g, gd, gsi, gsj;
-        Term::grad(a.tc, d, si, sj, g, gd, gsi, gsj);
+        float g, gd, gsi[NS];
+        term_grad<Term>(a.tc, d, si, sj, g, gd, gsi);
         const float cp = kind == 0 ? cti : (kind == 1 ? cti + ctj : 0.0f);  // on c_ij
         const float cq = kind == 0 ? ctj : (kind == 2 ? cti + ctj : 0.0f);  // on c_ji
         const float e = cp * cij + cq * cji;
@@ -197,7 +228,8 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
         acc_x -= fd * dx;
         acc_y -= fd * dy;
         acc_z -= fd * dz;
-        acc_s += e * gsi;
+#pragma unroll
+        for (int t = 0; t < NS; ++t) acc_s[t] += e * gsi[t];
         const float fs = cp * cij * gd / d;  // 0 on the lower half
         shx = fs * dx;
         shy = fs * dy;
@@ -366,13 +398,15 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
     acc_x = warp_sum(acc_x);
     acc_y = warp_sum(acc_y);
     acc_z = warp_sum(acc_z);
-    acc_s = warp_sum(acc_s);
+#pragma unroll
+    for (int t = 0; t < NS; ++t) acc_s[t] = warp_sum(acc_s[t]);
     float* ge = a.ge + size_t(row) * K;
     if (lane == 0) {
       a.gc[3 * size_t(row) + 0] = acc_x;
       a.gc[3 * size_t(row) + 1] = acc_y;
       a.gc[3 * size_t(row) + 2] = acc_z;
-      ge[2 * V] = acc_s;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) ge[2 * V + t] = acc_s[t];
     }
 #pragma unroll
     for (int m = 0; m < kM; ++m) {
@@ -405,9 +439,10 @@ int launch(const Args& a, cudaStream_t stream) {
 // M = ceil(V / 32) columns a lane.
 template <class Term, bool kAdjoint>
 int launch_width(const Args& a, cudaStream_t stream) {
-  if (a.B < 1 || a.C < 1 || a.S < 1 || a.K < 1 || a.K % 2 != 1) return int(cudaErrorInvalidValue);
-  const int V = (a.K - 1) / 2;
-  if (V > kMaxV || (!Term::kBilinear && a.K != 1)) return int(cudaErrorInvalidValue);
+  constexpr int NS = Term::kScalars;
+  if (a.B < 1 || a.C < 1 || a.S < 1 || a.K < NS || (a.K - NS) % 2 != 0) return int(cudaErrorInvalidValue);
+  const int V = (a.K - NS) / 2;
+  if (V > kMaxV || (!Term::kBilinear && V != 0)) return int(cudaErrorInvalidValue);
   if (!Term::kBilinear) return launch<Term, kAdjoint, 0>(a, stream);
   if (!kAdjoint || V <= 32) return launch<Term, kAdjoint, 1>(a, stream);
   if (V <= 64) return launch<Term, kAdjoint, 2>(a, stream);
@@ -427,6 +462,12 @@ int launch_term(int term, const Args& a, cudaStream_t stream) {
       return launch_width<pair_terms::CoulombSimpleTerm, kAdjoint>(a, stream);
     case 4:
       return launch_width<pair_terms::CoulombSRTerm, kAdjoint>(a, stream);
+    case 5:
+      return launch_width<pair_terms::EwaldRealTerm, kAdjoint>(a, stream);
+    case 6:
+      return launch_width<pair_terms::SRRepTerm, kAdjoint>(a, stream);
+    case 7:
+      return launch_width<pair_terms::D3TSTerm, kAdjoint>(a, stream);
     default:
       return int(cudaErrorInvalidValue);
   }

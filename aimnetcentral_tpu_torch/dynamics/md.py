@@ -7,7 +7,8 @@ Two engines, as in the JAX package:
   ops/binned.py.  A rebuild re-bins the SR and LR layouts, carrying
   velocities, masses and ``atom_id`` through the permutation.  Every step
   launches the conv kernels A and B three times each and the pair kernels
-  D and E once per long-range sweep (DSF; D3 adds two).
+  D and E once per long-range sweep (DSF or the Ewald real-space sum; D3
+  adds two).
 - ``indexed`` (the default without a cell): neighbor matrices built on the
   device by ops/cell_list.py (an SR list at ``rc + skin``, an LR list at
   the largest long-range cutoff plus ``lr_skin``); a rebuild writes new
@@ -42,9 +43,10 @@ or the capacity, so a restored checkpoint continues the same trajectory.
 The JAX package draws other numbers, so Langevin runs of the two packages
 agree only in distribution.
 
-Ensembles and Ewald/PME heads raise ``NotImplementedError`` naming
-ROADMAP.md.  Units: Angstrom / eV / amu; ``dt`` in fs via the ASE time
-conversion.
+Ewald and PME heads run on both engines: the discretisation is attached
+at construction and the LR layout reaches its real-space cutoff.
+Ensembles raise ``NotImplementedError`` naming ROADMAP.md.  Units:
+Angstrom / eV / amu; ``dt`` in fs via the ASE time conversion.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_contex
 from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config, aimnet2_apply
 from aimnetcentral_tpu_torch.models.bridge import params_to
+from aimnetcentral_tpu_torch.models.ewald import attach_ewald
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
 from aimnetcentral_tpu_torch.ops import binned as B
 from aimnetcentral_tpu_torch.ops.cell_list import build_cell_list, plan_cell_list
@@ -229,9 +232,6 @@ class MDDriver:
             cfg = auto_switch_simple_to_dsf(cfg)
         elif md.barostat is not None:
             raise ValueError("the barostat needs a periodic cell")
-        for _n, h in cfg.outputs:
-            if isinstance(h, LRCoulombHead) and h.method in ("ewald", "pme"):
-                raise NotImplementedError(f"{h.method} Coulomb in MD {_NOT_PORTED}")
         precision_tiers(md.precision or "fast")  # validate
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -240,6 +240,19 @@ class MDDriver:
         self.engine = engine
 
         system = system.to(self.device)
+        # Ewald and PME: the discretisation is attached once, before the
+        # first layout, and stays fixed over the trajectory (under the
+        # Berendsen barostat too: the energy follows the instantaneous cell,
+        # only the split between real and reciprocal space drifts with the
+        # volume), as in the JAX driver
+        self._ewald_rc = None
+        ew_head = next(
+            (h for _n, h in cfg.outputs if isinstance(h, LRCoulombHead) and h.method in ("ewald", "pme")), None
+        )
+        if ew_head is not None and system.cell is not None:
+            if system.ewald_kpts is None:
+                system = attach_ewald(system, ew_head.ewald_accuracy, pme=ew_head.method == "pme")
+            self._ewald_rc = float(system.ewald_r_static)
         n_real = int((system.numbers > 0).sum())
         cell_np = system.cell[0].cpu().numpy() if system.cell is not None else None
         self._compact_system = system  # kept for checkpoint restore (rebuild)
@@ -340,10 +353,15 @@ class MDDriver:
         return c[real].min(0) - 0.5, c[real].max(0) + 0.5
 
     def _lr_cutoff(self) -> float | None:
+        """The LR layout's reach: the largest of the DSF, the D3 and (from
+        the attached discretisation) the Ewald real-space cutoffs."""
         cuts = []
         for _n, h in self.cfg.outputs:
             if isinstance(h, LRCoulombHead):
-                cuts.append(h.dsf_rc)
+                if h.method not in ("ewald", "pme"):
+                    cuts.append(h.dsf_rc)
+                elif self._ewald_rc is not None:
+                    cuts.append(self._ewald_rc)
             elif isinstance(h, DFTD3Head):
                 cuts.append(h.cutoff)
         return max(cuts) if cuts else None

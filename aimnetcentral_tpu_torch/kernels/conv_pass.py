@@ -113,7 +113,7 @@ class ConvAccBwd(torch.autograd.Function):
 def conv_pass(
     system: System,
     aev: dict[str, torch.Tensor],
-    a: torch.Tensor,  # (L, F, G)
+    a: torch.Tensor,  # (L, F, G), or (L, F) for a model without d2features
     q: torch.Tensor | None,  # (L, Cq) charges, None on pass 0
     agh_a: torch.Tensor,
     agh_q: torch.Tensor | None,
@@ -121,14 +121,20 @@ def conv_pass(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """ConvSV(a) [and ConvSV(q)] for one message pass (conv_pallas.
     conv_pass_pallas): the charge channels ride in each g block of the
-    features, so one contraction serves both."""
+    features, so one contraction serves both.  Features without a G axis
+    (no ``d2features``) are broadcast along it, as the charges are: the
+    contraction is then JAX's ``einsum("nmc,nmgd->ncgd")``, and autograd
+    of the broadcast sums the adjoint over G."""
     grid = system.bins
     dev = system.device
     cell0 = system.cell[0] if system.cell is not None else None
     radius = B.stencil_radius(rc_static, grid)
     tables = device_conv_tables(grid, radius, dev)
     b_tot, c = grid.total_bins, grid.capacity
-    lshape, f_dim, g_dim = a.shape
+    g_dim = aev["shifts_s"].shape[0]
+    if a.dim() == 2:
+        a = a[:, :, None].expand(a.shape[0], a.shape[1], g_dim)
+    lshape, f_dim, _g = a.shape
     cq = q.shape[1] if q is not None else 0
     f_tot = f_dim + cq
     st = ConvStatic(b_tot=b_tot, c=c, g=g_dim, f=f_tot, s_tot=tables["nbr"].shape[0])

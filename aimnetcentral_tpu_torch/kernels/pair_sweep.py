@@ -24,15 +24,20 @@ one specialisation per term.  Every term here has the form
 
     e_ij = c_ij g(d_ij, s_i, s_j),   c_ij = p_i . r_j  (bilinear terms) or 1,
 
-with one scalar extra ``s`` per atom and, for a bilinear term, two per-atom
-vectors ``p`` (read on the receiver) and ``r`` (read on the candidate) of
-width V.  The extras are packed per atom as ``[p (V), r (V), s]``, K = 2V+1.
-Terms: DSF Coulomb (s = q), simple (unbounded) Coulomb (s = q),
-short-range Coulomb (s = q), the D3 coordination number (s = rcov) and the
-D3(BJ) energy over the factorised C6 (p, r, s = r4r2).  Each term has its
-plain ``g`` (differentiated by autograd in the plain versions) and its hand
-derivatives ``g_grad``, the formulas the CUDA functors (csrc/pair_terms.cuh)
-compute; the tests hold the latter to autograd.
+with NS scalar extras ``s`` per atom (one for most terms) and, for a
+bilinear term, two per-atom vectors ``p`` (read on the receiver) and ``r``
+(read on the candidate) of width V.  The extras are packed per atom as
+``[p (V), r (V), s (NS)]``, K = 2V + NS.  Terms: DSF Coulomb (s = q),
+simple (unbounded) Coulomb (s = q), short-range Coulomb (s = q), the D3
+coordination number (s = rcov), the D3(BJ) energy over the factorised C6
+(p, r, s = r4r2), the real-space Ewald sum (s = q), GFN1 short-range
+repulsion (s = alpha, zeff) and D3 with the TS combination rule over the
+network's C6 and alpha (s = c6, alpha, r4r2).  Each term has its plain
+``g`` (differentiated by autograd in the plain versions) and its hand
+derivatives ``g_grad``, the formulas the CUDA functors
+(csrc/pair_terms.cuh) compute; the tests hold the latter to autograd.  A
+term of several scalars takes ``s_i`` and ``s_j`` with a trailing axis of
+NS and returns its scalar derivatives with one too.
 
 Offsets: ``s = 0`` is the zero offset, where each bin meets itself in both
 orderings and only the receiver side is summed; every other half offset
@@ -143,6 +148,7 @@ class DSFTerm:
     code: ClassVar[int] = 0
     vector_keys: ClassVar[tuple[str, ...]] = ()
     scalar_key: ClassVar[str] = "q"
+    scalar_keys: ClassVar[tuple[str, ...]] = ("q",)
 
     @property
     def shift_val(self) -> float:
@@ -192,6 +198,7 @@ class CoulombSimpleTerm:
     code: ClassVar[int] = 3
     vector_keys: ClassVar[tuple[str, ...]] = ()
     scalar_key: ClassVar[str] = "q"
+    scalar_keys: ClassVar[tuple[str, ...]] = ("q",)
 
     def consts(self) -> tuple[float, ...]:
         return (self.rc, _envelope_code(self.envelope, self.subtract_sr))
@@ -226,6 +233,7 @@ class CoulombSRTerm:
     code: ClassVar[int] = 4
     vector_keys: ClassVar[tuple[str, ...]] = ()
     scalar_key: ClassVar[str] = "q"
+    scalar_keys: ClassVar[tuple[str, ...]] = ("q",)
 
     def consts(self) -> tuple[float, ...]:
         return (self.rc, _envelope_code(self.envelope, True))
@@ -248,6 +256,7 @@ class D3CNTerm:
     code: ClassVar[int] = 1
     vector_keys: ClassVar[tuple[str, ...]] = ()
     scalar_key: ClassVar[str] = "rcov"
+    scalar_keys: ClassVar[tuple[str, ...]] = ("rcov",)
 
     def consts(self) -> tuple[float, ...]:
         return (Bohr_inv,)
@@ -265,6 +274,28 @@ class D3CNTerm:
         dd = torch.where(_inside(dr, 1e-12), -k * rsum / (db * db) * Bohr_inv, 0.0)
         ds = k / db
         return sg, dd, ds, ds
+
+
+def _bj_damping_grad(db, rr, r0, a1: float, s6: float, s8: float):
+    """Becke-Johnson damping ``s6/(d^6 + r0^6) + s8 rr/(d^8 + r0^8)`` with
+    ``r0 = a1 sqrt(rr) + a2`` (d in Bohr), and its derivatives in d and rr."""
+    d2 = db * db
+    d6 = d2 * d2 * d2
+    d8 = d6 * d2
+    r0_2 = r0 * r0
+    r0_6 = r0_2 * r0_2 * r0_2
+    r0_8 = r0_6 * r0_2
+    den6 = d6 + r0_6
+    den8 = d8 + r0_8
+    damping = s6 / den6 + s8 * rr / den8
+    ddamp_db = -6.0 * s6 * (d6 / db) / (den6 * den6) - 8.0 * s8 * rr * (d8 / db) / (den8 * den8)
+    dr0 = a1 / (2.0 * torch.sqrt(rr))
+    ddamp_drr = (
+        -6.0 * s6 * (r0_6 / r0) * dr0 / (den6 * den6)
+        + s8 / den8
+        - 8.0 * s8 * rr * (r0_8 / r0) * dr0 / (den8 * den8)
+    )
+    return damping, ddamp_db, ddamp_drr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,6 +316,7 @@ class D3EnergyTerm:
     code: ClassVar[int] = 2
     vector_keys: ClassVar[tuple[str, ...]] = ("p", "r")
     scalar_key: ClassVar[str] = "rr"
+    scalar_keys: ClassVar[tuple[str, ...]] = ("rr",)
 
     def consts(self) -> tuple[float, ...]:
         return (self.a1, self.a2, self.s8, self.s6, self.r_on * Bohr_inv, self.r_off * Bohr_inv, Bohr_inv)
@@ -311,23 +343,7 @@ class D3EnergyTerm:
     def g_grad(self, d, si, sj, valid):
         dr = d * Bohr_inv
         db, rr, r0 = self._parts(d, si, sj, valid)
-        s6, s8 = self.s6, self.s8
-        d2 = db * db
-        d6 = d2 * d2 * d2
-        d8 = d6 * d2
-        r0_2 = r0 * r0
-        r0_6 = r0_2 * r0_2 * r0_2
-        r0_8 = r0_6 * r0_2
-        den6 = d6 + r0_6
-        den8 = d8 + r0_8
-        damping = s6 / den6 + s8 * rr / den8
-        ddamp_db = -6.0 * s6 * (d6 / db) / (den6 * den6) - 8.0 * s8 * rr * (d8 / db) / (den8 * den8)
-        dr0 = self.a1 / (2.0 * torch.sqrt(rr))
-        ddamp_drr = (
-            -6.0 * s6 * (r0_6 / r0) * dr0 / (den6 * den6)
-            + s8 / den8
-            - 8.0 * s8 * rr * (r0_8 / r0) * dr0 / (den8 * den8)
-        )
+        damping, ddamp_db, ddamp_drr = _bj_damping_grad(db, rr, r0, self.a1, self.s6, self.s8)
         r_on, r_off = self.r_on * Bohr_inv, self.r_off * Bohr_inv
         if r_off <= r_on:
             sw, dsw = torch.ones_like(db), torch.zeros_like(db)
@@ -346,22 +362,177 @@ class D3EnergyTerm:
         return -damping * sw, dd, drr * sj, drr * si
 
 
-PairTerm = DSFTerm | CoulombSimpleTerm | CoulombSRTerm | D3CNTerm | D3EnergyTerm
+@dataclasses.dataclass(frozen=True)
+class EwaldRealTerm:
+    """The real-space Ewald sum, ``q_i q_j erfc(d / (sqrt(2) eta)) / d``
+    within the real-space cutoff, with the rational ``erfc_approx``
+    (engine_binned.ewald_real_binned in the JAX package), minus the SR
+    envelope part ``fc(d)/d`` when ``subtract_sr``: the head's
+    ``coulomb_sr_binned``, which JAX sweeps apart, in the same sweep (exact:
+    the envelope is zero beyond rc, below the real-space cutoff), as DSF
+    does.  ``eta`` is a constant of the launch, so a new cell's eta needs
+    no rebuild."""
+
+    eta: float
+    rc: float = 4.6
+    envelope: str = "exp"
+    subtract_sr: bool = False
+    name: ClassVar[str] = "ewald_real"
+    code: ClassVar[int] = 5
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+    scalar_key: ClassVar[str] = "q"
+    scalar_keys: ClassVar[tuple[str, ...]] = ("q",)
+
+    @property
+    def inv_width(self) -> float:
+        """1 / (sqrt(2) eta): erfc's argument is d times this."""
+        return 1.0 / (math.sqrt(2.0) * self.eta)
+
+    def consts(self) -> tuple[float, ...]:
+        return (self.inv_width, self.rc, _envelope_code(self.envelope, self.subtract_sr))
+
+    def g(self, d, si, sj, valid):
+        h = erfc_approx(d * self.inv_width) / d
+        if self.subtract_sr:
+            h = h - _envelope(d, self.rc, self.envelope) / d
+        return si * sj * h
+
+    def g_grad(self, d, si, sj, valid):
+        c = self.inv_width
+        ea, dea = erfc_approx_grad(d * c)
+        h, dh = ea / d, c * dea / d - ea / (d * d)
+        if self.subtract_sr:
+            fc, dfc = _envelope_grad(d, self.rc, self.envelope)
+            h = h - fc / d
+            dh = dh - (dfc / d - fc / (d * d))
+        return si * sj * h, si * sj * dh, sj * h, si * h
+
+
+_CUTOFF_FN_CODES = {"none": 0.0, "exp_cutoff": 1.0, "cosine_cutoff": 2.0}
+
+
+@dataclasses.dataclass(frozen=True)
+class SRRepTerm:
+    """GFN1 short-range repulsion, ``exp(-a_i a_j d^1.5) z_i z_j / d``
+    times the optional exp or cosine cutoff at ``rc`` (engine_binned.
+    srrep_binned in the JAX package), swept at ``rc`` on the SR layout.
+    Two scalars an atom: s = (alpha, zeff)."""
+
+    rc: float
+    cutoff_fn: str = "none"
+    name: ClassVar[str] = "srrep"
+    code: ClassVar[int] = 6
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+    scalar_keys: ClassVar[tuple[str, ...]] = ("alpha", "zeff")
+
+    def __post_init__(self):
+        if self.cutoff_fn not in _CUTOFF_FN_CODES:
+            raise ValueError(f"unknown cutoff_fn {self.cutoff_fn!r}")
+
+    def consts(self) -> tuple[float, ...]:
+        return (self.rc, _CUTOFF_FN_CODES[self.cutoff_fn])
+
+    def _fc(self, d):
+        if self.cutoff_fn == "none":
+            return torch.ones_like(d), torch.zeros_like(d)
+        return _envelope_grad(d, self.rc, "exp" if self.cutoff_fn == "exp_cutoff" else "cosine")
+
+    def g(self, d, si, sj, valid):
+        e = torch.exp(-si[..., 0] * sj[..., 0] * d**1.5) * si[..., 1] * sj[..., 1] / d
+        if self.cutoff_fn == "none":
+            return e
+        return e * _envelope(d, self.rc, "exp" if self.cutoff_fn == "exp_cutoff" else "cosine")
+
+    def g_grad(self, d, si, sj, valid):
+        a, z = si[..., 0] * sj[..., 0], si[..., 1] * sj[..., 1]
+        sq = torch.sqrt(d)
+        ex = torch.exp(-a * d * sq)
+        fc, dfc = self._fc(d)
+        h = ex * fc / d  # g / z
+        dh = ex * (-1.5 * a * sq * fc / d + dfc / d - fc / (d * d))
+        g = z * h
+        gsi = torch.stack([-sj[..., 0] * d * sq * g, sj[..., 1] * h], dim=-1)
+        gsj = torch.stack([-si[..., 0] * d * sq * g, si[..., 1] * h], dim=-1)
+        return g, z * dh, gsi, gsj
+
+
+@dataclasses.dataclass(frozen=True)
+class D3TSTerm:
+    """D3-like dispersion with the TS combination rule (engine_binned.
+    d3ts_binned in the JAX package): ``e = -c6_ij damping(d, rr)`` with
+    ``c6_ij = 2 c6_i c6_j / max(c6_i a_j/a_i + c6_j a_i/a_j, 1e-4)``,
+    ``rr = 3 r4r2_i r4r2_j`` and Becke-Johnson damping, no switch.  Three
+    scalars an atom: s = (c6, alpha, r4r2); c6 and alpha come out of the
+    network (DispParam), so the kernels return the adjoint of each.
+    Non-pairs take rr := 1, as in JAX."""
+
+    a1: float
+    a2: float
+    s8: float
+    s6: float = 1.0
+    name: ClassVar[str] = "d3ts"
+    code: ClassVar[int] = 7
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+    scalar_keys: ClassVar[tuple[str, ...]] = ("c6", "alpha", "rr")
+
+    def consts(self) -> tuple[float, ...]:
+        return (self.a1, self.a2, self.s8, self.s6, Bohr_inv)
+
+    def _c6(self, si, sj):
+        c6i, ai, c6j, aj = si[..., 0], si[..., 1], sj[..., 0], sj[..., 1]
+        den = c6i * aj / ai + c6j * ai / aj
+        return c6i, ai, c6j, aj, den, torch.clamp(den, min=1e-4)
+
+    def g(self, d, si, sj, valid):
+        c6i, _ai, c6j, _aj, _den, cl = self._c6(si, sj)
+        rr = torch.where(valid, 3.0 * si[..., 2] * sj[..., 2], 1.0)
+        r0 = self.a1 * torch.sqrt(rr) + self.a2
+        db = d * Bohr_inv
+        return -(2.0 * c6i * c6j / cl) * (self.s6 / (db**6 + r0**6) + self.s8 * rr / (db**8 + r0**8))
+
+    def g_grad(self, d, si, sj, valid):
+        c6i, ai, c6j, aj, den, cl = self._c6(si, sj)
+        on = _inside(den, 1e-4)  # where the clamp passes the gradient
+        c6ij = 2.0 * c6i * c6j / cl
+        rr = torch.where(valid, 3.0 * si[..., 2] * sj[..., 2], 1.0)
+        r0 = self.a1 * torch.sqrt(rr) + self.a2
+        damping, ddamp_db, ddamp_drr = _bj_damping_grad(d * Bohr_inv, rr, r0, self.a1, self.s6, self.s8)
+        k = c6ij / cl  # -dc6ij/dcl
+        dcl_dc6i = torch.where(on, aj / ai, 0.0)
+        dcl_dai = torch.where(on, -c6i * aj / (ai * ai) + c6j / aj, 0.0)
+        dcl_dc6j = torch.where(on, ai / aj, 0.0)
+        dcl_daj = torch.where(on, c6i / ai - c6j * ai / (aj * aj), 0.0)
+        drr = torch.where(valid, -c6ij * ddamp_drr * 3.0, 0.0)
+        gsi = torch.stack(
+            [-damping * (2.0 * c6j / cl - k * dcl_dc6i), damping * k * dcl_dai, drr * sj[..., 2]], dim=-1
+        )
+        gsj = torch.stack(
+            [-damping * (2.0 * c6i / cl - k * dcl_dc6j), damping * k * dcl_daj, drr * si[..., 2]], dim=-1
+        )
+        return -c6ij * damping, -c6ij * ddamp_db * Bohr_inv, gsi, gsj
+
+
+PairTerm = (
+    DSFTerm | CoulombSimpleTerm | CoulombSRTerm | D3CNTerm | D3EnergyTerm | EwaldRealTerm | SRRepTerm | D3TSTerm
+)
 
 
 def pack_extras(term: PairTerm, extras: dict[str, torch.Tensor]) -> torch.Tensor:
     """Per-atom extras as the kernels take them: (L, K) ``[p, r, s]``."""
-    cols = [extras[k] for k in term.vector_keys] + [extras[term.scalar_key][:, None]]
+    cols = [extras[k] for k in term.vector_keys] + [extras[k][:, None] for k in term.scalar_keys]
     return torch.cat(cols, dim=-1)
 
 
 def pair_value(term: PairTerm, d, valid, ext_self, ext_cand):
     """The (B, Ci, Cj) pair values ``c_ij g(d_ij, s_i, s_j)`` for receiver
     extras (B, Ci, K) and candidate extras (B, Cj, K)."""
-    si = ext_self[..., -1][:, :, None]
-    sj = ext_cand[..., -1][:, None, :]
+    ns = len(term.scalar_keys)
+    v = (ext_self.shape[-1] - ns) // 2
+    si = ext_self[..., 2 * v :][:, :, None, :]
+    sj = ext_cand[..., 2 * v :][:, None, :, :]
+    if ns == 1:
+        si, sj = si[..., 0], sj[..., 0]
     g = term.g(d, si, sj, valid)
-    v = (ext_self.shape[-1] - 1) // 2
     if v == 0:
         return g
     c = torch.einsum("bix,bjx->bij", ext_self[..., :v], ext_cand[..., v : 2 * v])
@@ -375,17 +546,19 @@ def pair_value(term: PairTerm, d, valid, ext_self, ext_cand):
 @dataclasses.dataclass(frozen=True)
 class PairStatic:
     """Static shapes of one sweep: B bins of capacity C, S half offsets
-    (the zero offset first), K = 2V+1 extras a atom, and the cutoff."""
+    (the zero offset first), K = 2V + NS extras an atom (NS scalars), and
+    the cutoff."""
 
     b_tot: int
     c: int
     s_tot: int
     k: int
     cutoff: float
+    ns: int = 1
 
     @property
     def v(self) -> int:
-        return (self.k - 1) // 2
+        return (self.k - self.ns) // 2
 
 
 def _pair_step(st: PairStatic, term, s: int, coord, mask, ext, shift_s, nbr_s, inv_s):
@@ -517,10 +690,12 @@ def _check(st: PairStatic, term, **tensors) -> None:
 
 
 def check_width(st: PairStatic, term) -> None:
-    """The extras the kernels take: K = 2V+1 with V <= MAX_V (the vector
-    columns a lane of kernel E holds), within a block's shared memory."""
-    if st.k != 2 * st.v + 1 or (not term.vector_keys and st.k != 1):
-        raise ValueError(f"K={st.k}: the extras are [p (V), r (V), s], K = 2V+1")
+    """The extras the kernels take: K = 2V + NS with the term's NS scalars
+    and V <= MAX_V (the vector columns a lane of kernel E holds), within a
+    block's shared memory."""
+    ns = len(term.scalar_keys)
+    if st.ns != ns or st.k != 2 * st.v + ns or (not term.vector_keys and st.k != ns):
+        raise ValueError(f"K={st.k}: the extras are [p (V), r (V), s ({ns})], K = 2V+{ns}")
     if st.v > MAX_V:
         raise ValueError(f"pair kernels take extras of V <= {MAX_V} columns, not {st.v}")
     if smem_bytes(st, adjoint=True) > SMEM_LIMIT:

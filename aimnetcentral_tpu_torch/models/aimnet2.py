@@ -7,7 +7,9 @@ equilibration enforces the exact total charge every pass.
 
 Two layouts.  On the binned (stencil) layout the ConvSV contraction is
 kernels/conv_pass.py, which runs the CUDA kernels for CUDA tensors and the
-plain versions for CPU tensors (the analogue of ``_resolve_conv_engine``).
+plain versions for CPU tensors (the analogue of ``_resolve_conv_engine``),
+for models with and without ``d2features`` (the latter's (L, F) features
+broadcast along the G radial shifts; JAX sends them to its XLA conv).
 On the indexed layout it is ``_conv_sv``: a gather over the neighbor matrix
 and an einsum, as in the JAX package, where it is plain XLA too.
 """
@@ -181,11 +183,6 @@ def aimnet2_apply(params: dict, cfg: AIMNet2Config, system: System, sae_external
     ``charges`` (N,), ``aim`` (N, aim_size), ``_delta_Q`` and, when SAE is
     external, ``mol_element_counts``."""
     binned = system.bins is not None
-    if binned and not cfg.d2features:
-        raise NotImplementedError(
-            "the stencil conv kernels take d2features models only; without d2features "
-            "the binned layout is not ported yet (ROADMAP.md, queue 1: the rest of long range)"
-        )
     n = system.natoms
     c = cfg.num_charge_channels
     a = params["afv"]["weight"][system.numbers]

@@ -6,9 +6,10 @@ kernels/pair_sweep.py: the CUDA kernels D and E for CUDA tensors, their plain
 versions for CPU tensors.  On it sit DSF Coulomb and DFT-D3(BJ): the
 coordination-number sweep, the factorised per-atom C6 vectors, and the
 energy sweep, all on the coarse long-range twin layout; the short-range
-Coulomb of v2 artifacts on the SR layout; and simple Coulomb on the
-molecule-bin layout, which has no twin (the sweeps fall back to its one
-grid, at radius 0).  The ConvSV message pass lives in
+Coulomb of v2 artifacts and GFN1 repulsion on the SR layout; the
+real-space Ewald sum and D3 with the TS combination rule on the LR twin
+layout; and simple Coulomb on the molecule-bin layout, which has no twin
+(the sweeps fall back to its one grid, at radius 0).  The ConvSV message pass lives in
 kernels/conv_pass.py.
 """
 
@@ -26,10 +27,13 @@ from aimnetcentral_tpu_torch.kernels.pair_sweep import (
     CoulombSRTerm,
     D3CNTerm,
     D3EnergyTerm,
+    D3TSTerm,
     DSFTerm,
+    EwaldRealTerm,
     PairAcc,
     PairStatic,
     PairTerm,
+    SRRepTerm,
     pack_extras,
 )
 from aimnetcentral_tpu_torch.models.lr import FACTOR
@@ -93,7 +97,9 @@ def pair_operands(
         shift = cellmul(wraps, system.cell[0])
     else:
         shift = torch.zeros((s_tot, b_tot, 3), dtype=coord.dtype, device=dev)
-    st = PairStatic(b_tot=b_tot, c=c, s_tot=s_tot, k=ext.shape[-1], cutoff=float(cutoff))
+    st = PairStatic(
+        b_tot=b_tot, c=c, s_tot=s_tot, k=ext.shape[-1], cutoff=float(cutoff), ns=len(term.scalar_keys)
+    )
     ops = {
         "coord": coord.reshape(b_tot, c, 3).contiguous(),
         "ext": ext.reshape(b_tot, c, -1).to(coord.dtype).contiguous(),
@@ -183,6 +189,54 @@ def coulomb_simple_binned(
     term = CoulombSimpleTerm(rc=rc, envelope=envelope, subtract_sr=subtract_sr)
     e_i = pair_energy_binned(system, math.inf, term, {"q": q})
     return FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+def ewald_real_binned(
+    system: System,
+    q: torch.Tensor,
+    eta: float,
+    r_cutoff_static: float,
+    subtract_sr: bool = False,
+    rc: float = 4.6,
+    envelope: str = "exp",
+) -> torch.Tensor:
+    """The real-space Ewald sum on the LR twin layout, per molecule and
+    without k_e (the counterpart of JAX's ewald_real_binned).  ``eta`` and
+    the cutoff are host floats: a launch constant and the stencil's reach.
+    With ``subtract_sr`` the same sweep takes off the SR-envelope part
+    ``fc(d) q_i q_j / d`` within ``rc``, which is ``coulomb_sr_binned / k_e``:
+    one launch of D and E where JAX sweeps twice."""
+    term = EwaldRealTerm(eta=float(eta), rc=float(rc), envelope=envelope, subtract_sr=subtract_sr)
+    e_i = pair_energy_binned(system, float(r_cutoff_static), term, {"q": q}, layout="lr")
+    return 0.5 * mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+def srrep_binned(system: System, gfn1_ab: torch.Tensor, rc: float, cutoff_fn: str) -> torch.Tensor:
+    """GFN1 short-range repulsion within ``rc`` on the SR layout (per
+    molecule; the counterpart of models/lr.py::srrep_energy, which sums the
+    SR list instead)."""
+    p = gfn1_ab[system.numbers]  # (L, 2) = (alpha, zeff)
+    term = SRRepTerm(rc=float(rc), cutoff_fn=cutoff_fn)
+    e_i = pair_energy_binned(system, float(rc), term, {"alpha": p[:, 0], "zeff": p[:, 1]})
+    return mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+def d3ts_binned(
+    system: System,
+    params: dict[str, torch.Tensor],
+    disp_param: torch.Tensor,
+    a1: float,
+    a2: float,
+    s8: float,
+    s6: float = 1.0,
+    cutoff: float = 15.0,
+) -> torch.Tensor:
+    """D3 dispersion with the TS combination rule over the network's
+    per-atom C6 and alpha (``disp_param`` (L, 2)) on the LR twin layout at
+    ``cutoff``, no switch (the counterpart of models/lr.py::d3ts_energy)."""
+    extras = {"c6": disp_param[:, 0], "alpha": disp_param[:, 1], "rr": params["r4r2"][system.numbers]}
+    e_i = pair_energy_binned(system, cutoff, D3TSTerm(a1=a1, a2=a2, s8=s8, s6=s6), extras, layout="lr")
+    return constants.half_Hartree * mol_sum(e_i, system.mol_idx, system.num_mol)
 
 
 def dftd3_binned(

@@ -4,14 +4,16 @@ Each head is a frozen spec plus ``head_init``/``head_apply`` over an
 explicit parameter dict; ``head_apply`` takes and returns the data dict.
 This port carries the heads of the flagship and of the released v2
 artifacts: the energy MLP, the atomic shift (SAE, applied in float64 by the
-calculator), the atomic sum, long-range Coulomb (DSF on both layouts, simple
-on the indexed and the molecule-bin layouts), the short-range Coulomb that a
-v2 artifact embeds (on every layout), the external DFT-D3(BJ) head of the
-``-d3`` families on both layouts, and the rxn family's dipole and
-quadrupole.  The binned branches sweep through the pair kernels
-(models/engine_binned.py), the indexed ones run models/lr.py over the
-neighbor matrices.  SRRep, DispParam and D3TS are specs only, so that every
-allowlisted artifact class converts; applying them raises.
+calculator), the atomic sum, long-range Coulomb (DSF, Ewald and PME on both
+layouts, simple on the indexed and the molecule-bin layouts), the
+short-range Coulomb that a v2 artifact embeds (on every layout), GFN1
+short-range repulsion (SRRep), the network's dispersion parameters
+(DispParam) and D3 with the TS combination rule over them (D3TS), the
+external DFT-D3(BJ) head of the ``-d3`` families on both layouts, and the
+rxn family's dipole and quadrupole.  The binned branches sweep through the
+pair kernels (models/engine_binned.py), the indexed ones run models/lr.py
+over the neighbor matrices; Ewald's and PME's reciprocal parts are
+models/ewald.py and models/pme.py on either layout.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from aimnetcentral_tpu_torch import constants
 from aimnetcentral_tpu_torch.models import engine_binned as eb
-from aimnetcentral_tpu_torch.models import lr
+from aimnetcentral_tpu_torch.models import ewald, lr
 from aimnetcentral_tpu_torch.models.modules import MLPSpec, mlp_apply, mlp_init
 from aimnetcentral_tpu_torch.ops.nb import expand_mol, mask_pad_atoms, mol_sum
 from aimnetcentral_tpu_torch.system import System
@@ -91,7 +93,7 @@ class LRCoulombHead:
     key_in: str = "charges"
     key_out: str = "energy"
     rc: float = 4.6
-    method: str = "simple"  # simple | dsf (ewald and pme are still to be ported)
+    method: str = "simple"  # simple | dsf | ewald | pme
     dsf_alpha: float = 0.2
     dsf_rc: float = 15.0
     ewald_accuracy: float = 1e-6
@@ -264,24 +266,40 @@ def head_apply(head: HeadSpec, params: dict, data: dict, system: System) -> dict
         x1, x2 = quad[..., :3], quad[..., 3:]
         return {**data, head.key_out: torch.cat([x1 - x1.mean(dim=-1, keepdim=True), x2], dim=-1)}
 
-    if head.kind in ("srrep", "disp_param", "d3ts"):
-        raise NotImplementedError(
-            f"the {head.kind} head is not ported yet (ROADMAP.md, queue 1, item 4: the rest of long range)"
-        )
+    if head.kind == "srrep":
+        if system.bins is not None:
+            e = eb.srrep_binned(system, params["gfn1_ab"], head.rc, head.cutoff_fn)
+        else:
+            e = lr.srrep_energy(data, system, params, head.rc, head.cutoff_fn)
+        return _add_energy(data, head.key_out, e)
+
+    if head.kind == "disp_param":
+        return lr.disp_param_apply(data, params, system.numbers, head.key_in, head.key_out)
+
+    if head.kind == "d3ts":
+        if system.bins is not None:
+            e = eb.d3ts_binned(system, params, data[head.key_in], head.a1, head.a2, head.s8, head.s6)
+        else:
+            e = lr.d3ts_energy(data, system, params, head.a1, head.a2, head.s8, head.s6, head.key_in)
+        return _add_energy(data, head.key_out, e)
 
     if head.kind == "lrcoulomb":
         if head.method in ("ewald", "pme"):
-            raise NotImplementedError(
-                f"{head.method} Coulomb is not ported yet (ROADMAP.md, queue 1: the rest of long range)"
-            )
-        if system.bins is not None and head.method == "simple" and system.bins.molecule_bins:
+            if system.bins is not None:  # PME when attach_ewald sized a mesh; the SR part in the sweep
+                e = ewald.coulomb_periodic_binned(data, system, head.key_in, head.subtract_sr, head.rc, head.envelope)
+            else:
+                e = ewald.coulomb_periodic(data, system, head.method, head.key_in)
+                if head.subtract_sr:
+                    e = e - lr.coulomb_sr(lr.ensure_dij(data, system, ""), system, head.rc, head.envelope,
+                                          head.key_in)
+        elif system.bins is not None and head.method == "simple" and system.bins.molecule_bins:
             # one molecule a bin: the radius-0 sweep is every pair of a molecule
             e = eb.coulomb_simple_binned(system, data[head.key_in], head.rc, head.envelope, head.subtract_sr)
         elif system.bins is not None:
-            if head.method != "dsf":
-                raise NotImplementedError(
-                    f"Coulomb method {head.method!r} on a spatial binned grid: the stencil would cut "
-                    "1/r off (periodic simple Coulomb switches to dsf; gas-phase batches take the "
+            if head.method != "dsf":  # JAX's ValueError: a definition, not a missing port
+                raise ValueError(
+                    f"Coulomb method {head.method!r} is not supported on a spatial binned grid: the stencil "
+                    "would cut 1/r off (periodic simple Coulomb switches to dsf; gas-phase batches take the "
                     "molecule-bin layout, where simple Coulomb runs)"
                 )
             e = eb.coulomb_dsf_binned(

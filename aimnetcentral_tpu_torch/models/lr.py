@@ -1,7 +1,9 @@
 """Long-range physics on the indexed layout (counterpart of
-aimnetcentral_tpu/models/lr.py): Coulomb (short-range part, simple, DSF) and
-DFT-D3(BJ) dispersion over the neighbor matrices, plus the constants and
-switch the binned terms share.
+aimnetcentral_tpu/models/lr.py): Coulomb (short-range part, simple, DSF),
+GFN1 short-range repulsion, DFT-D3(BJ) dispersion and D3 with the TS
+combination rule over the neighbor matrices, plus the constants and switch
+the binned terms share.  Ewald and PME live in models/ewald.py and
+models/pme.py.
 
 Each term is written once and differentiated by autograd.  Per-molecule
 sums are ``mol_sum``'s one-hot product; no ``index_add_``, ``scatter_add_``
@@ -110,6 +112,65 @@ def coulomb_dsf(
     if subtract_sr:
         e = e - coulomb_sr(data, system, rc, envelope, key_in)
     return e
+
+
+def srrep_energy(
+    data: dict, system: System, params: dict[str, torch.Tensor], rc: float, cutoff_fn: str = "none"
+) -> torch.Tensor:
+    """GFN1-style short-range repulsion over the SR list ``nbmat``, per
+    molecule: ``exp(-a_i a_j d^1.5) z_i z_j / d`` times the optional exp or
+    cosine cutoff at ``rc``; every ordered pair of the list is summed."""
+    data = ensure_dij(data, system, "")
+    d_ij = data["d_ij"]
+    p = params["gfn1_ab"][system.numbers]  # (N, 2) = (alpha, zeff)
+    p_ij = p[:, None, :] * nbops.gather_nb(p, system.nbmat)
+    e = torch.exp(-p_ij[..., 0] * d_ij**1.5) * p_ij[..., 1] / d_ij
+    e = torch.where(nbops.pair_mask(system.nbmat), e, torch.zeros_like(e))
+    if cutoff_fn == "exp_cutoff":
+        e = e * aops.exp_cutoff(d_ij, rc)
+    elif cutoff_fn == "cosine_cutoff":
+        e = e * aops.cosine_cutoff(d_ij, rc)
+    return nbops.mol_sum(e.sum(-1), system.mol_idx, system.num_mol)
+
+
+def disp_param_apply(
+    data: dict, params: dict[str, torch.Tensor], numbers: torch.Tensor, key_in: str, key_out: str
+) -> dict:
+    """The network-scaled dispersion parameters (C6, alpha) per atom:
+    ``disp_param0[Z] * exp(clip(x, -4, 4))``."""
+    mult = torch.exp(torch.clamp(data[key_in], -4.0, 4.0))
+    return {**data, key_out: params["disp_param0"][numbers] * mult}
+
+
+def d3ts_energy(
+    data: dict,
+    system: System,
+    params: dict[str, torch.Tensor],
+    a1: float,
+    a2: float,
+    s8: float,
+    s6: float = 1.0,
+    key_in: str = "disp_param",
+) -> torch.Tensor:
+    """D3-like pairwise dispersion with the TS combination rule over the
+    network's C6 and alpha, on the D3 (or shared LR) list, per molecule."""
+    nb, _sh, suffix = system.resolve_nb("_dftd3", "_lr", "")
+    data = ensure_dij(data, system, suffix)
+    valid = nbops.pair_mask(nb)
+    dp = data[key_in]  # (N, 2)
+    dp_j = nbops.gather_nb(dp, nb)
+    c6_i, alpha_i = dp[:, None, 0], dp[:, None, 1]
+    c6_j, alpha_j = dp_j[..., 0], dp_j[..., 1]
+    denom = torch.clamp(c6_i * alpha_j / alpha_i + c6_j * alpha_i / alpha_j, min=1e-4)
+    c6ij = 2.0 * c6_i * c6_j / denom
+    c6ij = torch.where(valid, c6ij, torch.zeros_like(c6ij))
+    rr = params["r4r2"][system.numbers]
+    rrij = 3.0 * rr[:, None] * nbops.gather_nb(rr, nb)
+    rrij = torch.where(valid, rrij, torch.ones_like(rrij))
+    r0ij = a1 * torch.sqrt(rrij) + a2
+    d_ij = data[f"d_ij{suffix}"] * constants.Bohr_inv
+    e_ij = c6ij * (s6 / (d_ij**6 + r0ij**6) + s8 * rrij / (d_ij**8 + r0ij**8))
+    return -constants.half_Hartree * nbops.mol_sum(e_ij.sum(-1), system.mol_idx, system.num_mol)
 
 
 def _s5_switch(d_bohr: torch.Tensor, r_on_bohr: float, r_off_bohr: float) -> torch.Tensor:

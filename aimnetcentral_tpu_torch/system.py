@@ -12,6 +12,13 @@ layouts:
 - binned (stencil): ``bins`` describes the SR bin grid the slot rows are
   sorted into, and ``lr_bins``/``lr_slot``/``lr_inv`` the coarse long-range
   twin grid (see ops/binned.py).
+
+Ewald and PME carry their discretisation on the System (models/ewald.py::
+attach_ewald): the integer k-grid ``ewald_kpts`` and per-molecule
+``ewald_eta``, ``ewald_r_cutoff`` and ``ewald_k_cutoff`` as tensors, and
+the host values that size layouts and meshes or enter a kernel launch,
+``ewald_r_static`` (the largest real-space cutoff), ``ewald_eta_static``
+and ``pme_mesh``.
 """
 
 from __future__ import annotations
@@ -48,6 +55,13 @@ class System:
     # atomic numbers present (sorted, static; set by builders): D3's C6
     # references become a small dense bilinear form over these species
     species: tuple[int, ...] | None = None
+    ewald_kpts: torch.Tensor | None = None  # (K, 3) integer reciprocal points, zero excluded
+    ewald_eta: torch.Tensor | None = None  # (num_mol,) screening width
+    ewald_r_cutoff: torch.Tensor | None = None  # (num_mol,) real-space cutoff
+    ewald_k_cutoff: torch.Tensor | None = None  # (num_mol,) reciprocal cutoff
+    ewald_r_static: float | None = None  # host copy of the largest real-space cutoff
+    ewald_eta_static: tuple[float, ...] | None = None  # host copy of ewald_eta (a launch constant of D, E)
+    pme_mesh: tuple[int, int, int] | None = None  # PME's FFT mesh, when PME is asked for
 
     @property
     def natoms(self) -> int:

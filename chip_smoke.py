@@ -118,7 +118,22 @@ Phases (any failure exits nonzero; nothing is caught):
    1,200-atom flagship box (binned, DSF) and on packed-8 (molecule bins,
    simple Coulomb): A, B, D and E as the primals (A 3, B 6, D 1, E 1)
    against the all-plain route on the card within a limit that the ``fast``
-   tier must exceed, and the time of each route.
+   tier must exceed, and the time of each route;
+13. long_range: Ewald, PME, SRRep, DispParam, D3TS and a model without
+   d2features at full width (``phase_long_range``): D and E with the
+   real-space Ewald term (its SR part inside; on ewald-10k's LR grid at
+   21.7 A and on the 1,200-atom box's, where one atom meets several images
+   of a neighbour), SRRep (SR grid) and D3TS (LR grid) against their plain
+   versions with the f64 and pair-count gates; ewald-10k, pme-10k,
+   lr-heads-10k (SRRep, DispParam, D3TS on the flagship) and nod2-10k as
+   phase 4 (launches A, B 3 and D, E 1, 1, 3, 1 a request; times, peak, a
+   profiled request, a bitwise repeat), PME against Ewald within 2e-3 of
+   max(1, |E|); ewald-periodic-500 (wb97m-d3, indexed, stress); the card
+   against the CPU on 1,200 atoms (Ewald on a charged cell, PME,
+   lr-heads) and on ewald-periodic-500; md-ewald-10k's first 50 NVE steps
+   at exact, the same 25 fs at 0.25 fs (the NVE gate) and a bitwise repeat
+   of two drivers; one Ewald HVP card against CPU with a ``fast`` control;
+   the phase's seconds.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
@@ -126,7 +141,8 @@ launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
 request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
 error); ``launches`` counts every main-path run (both configurations'
 requests, the gas, packed and artifact phases' requests, the MD windows,
-and the second_order phase's IR request and kernel-route HVPs) and
+the second_order phase's IR request and kernel-route HVPs, and the
+long_range phase's requests and MD windows) and
 ``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
 per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
@@ -477,6 +493,9 @@ OPS_PER_PAIR = {  # FP32 operations (D, E) per unordered pair within the cutoff 
     "coulomb_sr": lambda v: (9, 22),
     "d3_cn": lambda v: (18, 42),
     "d3_energy": lambda v: (40 + 2 * v, 115 + 4 * v),
+    "ewald_real": lambda v: (35, 70),
+    "srrep": lambda v: (26, 60),
+    "d3ts": lambda v: (40, 104),
 }
 OPS64_PER_PAIR = {"coulomb_sr": (12, 25)}  # FP64 ones: the SR Coulomb term's own (csrc/pair_terms.cuh)
 
@@ -489,23 +508,38 @@ def pair_terms(calc, sysb) -> dict:
     molecule-bin layout; with a D3 head the coordination number and the D3
     energy over the C6 vectors of this system's coordination numbers (a
     wb97m-d3 request: DSF and both D3 sweeps; an artifact's: all four).
-    Every sweep but the SR Coulomb runs on the LR layout (the molecule-bin
+    Ewald and PME sweep their real-space sum (the SR part inside) at the
+    attached cutoff; SRRep its GFN1 table's alpha and zeff on the SR layout
+    at rc; D3TS positive random C6 and alpha (seed 4: what DispParam gives
+    is the network's, random too) with the r4r2 table at 15 A.  Every sweep
+    but the SR Coulomb and SRRep runs on the LR layout (the molecule-bin
     layout has one grid, which both names take)."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
     from aimnetcentral_tpu_torch.models import engine_binned as eb
-    from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, SRCoulombHead
+    from aimnetcentral_tpu_torch.models.heads import D3TSHead, DFTD3Head, LRCoulombHead, SRCoulombHead, SRRepHead
 
-    heads = [h for _n, h in calc._effective_cfg(sysb.cell is not None).outputs]
+    named = calc._effective_cfg(sysb.cell is not None).outputs
+    heads = [h for _n, h in named]
     sr = next((h for h in heads if isinstance(h, SRCoulombHead)), None)
     lr = next((h for h in heads if isinstance(h, LRCoulombHead)), None)
     d3 = next((h for h in heads if isinstance(h, DFTD3Head)), None)
+    rep = next(((n, h) for n, h in named if isinstance(h, SRRepHead)), None)
+    ts = next(((n, h) for n, h in named if isinstance(h, D3TSHead)), None)
     sweeps = []
     gen = torch.Generator(device="cuda").manual_seed(4)
     q = 0.3 * torch.randn(sysb.natoms, generator=gen, device="cuda") * (sysb.numbers > 0)
     if sr is not None:
         sweeps.append((ps.CoulombSRTerm(rc=sr.rc, envelope=sr.envelope), sr.rc, {"q": q}, "sr"))
+    if rep is not None:
+        gfn1 = calc.params["outputs"][rep[0]]["gfn1_ab"][sysb.numbers]
+        term = ps.SRRepTerm(rc=rep[1].rc, cutoff_fn=rep[1].cutoff_fn)
+        sweeps.append((term, rep[1].rc, {"alpha": gfn1[:, 0], "zeff": gfn1[:, 1]}, "sr"))
+    if lr is not None and lr.method in ("ewald", "pme"):
+        ew = ps.EwaldRealTerm(eta=sysb.ewald_eta_static[0], rc=lr.rc, envelope=lr.envelope,
+                              subtract_sr=lr.subtract_sr)
+        sweeps.append((ew, sysb.ewald_r_static, {"q": q}, "lr"))
     if lr is not None and lr.method == "dsf":
         dsf = ps.DSFTerm(alpha=lr.dsf_alpha, dsf_rc=lr.dsf_rc, rc=lr.rc, envelope=lr.envelope,
                          subtract_sr=lr.subtract_sr)
@@ -521,6 +555,13 @@ def pair_terms(calc, sysb) -> dict:
         d3e = ps.D3EnergyTerm(a1=d3.a1, a2=d3.a2, s8=d3.s8, s6=d3.s6, r_on=r_on, r_off=d3.cutoff)
         sweeps.append((ps.D3CNTerm(), d3.cutoff, {"rcov": rcov}, "lr"))
         sweeps.append((d3e, d3.cutoff, eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables), "lr"))
+    if ts is not None:
+        real = sysb.numbers > 0
+        c6 = torch.where(real, 2.0 + 38.0 * torch.rand(sysb.natoms, generator=gen, device="cuda"), 0.0)
+        alpha = 3.0 + 12.0 * torch.rand(sysb.natoms, generator=gen, device="cuda")
+        rr = calc.params["outputs"][ts[0]]["r4r2"][sysb.numbers]
+        term = ps.D3TSTerm(a1=ts[1].a1, a2=ts[1].a2, s8=ts[1].s8, s6=ts[1].s6)
+        sweeps.append((term, 15.0, {"c6": c6, "alpha": alpha, "rr": rr}, "lr"))
     return {sweep[0].name: sweep for sweep in sweeps}
 
 
@@ -2225,10 +2266,280 @@ def phase_second_order(params, cfg, params_d3, cfg_d3) -> dict:
     return res
 
 
+LR_PME_REL = 2e-3  # PME against Ewald, of max(1, |E|) (the JAX package's tests/test_pme.py:71)
+LR_HVP_BOX = 64  # atoms of the second-order check's periodic box
+LR_DISP_SEED = 0  # the positive per-element C6 and alpha of lr-heads' disp_param0
+
+
+def ewald_config(cfg, method: str = "ewald"):
+    """``cfg`` with its Coulomb head's method set to Ewald or PME (what
+    ``AIMNet2Calculator.set_lrcoulomb_method`` does)."""
+    from aimnetcentral_tpu_torch.models.heads import LRCoulombHead
+
+    return dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, method=method) if isinstance(h, LRCoulombHead) else h) for n, h in cfg.outputs
+    ))
+
+
+def lr_heads_model(cfg):
+    """The flagship width with the head set of the JAX package's
+    tests/test_ensemble_fused.py:299-306 on top of the flagship's heads:
+    SRRep (cosine cutoff at 4 A, into the energy), an OutputHead giving
+    ``disp_param``, DispParam and D3TS(a1=0.49, a2=3.5, s8=0.78); random
+    weights (seed 0) and ``disp_param0`` filled with positive C6 and alpha
+    per element (its zero init makes D3TS exactly zero)."""
+    import torch
+
+    from aimnetcentral_tpu_torch.models import aimnet2_init
+    from aimnetcentral_tpu_torch.models.heads import D3TSHead, DispParamHead, OutputHead, SRRepHead
+    from aimnetcentral_tpu_torch.models.modules import MLPSpec
+
+    cfg = dataclasses.replace(cfg, outputs=cfg.outputs + (
+        ("srrep", SRRepHead(key_out="energy", rc=4.0, cutoff_fn="cosine_cutoff")),
+        ("disp_raw", OutputHead(n_in=256, n_out=2, key_in="aim", key_out="disp_param",
+                                mlp=MLPSpec(hidden=(128,), last_linear=True))),
+        ("disp_param", DispParamHead()),
+        ("d3ts", D3TSHead(a1=0.49, a2=3.5, s8=0.78)),
+    ))
+    params = aimnet2_init(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(LR_DISP_SEED)
+    tab = np.zeros((87, 2), np.float32)
+    tab[1:, 0] = rng.uniform(2.0, 40.0, size=86)
+    tab[1:, 1] = rng.uniform(3.0, 15.0, size=86)
+    tab[0, 1] = 1.0
+    params["outputs"]["disp_param"]["disp_param0"] = torch.as_tensor(tab, device="cuda")
+    return params, cfg
+
+
+def lr_hvp_check(params, cfg) -> dict:
+    """One HVP with Ewald on a small periodic box (indexed layout: plain
+    torch twice differentiated), the card against the CPU within
+    ``SO_HVP_REL`` of the largest |H v|, with the ``fast`` tier as the
+    control that must exceed it."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+
+    coord, numbers, cell = build_box(LR_HVP_BOX, seed=3)
+    data = {"coord": coord, "numbers": numbers, "cell": cell}
+    v = np.random.default_rng(SO_V_SEEDS[0]).normal(size=(LR_HVP_BOX, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    cpu = AIMNet2Calculator((params_to(params, torch.device("cpu")), cfg), device="cpu").hessian_vector_product(
+        data, v)
+    t_cpu = time.perf_counter() - t0
+    res = {"cpu_s": t_cpu}
+    for tier in ("exact", "fast"):
+        calc = AIMNet2Calculator((params, cfg), device="cuda", precision=tier)
+        t0 = time.perf_counter()
+        hv = calc.hessian_vector_product(data, v)
+        torch.cuda.synchronize()
+        res[tier] = {"rel": float(np.abs(hv - cpu).max() / np.abs(cpu).max()), "card_s": time.perf_counter() - t0}
+        if calc._prep_cache["kind"] != "indexed" or calc._prep_cache["system"].ewald_kpts is None:
+            raise SystemExit("FAIL: the Ewald HVP did not run on the indexed layout with its discretisation")
+    log(f"[long_range hvp] {LR_HVP_BOX}-atom box, Ewald: H v card against CPU {res['exact']['rel']:.2e} of "
+        f"max |H v| (limit {SO_HVP_REL:.0e}); fast-tier control {res['fast']['rel']:.2e}; card "
+        f"{res['exact']['card_s']:.2f} s, cpu {t_cpu:.2f} s")
+    if res["exact"]["rel"] > SO_HVP_REL:
+        raise SystemExit("FAIL: the Ewald HVP disagrees between the card and the CPU")
+    if res["fast"]["rel"] <= SO_HVP_REL:
+        raise SystemExit("FAIL: the fast-tier control passed the Ewald HVP limit: it cannot see TF32")
+    return res
+
+
+def lr_exact_products(sysb) -> dict:
+    """Ewald's reciprocal, self and background energy on ewald-10k's layout
+    (seeded neutral charges) at the ``fast`` tier (TF32 matmuls on) against
+    an f64 run: within 1e-5 relative, since the phase ``k . r`` and the
+    structure factors are exact f32 products at every tier.  The control
+    rounds the phase's operands to TF32's 10-bit mantissa, as a TF32 matmul
+    would (whatever kernel cuBLAS picks for an inner dimension of 3); it
+    must exceed the limit, or the gate could not see TF32."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+    from aimnetcentral_tpu_torch.models import ewald
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(sysb.natoms, generator=gen, device="cuda") * 0.3 * (sysb.numbers > 0)
+    q = torch.where(sysb.numbers > 0, q - q.sum() / (sysb.numbers > 0).sum(), 0.0)
+
+    def energy(system, qq, phase=None):
+        args = (system.coord, qq[:, None], system.cell, system.mol_idx, 1, system.ewald_eta, system.ewald_k_cutoff,
+                system.ewald_kpts)
+        saved = ewald._phase
+        if phase is not None:
+            ewald._phase = phase
+        try:
+            with ambient_matmul_context("default"), torch.no_grad():
+                return float(ewald.ewald_nonreal_multi(*args).double().sum())
+        finally:
+            ewald._phase = saved
+
+    e64 = energy(sysb.replace(coord=sysb.coord.double(), cell=sysb.cell.double(),
+                              ewald_eta=sysb.ewald_eta.double(), ewald_k_cutoff=sysb.ewald_k_cutoff.double()),
+                 q.double())
+    e_fast = energy(sysb, q)
+    def tf32(x):  # drop the 13 low mantissa bits
+        return (x.view(torch.int32) & -8192).view(torch.float32)
+
+    exact_phase = ewald._phase
+    e_tf32 = energy(sysb, q, phase=lambda c, kvec, m, n: exact_phase(tf32(c), tf32(kvec), m, n))
+    res = {"f64": e64, "fast": e_fast, "tf32_phase": e_tf32, "fast_rel": abs(e_fast - e64) / abs(e64),
+           "tf32_rel": abs(e_tf32 - e64) / abs(e64)}
+    log(f"[long_range exact] Ewald reciprocal + self + background on ewald-10k at the fast tier: "
+        f"{res['fast_rel']:.2e} relative to f64 (limit {REL_TOL:.0e}); the control with TF32-rounded phase "
+        f"operands {res['tf32_rel']:.2e}")
+    if res["fast_rel"] > REL_TOL:
+        raise SystemExit("FAIL: Ewald's reciprocal energy at the fast tier is farther than 1e-5 from f64")
+    if res["tf32_rel"] <= REL_TOL:
+        raise SystemExit("FAIL: the TF32-phase control passed the Ewald limit: it cannot see TF32")
+    return res
+
+
+def phase_long_range(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
+    """Ewald, PME, SRRep, DispParam, D3TS and a model without d2features at
+    full width (``phase_long_range``): D and E with each new term against
+    their plain versions (the real-space Ewald sum on ewald-10k's LR grid
+    and on the 1,200-atom box's, where one atom meets several images of a
+    neighbour; SRRep on lr-heads-10k's SR grid; D3TS, and DSF again, on its
+    LR grid); Ewald's reciprocal energy at the ``fast`` tier against f64,
+    with a TF32-phase control (``lr_exact_products``); the
+    requests ewald-10k and pme-10k (flagship, A, B 3 and D, E 1: the
+    real-space sum with the SR part inside), lr-heads-10k (D, E 3: SRRep,
+    DSF, D3TS), nod2-10k (A, B 3 and D, E 1), each with launches, times,
+    peak, a profiled request and a bitwise repeat, and PME against Ewald;
+    ewald-periodic-500 (wb97m-d3 with Ewald, indexed, stress); the card
+    against the CPU on the 1,200-atom box for Ewald (a charged cell), PME
+    and lr-heads and on ewald-periodic-500; md-ewald-10k, the first 50 NVE
+    steps at exact (launches a step, step time) and the same 25 fs at half
+    the time step (NVE energy), and two drivers of one seed bit for bit;
+    and one Ewald HVP, card against CPU with a ``fast`` control."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
+    from aimnetcentral_tpu_torch.models import aimnet2_init
+
+    t_phase = time.perf_counter()
+    cfg_ew, cfg_pme = ewald_config(cfg), ewald_config(cfg, "pme")
+    params_lr, cfg_lr = lr_heads_model(cfg)
+    cfg_nod2 = dataclasses.replace(cfg, d2features=False)
+    params_nod2 = aimnet2_init(cfg_nod2, seed=0, device="cuda")
+    data = {"coord": coord, "numbers": numbers, "cell": cell}
+    res: dict = {"kernels": {}, "requests": {}, "checks": {}}
+    launches = {name: 0 for name in counters()}
+
+    # D and E with the new terms against their plain versions
+    calc_ew = AIMNet2Calculator((params, cfg_ew), device="cuda")
+    calc_lr = AIMNet2Calculator((params_lr, cfg_lr), device="cuda")
+    sys_ew = calc_ew.prepare_system(data)
+    log(f"[long_range] ewald-10k: eta {sys_ew.ewald_eta_static[0]:.4f} A, real-space cutoff "
+        f"{sys_ew.ewald_r_static:.3f} A, {sys_ew.ewald_kpts.shape[0]} k-points, LR grid {sys_ew.lr_bins.nbins} "
+        f"C={sys_ew.lr_bins.capacity}")
+    _r, res["kernels"]["ewald-10k"] = phase_pair_kernels(calc_ew, sys_ew, "ewald-10k")
+    res["exact_products"] = lr_exact_products(sys_ew)
+    c_small, n_small, cell_small = build_box(N_CHECK, seed=1)
+    sys_small = AIMNet2Calculator((params, cfg_ew), device="cuda").prepare_system(
+        {"coord": c_small, "numbers": n_small, "cell": cell_small})
+    log(f"[long_range] ewald-1200: real-space cutoff {sys_small.ewald_r_static:.3f} A in a "
+        f"{float(cell_small[0, 0]):.2f} A cell (above half the side): LR grid {sys_small.lr_bins.nbins}")
+    _r, res["kernels"]["ewald-1200"] = phase_pair_kernels(calc_ew, sys_small, "ewald-1200")
+    _r, res["kernels"]["lr-heads-10k"] = phase_pair_kernels(calc_lr, calc_lr.prepare_system(data), "lr-heads-10k")
+    del sys_ew, sys_small
+    torch.cuda.empty_cache()
+
+    # the requests
+    conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
+    one = {**conv, "pair_sweep_forward": 1, "pair_sweep_backward": 1}
+    three = {**conv, "pair_sweep_forward": 3, "pair_sweep_backward": 3}
+    for label, calc, per_request in (
+        ("ewald-10k", calc_ew, one),
+        ("pme-10k", AIMNet2Calculator((params, cfg_pme), device="cuda"), one),
+        ("lr-heads-10k", calc_lr, three),
+        ("nod2-10k", AIMNet2Calculator((params_nod2, cfg_nod2), device="cuda"), one),
+    ):
+        res["requests"][label] = phase_main_path(label, calc, coord, numbers, cell, per_request)
+        for name, n in res["requests"][label]["launches"].items():
+            launches[name] += n
+        del calc
+        torch.cuda.empty_cache()
+    e_ew, e_pme = res["requests"]["ewald-10k"]["energies"][0], res["requests"]["pme-10k"]["energies"][0]
+    limit = LR_PME_REL * max(1.0, abs(e_ew))
+    log(f"[long_range] PME against Ewald on the 10k box: {e_pme:.6f} against {e_ew:.6f} eV, |dE| "
+        f"{abs(e_pme - e_ew):.3e} (limit {limit:.3e})")
+    if abs(e_pme - e_ew) > limit:
+        raise SystemExit("FAIL: PME and Ewald disagree on the 10k box")
+    res["pme_vs_ewald"] = {"ewald": e_ew, "pme": e_pme, "limit": limit}
+
+    c500, n500, cell500 = build_box(500, seed=2)
+    box500 = {"coord": c500, "numbers": n500, "cell": cell500}
+    cfg_d3_ew = ewald_config(cfg_d3)
+    none = {name: 0 for name in counters()}
+    calc = AIMNet2Calculator((params_d3, cfg_d3_ew), device="cuda")
+    res["requests"]["ewald-periodic-500"] = gas_request("ewald-periodic-500 wb97m-d3", calc, box500, True, none,
+                                                        N_BUILT_GAS)
+    if calc._prep_cache["system"].ewald_kpts is None:
+        raise SystemExit("FAIL: ewald-periodic-500 ran without its Ewald discretisation")
+    del calc
+
+    # the card against the CPU (plain versions)
+    res["checks"]["ewald-1200 charged"] = gas_card_vs_cpu(
+        "ewald-1200 flagship, charge +1", params, cfg_ew,
+        {"coord": c_small, "numbers": n_small, "cell": cell_small, "charge": 1.0}, True)
+    res["checks"]["pme-1200"] = phase_card_vs_cpu("pme-1200 flagship", params, cfg_pme)
+    res["checks"]["lr-heads-1200"] = phase_card_vs_cpu("lr-heads-1200", params_lr, cfg_lr)
+    res["checks"]["ewald-periodic-500"] = gas_card_vs_cpu("ewald-periodic-500 wb97m-d3", params_d3, cfg_d3_ew,
+                                                          box500, True)
+
+    # MD: the first 50 NVE steps at exact on the binned engine (the MD
+    # setting's dt, 0.5 fs), then the same 25 fs at half the time step: the
+    # random-weight Ewald potential collapses faster than the DSF one (its
+    # Coulomb is undamped), and its NVE error at 0.5 fs is the integrator's,
+    # falling as dt^2 (the ratio is printed); energy conservation is gated
+    # at 0.25 fs
+    md = MDConfig(**{**MD_SETTING, "thermostat": "nve", "precision": "exact"})
+    system = md_system(coord, numbers, cell, torch.device("cuda"))
+    peak = res["requests"]["ewald-10k"]["peak_bytes"]
+    for key, dt, n_chunks in (("md", md.dt_fs, MD_WARM), ("md_half_dt", md.dt_fs / 2, 2 * MD_WARM)):
+        drv = MDDriver(params, cfg_ew, system, dataclasses.replace(md, dt_fs=dt), seed=0, device="cuda")
+        drv.state  # the initial forces, outside the window
+        log(f"[md md-ewald-10k] dt {dt} fs; LR grid {drv.lr_grid.nbins} C={drv.lr_grid.capacity} at the "
+            f"real-space cutoff {drv._ewald_rc:.3f} A + skin")
+        res[key] = md_window(f"md-ewald-10k exact first {n_chunks * MD_CHUNK} NVE at {dt} fs", drv, one, peak,
+                             n_chunks=n_chunks)
+        for name, n in res[key]["launches"].items():
+            launches[name] += n
+        del drv
+    drifts = (res["md"]["etot_drift"], res["md_half_dt"]["etot_drift"])
+    log(f"[md md-ewald-10k] NVE |change| / |E| over 25 fs: {drifts[0]:.2e} at {md.dt_fs} fs, {drifts[1]:.2e} at "
+        f"{md.dt_fs / 2} fs (ratio {drifts[0] / max(drifts[1], 1e-30):.2f}; an integrator's error falls 4x)")
+    if drifts[1] > MD_NVE_DRIFT:
+        raise SystemExit(f"FAIL: NVE total energy moved by more than {MD_NVE_DRIFT} of itself on md-ewald-10k")
+    snaps = []
+    for _ in range(2):
+        drv = MDDriver(params, cfg_ew, system, md, seed=7, device="cuda")
+        drv.run(2 * MD_CHUNK, chunk=MD_CHUNK)
+        snaps.append(drv.snapshot())
+        del drv
+    if not all(np.array_equal(snaps[0][k], snaps[1][k]) for k in ("coord", "veloc", "cell")):
+        raise SystemExit("FAIL: two Ewald MD drivers of one seed gave other coordinates after 50 steps")
+    log("[md md-ewald-10k] two drivers of one seed give the same coordinates and velocities bit for bit "
+        "after 50 steps")
+    torch.cuda.empty_cache()
+
+    res["hvp"] = lr_hvp_check(params, cfg_ew)
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[long_range] phase done in {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
     args = parser.parse_args()
+    t_run = time.perf_counter()
     smi = phase_card()
     sys.path.insert(0, ROOT)
     import torch
@@ -2294,7 +2605,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as out_dir:
         results["artifact"] = phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir)
     results["second_order"] = phase_second_order(params, cfg, params_d3, cfg_d3)
+    results["long_range"] = phase_long_range(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
     for k in kernels:
+        k["launches"] += results["long_range"]["launches"][k["name"]]
         k["launches"] += results["second_order"]["launches"][k["name"]]
         k["launches"] += results["artifact"]["launches"][k["name"]]
         k["launches"] += results["packed"]["launches"][k["name"]]
@@ -2305,9 +2618,11 @@ def main() -> None:
             for label in ("flagship-10k fast", "wb97m-d3-10k fast")
         }
 
+    results["seconds"] = time.perf_counter() - t_run
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({**results, "kernels": kernels}, fh, indent=1, default=str)
+    log(f"[smoke] all phases in {results['seconds']:.1f} s (the kernels' build included)")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -147,8 +147,10 @@ def test_unported_tiers_raise(models, results, precision):
 
 
 def test_unported_inputs_raise(models):
-    """What the port does not run yet raises, naming ROADMAP.md: Ewald
-    Coulomb.  A gas-phase batch at or above ``binned_threshold``, which
+    """Inputs that raised before their slice was ported run.  Ewald Coulomb
+    (ported with the rest of long range) runs on the box and is refused
+    without a cell, with JAX's ValueError.  A gas-phase batch at or above
+    ``binned_threshold``, which
     raised before the molecule-bin layout was ported, runs on it; so does a
     Hessian, which raised before the second order was ported: on the
     indexed layout, whatever the threshold (a 12-atom cut of the box here,
@@ -165,8 +167,10 @@ def test_unported_inputs_raise(models):
     params, cfg, aux = models[1]
     ewald = dataclasses.replace(cfg, outputs=tuple(
         (n, dataclasses.replace(h, method="ewald") if n == "lrcoulomb" else h) for n, h in cfg.outputs))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCalculator((params, ewald, aux), device="cpu").eval(_box())
+    ew = TCalculator((params, ewald, aux), device="cpu").eval(_box(), forces=True)
+    assert np.isfinite(ew["forces"]).all()
+    with pytest.raises(ValueError, match="periodic cell"):
+        TCalculator((params, ewald, aux), device="cpu").eval(gas)
 
 
 def test_gas_and_small_inputs_run(models):

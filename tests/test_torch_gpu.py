@@ -36,6 +36,7 @@ from aimnetcentral_tpu_torch.models.heads import (
     DFTD3Head,
     LRCoulombHead,
     OutputHead,
+    SRRepHead,
     head_init,
 )
 from aimnetcentral_tpu_torch.models.modules import MLPSpec
@@ -278,6 +279,28 @@ def test_calculator_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)
 
 
+@pytest.mark.parametrize("method", ["ewald", "pme"])
+def test_calculator_long_range_card_matches_cpu(cuda_device, method):
+    """Ewald and PME on the binned layout: one D and one E launch a request
+    (the real-space sum with the SR part inside), the card against the CPU;
+    a repeated request is the same bits (PME's spread accumulates in a
+    fixed order)."""
+    params, cfg = _narrow_model(CPU)
+    calcs = [AIMNet2Calculator((params, cfg), device=d, binned_threshold=0) for d in ("cpu", cuda_device)]
+    for c in calcs:
+        c.set_lrcoulomb_method(method)
+    cpu = calcs[0].eval(_box(), forces=True, stress=True)
+    ps.pair_sweep_forward.launches = ps.pair_sweep_backward.launches = 0
+    card = calcs[1].eval(_box(), forces=True, stress=True)
+    assert (ps.pair_sweep_forward.launches, ps.pair_sweep_backward.launches) == (1, 1)
+    np.testing.assert_allclose(card["energy"], cpu["energy"], rtol=1e-5)
+    np.testing.assert_allclose(card["forces"], cpu["forces"], atol=1e-4)
+    np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)
+    again = calcs[1].eval(_box(), forces=True, stress=True)
+    for key in ("energy", "forces", "stress"):
+        np.testing.assert_array_equal(again[key], card[key])
+
+
 def test_calculator_card_matches_cpu_with_d3(cuda_device):
     """The wb97m-d3 head set: D and E run three times each (DSF, D3 CN, D3
     energy), A and B three times each."""
@@ -318,7 +341,12 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     Coulomb of v2 artifacts) sweeps at its own rc, 4.6 A, on every layout.
     ``d3_energy_v70`` is the D3 energy
     term with random factorised vectors of V = 70, the width of all 14
-    elements of the released models."""
+    elements of the released models.  ``ewald_real`` takes eta = cutoff /
+    5.26 (the real-space cutoff of accuracy 1e-6) and subtracts the SR
+    envelope at 4.6 A; ``srrep`` (GFN1 repulsion, two scalars an atom) sweeps
+    at rc = 4 A with the cosine cutoff; ``d3ts`` (three scalars: the
+    network's C6 and alpha, random and positive, and r4r2) at the layout's
+    cutoff."""
     rng = np.random.default_rng(seed)
     lr = None
     if layout == "packed":
@@ -347,6 +375,8 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
         assert not ovf.any()
     if term_name == "coulomb_sr":
         cutoff = 4.6
+    elif term_name == "srrep":
+        cutoff = 4.0
     where = "lr" if layout == "images" else "sr"
     tables = head_init(None, DFTD3Head(s8=0.3908, a1=0.566, a2=3.128), CPU)
     d3e = ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=0.8 * cutoff, r_off=cutoff)
@@ -359,6 +389,19 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
             term = ps.CoulombSimpleTerm(rc=4.6)
         extras = {"q": torch.tensor(rng.normal(size=sysb.natoms).astype(np.float32) * 0.3)
                   * (sysb.numbers > 0)}
+    elif term_name == "ewald_real":
+        term = ps.EwaldRealTerm(eta=cutoff / 5.26, rc=4.6, subtract_sr=True)
+        extras = {"q": torch.tensor(rng.normal(size=sysb.natoms).astype(np.float32) * 0.3)
+                  * (sysb.numbers > 0)}
+    elif term_name == "srrep":
+        term = ps.SRRepTerm(rc=4.0, cutoff_fn="cosine_cutoff")
+        gfn1 = head_init(None, SRRepHead(), CPU)["gfn1_ab"][sysb.numbers]
+        extras = {"alpha": gfn1[:, 0], "zeff": gfn1[:, 1]}
+    elif term_name == "d3ts":
+        term = ps.D3TSTerm(a1=0.49, a2=3.5, s8=0.78)
+        extras = {"c6": torch.tensor(rng.uniform(2.0, 40.0, size=sysb.natoms).astype(np.float32)),
+                  "alpha": torch.tensor(rng.uniform(3.0, 15.0, size=sysb.natoms).astype(np.float32)),
+                  "rr": tables["r4r2"][sysb.numbers]}
     elif term_name == "d3_cn":
         term = ps.D3CNTerm()
         extras = {"rcov": tables["rcov"][sysb.numbers]}
@@ -383,7 +426,7 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
 
 
 PAIR_LAYOUTS = ["banded", "images", "wide", "edges", "gas", "packed"]
-PAIR_TERMS = ["dsf", "coulomb_simple", "coulomb_sr", "d3_cn", "d3_energy"]
+PAIR_TERMS = ["dsf", "coulomb_simple", "coulomb_sr", "d3_cn", "d3_energy", "ewald_real", "srrep", "d3ts"]
 
 
 @pytest.mark.parametrize("term_name", PAIR_TERMS)

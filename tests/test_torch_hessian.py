@@ -372,7 +372,7 @@ def test_conv_k3_rules_match_finite_differences():
     )
 
 
-@pytest.mark.parametrize("name", ["dsf", "d3_cn", "d3_energy"])
+@pytest.mark.parametrize("name", ["dsf", "d3_cn", "d3_energy", "ewald_real", "srrep", "d3ts"])
 def test_pair_k3_rules_match_finite_differences(name):
     system, rng = _small_grid()
     n = system.natoms
@@ -383,6 +383,16 @@ def test_pair_k3_rules_match_finite_differences(name):
         "d3_energy": (
             ps.D3EnergyTerm(a1=0.566, a2=3.128, s8=0.3908, r_on=2.4, r_off=3.0),
             {"p": torch.tensor(rng.uniform(0, 1, size=(n, 3))), "r": torch.tensor(rng.uniform(0, 1, size=(n, 3))),
+             "rr": torch.tensor(rng.uniform(1, 3, size=n)) * real},
+        ),
+        "ewald_real": (ps.EwaldRealTerm(eta=1.2, rc=2.0, subtract_sr=True), {"q": torch.tensor(rng.normal(size=n)) * real}),
+        "srrep": (
+            ps.SRRepTerm(rc=3.0, cutoff_fn="cosine_cutoff"),
+            {"alpha": torch.tensor(rng.uniform(0.5, 1.5, size=n)), "zeff": torch.tensor(rng.uniform(0.5, 3, size=n))},
+        ),
+        "d3ts": (  # alpha > 0 on every row, padding included, as DispParam gives it
+            ps.D3TSTerm(a1=0.49, a2=3.5, s8=0.78),
+            {"c6": torch.tensor(rng.uniform(1, 20, size=n)) * real, "alpha": torch.tensor(rng.uniform(1, 10, size=n)),
              "rr": torch.tensor(rng.uniform(1, 3, size=n)) * real},
         ),
     }[name]

@@ -573,7 +573,9 @@ def test_layouts_chosen_as_jax_chooses(models):
     """Below ``binned_threshold`` and for gas-phase simple Coulomb: indexed;
     the periodic box's lists shared (equal Coulomb and D3 cutoffs) or split
     (D3 cutoff 8 against 15.6); gas-phase batches at or above the threshold
-    take the molecule-bin layout; Ewald raises."""
+    take the molecule-bin layout; Ewald's Coulomb shares the LR list (its
+    12.7 A real-space cutoff is within 20% of D3's 15 A) and carries its
+    discretisation, as JAX's does."""
     _jm, (tparams, tcfg, aux) = models["wb97m-d3", "simple"]
     calc = TCalculator((tparams, tcfg, aux), device="cpu")
     box = calc.prepare_system(_box())
@@ -587,8 +589,13 @@ def test_layouts_chosen_as_jax_chooses(models):
     assert packed.bins.molecule_bins and packed.bins.nbins == (3, 1, 1) and packed.nbmat is None
     ewald = dataclasses.replace(tcfg, outputs=tuple(
         (n, dataclasses.replace(h, method="ewald") if n == "lrcoulomb" else h) for n, h in tcfg.outputs))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCalculator((tparams, ewald, aux), device="cpu").eval(_box())
+    jparams, jcfg, jaux = _jm
+    jewald = dataclasses.replace(jcfg, outputs=tuple(
+        (n, dataclasses.replace(h, method="ewald") if n == "lrcoulomb" else h) for n, h in jcfg.outputs))
+    tsys = TCalculator((tparams, ewald, aux), device="cpu").prepare_system(_box())
+    jsys = JCalculator((jparams, jewald, jaux)).prepare_system(_box())
+    assert tsys.nbmat_coulomb is None and tuple(tsys.nbmat_lr.shape) == tuple(jsys.nbmat_lr.shape)
+    assert tsys.ewald_r_static == jsys.ewald_r_static and tuple(tsys.ewald_kpts.shape) == jsys.ewald_kpts.shape
 
 
 # -- the committed validation model -----------------------------------------------------

@@ -277,10 +277,12 @@ def test_fire_relax_matches_jax(models, systems):
 
 
 def test_unported_paths_raise(models, systems):
-    """What the port's driver does not run yet raises: ensembles, Ewald, an
+    """What the port's driver does not run yet raises: ensembles, an
     unknown precision and a missing card.  (Gas-phase systems and
-    ``engine="indexed"``, which raised before this slice, run in the
-    trajectory tests below.)"""
+    ``engine="indexed"`` run in the trajectory tests below; Ewald, which
+    raised before the rest of long range was ported, attaches its
+    discretisation and sizes the LR grid by its real-space cutoff:
+    tests/test_torch_ewald.py runs it.)"""
     _jm, (tparams, tcfg) = models
     tsys = systems[2]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -291,8 +293,8 @@ def test_unported_paths_raise(models, systems):
             for n, h in tcfg.outputs
         ),
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MDDriver(tparams, ewald, tsys, MDConfig(), device="cpu")
+    drv = MDDriver(tparams, ewald, tsys, MDConfig(), device="cpu")
+    assert drv._ewald_rc == drv._state.system.ewald_r_static and drv._lr_cutoff() == drv._ewald_rc
     with pytest.raises(ValueError, match="precision"):
         MDDriver(tparams, tcfg, tsys, MDConfig(precision="f32x3"), device="cpu")
     if not torch.cuda.is_available():

@@ -104,6 +104,9 @@ def case(request):
         "r": (p @ (m + m.T)).astype(np.float32),  # c6_ij = p_i . r_j symmetric
         "rr": rng.uniform(1.0, 3.0, size=L).astype(np.float32),  # also on padding rows
         "w": rng.normal(size=L).astype(np.float32),  # cotangent of the sums
+        "alpha": rng.uniform(0.5, 3.0, size=L).astype(np.float32),  # SRRep's and D3TS's, > 0 everywhere
+        "zeff": rng.uniform(1.0, 14.0, size=L).astype(np.float32),
+        "c6": rng.uniform(1.0, 30.0, size=L).astype(np.float32) * real,
     }
     return bj, bt, cutoff, layout, extras
 
@@ -197,7 +200,9 @@ def _kernel_emulation(st, term, ops, ct):
 
     e_flat, ct_flat = ext.reshape(n_rows, k), ct.reshape(-1)
     d = torch.sqrt((diff * diff).sum(-1))
-    si, sj = e_flat[recv, -1], e_flat[cand, -1]
+    si, sj = e_flat[recv, 2 * v :], e_flat[cand, 2 * v :]
+    if st.ns == 1:
+        si, sj = si[:, 0], sj[:, 0]
     valid = torch.ones_like(d, dtype=torch.bool)
     g, gd, gsi, _gsj = term.g_grad(d, si, sj, valid)
     if v:
@@ -220,7 +225,7 @@ def _kernel_emulation(st, term, ops, ct):
     out = lanes(torch.where(kind == 2, cji, cij) * g)
     grad_coord = lanes(-(eff * gd / d)[:, None] * diff)
     grad_ext = torch.zeros(n_rows, k)
-    grad_ext[:, -1] = lanes(eff * gsi)
+    grad_ext[:, 2 * v :] = lanes((eff * gsi)[:, None] if st.ns == 1 else eff[:, None] * gsi)
     if v:
         grad_ext[:, :v].index_add_(0, recv, (cp * g)[:, None] * e_flat[cand, v : 2 * v])
         grad_ext[:, v : 2 * v].index_add_(0, recv, (cq * g)[:, None] * e_flat[cand, :v])
@@ -259,18 +264,28 @@ def _half_pair_count(st, ops) -> int:
     return total
 
 
-@pytest.mark.parametrize("term_name", ["dsf_exp", "d3_cn", "d3_energy", "coulomb_sr"])
+@pytest.mark.parametrize(
+    "term_name", ["dsf_exp", "d3_cn", "d3_energy", "coulomb_sr", "ewald_real", "srrep", "d3ts"]
+)
 def test_kernel_algorithm_matches_plain(case, term_name):
     """Kernels D and E's algorithm (full stencil from the receiver's side,
     compacted pairs in lanes of 32) against the plain forward and its
     autograd, and the pairs it contracts against the plain count.  The SR
-    Coulomb term sweeps at its own rc (4.6 A), below the grids' edges."""
+    Coulomb term sweeps at its own rc (4.6 A), below the grids' edges, as
+    does SRRep (4.0 A); SRRep (two scalars an atom) and D3TS (three) check
+    every scalar's adjoint."""
     _bj, bt, cutoff, layout, ex = case
     if term_name == "coulomb_sr":
         term, cutoff = ps.CoulombSRTerm(rc=4.6), 4.6
+    elif term_name == "srrep":
+        term, cutoff = ps.SRRepTerm(rc=4.0, cutoff_fn="cosine_cutoff"), 4.0
+    elif term_name == "ewald_real":
+        term = ps.EwaldRealTerm(eta=cutoff / 5.26, rc=4.6, subtract_sr=True)
+    elif term_name == "d3ts":
+        term = ps.D3TSTerm(a1=0.49, a2=3.5, s8=0.78)
     else:
         term = _terms(cutoff)[term_name][0]
-    extras = {k: torch.tensor(ex[k]) for k in list(term.vector_keys) + [term.scalar_key]}
+    extras = {k: torch.tensor(ex[k]) for k in list(term.vector_keys) + list(term.scalar_keys)}
     st, ops = teb.pair_operands(bt, cutoff, term, extras, layout)
     args = {k: ops[k] for k in ("coord", "mask", "ext", "shift", "nbr", "inv")}
     ct = torch.tensor(np.random.default_rng(6).normal(size=(st.b_tot, st.c)).astype(np.float32))
@@ -284,6 +299,48 @@ def test_kernel_algorithm_matches_plain(case, term_name):
             _close(emu_grads[1][..., cols].numpy(), ref[1][..., cols].numpy(), 3e-5)
     assert torch.equal(counts, ps.pair_counts_plain(st, **{k: args[k] for k in args if k != "ext"}))
     assert int(counts.sum()) == 2 * _half_pair_count(st, ops) > 0
+
+
+@pytest.mark.parametrize("name", ["ewald_real", "srrep", "d3ts"])
+def test_long_range_terms_binned_match_jax(case, name):
+    """``ewald_real_binned`` (LR layout), ``srrep_binned`` (SR layout) and
+    ``d3ts_binned`` (LR layout) against JAX's: per-molecule energy and its
+    coordinate gradient, and the gradient of the charges, of the GFN1 table
+    or of the dispersion parameters, within 1e-5 of their largest magnitude (3e-5 for
+    the gradients)."""
+    bj, bt, cutoff, _layout, ex = case
+    eta = cutoff / 5.26  # the real-space cutoff of accuracy 1e-6 is 5.26 eta
+    table = jnp.asarray(np.random.default_rng(8).uniform(1.0, 3.0, size=(95,)).astype(np.float32))
+    gfn1 = jnp.asarray(np.stack([np.random.default_rng(9).uniform(0.5, 2.5, 95),
+                                 np.random.default_rng(10).uniform(1.0, 14.0, 95)], -1).astype(np.float32))
+    dp = np.stack([ex["c6"], ex["alpha"]], -1)
+
+    def j_energy(coord, x):
+        s = bj.replace(coord=coord)
+        if name == "ewald_real":
+            e = jeb.ewald_real_binned(s, x, float(np.float32(eta)), cutoff)
+        elif name == "srrep":
+            e = jeb.srrep_binned(s, x, 4.0, "cosine_cutoff")
+        else:
+            e = jeb.d3ts_binned(s, {"r4r2": table}, x, 0.49, 3.5, 0.78)
+        return e.sum(), e
+
+    x0 = {"ewald_real": ex["q"], "srrep": np.asarray(gfn1), "d3ts": dp}[name]
+    (_e, je), jg = jax.value_and_grad(j_energy, argnums=(0, 1), has_aux=True)(bj.coord, jnp.asarray(x0))
+    coord = bt.coord.clone().requires_grad_(True)
+    xt = torch.tensor(x0, requires_grad=True)
+    s = bt.replace(coord=coord)
+    if name == "ewald_real":
+        te = teb.ewald_real_binned(s, xt, float(np.float32(eta)), cutoff)
+    elif name == "srrep":
+        te = teb.srrep_binned(s, xt, 4.0, "cosine_cutoff")
+    else:
+        te = teb.d3ts_binned(s, {"r4r2": torch.tensor(np.asarray(table))}, xt, 0.49, 3.5, 0.78)
+    tg = torch.autograd.grad(te.sum(), (coord, xt))
+    _close(te.detach().numpy(), je, 1e-5)
+    _close(tg[0].numpy(), jg[0], 3e-5)
+    _close(tg[1].numpy(), jg[1], 3e-5)
+    assert float(np.abs(np.asarray(je)).max()) > 0.0
 
 
 @pytest.mark.parametrize("envelope", ["exp", "cosine"])
