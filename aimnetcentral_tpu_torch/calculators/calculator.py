@@ -637,14 +637,16 @@ class AIMNet2Calculator:
                 return res
         system = self.prepare_system(data, allow_binned=not hessian)
         cfg_eff = self._effective_cfg(system.cell is not None)
-        fn = derivatives.make_eval_fn(
-            cfg_eff, forces=forces, stress=stress, hessian=hessian, sae_external=True
-        )
+        fn = self._get_fn(cfg_eff, forces, stress, hessian)
         with ambient_matmul_context(precision_tiers(self.precision)):
             out = fn(self.params, system)
         return self._postprocess(out, system)
 
     __call__ = eval
+
+    def _get_fn(self, cfg: AIMNet2Config, forces: bool, stress: bool, hessian: bool):
+        """The evaluation ``f(params, system) -> outputs`` of a request."""
+        return derivatives.make_eval_fn(cfg, forces=forces, stress=stress, hessian=hessian, sae_external=True)
 
     def hessian_vector_product(
         self, data: Mapping[str, Any] | list | tuple, v: np.ndarray, *, validate_species: bool = True
@@ -682,16 +684,21 @@ class AIMNet2Calculator:
         res["energy"] = energy
         for k in ("charges", "spin_charges", "forces"):
             if k in fetched:
-                x = fetched[k]
-                if self._last_perm is None:
-                    res[k] = x[:n_real]
-                else:
-                    compact = np.zeros((n_real,) + x.shape[1:], dtype=x.dtype)
-                    compact[self._last_perm[valid]] = x[valid]
-                    res[k] = compact
+                res[k] = self._slots_to_compact(fetched[k], valid)
         for k in ("stress", "dipole", "quadrupole"):
             if k in fetched:
                 res[k] = fetched[k]
         if "hessian" in fetched:  # the indexed layout: real atoms first
             res["hessian"] = derivatives.real_atom_hessian(fetched["hessian"], n_real)
         return res
+
+    def _slots_to_compact(self, x: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """Per-slot rows (``valid`` marks the real atoms) in input atom
+        order: through ``perm`` on the binned layouts; the indexed layout
+        keeps it, real atoms first."""
+        n_real = int(valid.sum())
+        if self._last_perm is None:
+            return x[:n_real]
+        compact = np.zeros((n_real,) + x.shape[1:], dtype=x.dtype)
+        compact[self._last_perm[valid]] = x[valid]
+        return compact

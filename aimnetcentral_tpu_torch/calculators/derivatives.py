@@ -14,7 +14,8 @@ calculator sends Hessians and HVPs to the indexed layout, as JAX does.
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Iterator
 
 import torch
 
@@ -44,12 +45,15 @@ def hessian_chunk(system: System, rows: int, graph_bytes: int) -> int:
     """Unit rows a batched double backward takes at once.  On the card:
     ``HESSIAN_MEMORY_SHARE`` of its memory over ``HESSIAN_ROW_COPIES``
     times the bytes that the first-order graph holds (``graph_bytes``, the
-    memory allocated by the forward and the differentiable gradient); an
-    all-pairs indexed molecule's ``a[nbmat]`` alone is (N, M, 16, 16) f32
-    per row.  The card's total memory, not its free memory, sets it: the
-    free memory moves with what the caching allocator holds, and another
-    chunk adds the rows in another order, so one input would not give the
-    same bits twice.  On the CPU ``CPU_HESSIAN_CHUNK``.  Binned layouts take
+    tensors the forward and the differentiable gradient save,
+    ``saved_tensor_bytes``); an all-pairs indexed molecule's ``a[nbmat]``
+    alone is (N, M, 16, 16) f32 per row.  Every input of it is fixed by the
+    request's shapes: another chunk batches the rows' products otherwise
+    and adds them in another order, so a chunk that moved with the
+    allocator's state (its free memory, or the growth of its allocated
+    memory, which a process's first products inflate by cuBLAS's
+    workspace) would not give one input the same bits twice.  On the CPU
+    ``CPU_HESSIAN_CHUNK``.  Binned layouts take
     one row at a time: the second backward runs the kernels' wrappers
     again (B and E as first adjoints), and they take no vmap-batched
     tensors."""
@@ -60,6 +64,29 @@ def hessian_chunk(system: System, rows: int, graph_bytes: int) -> int:
     total = torch.cuda.get_device_properties(system.device).total_memory
     per_row = HESSIAN_ROW_COPIES * max(graph_bytes, 1)
     return max(1, min(rows, int(HESSIAN_MEMORY_SHARE * total) // per_row))
+
+
+class SavedTensorBytes:
+    """The bytes of the distinct storages that autograd saves while it is
+    entered (``saved_tensors_hooks``): what a graph holds, a function of
+    the shapes alone."""
+
+    def __init__(self) -> None:
+        self._storages: dict[int, int] = {}
+
+    def _pack(self, t: torch.Tensor) -> torch.Tensor:
+        st = t.untyped_storage()
+        self._storages[st.data_ptr()] = st.nbytes()
+        return t
+
+    @property
+    def total(self) -> int:
+        return sum(self._storages.values())
+
+    @contextlib.contextmanager
+    def counting(self) -> Iterator["SavedTensorBytes"]:
+        with torch.autograd.graph.saved_tensors_hooks(self._pack, lambda t: t):
+            yield self
 
 
 def dense_hessian(grad: torch.Tensor, coord: torch.Tensor, real: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -126,10 +153,10 @@ def make_eval_fn(
             )
             inputs.append(scaling)
             sys2 = apply_strain(sys2, scaling)
-        cuda = coord.device.type == "cuda"
-        held = torch.cuda.memory_allocated(coord.device) if cuda else 0
-        data = aimnet2_apply(params, cfg, sys2, sae_external=sae_external)
-        grads = torch.autograd.grad(data["energy"].sum(), inputs, create_graph=hessian)
+        saved = SavedTensorBytes()
+        with saved.counting() if hessian else contextlib.nullcontext():
+            data = aimnet2_apply(params, cfg, sys2, sae_external=sae_external)
+            grads = torch.autograd.grad(data["energy"].sum(), inputs, create_graph=hessian)
         out = collect(data)
         if forces or (hessian and not stress):
             out["forces"] = -grads[0].detach()
@@ -137,9 +164,8 @@ def make_eval_fn(
             volume = torch.abs(torch.linalg.det(system.cell))[:, None, None]
             out["stress"] = grads[1].detach() / volume
         if hessian:
-            graph = torch.cuda.memory_allocated(coord.device) - held if cuda else 0
             real = system.numbers > 0
-            chunk = hessian_chunk(system, 3 * int(real.sum()), graph)
+            chunk = hessian_chunk(system, 3 * int(real.sum()), saved.total)
             out["hessian"] = dense_hessian(grads[0], coord, real, chunk)
         return out
 

@@ -36,6 +36,14 @@
 // element is written by exactly one block and every sum is taken in a
 // fixed order: no atomics, deterministic.  FP32 on CUDA cores.
 //
+// Column tiles, as kernel A's: a third grid axis cuts the G*F row into T
+// tiles of W columns, each walking the same pairs on its own columns.
+// grad_a is per column, so each tile writes its own; the coordinate and
+// shift adjoints sum over every column, so each tile writes its partial,
+// grad_coord (T, B*C, 3) and pgrad (T, S, B, NJ, 3, C), and the wrapper adds
+// the tiles in a fixed order (still no atomics).  Shared memory depends on
+// C alone and is unchanged.
+//
 // What bounds it on an H100: like kernel A, the function's least time is
 // set by the bytes it moves (gbar, features and outputs, each once); its
 // operations are about twice kernel A's per real pair.  This kernel reads
@@ -74,10 +82,10 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
                 const float* __restrict__ shifts_g,  // (G)
                 const float* __restrict__ scal,      // (2) eta, rc
                 float* __restrict__ grad_a,          // (B*C, G*F)
-                float* __restrict__ grad_coord,      // (B*C, 3) receiver side
-                float* __restrict__ pgrad,           // (S, B, NJ, 3, C) partner side
+                float* __restrict__ grad_coord,      // (T, B*C, 3) receiver side
+                float* __restrict__ pgrad,           // (T, S, B, NJ, 3, C) partner side
                 int* __restrict__ pair_count,        // (B*C) or null
-                int B, int C, int G, int F, int S) {
+                int B, int C, int G, int F, int S, int W) {
   extern __shared__ float rows[];  // [2][kWarps][3][C]: partner rows, one per warp
   const int jb = blockIdx.x;
   const int jt = blockIdx.y;
@@ -88,6 +96,10 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
   const size_t row = size_t(jb) * C + j;
   const bool real_j = j < C && mask[row] > 0.5f;
   const int GF = G * F;
+  const int col0 = blockIdx.z * W;     // this tile's first column
+  const int ncol = min(W, GF - col0);  // and its width
+  grad_coord += size_t(blockIdx.z) * B * C * 3;
+  pgrad += size_t(blockIdx.z) * S * B * NJ * 3 * C;
   const size_t kstride = size_t(C) * GF;  // gbar's k stride
   const float eta = scal[0];
   const float rc = scal[1];
@@ -96,9 +108,9 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
   float sg[M], av[M], ga[M];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const int c = lane + 32 * m;
-    sg[m] = c < GF ? shifts_g[c / F] : 0.0f;
-    av[m] = (real_j && c < GF) ? a[row * GF + c] : 0.0f;
+    const int cl = lane + 32 * m;
+    sg[m] = cl < ncol ? shifts_g[(col0 + cl) / F] : 0.0f;
+    av[m] = (real_j && cl < ncol) ? a[row * GF + col0 + cl] : 0.0f;
     ga[m] = 0.0f;
   }
   float xj0 = 0.0f, xj1 = 0.0f, xj2 = 0.0f;
@@ -166,20 +178,20 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
           const float pux = __shfl_sync(0xffffffffu, ux, src);
           const float puy = __shfl_sync(0xffffffffu, uy, src);
           const float puz = __shfl_sync(0xffffffffu, uz, src);
-          const float* gb = gbar + (size_t(p) * 4 * C + i0 + src) * GF;
+          const float* gb = gbar + (size_t(p) * 4 * C + i0 + src) * GF + col0;
           // the partner's four cotangent rows first: 4 M loads in flight together
           float gv[M][4];
 #pragma unroll
           for (int m = 0; m < M; ++m) {
-            const int c = lane + 32 * m;
+            const int cl = lane + 32 * m;
 #pragma unroll
-            for (int k = 0; k < 4; ++k) gv[m][k] = c < GF ? __ldg(gb + k * kstride + c) : 0.0f;
+            for (int k = 0; k < 4; ++k) gv[m][k] = cl < ncol ? __ldg(gb + k * kstride + cl) : 0.0f;
           }
           float ub0 = 0.0f, ub1 = 0.0f, ub2 = 0.0f, db = 0.0f;
 #pragma unroll
           for (int m = 0; m < M; ++m) {
-            const int c = lane + 32 * m;
-            if (c < GF) {
+            const int cl = lane + 32 * m;
+            if (cl < ncol) {
               const float dd = pd - sg[m];
               const float e = expf(-eta * dd * dd);
               const float gs = e * pfc;
@@ -242,14 +254,14 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
   if (j < C) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      const int c = lane + 32 * m;
-      if (c < GF) grad_a[row * GF + c] = ga[m];
+      const int cl = lane + 32 * m;
+      if (cl < ncol) grad_a[row * GF + col0 + cl] = ga[m];
     }
     if (lane == 0) {
       grad_coord[3 * row + 0] = gc0;
       grad_coord[3 * row + 1] = gc1;
       grad_coord[3 * row + 2] = gc2;
-      if (pair_count != nullptr) pair_count[row] = npair;
+      if (pair_count != nullptr && blockIdx.z == 0) pair_count[row] = npair;
     }
   }
 }
@@ -258,34 +270,36 @@ template <int M>
 int launch(const float* coord, const float* mask, const float* a, const float* gbar,
            const int* mnbr, const float* shift, const float* shifts_g, const float* scal,
            float* grad_a, float* grad_coord, float* pgrad, int* pair_count, int B, int C,
-           int G, int F, int S, cudaStream_t stream) {
+           int G, int F, int S, int W, cudaStream_t stream) {
   // kernels/conv_stencil.py::bwd_smem_bytes computes the same number
   const size_t smem = sizeof(float) * 2 * kWarps * 3 * size_t(C);
   cudaError_t err = cudaFuncSetAttribute(
       conv_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(B, (C + kWarps - 1) / kWarps);
+  dim3 grid(B, (C + kWarps - 1) / kWarps, (G * F + W - 1) / W);
   conv_bwd_kernel<M><<<grid, kThreads, smem, stream>>>(
       coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord, pgrad, pair_count,
-      B, C, G, F, S);
+      B, C, G, F, S, W);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// M, the columns a lane owns, is kernels/conv_stencil.py::lane_columns.
+// M, the columns a lane owns, and W, the columns a tile owns, are
+// kernels/conv_stencil.py::col_tiles.
 extern "C" int conv_bwd_launch(const float* coord, const float* mask, const float* a,
                                const float* gbar, const int* mnbr, const float* shift,
                                const float* shifts_g, const float* scal, float* grad_a,
                                float* grad_coord, float* pgrad, int* pair_count, int B, int C,
-                               int G, int F, int S, int M, void* stream) {
+                               int G, int F, int S, int M, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || C < 1 || G * F > 32 * M) return int(cudaErrorInvalidValue);
+  if (B < 1 || C < 1 || W < 1 || W > 32 * M || (G * F + W - 1) / W > 64)
+    return int(cudaErrorInvalidValue);
   if (M == 9)
     return launch<9>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
-                     pgrad, pair_count, B, C, G, F, S, st);
+                     pgrad, pair_count, B, C, G, F, S, W, st);
   if (M == 17)
     return launch<17>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
-                      pgrad, pair_count, B, C, G, F, S, st);
+                      pgrad, pair_count, B, C, G, F, S, W, st);
   return int(cudaErrorInvalidValue);
 }

@@ -27,6 +27,14 @@
 // taken in a fixed order: no atomics, deterministic.  FP32 on CUDA cores:
 // the exact tier has no TF32.
 //
+// Column tiles: a row wider than a lane's M columns hold (a fused ensemble
+// stacks its members' features, G*F = 1,088 for four flagship members) is
+// cut into T tiles of W columns, a second grid axis; a tile's warps run the
+// same ballot and pair walk on their own columns c = col0 + lane + 32 m.
+// The geometry (d, fc, u) is recomputed per tile, little beside the
+// per-column exp that every tile pays anyway.  One tile (T = 1, W = G*F) is
+// the single model's launch.
+//
 // What bounds it on an H100: the function needs 2 * 4 G F FLOP per real
 // pair within rc and reads each feature once, so its least time is set by
 // the bytes it moves (the output is four times the features).  This kernel
@@ -58,13 +66,15 @@ conv_fwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
                 const float* __restrict__ scal,      // (2) eta, rc
                 float* __restrict__ out,             // (B, 4, C, G*F)
                 int* __restrict__ pair_count,        // (B*C) or null
-                int B, int C, int G, int F, int S) {
+                int B, int C, int G, int F, int S, int W) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);  // receiver slot b*C + i
   if (row >= B * C) return;  // whole warps only
   const int b = row / C;
   const int i = row - b * C;
   const int GF = G * F;
+  const int col0 = blockIdx.y * W;        // this tile's first column
+  const int ncol = min(W, GF - col0);     // and its width
   const float eta = scal[0];
   const float rc = scal[1];
   const float pi_rc = kPi / rc;
@@ -73,8 +83,8 @@ conv_fwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
   float acc[M][4];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const int c = lane + 32 * m;
-    sg[m] = c < GF ? shifts_g[c / F] : 0.0f;
+    const int cl = lane + 32 * m;
+    sg[m] = cl < ncol ? shifts_g[(col0 + cl) / F] : 0.0f;
     acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.0f;
   }
   int npair = 0;
@@ -117,17 +127,17 @@ conv_fwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
           const float puy = __shfl_sync(0xffffffffu, uy, src);
           const float puz = __shfl_sync(0xffffffffu, uz, src);
           // the candidate's row first, so that its M loads are in flight together
-          const float* arow = a + (size_t(n) * C + j0 + src) * GF;
+          const float* arow = a + (size_t(n) * C + j0 + src) * GF + col0;
           float avs[M];
 #pragma unroll
           for (int m = 0; m < M; ++m) {
-            const int c = lane + 32 * m;
-            avs[m] = c < GF ? __ldg(arow + c) : 0.0f;
+            const int cl = lane + 32 * m;
+            avs[m] = cl < ncol ? __ldg(arow + cl) : 0.0f;
           }
 #pragma unroll
           for (int m = 0; m < M; ++m) {
-            const int c = lane + 32 * m;
-            if (c < GF) {
+            const int cl = lane + 32 * m;
+            if (cl < ncol) {
               const float dd = pd - sg[m];
               const float gs = expf(-eta * dd * dd) * pfc;
               const float av = avs[m];
@@ -145,39 +155,42 @@ conv_fwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
 
 #pragma unroll
   for (int m = 0; m < M; ++m) {
-    const int c = lane + 32 * m;
-    if (c < GF) {
+    const int cl = lane + 32 * m;
+    if (cl < ncol) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) out[((size_t(b) * 4 + k) * C + i) * GF + c] = acc[m][k];
+      for (int k = 0; k < 4; ++k) out[((size_t(b) * 4 + k) * C + i) * GF + col0 + cl] = acc[m][k];
     }
   }
-  if (pair_count != nullptr && lane == 0) pair_count[row] = npair;
+  if (pair_count != nullptr && lane == 0 && blockIdx.y == 0) pair_count[row] = npair;
 }
 
 template <int M>
 int launch(const float* coord, const float* mask, const float* a, const int* nbr,
            const float* shift, const float* shifts_g, const float* scal, float* out,
-           int* pair_count, int B, int C, int G, int F, int S, cudaStream_t stream) {
+           int* pair_count, int B, int C, int G, int F, int S, int W, cudaStream_t stream) {
   const int rows = B * C;
-  conv_fwd_kernel<M><<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      coord, mask, a, nbr, shift, shifts_g, scal, out, pair_count, B, C, G, F, S);
+  const dim3 grid((rows + kWarps - 1) / kWarps, (G * F + W - 1) / W);
+  conv_fwd_kernel<M><<<grid, kThreads, 0, stream>>>(coord, mask, a, nbr, shift, shifts_g, scal, out,
+                                                    pair_count, B, C, G, F, S, W);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// M, the columns a lane owns, is kernels/conv_stencil.py::lane_columns.
+// M, the columns a lane owns, and W, the columns a tile owns, are
+// kernels/conv_stencil.py::col_tiles.
 extern "C" int conv_fwd_launch(const float* coord, const float* mask, const float* a,
                                const int* nbr, const float* shift, const float* shifts_g,
                                const float* scal, float* out, int* pair_count, int B, int C,
-                               int G, int F, int S, int M, void* stream) {
+                               int G, int F, int S, int M, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || C < 1 || G * F > 32 * M) return int(cudaErrorInvalidValue);
+  if (B < 1 || C < 1 || W < 1 || W > 32 * M || (G * F + W - 1) / W > 65535)
+    return int(cudaErrorInvalidValue);
   if (M == 9)
     return launch<9>(coord, mask, a, nbr, shift, shifts_g, scal, out, pair_count, B, C, G, F,
-                     S, st);
+                     S, W, st);
   if (M == 17)
     return launch<17>(coord, mask, a, nbr, shift, shifts_g, scal, out, pair_count, B, C, G,
-                      F, S, st);
+                      F, S, W, st);
   return int(cudaErrorInvalidValue);
 }

@@ -49,6 +49,13 @@
 // three shuffles a column per real ordered pair, waiting on L2 for the
 // candidates' rows: for the D3 energy that part, not the term, sets the
 // time.
+//
+// The member form: the receiver's E cotangents are read once and the
+// candidate's per pair; each member's derivatives come from the shared
+// factor, and the coordinate and shift adjoints take the sum over the
+// members of (ct_i,m + ct_j,m) dg_m/dd, so the scan and the butterflies
+// are the single term's; the extras adjoint holds the shared scalars' and
+// every member's own (17 at E = 8 for D3TS) in registers.
 
 #include <cuda_runtime.h>
 
@@ -58,11 +65,13 @@
 // 3 simple Coulomb, 4 short-range Coulomb, 5 real-space Ewald, 6 GFN1
 // repulsion, 7 D3 with the TS combination rule.
 // consts: host pointer to 8 floats (the cutoff, then the term's constants).
+// members: 0 for the single-model term; E > 0 for its member form (terms 0,
+// 3, 4, 5 and 7; E <= 8), whose sums and cotangents are (B*C, E).
 extern "C" int pair_bwd_launch(const float* consts, const float* coord, const float* mask,
                                const float* ext, const float* shift, const int* nbr,
                                const long long* inv, const float* box, const float* ct,
                                float* gc, float* ge, float* gs_rows, int* pair_count, int term,
-                               int B, int C, int K, int S, void* stream) {
+                               int members, int B, int C, int K, int S, void* stream) {
   pair_walk::Args a{};
   for (int t = 0; t < 8; ++t) a.tc.c[t] = consts[t];
   a.coord = coord;
@@ -81,5 +90,6 @@ extern "C" int pair_bwd_launch(const float* consts, const float* coord, const fl
   a.C = C;
   a.K = K;
   a.S = S;
+  a.E = members;
   return pair_walk::launch_term<true>(term, a, static_cast<cudaStream_t>(stream));
 }

@@ -38,6 +38,14 @@
 // with an exact limit instead of taking a square root: the walk is bound by
 // instruction issue.  A bilinear term's lane reads its candidate's row
 // straight from L1/L2 for the one dot product the pair needs.
+//
+// The member form (a fused ensemble's E members, E <= 8): the walk is the
+// same and the pair's geometry and member-independent factor (the erfc
+// kernel and envelope, the D3TS damping) are computed once; each member
+// adds its product (3 operations for a charge term, 11 for D3TS's TS
+// combination) to one of E partial sums a lane, finished by one butterfly
+// per member.  Its least time is still set by operations: the shared
+// term's plus E products a pair.
 
 #include <cuda_runtime.h>
 
@@ -47,10 +55,12 @@
 // 3 simple Coulomb, 4 short-range Coulomb, 5 real-space Ewald, 6 GFN1
 // repulsion, 7 D3 with the TS combination rule.
 // consts: host pointer to 8 floats (the cutoff, then the term's constants).
+// members: 0 for the single-model term; E > 0 for its member form (terms 0,
+// 3, 4, 5 and 7; E <= 8), whose sums and cotangents are (B*C, E).
 extern "C" int pair_fwd_launch(const float* consts, const float* coord, const float* mask,
                                const float* ext, const float* shift, const int* nbr,
                                const long long* inv, const float* box, float* out,
-                               int* pair_count, int term, int B, int C, int K, int S,
+                               int* pair_count, int term, int members, int B, int C, int K, int S,
                                void* stream) {
   pair_walk::Args a{};
   for (int t = 0; t < 8; ++t) a.tc.c[t] = consts[t];
@@ -67,5 +77,6 @@ extern "C" int pair_fwd_launch(const float* consts, const float* coord, const fl
   a.C = C;
   a.K = K;
   a.S = S;
+  a.E = members;
   return pair_walk::launch_term<false>(term, a, static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,9 @@
 // functor, so no guard is needed here for the padding atom's zero extras.
 //
 // Constants (TermConsts.c): c[0] is the cutoff, c[1..] the term's own, in
-// the order of the term's consts() in kernels/pair_sweep.py.
+// the order of the term's consts() in kernels/pair_sweep.py.  The member
+// forms of five of these terms, one output per ensemble member, follow at
+// the end.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -380,6 +382,101 @@ struct D3TSTerm {
     gsi[0] = -damp * (2.0f * c6j / cl - kk * dcl_dc6);
     gsi[1] = damp * kk * dcl_da;
     gsi[2] = -c6ij * ddrr * 3.0f * sj[2];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Member forms: one output per ensemble member of a fused ensemble.  Every
+// atom carries kShared scalars common to the members and kPer scalars of
+// each member, packed [shared (kShared), member 0 (kPer), member 1, ...];
+// a pair's output for member m is e_ij,m = val(geo(d, sh_i, sh_j), m_i,m,
+// m_j,m): geo() is what the members share (the geometry's kernel, the
+// damping), computed once a pair, and val() and grad() one member's value
+// and derivatives from it, the same float operations as the single-model
+// term on that member's scalars.  grad() gives g, dg/dd, dg/dm_i (kPer) and
+// dg/dsh_i (kShared).  One build holds kMaxMembers accumulators a lane;
+// E <= kMaxMembers members run on it (kernels/pair_sweep.py::MAX_MEMBERS).
+constexpr int kMaxMembers = 8;
+
+// The Coulomb-type terms, q_i,m q_j,m h(d): DSF, simple, SR (in Real =
+// double, as CoulombSRTerm) and the real-space Ewald sum.
+template <class Base, class Real>
+struct ChargeMembers {
+  static constexpr bool kBilinear = false;
+  static constexpr int kShared = 0;
+  static constexpr int kPer = 1;
+  static constexpr int kMaxMembers = pair_terms::kMaxMembers;
+  static constexpr int kScalars = kShared + kMaxMembers * kPer;
+  struct Geo {
+    Real h, dh;
+  };
+
+  __device__ static Geo geo(const TermConsts& k, float d, const float*, const float*) {
+    Geo r;
+    Base::h(k, d, r.h, r.dh);
+    return r;
+  }
+
+  __device__ static float val(const Geo& r, const float* mi, const float* mj) {
+    return float(Real(mi[0]) * Real(mj[0]) * r.h);
+  }
+
+  __device__ static void grad(const Geo& r, const float*, const float* mi, const float* mj,
+                              float& g, float& gd, float* gmi, float*) {
+    g = float(Real(mi[0]) * Real(mj[0]) * r.h);
+    gd = float(Real(mi[0]) * Real(mj[0]) * r.dh);
+    gmi[0] = float(Real(mj[0]) * r.h);
+  }
+};
+
+using DsfMembers = ChargeMembers<DsfTerm, float>;
+using CoulombSimpleMembers = ChargeMembers<CoulombSimpleTerm, float>;
+using CoulombSRMembers = ChargeMembers<CoulombSRTerm, double>;
+using EwaldRealMembers = ChargeMembers<EwaldRealTerm, float>;
+
+// D3 with the TS combination rule: the shared scalar is r4r2 (rr, r0 and
+// the Becke-Johnson damping are computed once a pair), each member's are
+// its C6 and alpha.  c = [cutoff, a1, a2, s8, s6, 1/Bohr], as D3TSTerm.
+struct D3TSMembers {
+  static constexpr bool kBilinear = false;
+  static constexpr int kShared = 1;
+  static constexpr int kPer = 2;
+  static constexpr int kMaxMembers = pair_terms::kMaxMembers;
+  static constexpr int kScalars = kShared + kMaxMembers * kPer;
+  struct Geo {
+    float damp, ddb, ddrr, bohr, rrj;
+  };
+
+  __device__ static Geo geo(const TermConsts& k, float d, const float* shi, const float* shj) {
+    Geo r;
+    bj_damping(d * k.c[5], 3.0f * shi[0] * shj[0], k.c[1], k.c[2], k.c[4], k.c[3], r.damp, r.ddb,
+               r.ddrr);
+    r.bohr = k.c[5];
+    r.rrj = shj[0];
+    return r;
+  }
+
+  __device__ static float val(const Geo& r, const float* mi, const float* mj) {
+    const float den = mi[0] * mj[1] / mi[1] + mj[0] * mi[1] / mj[1];
+    const float c6ij = 2.0f * mi[0] * mj[0] / fmaxf(den, 1e-4f);
+    return -c6ij * r.damp;
+  }
+
+  __device__ static void grad(const Geo& r, const float*, const float* mi, const float* mj,
+                              float& g, float& gd, float* gmi, float* gshi) {
+    const float c6i = mi[0], ai = mi[1], c6j = mj[0], aj = mj[1];
+    const float den = c6i * aj / ai + c6j * ai / aj;
+    const bool on = den >= 1e-4f;  // where the clamp passes the gradient
+    const float cl = fmaxf(den, 1e-4f);
+    const float c6ij = 2.0f * c6i * c6j / cl;
+    g = -c6ij * r.damp;
+    gd = -c6ij * r.ddb * r.bohr;
+    const float kk = c6ij / cl;
+    const float dcl_dc6 = on ? aj / ai : 0.0f;
+    const float dcl_da = on ? -c6i * aj / (ai * ai) + c6j / aj : 0.0f;
+    gmi[0] = -r.damp * (2.0f * c6j / cl - kk * dcl_dc6);
+    gmi[1] = r.damp * kk * dcl_da;
+    gshi[0] = -c6ij * r.ddrr * 3.0f * r.rrj;
   }
 };
 

@@ -40,11 +40,24 @@
 // zero offset and the upper half only; a segmented scan over the batch
 // (entries are in offset order) adds each offset's share to a per-warp row
 // in shared memory, written out per receiver as (S, 3).
+//
+// The member form (a term of pair_terms.cuh with kMaxMembers; E members at
+// run time, E <= kMaxMembers): the extras are scalars only, [shared, member
+// 0, ..., member E-1], and every receiver has E outputs, out (B*C, E) and
+// ct (B*C, E).  Per pair the shared factor (geo) is computed once and each
+// member's value from it; each lane keeps E partial sums, finished by one
+// butterfly per member.  The terms are not bilinear, so every kind of
+// offset takes the pair cotangent e_m = ct_i,m + ct_j,m, and
+//   grad_coord_i -= sum_m e_m dg_m/dd (x_j' - x_i)/d,
+//   grad_m_i,m += e_m dg_m/dm_i,m,   grad_sh_i += sum_m e_m dg_m/dsh_i,
+// with the shift rows as above (cp_m = ct_i,m at o = 0, e_m on the upper
+// half, 0 on the lower).
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "pair_terms.cuh"
 
@@ -57,6 +70,19 @@ constexpr int kQueue = 64;    // one batch of 32 plus one ballot's worth
 constexpr int kMaxCols = 3;   // vector columns a lane owns in E: V <= 96
 constexpr int kMaxV = 32 * kMaxCols;
 constexpr int kAhead = 4;     // candidate rows E loads ahead of their sums
+
+// Whether a term is a member form, and its largest member count (1 for a
+// single-model term).
+template <class T, class = void>
+struct MemberForm {
+  static constexpr bool value = false;
+  static constexpr int members = 1;
+};
+template <class T>
+struct MemberForm<T, std::void_t<decltype(T::kMaxMembers)>> {
+  static constexpr bool value = true;
+  static constexpr int members = T::kMaxMembers;
+};
 
 // The functor's g and its receiver-side derivatives for NS scalars an atom:
 // a functor of one scalar takes floats, one of several arrays.
@@ -90,14 +116,15 @@ struct Args {
   const int* nbr;         // (S, B) half stencil, -1 = no candidate
   const long long* inv;   // (S, B) inverse of nbr, B (or -1) = none
   const float* box;       // (B, 6) each bin's real atoms' box [lo (3), hi (3)]
-  const float* ct;        // (B*C) cotangent of the sums (E)
-  float* out;             // (B*C) sums (D)
+  const float* ct;        // (B*C[, E]) cotangent of the sums (E)
+  float* out;             // (B*C[, E]) sums (D)
   float* gc;              // (B*C, 3) coordinate adjoint (E)
   float* ge;              // (B*C, K) extras adjoint (E)
   float* gs_rows;         // (B*C, S, 3) lattice-shift adjoint rows (E)
   int* pair_count;        // (B*C) or null: ordered pairs each row contracted
   float d2_max;           // d < cutoff exactly when d^2 < d2_max (d2_limit)
   int B, C, K, S;
+  int E;                  // members of a member form (0: a single-model term)
 };
 
 // The least float x with sqrtf(x) >= c.  sqrtf is correctly rounded on the
@@ -138,7 +165,10 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
   const int B = a.B, C = a.C, K = a.K, S = a.S;
   if (row >= B * C) return;  // whole warps only; no block barrier below
   constexpr int NS = Term::kScalars;
-  const int V = (K - NS) / 2;
+  constexpr bool kMem = MemberForm<Term>::value;  // one output per member
+  constexpr int EM = MemberForm<Term>::members;
+  const int E = kMem ? a.E : 1;
+  const int V = kMem ? 0 : (K - NS) / 2;
   float* qx = smem + w * warp_words(K, S, kAdjoint);
   float* qy = qx + kQueue;
   float* qz = qy + kQueue;
@@ -152,6 +182,8 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
       for (int t = lane; t < 3; t += 32) a.gc[size_t(row) * 3 + t] = 0.0f;
       for (int t = lane; t < K; t += 32) a.ge[size_t(row) * K + t] = 0.0f;
       for (int t = lane; t < 3 * S; t += 32) a.gs_rows[size_t(row) * 3 * S + t] = 0.0f;
+    } else if (kMem) {
+      for (int t = lane; t < E; t += 32) a.out[size_t(row) * E + t] = 0.0f;
     } else if (lane == 0) {
       a.out[row] = 0.0f;
     }
@@ -164,7 +196,10 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
   const float xi = a.coord[3 * size_t(row) + 0];
   const float yi = a.coord[3 * size_t(row) + 1];
   const float zi = a.coord[3 * size_t(row) + 2];
-  const float cti = kAdjoint ? a.ct[row] : 0.0f;
+  const float cti = kAdjoint && !kMem ? a.ct[row] : 0.0f;
+  float ctm[EM];  // the member form's receiver cotangents
+#pragma unroll
+  for (int m = 0; m < EM; ++m) ctm[m] = kAdjoint && kMem && m < E ? a.ct[size_t(row) * E + m] : 0.0f;
   for (int k = lane; k < K; k += 32) rec[k] = a.ext[size_t(row) * K + k];
   if (kAdjoint) {
     for (int t = lane; t < 3 * S; t += 32) srow[t] = 0.0f;
@@ -172,15 +207,23 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
   __syncwarp();
   float si[NS];
 #pragma unroll
-  for (int t = 0; t < NS; ++t) si[t] = rec[2 * V + t];
+  for (int t = 0; t < NS; ++t) {
+    if constexpr (kMem) {
+      si[t] = t < K ? rec[t] : 0.0f;  // K = kShared + E kPer scalars
+    } else {
+      si[t] = rec[2 * V + t];
+    }
+  }
   // an offset whose candidate box lies beyond the cutoff is skipped: a
   // margin far above the rounding of the slot tests keeps this exact
   const float prune_d2 = 1.0001f * a.d2_max + 1e-6f;
 
   // this lane's partial sums over its pairs, finished by one butterfly
-  float acc_o = 0.0f, acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f, acc_s[NS];
+  float acc_o = 0.0f, acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f, acc_s[NS], acc_m[EM];
 #pragma unroll
   for (int t = 0; t < NS; ++t) acc_s[t] = 0.0f;
+#pragma unroll
+  for (int m = 0; m < EM; ++m) acc_m[m] = 0.0f;
   constexpr int kM = M > 0 ? M : 1;
   float padj[kM], radj[kM];  // E, bilinear: columns lane + 32 m
 #pragma unroll
@@ -201,7 +244,47 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
       const float* er = a.ext + size_t(jr) * K;  // the candidate's [p, r, s]
       float sj[NS];
 #pragma unroll
-      for (int t = 0; t < NS; ++t) sj[t] = __ldg(er + 2 * V + t);
+      for (int t = 0; t < NS; ++t) {
+        if constexpr (kMem) {
+          sj[t] = t < K ? __ldg(er + t) : 0.0f;
+        } else {
+          sj[t] = __ldg(er + 2 * V + t);
+        }
+      }
+      if constexpr (kMem) {
+        constexpr int NH = Term::kShared, NP = Term::kPer;
+        const auto geo = Term::geo(a.tc, d, si, sj);
+        if (!kAdjoint) {
+#pragma unroll
+          for (int m = 0; m < EM; ++m) {
+            if (m < E) acc_m[m] += Term::val(geo, si + NH + m * NP, sj + NH + m * NP);
+          }
+        } else {
+          float gdsum = 0.0f, fssum = 0.0f;
+#pragma unroll
+          for (int m = 0; m < EM; ++m) {
+            if (m < E) {
+              float g, gd, gm[NP], gh[NH > 0 ? NH : 1];
+              Term::grad(geo, si, si + NH + m * NP, sj + NH + m * NP, g, gd, gm, gh);
+              const float e = ctm[m] + __ldg(a.ct + size_t(jr) * E + m);
+              gdsum += e * gd;
+              fssum += (kind == 0 ? ctm[m] : (kind == 1 ? e : 0.0f)) * gd;  // cp_m
+#pragma unroll
+              for (int t = 0; t < NP; ++t) acc_s[NH + m * NP + t] += e * gm[t];
+#pragma unroll
+              for (int t = 0; t < NH; ++t) acc_s[t] += e * gh[t];
+            }
+          }
+          const float fd = gdsum / d;
+          acc_x -= fd * dx;
+          acc_y -= fd * dy;
+          acc_z -= fd * dz;
+          const float fs = fssum / d;  // 0 on the lower half
+          shx = fs * dx;
+          shy = fs * dy;
+          shz = fs * dz;
+        }
+      } else {
       float cij = 1.0f, cji = 1.0f;
       if (Term::kBilinear) {  // the products the pair needs: c_ij, c_ji or both
         cij = 0.0f;
@@ -237,6 +320,7 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
         wp = cp * g;
         wr = cq * g;
       }
+      }  // single-model term
     }
     if (kAdjoint) {
       // the shift rows: a segmented inclusive scan over runs of one offset
@@ -391,7 +475,15 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
   }
   if (nq > 0) batch(nq);
 
-  if (!kAdjoint) {
+  if (!kAdjoint && kMem) {
+#pragma unroll
+    for (int m = 0; m < EM; ++m) {
+      if (m < E) {
+        const float v = warp_sum(acc_m[m]);
+        if (lane == 0) a.out[size_t(row) * E + m] = v;
+      }
+    }
+  } else if (!kAdjoint) {
     acc_o = warp_sum(acc_o);
     if (lane == 0) a.out[row] = acc_o;
   } else {
@@ -399,14 +491,18 @@ __global__ void __launch_bounds__(kThreads) pair_kernel(const Args a) {
     acc_y = warp_sum(acc_y);
     acc_z = warp_sum(acc_z);
 #pragma unroll
-    for (int t = 0; t < NS; ++t) acc_s[t] = warp_sum(acc_s[t]);
+    for (int t = 0; t < NS; ++t) {
+      if (!kMem || t < K) acc_s[t] = warp_sum(acc_s[t]);
+    }
     float* ge = a.ge + size_t(row) * K;
     if (lane == 0) {
       a.gc[3 * size_t(row) + 0] = acc_x;
       a.gc[3 * size_t(row) + 1] = acc_y;
       a.gc[3 * size_t(row) + 2] = acc_z;
 #pragma unroll
-      for (int t = 0; t < NS; ++t) ge[2 * V + t] = acc_s[t];
+      for (int t = 0; t < NS; ++t) {
+        if (!kMem || t < K) ge[2 * V + t] = acc_s[t];
+      }
     }
 #pragma unroll
     for (int m = 0; m < kM; ++m) {
@@ -449,8 +545,33 @@ int launch_width(const Args& a, cudaStream_t stream) {
   return launch<Term, kAdjoint, 3>(a, stream);
 }
 
+// The member form: one build of kMaxMembers accumulators a lane, E of
+// them used (kernels/pair_sweep.py::MAX_MEMBERS).
+template <class T, bool kAdjoint>
+int launch_members(const Args& a, cudaStream_t stream) {
+  if (a.B < 1 || a.C < 1 || a.S < 1 || a.E < 1 || a.E > T::kMaxMembers || a.K != T::kShared + a.E * T::kPer)
+    return int(cudaErrorInvalidValue);
+  return launch<T, kAdjoint, 0>(a, stream);
+}
+
 template <bool kAdjoint>
 int launch_term(int term, const Args& a, cudaStream_t stream) {
+  if (a.E > 0) {  // the member form
+    switch (term) {
+      case 0:
+        return launch_members<pair_terms::DsfMembers, kAdjoint>(a, stream);
+      case 3:
+        return launch_members<pair_terms::CoulombSimpleMembers, kAdjoint>(a, stream);
+      case 4:
+        return launch_members<pair_terms::CoulombSRMembers, kAdjoint>(a, stream);
+      case 5:
+        return launch_members<pair_terms::EwaldRealMembers, kAdjoint>(a, stream);
+      case 7:
+        return launch_members<pair_terms::D3TSMembers, kAdjoint>(a, stream);
+      default:
+        return int(cudaErrorInvalidValue);
+    }
+  }
   switch (term) {
     case 0:
       return launch_width<pair_terms::DsfTerm, kAdjoint>(a, stream);

@@ -45,8 +45,16 @@ agree only in distribution.
 
 Ewald and PME heads run on both engines: the discretisation is attached
 at construction and the LR layout reaches its real-space cutoff.
-Ensembles raise ``NotImplementedError`` naming ROADMAP.md.  Units:
-Angstrom / eV / amu; ``dt`` in fs via the ASE time conversion.
+
+Ensembles (``ensemble=True``, member-stacked parameters of
+calculators/ensemble.py::stack_params): the forces are those of the
+members' mean energy, and ``epot_std``, the members' spread of the
+potential, is an observable.  The fused forward (models/ensemble_fused.py:
+one geometry, one member-stacked conv pass, the member forms of the pair
+sweeps) runs unless ``AIMNET_ENSEMBLE_FUSED=0`` asks for one forward per
+member, as in the JAX driver; the fused path needs the members' AEV
+constants to agree.  Units: Angstrom / eV / amu; ``dt`` in fs via the ASE
+time conversion.
 """
 
 from __future__ import annotations
@@ -66,13 +74,13 @@ from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_contex
 from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config, aimnet2_apply
 from aimnetcentral_tpu_torch.models.bridge import params_to
+from aimnetcentral_tpu_torch.models.ensemble_fused import aimnet2_apply_ensemble, member_params
 from aimnetcentral_tpu_torch.models.ewald import attach_ewald
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
 from aimnetcentral_tpu_torch.ops import binned as B
 from aimnetcentral_tpu_torch.ops.cell_list import build_cell_list, plan_cell_list
 from aimnetcentral_tpu_torch.system import System
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 _GEN_KEY = "torch_generator_state"  # the checkpoint's generator state (JAX: key_data)
 _log = logging.getLogger(__name__)
 
@@ -199,7 +207,8 @@ class MDDriver:
 
     Parameters
     ----------
-    params : the port's model parameters (moved to ``device``)
+    params : the port's model parameters (moved to ``device``), stacked on a
+        leading member axis with ``ensemble=True``
     cfg : AIMNet2Config (SAE externalized; absolute offsets don't move atoms)
     system : initial compact System (defines shapes; the last row padding);
         converted to the binned layout, or given cell lists on the indexed
@@ -222,8 +231,6 @@ class MDDriver:
         bin_safety: float = 1.5,
         device: str | torch.device = "cuda",
     ):
-        if ensemble:
-            raise NotImplementedError(f"ensemble MD (models/ensemble_fused.py) {_NOT_PORTED}")
         if engine == "auto":
             engine = "binned" if system.cell is not None else "indexed"
         if engine not in ("binned", "indexed"):
@@ -238,6 +245,16 @@ class MDDriver:
         self.md = md
         self.params = params_to(params, self.device)
         self.engine = engine
+        self.ensemble = ensemble
+        self.ensemble_fused = ensemble and os.environ.get("AIMNET_ENSEMBLE_FUSED", "1") != "0"
+        if self.ensemble_fused:
+            # the fused forward reads member 0's AEV constants for all
+            for k, v in self.params["aev"].items():
+                if not torch.allclose(v, v[0:1].expand_as(v), atol=0.0):
+                    raise ValueError(
+                        f"ensemble members disagree on AEV constant {k!r}; the fused ensemble path requires "
+                        "one architecture (set AIMNET_ENSEMBLE_FUSED=0 for heterogeneous ensembles)"
+                    )
 
         system = system.to(self.device)
         # Ewald and PME: the discretisation is attached once, before the
@@ -334,7 +351,7 @@ class MDDriver:
         """Current MD state; forces/epot at ``coord`` are always valid (the
         first read evaluates them)."""
         if not self._primed:
-            forces0, epot0 = self._force_fn(self.params, self._state.system)
+            forces0, epot0, _std = self._force_fn(self.params, self._state.system)
             self._state = dataclasses.replace(self._state, forces=forces0, epot=epot0)
             self._primed = True
         return self._state
@@ -394,16 +411,35 @@ class MDDriver:
         is pulled."""
         return ambient_matmul_context(precision_tiers(self.md.precision or "fast"))
 
-    def _energy(self, params: Any, system: System) -> torch.Tensor:
-        return aimnet2_apply(params, self.cfg, system, sae_external=True)["energy"]
+    def _energy_members(self, params: Any, system: System) -> torch.Tensor:
+        """Per-member energies (E, num_mol) of an ensemble (the fused
+        forward, or one forward per member), (num_mol,) of a single model."""
+        if not self.ensemble:
+            return aimnet2_apply(params, self.cfg, system, sae_external=True)["energy"]
+        if self.ensemble_fused:
+            return aimnet2_apply_ensemble(params, self.cfg, system, sae_external=True)["energy"]
+        n_e = params["afv"]["weight"].shape[0]
+        return torch.stack([
+            aimnet2_apply(member_params(params, e), self.cfg, system, sae_external=True)["energy"]
+            for e in range(n_e)
+        ])
 
-    def _force_fn(self, params: Any, system: System) -> tuple[torch.Tensor, torch.Tensor]:
-        """Forces and the per-molecule potential."""
+    def _energy(self, params: Any, system: System) -> torch.Tensor:
+        e = self._energy_members(params, system)
+        return e.mean(0) if self.ensemble else e
+
+    def _force_fn(self, params: Any, system: System) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """Forces of the (member-mean) energy, the per-molecule potential
+        and, for an ensemble, the members' spread of it (population
+        standard deviation, JAX's ``std``)."""
         coord = system.coord.detach().requires_grad_(True)
         with self._tier_context():
-            e = self._energy(params, system.replace(coord=coord))
+            e_m = self._energy_members(params, system.replace(coord=coord))
+            e = e_m.mean(0) if self.ensemble else e_m
             (g,) = torch.autograd.grad(e.sum(), coord)
-        return -g, e.detach()
+        if self.ensemble:
+            return -g, e.detach(), e_m.detach().std(dim=0, correction=0)
+        return -g, e.detach(), None
 
     def _force_virial_fn(self, params: Any, system: System) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Forces, potential and the strain-derivative trace tr(dE/dS)
@@ -470,10 +506,11 @@ class MDDriver:
 
         m = masses[:, None]
         real = (system.numbers > 0)[:, None]
+        epot_std = None
         if md.barostat == "berendsen":
             forces2, epot, tr_w = self._force_virial_fn(self.params, system)
         else:
-            forces2, epot = self._force_fn(self.params, system)
+            forces2, epot, epot_std = self._force_fn(self.params, system)
         acc2 = torch.where(real, forces2 / m, 0.0)
         veloc = v_half + 0.5 * dt * acc2
 
@@ -495,6 +532,8 @@ class MDDriver:
             veloc = torch.where(real, veloc * lam, 0.0)
 
         obs = {"epot": epot.sum(), "temperature": kinetic_temperature(veloc, masses, system.numbers)}
+        if epot_std is not None:  # the ensemble's uncertainty, free with the members' energies
+            obs["epot_std"] = epot_std.sum()
         if md.barostat == "berendsen":
             # instantaneous pressure P = (2 KE - tr(dE/dS)) / (3 V), then the
             # Berendsen volume rescale mu^3 = 1 - beta (dt/tau) (P0 - P);

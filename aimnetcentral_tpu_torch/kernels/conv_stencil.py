@@ -20,7 +20,9 @@ pairs within rc, which a ballot over the candidate slots picks out; FP32 on
 CUDA cores (the exact tier has no TF32) with no float atomics: every output
 element is owned by one block and every sum has a fixed order, so results
 are deterministic.  What bounds them on an H100 and what the design does about
-it is in the notes at the top of each source.
+it is in the notes at the top of each source.  A G*F row wider than one
+build's lanes hold (a fused ensemble's member-stacked features) is cut into
+column tiles, a grid axis of both kernels (``col_tiles``).
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  ``launches`` on each
@@ -41,6 +43,7 @@ from aimnetcentral_tpu_torch.kernels.build import ptr as _ptr
 
 WARPS = 8  # receiver atoms a block of kernels A and B, one warp each
 LANE_COLUMNS = (9, 17)  # columns of the G*F row a lane may own (the kernels' builds)
+MAX_COL_TILES = 8  # column tiles of one launch: G*F <= 8 x 544 = 4,352
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 
 
@@ -164,14 +167,27 @@ def _check(st: ConvStatic, **tensors) -> None:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shapes[name]}")
 
 
+def col_tiles(st: ConvStatic) -> tuple[int, int, int]:
+    """``(T, W, M)``: kernels A and B cut the G*F row into T column tiles
+    of W columns (the last may be narrower), each lane owning M of a tile's
+    columns (c = col0 + lane + 32 m, the smallest build that holds W).  A
+    row that one build holds is one tile of W = G*F, the single model's
+    launch; a wider one takes the fewest tiles of at most 32 x 17 columns,
+    of equal width (a fused ensemble's 1,088 columns: two of 544; the NSE
+    model's 1,152: three of 384)."""
+    gf = st.g * st.f
+    need = -(-gf // 32)
+    tiles = -(-need // LANE_COLUMNS[-1])
+    if tiles > MAX_COL_TILES:
+        raise ValueError(f"conv kernels A and B take G*F <= {MAX_COL_TILES * 32 * LANE_COLUMNS[-1]}, not {gf}")
+    lanes = -(-need // tiles)
+    m = next(m for m in LANE_COLUMNS if lanes <= m)
+    return tiles, (gf if tiles == 1 else 32 * lanes), m
+
+
 def lane_columns(st: ConvStatic) -> int:
-    """Columns of the G*F feature row each lane of kernels A and B owns
-    (c = lane + 32 m): the smallest build that holds the row."""
-    need = -(-st.g * st.f // 32)
-    for m in LANE_COLUMNS:
-        if need <= m:
-            return m
-    raise ValueError(f"conv kernels A and B take G*F <= {32 * LANE_COLUMNS[-1]}, not {st.g * st.f}")
+    """Columns of a tile each lane of kernels A and B owns (``col_tiles``)."""
+    return col_tiles(st)[2]
 
 
 def fwd_blocks(st: ConvStatic) -> int:
@@ -182,6 +198,13 @@ def fwd_blocks(st: ConvStatic) -> int:
 def bwd_tiles(st: ConvStatic) -> int:
     """Kernel B's atom tiles a bin: one block per (bin, tile of WARPS atoms)."""
     return -(-st.c // WARPS)
+
+
+def bwd_scratch_bytes(st: ConvStatic) -> int:
+    """Kernel B's device scratch: the partner rows (T, S, B, tiles of
+    WARPS atoms, 3, C) and receiver rows (T, B, C, 3) of its T column tiles."""
+    tiles = col_tiles(st)[0]
+    return 4 * tiles * (st.s_tot * st.b_tot * bwd_tiles(st) * 3 * st.c + st.b_tot * st.c * 3)
 
 
 def bwd_smem_bytes(st: ConvStatic) -> int:
@@ -215,13 +238,13 @@ def conv_stencil_forward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shif
         return conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
     _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr,
            shifts_g=shifts_g, scal=scal)
-    cols = lane_columns(st)
+    _tiles, width, cols = col_tiles(st)
     counts = _counts_arg(st, pair_counts)
     out = torch.empty((st.b_tot, 4, st.c, st.g * st.f), dtype=torch.float32, device=a_gmajor.device)
-    launch = _bind("conv_fwd", "conv_fwd_launch", 9, 6)
+    launch = _bind("conv_fwd", "conv_fwd_launch", 9, 7)
     err = launch(
         _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(nbr), _ptr(shift), _ptr(shifts_g),
-        _ptr(scal), _ptr(out), counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols,
+        _ptr(scal), _ptr(out), counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width,
         ctypes.c_void_p(torch.cuda.current_stream(a_gmajor.device).cuda_stream),
     )
     if err != 0:
@@ -268,25 +291,30 @@ def conv_stencil_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnb
         return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar)
     _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr, mnbr=mnbr,
            shifts_g=shifts_g, scal=scal, gbar=gbar)
-    cols = lane_columns(st)
+    tiles, width, cols = col_tiles(st)
     counts = _counts_arg(st, pair_counts)
     if bwd_smem_bytes(st) > SMEM_LIMIT:
         raise ValueError(f"conv kernel B does not take C={st.c}")
     dev = a_gmajor.device
     grad_a = torch.empty((st.b_tot, st.c, st.g * st.f), dtype=torch.float32, device=dev)
-    dc_recv = torch.empty((st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
-    pgrad = torch.empty((st.s_tot, st.b_tot, bwd_tiles(st), 3, st.c), dtype=torch.float32, device=dev)
-    launch = _bind("conv_bwd", "conv_bwd_launch", 12, 6)
+    dc_recv = torch.empty((tiles, st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
+    pgrad = torch.empty((tiles, st.s_tot, st.b_tot, bwd_tiles(st), 3, st.c), dtype=torch.float32, device=dev)
+    launch = _bind("conv_bwd", "conv_bwd_launch", 12, 7)
     err = launch(
         _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(gbar), _ptr(mnbr), _ptr(shift),
         _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad), counts,
-        st.b_tot, st.c, st.g, st.f, st.s_tot, cols,
+        st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"conv kernel B launch failed: cudaError {err}")
     conv_stencil_backward.launches += 1
-    # the atom tiles' partial row sums, added in a fixed order
+    # the column tiles' partials, then the atom tiles' partial row sums,
+    # each added in a fixed order
+    if tiles > 1:
+        dc_recv, pgrad = dc_recv.sum(0), pgrad.sum(0)
+    else:
+        dc_recv, pgrad = dc_recv[0], pgrad[0]
     dc, ds = gather_partner_adjoints(st, nbr, dc_recv, pgrad.sum(2))
     return grad_a, dc, ds
 

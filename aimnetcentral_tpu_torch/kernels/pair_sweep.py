@@ -39,6 +39,14 @@ derivatives ``g_grad``, the formulas the CUDA functors
 term of several scalars takes ``s_i`` and ``s_j`` with a trailing axis of
 NS and returns its scalar derivatives with one too.
 
+Member forms (``MemberTerm``): a fused ensemble of E members sweeps one
+term with one output per member, ``e_ij,m = g(d_ij, s_i,m, s_j,m)``.  The
+extras are scalars only, ``[shared (NH), member 0 (NP), ..., member E-1]``
+(DSF, simple, SR Coulomb and the real-space Ewald sum: q per member; D3TS:
+r4r2 shared, C6 and alpha per member), the sums and their cotangent are
+(B, C, E), and the kernels compute the member-independent factor of a pair
+once (the erfc kernel, the damping) and each member's product from it.
+
 Offsets: ``s = 0`` is the zero offset, where each bin meets itself in both
 orderings and only the receiver side is summed; every other half offset
 sends each pair's value to both ends.  The self pair is dropped only at
@@ -69,6 +77,7 @@ from aimnetcentral_tpu_torch.ops.math import erfc_approx
 WARPS = 4  # receiver rows a block of kernels D and E, one warp each
 QUEUE = 64  # a warp's queue of pairs (csrc/pair_walk.cuh::kQueue)
 MAX_V = 96  # vector columns of the extras kernel E holds in a warp's registers
+MAX_MEMBERS = 8  # outputs of a member form: accumulators a lane (csrc/pair_terms.cuh::kMaxMembers)
 N_CONSTS = 8  # the cutoff plus a term's constants, passed by value
 
 # Abramowitz & Stegun 7.1.26, the coefficients of ops/math.py::erfc_approx
@@ -512,20 +521,110 @@ class D3TSTerm:
         return -c6ij * damping, -c6ij * ddamp_db * Bohr_inv, gsi, gsj
 
 
+_MEMBER_KEYS = {  # (shared, per member) scalars of the member forms
+    "dsf": ((), ("q",)),
+    "coulomb_simple": ((), ("q",)),
+    "coulomb_sr": ((), ("q",)),
+    "ewald_real": ((), ("q",)),
+    "d3ts": (("rr",), ("c6", "alpha")),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MemberTerm:
+    """The member form of ``term`` for ``n`` ensemble members: one output
+    per member, ``g_m = term.g(d, s_i,m, s_j,m)`` with each member's
+    scalars (csrc/pair_terms.cuh's member functors).  The packed scalars
+    are ``[shared, member 0, ..., member n-1]``; ``g`` and ``g_grad`` take
+    them and return a trailing member axis."""
+
+    term: "DSFTerm | CoulombSimpleTerm | CoulombSRTerm | EwaldRealTerm | D3TSTerm"
+    n: int
+    vector_keys: ClassVar[tuple[str, ...]] = ()
+
+    def __post_init__(self):
+        if self.term.name not in _MEMBER_KEYS:
+            raise ValueError(f"the {self.term.name} term has no member form")
+        if not 1 <= self.n <= MAX_MEMBERS:
+            raise ValueError(f"pair kernels take 1 to {MAX_MEMBERS} members, not {self.n}")
+
+    @property
+    def name(self) -> str:
+        return f"{self.term.name}_multi"
+
+    @property
+    def code(self) -> int:
+        return self.term.code
+
+    @property
+    def shared_keys(self) -> tuple[str, ...]:
+        return _MEMBER_KEYS[self.term.name][0]
+
+    @property
+    def member_keys(self) -> tuple[str, ...]:
+        return _MEMBER_KEYS[self.term.name][1]
+
+    @property
+    def scalar_keys(self) -> tuple[str, ...]:
+        """One name per packed scalar (K of them)."""
+        return self.shared_keys + self.member_keys * self.n
+
+    def consts(self) -> tuple[float, ...]:
+        return self.term.consts()
+
+    def _split(self, s):
+        """Packed scalars (..., K) -> each member's as the single term takes
+        them, (..., n) for one scalar, else (..., n, NS) in the term's
+        order (D3TS: c6, alpha, rr)."""
+        nh, npm = len(self.shared_keys), len(self.member_keys)
+        m = s[..., nh:].reshape(s.shape[:-1] + (self.n, npm))
+        if nh:
+            m = torch.cat([m, s[..., None, :nh].expand(s.shape[:-1] + (self.n, nh))], dim=-1)
+        return m[..., 0] if m.shape[-1] == 1 else m
+
+    def g(self, d, si, sj, valid):
+        """(..., n): each member's value."""
+        return self.term.g(d[..., None], self._split(si), self._split(sj), valid[..., None])
+
+    def g_grad(self, d, si, sj, valid):
+        """``(g, dg/dd, dg/ds_i)``: (..., n), (..., n) and the receiver's
+        packed scalars' derivatives of each member's value, (..., n, K)
+        (zero off the member's own scalars and the shared ones)."""
+        g, gd, gsi, _gsj = self.term.g_grad(d[..., None], self._split(si), self._split(sj), valid[..., None])
+        nh, npm = len(self.shared_keys), len(self.member_keys)
+        if gsi.dim() == g.dim():
+            gsi = gsi[..., None]
+        jac = gsi.new_zeros(g.shape + (nh + self.n * npm,))
+        for m in range(self.n):
+            jac[..., m, nh + m * npm : nh + (m + 1) * npm] = gsi[..., m, :npm]
+            jac[..., m, :nh] = gsi[..., m, npm:]
+        return g, gd, jac
+
+
 PairTerm = (
     DSFTerm | CoulombSimpleTerm | CoulombSRTerm | D3CNTerm | D3EnergyTerm | EwaldRealTerm | SRRepTerm | D3TSTerm
+    | MemberTerm
 )
 
 
 def pack_extras(term: PairTerm, extras: dict[str, torch.Tensor]) -> torch.Tensor:
-    """Per-atom extras as the kernels take them: (L, K) ``[p, r, s]``."""
+    """Per-atom extras as the kernels take them: (L, K) ``[p, r, s]``; a
+    member form's ``[shared, member 0, ...]`` from shared (L,) and member
+    (L, n) extras."""
+    if isinstance(term, MemberTerm):
+        shared = [extras[k][:, None] for k in term.shared_keys]
+        member = torch.stack([extras[k] for k in term.member_keys], dim=-1)  # (L, n, NP)
+        return torch.cat(shared + [member.reshape(member.shape[0], -1)], dim=-1)
     cols = [extras[k] for k in term.vector_keys] + [extras[k][:, None] for k in term.scalar_keys]
     return torch.cat(cols, dim=-1)
 
 
 def pair_value(term: PairTerm, d, valid, ext_self, ext_cand):
     """The (B, Ci, Cj) pair values ``c_ij g(d_ij, s_i, s_j)`` for receiver
-    extras (B, Ci, K) and candidate extras (B, Cj, K)."""
+    extras (B, Ci, K) and candidate extras (B, Cj, K); (B, Ci, Cj, n) for a
+    member form."""
+    if isinstance(term, MemberTerm):
+        return term.g(d, ext_self[:, :, None, :], ext_cand[:, None, :, :], valid)
     ns = len(term.scalar_keys)
     v = (ext_self.shape[-1] - ns) // 2
     si = ext_self[..., 2 * v :][:, :, None, :]
@@ -546,8 +645,8 @@ def pair_value(term: PairTerm, d, valid, ext_self, ext_cand):
 @dataclasses.dataclass(frozen=True)
 class PairStatic:
     """Static shapes of one sweep: B bins of capacity C, S half offsets
-    (the zero offset first), K = 2V + NS extras an atom (NS scalars), and
-    the cutoff."""
+    (the zero offset first), K = 2V + NS extras an atom (NS scalars), the
+    cutoff, and the outputs a receiver of a member form (0: one sum)."""
 
     b_tot: int
     c: int
@@ -555,10 +654,16 @@ class PairStatic:
     k: int
     cutoff: float
     ns: int = 1
+    members: int = 0
 
     @property
     def v(self) -> int:
         return (self.k - self.ns) // 2
+
+    @property
+    def out_shape(self) -> tuple[int, ...]:
+        """The sums' (and their cotangent's) shape."""
+        return (self.b_tot, self.c) + ((self.members,) if self.members else ())
 
 
 def _pair_step(st: PairStatic, term, s: int, coord, mask, ext, shift_s, nbr_s, inv_s):
@@ -573,18 +678,20 @@ def _pair_step(st: PairStatic, term, s: int, coord, mask, ext, shift_s, nbr_s, i
     d2 = (diff * diff).sum(-1)
     d = torch.sqrt(torch.where(vp, d2, torch.ones_like(d2)))
     vp = vp & (d < st.cutoff)
-    e = torch.where(vp, pair_value(term, d, vp, ext, ext[safe]), 0.0)
-    out = e.sum(-1)  # receiver side
+    val = pair_value(term, d, vp, ext, ext[safe])
+    e = torch.where(vp if val.dim() == 3 else vp[..., None], val, 0.0)  # (B, Ci, Cj[, n])
+    out = e.sum(2)  # receiver side
     if s > 0:
         # mirror side, back to the candidate bin by a gather through the
         # inverse table (the zero offset already enumerates both orderings)
-        mirror = torch.cat([e.sum(-2), e.new_zeros((1, st.c))])
+        mirror = torch.cat([e.sum(1), e.new_zeros((1,) + e.shape[2:])])
         out = out + mirror[inv_s]
     return out
 
 
 def pair_forward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv):
-    """Plain version of kernel D: per-atom sums (B, C).
+    """Plain version of kernel D: per-atom sums (B, C), (B, C, n) for a
+    member form.
 
     coord (B, C, 3), mask (B, C), ext (B, C, K), shift (S, B, 3) cartesian
     lattice shifts added to the candidates, nbr (S, B) candidate bins (-1
@@ -592,7 +699,7 @@ def pair_forward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv):
     each bin as its candidate (B where none).  Each offset is checkpointed,
     so a backward holds one offset's pair tensors at a time.
     """
-    acc = coord.new_zeros((st.b_tot, st.c))
+    acc = coord.new_zeros(st.out_shape)
     for s in range(st.s_tot):
         acc = acc + checkpoint(
             _pair_step, st, term, s, coord, mask, ext, shift[s], nbr[s], inv[s], use_reentrant=False
@@ -607,7 +714,8 @@ def pair_backward_plain(st: PairStatic, term, coord, mask, ext, shift, nbr, inv,
 
     With ``create_graph`` the caller's ``coord``, ``ext``, ``shift`` and
     ``ct`` (leaves that require grad) stay in the graph: the tangents of
-    PairAcc's second order (``PairAccBwd``)."""
+    PairAcc's second order (``PairAccBwd``).  A member form's ``ct`` is
+    (B, C, n)."""
     with torch.enable_grad():
         if not create_graph:
             coord, ext, shift = (x.detach().requires_grad_(True) for x in (coord, ext, shift))
@@ -676,7 +784,7 @@ def _check(st: PairStatic, term, **tensors) -> None:
         "shift": (st.s_tot, st.b_tot, 3),
         "nbr": (st.s_tot, st.b_tot),
         "inv": (st.s_tot, st.b_tot),
-        "ct": (st.b_tot, st.c),
+        "ct": st.out_shape,
         "pair_counts": (st.b_tot * st.c,),
     }
     dtypes = {"nbr": torch.int32, "inv": torch.int64, "pair_counts": torch.int32}
@@ -692,7 +800,12 @@ def _check(st: PairStatic, term, **tensors) -> None:
 def check_width(st: PairStatic, term) -> None:
     """The extras the kernels take: K = 2V + NS with the term's NS scalars
     and V <= MAX_V (the vector columns a lane of kernel E holds), within a
-    block's shared memory."""
+    block's shared memory; a member form's n <= MAX_MEMBERS members (the
+    accumulators a lane holds) of its own scalars."""
+    if isinstance(term, MemberTerm) != (st.members > 0) or (st.members and st.members != term.n):
+        raise ValueError(f"members={st.members}: the term takes {getattr(term, 'n', 0)}")
+    if st.members > MAX_MEMBERS:
+        raise ValueError(f"pair kernels take member forms of at most {MAX_MEMBERS} members, not {st.members}")
     ns = len(term.scalar_keys)
     if st.ns != ns or st.k != 2 * st.v + ns or (not term.vector_keys and st.k != ns):
         raise ValueError(f"K={st.k}: the extras are [p (V), r (V), s ({ns})], K = 2V+{ns}")
@@ -716,7 +829,8 @@ def _counts_ptr(pair_counts) -> ctypes.c_void_p:
 
 
 def pair_sweep_forward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, pair_counts=None):
-    """Kernel D: per-atom sums (B, C) of ``term`` over the half stencil.
+    """Kernel D: per-atom sums (B, C) of ``term`` over the half stencil,
+    (B, C, n) for a member form.
     Arguments as :func:`pair_forward_plain`; ``nbr`` is int32 on the card.
 
     ``pair_counts``, a (B*C,) int32 CUDA tensor, receives the ordered pairs
@@ -728,14 +842,14 @@ def pair_sweep_forward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, 
         return pair_forward_plain(st, term, coord, mask, ext, shift, nbr, inv)
     counts = {} if pair_counts is None else {"pair_counts": pair_counts}
     _check(st, term, coord=coord, mask=mask, ext=ext, shift=shift, nbr=nbr, inv=inv, **counts)
-    out = torch.empty((st.b_tot, st.c), dtype=torch.float32, device=coord.device)
+    out = torch.empty(st.out_shape, dtype=torch.float32, device=coord.device)
     consts = _consts(st, term)
     box = bin_boxes(coord, mask)
-    launch = bind("pair_fwd", "pair_fwd_launch", 10, 5)
+    launch = bind("pair_fwd", "pair_fwd_launch", 10, 6)
     err = launch(
         ctypes.cast(consts, ctypes.c_void_p), ptr(coord), ptr(mask), ptr(ext), ptr(shift), ptr(nbr),
-        ptr(inv), ptr(box), ptr(out), _counts_ptr(pair_counts), term.code, st.b_tot, st.c, st.k, st.s_tot,
-        _stream(coord),
+        ptr(inv), ptr(box), ptr(out), _counts_ptr(pair_counts), term.code, st.members, st.b_tot, st.c, st.k,
+        st.s_tot, _stream(coord),
     )
     if err != 0:
         raise RuntimeError(f"pair kernel D launch failed: cudaError {err}")
@@ -748,7 +862,8 @@ pair_sweep_forward.launches = 0
 
 def pair_sweep_backward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv, ct, pair_counts=None):
     """Kernel E: ``(grad_coord (B, C, 3), grad_ext (B, C, K), grad_shift
-    (S, B, 3))`` for the cotangent ``ct`` (B, C) of :func:`pair_sweep_forward`.
+    (S, B, 3))`` for the cotangent ``ct`` (B, C), (B, C, n) for a member
+    form, of :func:`pair_sweep_forward`.
 
     Per pair the cotangent is ``ct_i + ct_j`` (at the zero offset ``ct_i``
     on ``c_ij`` and ``ct_j`` on ``c_ji``).  Every adjoint is the receiver's
@@ -768,11 +883,11 @@ def pair_sweep_backward(st: PairStatic, term, coord, mask, ext, shift, nbr, inv,
     rows = torch.empty((st.b_tot, st.c, st.s_tot, 3), dtype=torch.float32, device=dev)
     consts = _consts(st, term)
     box = bin_boxes(coord, mask)
-    launch = bind("pair_bwd", "pair_bwd_launch", 13, 5)
+    launch = bind("pair_bwd", "pair_bwd_launch", 13, 6)
     err = launch(
         ctypes.cast(consts, ctypes.c_void_p), ptr(coord), ptr(mask), ptr(ext), ptr(shift), ptr(nbr),
         ptr(inv), ptr(box), ptr(ct), ptr(gc), ptr(ge), ptr(rows), _counts_ptr(pair_counts), term.code,
-        st.b_tot, st.c, st.k, st.s_tot, _stream(coord),
+        st.members, st.b_tot, st.c, st.k, st.s_tot, _stream(coord),
     )
     if err != 0:
         raise RuntimeError(f"pair kernel E launch failed: cudaError {err}")

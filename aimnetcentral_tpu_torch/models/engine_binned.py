@@ -11,6 +11,12 @@ real-space Ewald sum and D3 with the TS combination rule on the LR twin
 layout; and simple Coulomb on the molecule-bin layout, which has no twin
 (the sweeps fall back to its one grid, at radius 0).  The ConvSV message pass lives in
 kernels/conv_pass.py.
+
+The ``_multi`` sweeps are the fused ensemble's (models/ensemble_fused.py):
+member-stacked charges or dispersion parameters (L, E) in, per-member
+energies (num_mol, E) out, through the member forms of kernels D and E
+(``pair_sweep.MemberTerm``): the pair's geometry and its member-independent
+factor are computed once and each member's product from it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from aimnetcentral_tpu_torch.kernels.pair_sweep import (
     D3TSTerm,
     DSFTerm,
     EwaldRealTerm,
+    MemberTerm,
     PairAcc,
     PairStatic,
     PairTerm,
@@ -98,7 +105,8 @@ def pair_operands(
     else:
         shift = torch.zeros((s_tot, b_tot, 3), dtype=coord.dtype, device=dev)
     st = PairStatic(
-        b_tot=b_tot, c=c, s_tot=s_tot, k=ext.shape[-1], cutoff=float(cutoff), ns=len(term.scalar_keys)
+        b_tot=b_tot, c=c, s_tot=s_tot, k=ext.shape[-1], cutoff=float(cutoff), ns=len(term.scalar_keys),
+        members=term.n if isinstance(term, MemberTerm) else 0,
     )
     ops = {
         "coord": coord.reshape(b_tot, c, 3).contiguous(),
@@ -119,7 +127,8 @@ def pair_energy_binned(
     layout: str = "sr",
 ) -> torch.Tensor:
     """Sum a SYMMETRIC pair term over all pairs within ``cutoff``: per-atom
-    (ordered-pair convention) sums (L,) in the SR slot layout.
+    (ordered-pair convention) sums (L,) in the SR slot layout, (L, E) for
+    a member form (JAX's ``n_out=E``).
 
     ``term`` is a term spec of kernels/pair_sweep.py and ``extra_blocks``
     its per-atom extras in SR slot order.  ``layout="lr"`` sweeps the coarse
@@ -127,12 +136,11 @@ def pair_energy_binned(
     E) for CUDA tensors and the plain version for CPU tensors.
     """
     st, ops = pair_operands(system, cutoff, term, extra_blocks, layout)
-    acc = PairAcc.apply(
-        ops["coord"], ops["ext"], ops["shift"], st, term, ops["mask"], ops["nbr"], ops["inv"]
-    ).reshape(-1)
+    out = PairAcc.apply(ops["coord"], ops["ext"], ops["shift"], st, term, ops["mask"], ops["nbr"], ops["inv"])
+    acc = out.reshape((st.b_tot * st.c,) + out.shape[2:])
     if layout == "lr" and system.lr_bins is not None:
         # back to SR slot order through the inverse map: a gather
-        acc = torch.cat([acc, acc.new_zeros(1)])[system.lr_inv]
+        acc = torch.cat([acc, acc.new_zeros((1,) + acc.shape[1:])])[system.lr_inv]
     return acc
 
 
@@ -167,12 +175,38 @@ def coulomb_dsf_binned(
     return e + 2.0 * FACTOR * mol_sum(self_coeff * q_real * q_real, system.mol_idx, system.num_mol)
 
 
+def coulomb_dsf_binned_multi(
+    system: System,
+    q: torch.Tensor,
+    rc: float,
+    dsf_alpha: float,
+    dsf_rc: float,
+    envelope: str,
+    subtract_sr: bool,
+) -> torch.Tensor:
+    """Member-stacked :func:`coulomb_dsf_binned`: charges (L, E) ->
+    per-member energies (num_mol, E), one sweep of DSF's member form."""
+    term = DSFTerm(alpha=dsf_alpha, dsf_rc=dsf_rc, rc=rc, envelope=envelope, subtract_sr=subtract_sr)
+    e_i = pair_energy_binned(system, dsf_rc, MemberTerm(term, q.shape[1]), {"q": q}, layout="lr")
+    e = FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
+    self_coeff = -(term.shift_val / 2.0 + dsf_alpha / math.sqrt(math.pi))
+    q_real = torch.where((system.numbers > 0)[:, None], q, 0.0)
+    return e + 2.0 * FACTOR * mol_sum(self_coeff * q_real * q_real, system.mol_idx, system.num_mol)
+
+
 def coulomb_sr_binned(system: System, q: torch.Tensor, rc: float, envelope: str) -> torch.Tensor:
     """Short-range Coulomb ``fc(d) q_i q_j / d`` within ``rc`` on the SR
     layout, spatial or molecule bins (per-molecule energies; the
     counterpart of models/lr.py::coulomb_sr).  The SR grid's stencil reaches
     the model cutoff, at or beyond ``rc``."""
     e_i = pair_energy_binned(system, float(rc), CoulombSRTerm(rc=rc, envelope=envelope), {"q": q})
+    return FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+def coulomb_sr_binned_multi(system: System, q: torch.Tensor, rc: float, envelope: str) -> torch.Tensor:
+    """Member-stacked :func:`coulomb_sr_binned`: (L, E) -> (num_mol, E)."""
+    term = MemberTerm(CoulombSRTerm(rc=rc, envelope=envelope), q.shape[1])
+    e_i = pair_energy_binned(system, float(rc), term, {"q": q})
     return FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
 
 
@@ -187,6 +221,18 @@ def coulomb_simple_binned(
     if system.bins is None or not system.bins.molecule_bins:
         raise ValueError("simple Coulomb on the binned engine needs the molecule-bin layout")
     term = CoulombSimpleTerm(rc=rc, envelope=envelope, subtract_sr=subtract_sr)
+    e_i = pair_energy_binned(system, math.inf, term, {"q": q})
+    return FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+def coulomb_simple_binned_multi(
+    system: System, q: torch.Tensor, rc: float, envelope: str, subtract_sr: bool
+) -> torch.Tensor:
+    """Member-stacked :func:`coulomb_simple_binned` (molecule bins only):
+    (L, E) -> (num_mol, E)."""
+    if system.bins is None or not system.bins.molecule_bins:
+        raise ValueError("simple Coulomb on the binned engine needs the molecule-bin layout")
+    term = MemberTerm(CoulombSimpleTerm(rc=rc, envelope=envelope, subtract_sr=subtract_sr), q.shape[1])
     e_i = pair_energy_binned(system, math.inf, term, {"q": q})
     return FACTOR * mol_sum(e_i, system.mol_idx, system.num_mol)
 
@@ -208,6 +254,22 @@ def ewald_real_binned(
     one launch of D and E where JAX sweeps twice."""
     term = EwaldRealTerm(eta=float(eta), rc=float(rc), envelope=envelope, subtract_sr=subtract_sr)
     e_i = pair_energy_binned(system, float(r_cutoff_static), term, {"q": q}, layout="lr")
+    return 0.5 * mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+def ewald_real_binned_multi(
+    system: System,
+    q: torch.Tensor,
+    eta: float,
+    r_cutoff_static: float,
+    subtract_sr: bool = False,
+    rc: float = 4.6,
+    envelope: str = "exp",
+) -> torch.Tensor:
+    """Member-stacked :func:`ewald_real_binned`: (L, E) -> (num_mol, E),
+    no k_e, with the SR part inside the same sweep when ``subtract_sr``."""
+    term = EwaldRealTerm(eta=float(eta), rc=float(rc), envelope=envelope, subtract_sr=subtract_sr)
+    e_i = pair_energy_binned(system, float(r_cutoff_static), MemberTerm(term, q.shape[1]), {"q": q}, layout="lr")
     return 0.5 * mol_sum(e_i, system.mol_idx, system.num_mol)
 
 
@@ -236,6 +298,25 @@ def d3ts_binned(
     ``cutoff``, no switch (the counterpart of models/lr.py::d3ts_energy)."""
     extras = {"c6": disp_param[:, 0], "alpha": disp_param[:, 1], "rr": params["r4r2"][system.numbers]}
     e_i = pair_energy_binned(system, cutoff, D3TSTerm(a1=a1, a2=a2, s8=s8, s6=s6), extras, layout="lr")
+    return constants.half_Hartree * mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
+def d3ts_binned_multi(
+    system: System,
+    params: dict[str, torch.Tensor],
+    disp_param: torch.Tensor,
+    a1: float,
+    a2: float,
+    s8: float,
+    s6: float = 1.0,
+    cutoff: float = 15.0,
+) -> torch.Tensor:
+    """Member-stacked :func:`d3ts_binned`: ``disp_param`` (L, E, 2) ->
+    (num_mol, E); r4r2, rr, r0 and the damping are shared, each member pays
+    its TS combination."""
+    term = MemberTerm(D3TSTerm(a1=a1, a2=a2, s8=s8, s6=s6), disp_param.shape[1])
+    extras = {"c6": disp_param[..., 0], "alpha": disp_param[..., 1], "rr": params["r4r2"][system.numbers]}
+    e_i = pair_energy_binned(system, cutoff, term, extras, layout="lr")
     return constants.half_Hartree * mol_sum(e_i, system.mol_idx, system.num_mol)
 
 

@@ -279,6 +279,45 @@ def coulomb_periodic_binned(
     return KE * (e_real + e_other)
 
 
+def coulomb_periodic_binned_multi(
+    system: System,
+    q_st: torch.Tensor,
+    subtract_sr: bool = False,
+    rc: float = 4.6,
+    envelope: str = "exp",
+) -> torch.Tensor:
+    """Member-stacked :func:`coulomb_periodic_binned`: charges (L, E) ->
+    (num_mol, E) in eV.  One real-space sweep of the member form of kernels
+    D and E (the SR part inside with ``subtract_sr``), the phase matrix
+    (Ewald) or the spread geometry (PME) shared by the members."""
+    from aimnetcentral_tpu_torch.models.engine_binned import ewald_real_binned_multi
+
+    if system.cell is None:
+        raise ValueError("periodic Coulomb requires a cell")
+    if system.ewald_kpts is None or system.ewald_r_static is None:
+        raise ValueError("call models.ewald.attach_ewald on the System first")
+    q_st = torch.where((system.numbers > 0)[:, None], q_st, torch.zeros_like(q_st))
+    eta = system.ewald_eta.reshape(-1)[0]
+    k_cutoff = system.ewald_k_cutoff.reshape(-1)[0]
+    e_real = ewald_real_binned_multi(
+        system, q_st, system.ewald_eta_static[0], system.ewald_r_static, subtract_sr, rc, envelope
+    )
+    if system.pme_mesh is not None:
+        from aimnetcentral_tpu_torch.models.pme import pme_reciprocal_energy_batched_multi
+
+        eta_b, _r, eta_at, _rc = _param_views(eta, 0.0, system.num_mol, system.mol_idx, system.coord.dtype)
+        e_recip = pme_reciprocal_energy_batched_multi(
+            system.coord, q_st, system.cell, system.mol_idx, system.num_mol, eta.reshape(1), system.pme_mesh
+        )
+        volume = torch.abs(torch.linalg.det(system.cell))
+        e_sb = _self_bg_st(q_st, eta_b, eta_at, system.mol_idx, system.num_mol, volume)
+        return KE * (e_real + e_recip + e_sb)
+    e_other = ewald_nonreal_multi(
+        system.coord, q_st, system.cell, system.mol_idx, system.num_mol, eta, k_cutoff, system.ewald_kpts
+    )
+    return KE * (e_real + e_other)
+
+
 def attach_ewald(system: System, accuracy: float = 1e-6, pme: bool = False) -> System:
     """Estimate the discretisation from the cells on the host and attach it.
 

@@ -55,6 +55,18 @@ def coulomb_sr(data: dict, system: System, rc, envelope: str, key_in: str = "cha
     return FACTOR * _pair_sum_energy(e_ij, valid, system.mol_idx, system.num_mol)
 
 
+def coulomb_sr_multi(data: dict, system: System, rc, envelope: str, q_st: torch.Tensor) -> torch.Tensor:
+    """Member-stacked :func:`coulomb_sr`: the envelope kernel once, each
+    member's charge products (N, E) -> (num_mol, E)."""
+    data = ensure_dij(data, system, "")
+    d_ij = data["d_ij"]
+    fc = aops.exp_cutoff(d_ij, rc) if envelope == "exp" else aops.cosine_cutoff(d_ij, rc)
+    kernel = torch.where(nbops.pair_mask(system.nbmat), fc / d_ij, torch.zeros_like(d_ij))  # (N, M)
+    q_nb = nbops.gather_nb(q_st, system.nbmat)  # (N, M, E)
+    e_i = (kernel[..., None] * q_nb).sum(1) * q_st
+    return FACTOR * nbops.mol_sum(e_i, system.mol_idx, system.num_mol)
+
+
 def coulomb_simple(
     data: dict,
     system: System,

@@ -114,7 +114,9 @@ Phases (any failure exits nonzero; nothing is caught):
    A 3 and D 1 launches, RRHO) with 8 displaced molecules card against
    CPU; ``ts_search`` (3 steps) and ``neb`` (7 images, 5 iterations), the
    first Lanczos eigenvalue from one start and the first band's energies
-   and forces card against CPU; and the K3 route, ``make_hvp_fn`` on the
+   and forces card against CPU; the first dense Hessian of a fresh
+   process against its repeats (a subprocess that differentiates nothing
+   before it); and the K3 route, ``make_hvp_fn`` on the
    1,200-atom flagship box (binned, DSF) and on packed-8 (molecule bins,
    simple Coulomb): A, B, D and E as the primals (A 3, B 6, D 1, E 1)
    against the all-plain route on the card within a limit that the ``fast``
@@ -133,13 +135,37 @@ Phases (any failure exits nonzero; nothing is caught):
    lr-heads) and on ewald-periodic-500; md-ewald-10k's first 50 NVE steps
    at exact, the same 25 fs at 0.25 fs (the NVE gate) and a bitwise repeat
    of two drivers; one Ewald HVP card against CPU with a ``fast`` control;
-   the phase's seconds.
+   the phase's seconds;
+14. ensemble: four random flagship members (seeds 0-3) at full width and
+   the exact tier (``phase_ensemble``): A and B at the fused forward's
+   member-stacked widths (G*F = 1,024 and 1,088, column tiles) on the 10k
+   request SR grid, beside the single model's 272, and the member forms of
+   D and E at E = 4 (DSF on the fused request's LR grid, D3TS on
+   lr-heads-10k's, the real-space Ewald sum on ewald-1200's, simple
+   Coulomb on packed-8's molecule bins), each against its plain version
+   with the f64 and pair-count gates; ens4-flagship-10k requests through
+   ``EnsembleCalculator``, fused (A, B 3; D, E 1 a request) and per member
+   (12 / 12 / 4 / 4), as phase 4, the fused energy and forces against the
+   per-member path within ``CHECK_ABS``; ensemble MD at exact: 25 fs of
+   NVE for members 1-3 alone and for the ensemble, each one's first step
+   beyond ``MD_NVE_DRIFT`` (the random potentials collapse within
+   20-40 fs), then the first 30 steps of an ens4-flagship-10k window
+   timed and gated on ``MD_NVE_DRIFT``, ``epot_std`` finite and positive,
+   and 3 steps on a 300-atom box card against CPU as the 1,200-atom MD
+   check (``epot_std`` within the energy's limit); the card against the
+   CPU on a 300-atom box with the lr-heads set and Ewald and on packed-8
+   (energy 1e-5 relative, forces 1e-4 eV/A, ``energy_std`` 1e-5 of
+   max(1, |E|), a bitwise repeat); the phase's seconds.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
 request (DSF + D3 CN + D3 energy: times and bounds summed, the largest
-error); ``launches`` counts every main-path run (both configurations'
+error); rows named with "column tiles" and "member form" are the
+ensemble phase's forms of A, B and of D, E (the fused request's and MD
+step's shapes: A and B at G*F = 1,088, D and E DSF's member form on the
+fused request's LR grid), counted over
+the fused requests and the ensemble MD window; ``launches`` counts every main-path run (both configurations'
 requests, the gas, packed and artifact phases' requests, the MD windows,
 the second_order phase's IR request and kernel-route HVPs, and the
 long_range phase's requests and MD windows) and
@@ -327,11 +353,14 @@ def rel64(x, ref) -> float:
     return float((x.double() - ref).abs().max() / ref.abs().max())
 
 
-def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
+def phase_kernels(calc, sysb, label: str, fs: tuple[int, ...] | None = None) -> tuple[list[dict], dict]:
     """Kernels A and B against their plain versions on the binned system
     ``sysb`` (a layout the main path runs: a request's or an MD driver's),
     against a plain run in f64 (no farther than twice the f32 plain), and
-    the pairs each contracted against the plain count, row by row."""
+    the pairs each contracted against the plain count, row by row.  ``fs``:
+    the feature widths F of the two conv passes (default the model's F and
+    F + charge channels; a fused ensemble's are E times those, its rows in
+    column tiles); the f64 check and the record take the last."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
@@ -344,7 +373,10 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
     cfg = calc.cfg
     tab = build_conv_tables(grid, stencil_radius(cfg.aev.rc_s, grid))
     b, c, g = grid.total_bins, grid.capacity, cfg.nshifts
-    params = calc.params
+    aev = calc.params["aev"]
+    if aev["shifts_s"].dim() == 2:  # member-stacked: the members share one architecture
+        aev = {k: v[0] for k, v in aev.items()}
+    fs = fs or (cfg.nfeature, cfg.nfeature + cfg.num_charge_channels)
     shift = torch.as_tensor(tab["push"], device=dev)
     if sysb.cell is not None:
         shift = shift + cellmul(torch.as_tensor(tab["wraps"], device=dev), sysb.cell[0])
@@ -353,8 +385,8 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
         mask=(sysb.numbers > 0).float().reshape(b, c).contiguous(),
         shift=shift.contiguous(),
         nbr=torch.as_tensor(tab["nbr"], device=dev),
-        shifts_g=params["aev"]["shifts_s"].contiguous(),
-        scal=torch.stack([params["aev"]["eta_s"], params["aev"]["rc_s"]]).contiguous(),
+        shifts_g=aev["shifts_s"].contiguous(),
+        scal=torch.stack([aev["eta_s"], aev["rc_s"]]).contiguous(),
     )
     mnbr = torch.as_tensor(tab["mnbr"], device=dev)
     s_tot = tab["nbr"].shape[0]
@@ -363,7 +395,7 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
     n_pairs = None
     detail = {"grid": {"nbins": grid.nbins, "b": b, "c": c, "s": s_tot}}
     rows = {}
-    for f in (cfg.nfeature, cfg.nfeature + cfg.num_charge_channels):
+    for f in fs:
         st = cs.ConvStatic(b_tot=b, c=c, g=g, f=f, s_tot=s_tot)
         ops = dict(base, a_gmajor=0.3 * torch.randn((b, c, g * f), generator=gen, device=dev))
         gbar = torch.randn((b, 4, c, g * f), generator=gen, device=dev)
@@ -409,7 +441,7 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
                 raise SystemExit(f"FAIL: kernel B {name} disagrees with its plain version at F={f} on the "
                                  f"{label} layout")
 
-        if f == cfg.nfeature + cfg.num_charge_channels:
+        if f == fs[-1]:
             # which side the differences come from: the kernels and the f32
             # plain versions, each against the plain versions in f64
             ops64 = {k: (v.double() if v.is_floating_point() else v) for k, v in ops.items()}
@@ -442,9 +474,11 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
         flops_b = 2.0 * flops_a
         dense_a = 2.0 * b * s_tot * 4 * c * c * g * f
 
-        log(f"[kernels {label}] F={f} A: {cs.fwd_blocks(st)} blocks of {cs.WARPS} receiver rows (a warp "
-            f"each), {cs.lane_columns(st)} columns a lane; B: {b} x {cs.bwd_tiles(st)} blocks of "
-            f"{cs.WARPS} atoms, {cs.bwd_smem_bytes(st)} B dynamic shared memory")
+        tiles, width, _m = cs.col_tiles(st)
+        log(f"[kernels {label}] F={f} (G*F = {g * f}) A: {cs.fwd_blocks(st)} x {tiles} blocks of {cs.WARPS} "
+            f"receiver rows (a warp each) x {tiles} column tiles of {width} columns, {cs.lane_columns(st)} "
+            f"columns a lane; B: {b} x {cs.bwd_tiles(st)} x {tiles} blocks of {cs.WARPS} atoms, "
+            f"{cs.bwd_smem_bytes(st)} B dynamic shared memory, {cs.bwd_scratch_bytes(st)} B scratch")
         bound_a, by_a = bound(bytes_a, flops_a)
         bound_b, by_b = bound(bytes_b, flops_b)
         log(f"[kernels {label}] F={f} A: {ms_a:.3f} ms (plain {plain_a:.3f} ms), bound {bound_a:.4f} ms "
@@ -457,7 +491,7 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
         detail[f"F{f}"] = {
             "A": {"ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a, "bound_by": by_a,
                   "max_abs_err": err_a, "rel_err": err_a / scale_a, "bytes": bytes_a,
-                  "flops_needed": flops_a, "flops_slot_dense": dense_a},
+                  "flops_needed": flops_a, "flops_slot_dense": dense_a, "col_tiles": tiles, "tile_width": width},
             "B": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
                   "errors": errs_b, "bytes": bytes_b, "flops_needed": flops_b,
                   "flops_slot_dense": 2 * dense_a},
@@ -471,9 +505,9 @@ def phase_kernels(calc, sysb, label: str) -> tuple[list[dict], dict]:
         del ops, gbar, out_k, out_p, got, ref
         torch.cuda.empty_cache()
 
-    # the record carries the F = 17 shapes: two of every three passes
-    f_main = cfg.nfeature + cfg.num_charge_channels
-    row_a, row_b = rows[f_main]
+    # the record carries the F = 17 shapes (two of every three passes), or
+    # the last of ``fs``
+    row_a, row_b = rows[fs[-1]]
     kernels = [
         {"name": "conv_stencil_forward", "route": "cuda",
          "source": "aimnetcentral_tpu_torch/csrc/conv_fwd.cu",
@@ -498,9 +532,20 @@ OPS_PER_PAIR = {  # FP32 operations (D, E) per unordered pair within the cutoff 
     "d3ts": lambda v: (40, 104),
 }
 OPS64_PER_PAIR = {"coulomb_sr": (12, 25)}  # FP64 ones: the SR Coulomb term's own (csrc/pair_terms.cuh)
+# a member form's operations per unordered pair and per member beyond the
+# first, FP32 (D, E) then FP64 (D, E): the charge product and its sum (D),
+# the member's g, dg/dd, dg/dq, its pair cotangent and three sums (E); for
+# D3TS the TS combination of C6 and alpha and its three derivatives
+MEMBER_OPS = {
+    "dsf": (3, 12, 0, 0),
+    "coulomb_simple": (3, 12, 0, 0),
+    "coulomb_sr": (1, 6, 2, 4),
+    "ewald_real": (3, 12, 0, 0),
+    "d3ts": (11, 36, 0, 0),
+}
 
 
-def pair_terms(calc, sysb) -> dict:
+def pair_terms(calc, sysb, members: int = 0) -> dict:
     """The pair sweeps of a request on the binned system ``sysb``, as
     ``{name: (term, cutoff, extras, layout)}``: with random charges (seed 4)
     the SR Coulomb of a v2 artifact on the SR layout at its rc, DSF where
@@ -513,7 +558,10 @@ def pair_terms(calc, sysb) -> dict:
     at rc; D3TS positive random C6 and alpha (seed 4: what DispParam gives
     is the network's, random too) with the r4r2 table at 15 A.  Every sweep
     but the SR Coulomb and SRRep runs on the LR layout (the molecule-bin
-    layout has one grid, which both names take)."""
+    layout has one grid, which both names take).  With ``members`` the
+    member forms of the sweeps that have one (DSF, simple, SR Coulomb,
+    the real-space Ewald sum, D3TS), with random per-member charges, or C6
+    and alpha (seed 4)."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
@@ -562,7 +610,31 @@ def pair_terms(calc, sysb) -> dict:
         rr = calc.params["outputs"][ts[0]]["r4r2"][sysb.numbers]
         term = ps.D3TSTerm(a1=ts[1].a1, a2=ts[1].a2, s8=ts[1].s8, s6=ts[1].s6)
         sweeps.append((term, 15.0, {"c6": c6, "alpha": alpha, "rr": rr}, "lr"))
+    if members:
+        real = (sysb.numbers > 0)[:, None]
+        wide = {
+            "q": 0.3 * torch.randn((sysb.natoms, members), generator=gen, device="cuda") * real,
+            "c6": torch.where(real, 2.0 + 38.0 * torch.rand((sysb.natoms, members), generator=gen, device="cuda"),
+                              0.0),
+            "alpha": 3.0 + 12.0 * torch.rand((sysb.natoms, members), generator=gen, device="cuda"),
+        }
+        sweeps = [(ps.MemberTerm(term, members), cutoff, {**extras, **{k: wide[k] for k in extras if k in wide}},
+                   layout) for term, cutoff, extras, layout in sweeps if term.name in MEMBER_OPS]
     return {sweep[0].name: sweep for sweep in sweeps}
+
+
+def _ops_per_pair(term, v: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """FP32 and FP64 operations (D, E) per unordered pair of ``term`` with
+    vectors of width ``v``: a member form's are the single term's with its
+    product paid once per member (csrc/pair_terms.cuh's member functors)."""
+    from aimnetcentral_tpu_torch.kernels.pair_sweep import MemberTerm
+
+    if isinstance(term, MemberTerm):
+        (d1, e1), (d64, e64) = _ops_per_pair(term.term, v)
+        pd, pe, pd64, pe64 = MEMBER_OPS[term.term.name]
+        extra = term.n - 1
+        return (d1 + extra * pd, e1 + extra * pe), (d64 + extra * pd64, e64 + extra * pe64)
+    return OPS_PER_PAIR[term.name](v), OPS64_PER_PAIR.get(term.name, (0, 0))
 
 
 def _half_pair_count(st, ops) -> int:
@@ -613,12 +685,15 @@ def _slot_tests(st, ops) -> int:
     return walked * st.c
 
 
-def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], dict]:
+def phase_pair_kernels(calc, sysb, label: str = "request", members: int = 0,
+                       only: tuple[str, ...] | None = None) -> tuple[list[dict], dict]:
     """Kernels D and E against their plain versions on the layouts of the
     binned system ``sysb`` (a wb97m-d3-10k request's: three pair terms on
     the LR layout; a gas-phase DSF cluster's: one), for each pair term of
-    ``pair_terms``: errors, the same against an f64 plain run, the pairs
-    each kernel contracted, E's scratch, times."""
+    ``pair_terms`` (those named in ``only`` when given): errors, the same against
+    an f64 plain run, the pairs each kernel contracted, E's scratch, times.
+    With ``members`` the member forms of the sweeps that have one
+    (``pair_terms``)."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
@@ -626,10 +701,12 @@ def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], 
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     detail, sums = {}, {"D": {}, "E": {}}
-    for name, (term, cutoff, extras, layout) in pair_terms(calc, sysb).items():
+    for name, (term, cutoff, extras, layout) in pair_terms(calc, sysb, members).items():
+        if only is not None and name not in only:
+            continue
         st, ops = eb.pair_operands(sysb, cutoff, term, extras, layout=layout)
         ops = {k: v.detach().contiguous() for k, v in ops.items()}
-        ct = torch.randn((st.b_tot, st.c), generator=gen, device="cuda")
+        ct = torch.randn(st.out_shape, generator=gen, device="cuda")
         n_pairs = _half_pair_count(st, ops)
         # the pairs each kernel contracted, read from its pair_counts output:
         # every unordered pair at both ends, each row its own plain count
@@ -691,11 +768,11 @@ def phase_pair_kernels(calc, sysb, label: str = "request") -> tuple[list[dict], 
         # least time: inputs read once and outputs written once, against
         # the operations of the pairs within the cutoff
         ins = 4 * (st.b_tot * st.c * (4 + st.k) + st.s_tot * st.b_tot * 4) + 8 * st.s_tot * st.b_tot
-        bytes_d = ins + 4 * st.b_tot * st.c
-        bytes_e = ins + 4 * st.b_tot * st.c + 4 * (st.b_tot * st.c * (3 + st.k) + st.s_tot * st.b_tot * 3)
-        ops_d, ops_e = OPS_PER_PAIR[name](st.v)
+        outs = 4 * st.b_tot * st.c * max(st.members, 1)  # the sums, or their cotangent
+        bytes_d = ins + outs
+        bytes_e = ins + outs + 4 * (st.b_tot * st.c * (3 + st.k) + st.s_tot * st.b_tot * 3)
+        (ops_d, ops_e), (ops64_d, ops64_e) = _ops_per_pair(term, st.v)
         flops_d, flops_e = float(ops_d * n_pairs), float(ops_e * n_pairs)
-        ops64_d, ops64_e = OPS64_PER_PAIR.get(name, (0, 0))
         flops64_d, flops64_e = float(ops64_d * n_pairs), float(ops64_e * n_pairs)
         bound_d, by_d = bound(bytes_d, flops_d, flops64_d)
         bound_e, by_e = bound(bytes_e, flops_e, flops64_e)
@@ -1046,8 +1123,9 @@ def device_busy_ms(prof, spans: tuple = ()) -> float:
     return sum(dev_us(e) for e in prof.key_averages() if on_device(e) and e.key not in spans) / 1e3
 
 
-def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunks: int = MD_TIMED) -> dict:
-    """``n_chunks`` chunks of MD_CHUNK steps with every kernel's launches
+def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunks: int = MD_TIMED,
+              chunk: int = MD_CHUNK) -> dict:
+    """``n_chunks`` chunks of ``chunk`` steps with every kernel's launches
     counted around them, then one profiled chunk.  The peak memory is gated
     against ``request_peak`` (a single request's) when one is given.  The step time is the
     window's whole wall time over its steps (host clock ending in a
@@ -1073,7 +1151,7 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunk
     t_start = time.perf_counter()
     for _ in range(n_chunks):
         t0 = time.perf_counter()
-        obs = drv.run(MD_CHUNK, chunk=MD_CHUNK)
+        obs = drv.run(chunk, chunk=chunk)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
         if not all(np.isfinite(v).all() for v in obs.values()):
@@ -1082,23 +1160,23 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunk
         etot += list(obs["epot"].astype(np.float64) + 1.5 * n_real * constants.kB * obs["temperature"])
     total_s = time.perf_counter() - t_start
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    steps = n_chunks * MD_CHUNK
+    steps = n_chunks * chunk
     rebins, regrows = drv.rebins - rebins0, drv.regrows - regrows0
-    evals = steps + MD_CHUNK * regrows  # a retried chunk evaluates its steps again
+    evals = steps + chunk * regrows  # a retried chunk evaluates its steps again
     for name, n in launches.items():
         if n != per_eval[name] * evals:
             raise SystemExit(f"FAIL: {name} launched {n} times in {evals} MD force evaluations on {label}, "
                              f"expected {per_eval[name]} each ({rebins} re-binning steps)")
     peak = torch.cuda.max_memory_allocated()
     held = torch.cuda.memory_allocated() - held0
-    per_step = [t / MD_CHUNK * 1e3 for t in chunk_s]
+    per_step = [t / chunk * 1e3 for t in chunk_s]
     ms = total_s / steps * 1e3
     drift = abs(etot[-1] - etot[0]) / abs(etot[0])
     hot = max(temps) > 10 * drv.md.temperature_K
     note = (f"; HOT BOX (up to {max(temps):.3g} K, {rebins * 100 / steps:.0f} re-binnings per 100 steps): "
             f"not representative of MD on a sane potential" if hot else "")
     log(f"[md {label}] {steps} steps in {total_s:.3f} s: {ms:.2f} ms a step ({1e3 / ms:.2f} steps/s; chunks of "
-        f"{MD_CHUNK}: {', '.join(f'{t:.2f}' for t in per_step)} ms a step, median {np.median(per_step):.2f}, min "
+        f"{chunk}: {', '.join(f'{t:.2f}' for t in per_step)} ms a step, median {np.median(per_step):.2f}, min "
         f"{min(per_step):.2f}, max {max(per_step):.2f}); {rebins * 100 / steps:.1f} "
         f"re-binnings per 100 steps, {regrows} retried chunks; peak memory {peak / 2**30:.3f} GiB"
         + (f" (a single request: {request_peak / 2**30:.3f})" if request_peak is not None else "")
@@ -1114,15 +1192,15 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunk
     # step time (the profiler slows the host)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        drv.run(MD_CHUNK, chunk=MD_CHUNK)
+        drv.run(chunk, chunk=chunk)
         torch.cuda.synchronize()
-    busy = device_busy_ms(prof) / MD_CHUNK
+    busy = device_busy_ms(prof) / chunk
     idle = max(0.0, 1 - busy / ms)
     top = sorted((e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")),
                  key=dev_us, reverse=True)[:3]
     log(f"[md {label}] profiled chunk: device busy {busy:.2f} ms a step, idle share against the "
         f"unprofiled step time {idle:.3f}; most device time a step: "
-        + "; ".join(f"{dev_us(e) / 1e3 / MD_CHUNK:.2f} ms {e.key[:60]}" for e in top))
+        + "; ".join(f"{dev_us(e) / 1e3 / chunk:.2f} ms {e.key[:60]}" for e in top))
     return {
         "total_s": total_s, "ms_per_step": ms, "steps_per_s": 1e3 / ms, "chunk_ms_per_step": per_step,
         "hot": hot, "rebins_per_100": rebins * 100 / steps, "retried_chunks": regrows, "peak_bytes": peak,
@@ -1191,22 +1269,26 @@ def phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, request_peaks
 
 
 def md_trace(drv, n_steps: int, n_atoms: int = N_CHECK) -> dict:
-    """``n_steps`` MD steps one chunk each: the potential energy and the
-    forces (caller atom order) after every step, and the final frame."""
-    epot, forces = [], []
+    """``n_steps`` MD steps one chunk each: the potential energy (and an
+    ensemble's ``epot_std``) and the forces (caller atom order) after every
+    step, and the final frame."""
+    epot, epot_std, forces = [], [], []
     for _ in range(n_steps):
-        epot.append(float(drv.run(1, chunk=1)["epot"][0]))
+        obs = drv.run(1, chunk=1)
+        epot.append(float(obs["epot"][0]))
+        epot_std.append(float(obs.get("epot_std", np.zeros(1))[0]))
         st = drv.state
         real = st.system.numbers > 0
         f = np.zeros((n_atoms, 3), np.float32)
         f[st.atom_id[real].cpu().numpy()] = st.forces[real].cpu().numpy()
         forces.append(f)
-    return {"epot": np.array(epot), "forces": np.stack(forces), "coord": drv.snapshot()["coord"][:n_atoms],
-            "rebins": drv.rebins}
+    return {"epot": np.array(epot), "epot_std": np.array(epot_std), "forces": np.stack(forces),
+            "coord": drv.snapshot()["coord"][:n_atoms], "rebins": drv.rebins}
 
 
-def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> dict:
-    """On the 1,200-atom box: MD_CHECK_STEPS NVE steps from the same
+def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None, ensemble: bool = False,
+                         n_box: int = N_CHECK, steps: int = MD_CHECK_STEPS) -> dict:
+    """On an ``n_box``-atom box (1,200): ``steps`` NVE steps from the same
     injected 300 K velocities at the exact tier, and as many FIRE steps, on the
     card and on the CPU.  Per step, the
     potential energy and every force are held to the absolute limits
@@ -1214,7 +1296,9 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
     steps on the card at the ``fast`` tier are the control, which must come
     out beyond a limit (CPU matmuls are exact f32 at every tier).  With a
     gas-phase molecule ``mol`` the same MD check runs on it (the indexed
-    engine), without FIRE."""
+    engine), without FIRE.  With ``ensemble`` (stacked members, the fused
+    forward) the members' ``epot_std`` is held to the energy's limit too,
+    without FIRE."""
     import torch
 
     from aimnetcentral_tpu_torch import constants
@@ -1224,11 +1308,11 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
     from aimnetcentral_tpu_torch.ops import binned as B
 
     if mol is None:
-        coord, numbers, cell = build_box(N_CHECK, seed=1)
+        coord, numbers, cell = build_box(n_box, seed=1)
     else:
         coord, numbers, cell = mol["coord"], mol["numbers"], None
     n = len(numbers)
-    steps = MD_CHECK_STEPS
+    fire = mol is None and not ensemble
     masses = constants.get_masses()[numbers]
     v0 = np.sqrt(constants.kB * 300.0 / masses)[:, None] * np.random.default_rng(5).normal(size=(n, 3))
     runs = {}
@@ -1238,14 +1322,14 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
         p = params_to(params, dev)
         system = md_system(coord, numbers, cell, dev)
         drv = MDDriver(p, cfg, system, MDConfig(dt_fs=0.5, thermostat="nve", skin=0.3, precision=tier),
-                       device=dev)
+                       ensemble=ensemble, device=dev)
         st = drv._state
         vel = torch.as_tensor(v0.astype(np.float32), device=dev)
         drv._state = dataclasses.replace(
             st, veloc=torch.where((st.system.numbers > 0)[:, None], vel[st.atom_id.clamp(max=n - 1)], 0.0)
         )
         runs[key] = md_trace(drv, steps, n)
-        if tier == "exact" and mol is None:
+        if tier == "exact" and fire:
             # FIRE on a fixed binned layout of the same box
             grid = dataclasses.replace(B.plan_bins(cell, N_CHECK, cfg.aev.rc_s + 0.3), margin=0.3)
             lr_grid = B.plan_lr_bins(cell, N_CHECK, drv._lr_cutoff(), margin=0.3)
@@ -1265,19 +1349,26 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None) -> di
             "forces": float(np.abs(run["forces"] - cpu["forces"]).max()),
             "coord": float(np.abs(run["coord"] - cpu["coord"]).max()),
         }
+        if ensemble:
+            diffs[key]["epot_std"] = float(np.abs(run["epot_std"] - cpu["epot_std"]).max())
         d = diffs[key]
         log(f"[md check {label} {key}] {n} atoms, {drv.engine} engine, {steps} NVE steps "
             f"({run['rebins']} rebuilds; "
             f"{cpu['rebins']} on the CPU), against the CPU at exact: largest per-step |dE| {d['energy']:.3e} eV "
             f"({d['energy'] / np.abs(cpu['epot']).min():.2e} relative), largest per-step |dF| {d['forces']:.3e} "
-            f"eV/A, final max |dx| {d['coord']:.3e} A (limits {CHECK_ABS['energy']:.1e}, "
+            f"eV/A, final max |dx| {d['coord']:.3e} A"
+            + (f", largest per-step |d epot_std| {d['epot_std']:.3e} eV (epot_std {cpu['epot_std'].max():.4e})"
+               if ensemble else "")
+            + f" (limits {CHECK_ABS['energy']:.1e}, "
             f"{CHECK_ABS['forces']:.1e}, {CHECK_ABS['coord']:.1e}; card {run['s']:.1f} s, cpu {cpu['s']:.1f} s)")
     dfire = 0.0
-    if mol is None:
+    if fire:
         dfire = float(np.abs(runs["card"]["fire"] - cpu["fire"]).max())
         log(f"[md check {label}] {steps} FIRE steps: max |dx| {dfire:.3e} A (limit {CHECK_ABS['coord']:.1e}), fmax "
             f"{runs['card']['fire_fmax']:.4f} / {cpu['fire_fmax']:.4f} eV/A")
     limits = {k: CHECK_ABS[k] for k in ("energy", "forces", "coord")}
+    if ensemble:
+        limits["epot_std"] = CHECK_ABS["energy"]
     if over_limits(diffs["card"], limits) or dfire > CHECK_ABS["coord"]:
         raise SystemExit(f"FAIL: MD or FIRE on the card and on the CPU disagree on {label}: "
                          f"{over_limits(diffs['card'], limits)}, FIRE {dfire:.3e} A")
@@ -1964,10 +2055,8 @@ def hessian_request(label: str, calc, mol: dict) -> dict:
     tier: wall time of each (the second reuses the layout), peak device
     memory, launches (none: the indexed layout); the Hessian finite, its
     largest asymmetry and translation sum (each row summed over the atoms)
-    against its largest entry, and the two bit for bit equal.  By this phase
-    the process has run many backward passes; the first batched double
-    backward of a fresh process was seen one f32 unit off its repeat
-    (PERF.md section 7)."""
+    against its largest entry, and the two bit for bit equal.  A fresh
+    process's first Hessian is held to its repeats by ``fresh_hessian``."""
     import torch
 
     wrappers = reset_counts()
@@ -2003,6 +2092,55 @@ def hessian_request(label: str, calc, mol: dict) -> dict:
                          f"(limit {SO_SYM_REL:.0e} of max |H|)")
     return {"s": times[0], "repeat_s": times[1], "peak_bytes": peak, "launches": launches, "max_abs": scale,
             "asym_rel": asym, "trans_rel": trans, "hessian": h}
+
+
+FRESH_HESSIAN = """
+import json, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+import chip_smoke as smoke
+from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator, derivatives
+from aimnetcentral_tpu_torch.models import aimnet2_init
+chunks = []
+chunk_of = derivatives.hessian_chunk
+def logged(system, rows, graph_bytes):
+    chunks.append((rows, graph_bytes, chunk_of(system, rows, graph_bytes)))
+    return chunks[-1][2]
+derivatives.hessian_chunk = logged
+cfg = smoke.flagship_config()
+calc = AIMNet2Calculator((aimnet2_init(cfg, seed=0, device="cuda"), cfg), device="cuda")
+mol = smoke.gas_cluster(113, seed=1)
+h, held = [], []
+for _ in range(3):
+    held.append(torch.cuda.memory_allocated())
+    h.append(calc.eval(mol, hessian=True)["hessian"])
+held.append(torch.cuda.memory_allocated())
+print(json.dumps({{"equal": [bool(np.array_equal(h[0], x)) for x in h[1:]],
+                  "differing": [int((h[0] != x).sum()) for x in h[1:]],
+                  "max_abs_diff": [float(np.abs(h[0].astype(np.float64) - x).max()) for x in h[1:]],
+                  "max_abs": float(np.abs(h[0]).max()), "chunks": chunks,
+                  "held_growth": [b - a for a, b in zip(held, held[1:])]}}))
+"""
+
+
+def fresh_hessian() -> dict:
+    """The first dense Hessian of a fresh process (mol-113 flagship at
+    ``exact``, nothing differentiated before it) against its two repeats, in
+    a subprocess started for it alone."""
+    out = subprocess.run([sys.executable, "-c", FRESH_HESSIAN.format(root=ROOT)], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise SystemExit(f"FAIL: the fresh-process Hessian did not run:\n{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"[second_order fresh] mol-113 flagship, the first dense Hessian of a fresh process against its two "
+        f"repeats: equal bit for bit {res['equal']}, entries differing {res['differing']}, largest |dH| "
+        f"{res['max_abs_diff']} of max |H| {res['max_abs']:.4e}; (rows, graph bytes, chunk) of each "
+        f"{res['chunks']}; memory the process keeps after each request {res['held_growth']} B (a first "
+        f"request's one-time allocations, cuBLAS's workspace among them)")
+    if not all(res["equal"]):
+        raise SystemExit("FAIL: the first dense Hessian of a fresh process differs from its repeats")
+    return res
 
 
 def hvp_checks(label: str, params, cfg, mol: dict, h: np.ndarray) -> dict:
@@ -2131,7 +2269,7 @@ def phase_second_order(params, cfg, params_d3, cfg_d3) -> dict:
     t_phase = time.perf_counter()
     cpu_dev = torch.device("cpu")
     mol = gas_cluster(113, seed=1)
-    res: dict = {"hessian": {}, "hvp": {}}
+    res: dict = {"hessian": {}, "hvp": {}, "fresh": fresh_hessian()}
     launches = {name: 0 for name in counters()}
     for label, p, c in (("mol-113 flagship", params, cfg), ("mol-113 wb97m-d3", params_d3, cfg_d3)):
         calc = AIMNet2Calculator((p, c), device="cuda")
@@ -2281,13 +2419,13 @@ def ewald_config(cfg, method: str = "ewald"):
     ))
 
 
-def lr_heads_model(cfg):
+def lr_heads_model(cfg, seed: int = 0):
     """The flagship width with the head set of the JAX package's
     tests/test_ensemble_fused.py:299-306 on top of the flagship's heads:
     SRRep (cosine cutoff at 4 A, into the energy), an OutputHead giving
     ``disp_param``, DispParam and D3TS(a1=0.49, a2=3.5, s8=0.78); random
-    weights (seed 0) and ``disp_param0`` filled with positive C6 and alpha
-    per element (its zero init makes D3TS exactly zero)."""
+    weights (``seed``) and ``disp_param0`` filled with positive C6 and
+    alpha per element (its zero init makes D3TS exactly zero)."""
     import torch
 
     from aimnetcentral_tpu_torch.models import aimnet2_init
@@ -2301,7 +2439,7 @@ def lr_heads_model(cfg):
         ("disp_param", DispParamHead()),
         ("d3ts", D3TSHead(a1=0.49, a2=3.5, s8=0.78)),
     ))
-    params = aimnet2_init(cfg, seed=0, device="cuda")
+    params = aimnet2_init(cfg, seed=seed, device="cuda")
     rng = np.random.default_rng(LR_DISP_SEED)
     tab = np.zeros((87, 2), np.float32)
     tab[1:, 0] = rng.uniform(2.0, 40.0, size=86)
@@ -2535,6 +2673,237 @@ def phase_long_range(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> di
     return res
 
 
+ENS_MEMBERS = 4  # the released families ship four members (aimnet2 = aimnet2-wb97m-d3_{0..3})
+ENS_BOX = 300  # atoms of the card-against-CPU box
+SINGLE_MS_BEFORE_TILES = {"A": 0.369, "B": 1.079}  # A and B at G*F = 272 before column tiles (PERF.md's kernel table)
+ENS_MD_STEPS = 30  # the timed and gated ensemble MD window: 15 fs, before the random potentials collapse
+ENS_MD_CHECK_STEPS = 3  # ensemble MD steps card against CPU on the ENS_BOX box (its CPU side takes seconds a step)
+
+
+def ensemble_params(make, n: int = ENS_MEMBERS):
+    """``n`` members ``make(seed)`` (seeds 0..n-1), stacked; the config."""
+    from aimnetcentral_tpu_torch.calculators import stack_params
+
+    members = [make(seed) for seed in range(n)]
+    return stack_params([p for p, _c in members]), members[0][1]
+
+
+def ens_card_vs_cpu(label: str, params, cfg, data, binned_threshold: int) -> dict:
+    """The fused ensemble on the card against the port's CPU run: energy
+    within 1e-5 relative with the floor of one f32 rounding of every summed
+    term (the largest member's), forces 1e-4 eV/A, ``energy_std`` within
+    1e-5 of max(1, |E|); a repeated request on the card bit for bit."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import EnsembleCalculator
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.models.ensemble_fused import member_params
+
+    calc = EnsembleCalculator((params, cfg), device="cuda", fused=True, binned_threshold=binned_threshold)
+    system = calc.prepare_system(data)
+    cfg_eff = calc._effective_cfg(system.cell is not None)
+    floor = F32_EPS * max(energy_terms_abs(member_params(params, e), cfg_eff, system)
+                          for e in range(params["afv"]["weight"].shape[0]))
+    t0 = time.perf_counter()
+    card = calc.eval(data, forces=True)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    again = calc.eval(data, forces=True)
+    for key in card:
+        if not np.array_equal(card[key], again[key]):
+            raise SystemExit(f"FAIL: a repeated ensemble request gave another {key} on {label}")
+    t0 = time.perf_counter()
+    cpu = EnsembleCalculator((params_to(params, torch.device("cpu")), cfg), device="cpu", fused=True,
+                             binned_threshold=binned_threshold).eval(data, forces=True)
+    t_cpu = time.perf_counter() - t0
+    de = np.abs(card["energy"] - cpu["energy"])
+    e_tol = np.maximum(REL_TOL * np.abs(cpu["energy"]), floor)
+    df = float(np.abs(card["forces"] - cpu["forces"]).max())
+    dstd = np.abs(card["energy_std"] - cpu["energy_std"])
+    std_tol = REL_TOL * np.maximum(1.0, np.abs(cpu["energy"]))
+    log(f"[ensemble check {label}] {calc._prep_cache['kind']} layout, {len(card['forces'])} atoms, "
+        f"{params['afv']['weight'].shape[0]} members fused: largest |dE| {de.max():.3e} eV (limit "
+        f"{e_tol.min():.3e}: 1e-5 relative, floor {floor:.3e}); max |dF| {df:.3e} eV/A (limit 1e-4); largest "
+        f"|d energy_std| {dstd.max():.3e} (limit {std_tol.min():.3e}); energy_std {cpu['energy_std'].max():.4e} eV; "
+        f"a repeat bit for bit (card {t_card:.2f} s, cpu {t_cpu:.2f} s)")
+    if (de > e_tol).any() or df > 1e-4 or (dstd > std_tol).any():
+        raise SystemExit(f"FAIL: the card and the CPU run disagree on {label}")
+    return {"dE": float(de.max()), "dE_limit": float(e_tol.min()), "dF": df, "d_energy_std": float(dstd.max()),
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def phase_ensemble(params, cfg, coord, numbers, cell, single_launches: dict, single_detail: dict) -> dict:
+    """Ensembles at full width (``phase_ensemble``): four random flagship
+    members (seeds 0-3) at the exact tier.  A and B at the fused forward's
+    member-stacked widths (G*F = 1,024 and 1,088: column tiles) on the 10k
+    request SR grid, with the plain, f64 and pair-count gates, beside the
+    single model's G*F = 272 (``single_detail``: phase 3's A and B on the
+    same grid); the member forms of D and E at E = 4 (DSF on the fused
+    request's own LR grid, D3TS on lr-heads-10k's, the real-space Ewald sum
+    on ewald-1200's grid, simple Coulomb on packed-8's molecule bins) under
+    the same gates; ens4-flagship-10k requests, fused (A, B 3; D, E 1) and
+    per member (A, B 12; D, E 4), as phase 4, the fused energy and forces
+    against the per-member path within ``CHECK_ABS``; ensemble MD: each
+    member alone and the ensemble for 25 fs of NVE (where each leaves
+    ``MD_NVE_DRIFT``), then the first ENS_MD_STEPS steps timed and gated on
+    it, with ``epot_std``; ENS_MD_CHECK_STEPS steps of ensemble MD on a
+    300-atom box, card against CPU; the card against the CPU on a 300-atom
+    box with the lr-heads set and Ewald, and on packed-8."""
+    import torch
+
+    from aimnetcentral_tpu_torch import constants
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator, EnsembleCalculator
+    from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
+    from aimnetcentral_tpu_torch.kernels.build import LIBRARIES
+    from aimnetcentral_tpu_torch.models import aimnet2_init
+    from aimnetcentral_tpu_torch.models.ensemble_fused import member_params
+
+    t_phase = time.perf_counter()
+    n_e = ENS_MEMBERS
+    data = {"coord": coord, "numbers": numbers, "cell": cell}
+    ens_params, _c = ensemble_params(lambda s: (aimnet2_init(cfg, seed=s, device="cuda"), cfg))
+    res: dict = {"kernels": {}, "requests": {}, "checks": {}}
+    launches = {name: 0 for name in counters()}
+
+    # A and B at the member-stacked widths, and DSF's member form, on the
+    # fused request's SR and LR grids
+    calc_f = EnsembleCalculator((ens_params, cfg), device="cuda", fused=True)
+    sysb = calc_f.prepare_system(data)
+    f1 = cfg.nfeature + cfg.num_charge_channels
+    rows_ab, res["kernels"]["ab"] = phase_kernels(calc_f, sysb, "ens4 stacked", fs=(n_e * cfg.nfeature, n_e * f1))
+    for key, idx in (("A", 0), ("B", 1)):
+        st_row = single_detail[f"F{f1}"][key]
+        log(f"[ensemble kernels] {key}: G*F = {16 * n_e * f1} {rows_ab[idx]['ms']:.3f} ms a launch against the "
+            f"single model's G*F = {16 * f1} {st_row['ms']:.3f} ms on the same grid in this run (phase 3; before "
+            f"column tiles {SINGLE_MS_BEFORE_TILES[key]:.3f} ms on an H100 80GB HBM3 at 700 W): "
+            f"{rows_ab[idx]['ms'] / st_row['ms']:.2f} x")
+    rows_de, res["kernels"]["ens4 flagship-10k"] = phase_pair_kernels(calc_f, sysb, "ens4 flagship-10k", members=n_e)
+    del sysb
+    for name, text in LIBRARIES.logs.items():
+        lines = text.splitlines()
+        for k, line in enumerate(lines):
+            kernel = line.split("'")[1] if "Compiling entry function" in line else ""
+            if "kernelILi17" in kernel or "Members" in kernel:
+                info = "; ".join(x.strip().removeprefix("ptxas info    : ") for x in lines[k + 1:k + 4]
+                                 if "registers" in x or "spill" in x)
+                log(f"[ensemble kernels] ptxas {name} {kernel[:90]}: {info}")
+    torch.cuda.empty_cache()
+
+    # the other member forms at E = 4
+    params_lr, cfg_lr = lr_heads_model(cfg)
+    calc_lr = AIMNet2Calculator((params_lr, cfg_lr), device="cuda")
+    c_small, n_small, cell_small = build_box(N_CHECK, seed=1)
+    calc_ew = AIMNet2Calculator((params, ewald_config(cfg)), device="cuda")
+    sys_small = calc_ew.prepare_system({"coord": c_small, "numbers": n_small, "cell": cell_small})
+    batch8 = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
+    calc_packed = AIMNet2Calculator((params, cfg), device="cuda", binned_threshold=512)
+    for label, calc, system, only in (
+        ("ens4 lr-heads-10k", calc_lr, calc_lr.prepare_system(data), ("d3ts_multi",)),
+        ("ens4 ewald-1200", calc_ew, sys_small, None),
+        ("ens4 packed-8", calc_packed, calc_packed.prepare_system(batch8), None),
+    ):
+        _rows, res["kernels"][label] = phase_pair_kernels(calc, system, label, members=n_e, only=only)
+    del sys_small
+    torch.cuda.empty_cache()
+
+    # the requests: fused and per member
+    conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
+    fused_per = {**conv, "pair_sweep_forward": 1, "pair_sweep_backward": 1}
+    member_per = {k: n_e * v for k, v in fused_per.items()}
+    res["requests"]["ens4-flagship-10k fused"] = phase_main_path("ens4-flagship-10k fused", calc_f, coord, numbers,
+                                                                 cell, fused_per)
+    calc_m = EnsembleCalculator((ens_params, cfg), device="cuda")
+    res["requests"]["ens4-flagship-10k per member"] = phase_main_path("ens4-flagship-10k per member", calc_m, coord,
+                                                                      numbers, cell, member_per)
+    for name, n in res["requests"]["ens4-flagship-10k per member"]["launches"].items():
+        launches[name] += n  # the single-model kernels' launches
+    log(f"[ensemble] launches a request: fused {fused_per}, per member {member_per}, the single-model "
+        f"flagship's {single_launches}")
+    got = calc_f.eval(data, forces=True)
+    ref = calc_m.eval(data, forces=True)
+    diffs = {"energy": float(np.abs(got["energy"] - ref["energy"]).max()),
+             "forces": float(np.abs(got["forces"] - ref["forces"]).max())}
+    log(f"[ensemble] ens4-flagship-10k fused against per member: |dE| {diffs['energy']:.3e} eV, max |dF| "
+        f"{diffs['forces']:.3e} eV/A (limits {CHECK_ABS['energy']:.1e}, {CHECK_ABS['forces']:.1e}); E "
+        f"{ref['energy'][0]:.6f} eV, energy_std {ref['energy_std'][0]:.6f} / {got['energy_std'][0]:.6f} eV")
+    if over_limits(diffs, CHECK_ABS):
+        raise SystemExit(f"FAIL: the fused ensemble and the per-member path disagree: {over_limits(diffs, CHECK_ABS)}")
+    res["fused_vs_per_member"] = diffs
+    del calc_m
+    torch.cuda.empty_cache()
+
+    # ensemble MD at exact, NVE.  The random members' potentials are
+    # unbounded below: from this box each member alone, and their mean,
+    # falls into a collapse within 20-40 fs, where the forces of colliding
+    # atoms outrun any time step.  25 fs of each show where each one's
+    # total energy first leaves MD_NVE_DRIFT; the timed and gated window
+    # is the first ENS_MD_STEPS steps, before any of them collapses.
+    md = MDConfig(**{**MD_SETTING, "thermostat": "nve", "precision": "exact"})
+    res["md_collapse_step"] = {}
+    for label, p, ens in ([(f"member {s} alone (seed {s})", member_params(ens_params, s), False)
+                           for s in range(1, n_e)] + [("ens4 fused", ens_params, True)]):
+        drv = MDDriver(p, cfg, md_system(coord, numbers, cell, torch.device("cuda")), md, ensemble=ens, seed=0,
+                       device="cuda")
+        obs = drv.run(2 * MD_CHUNK, chunk=MD_CHUNK)
+        etot = obs["epot"].astype(np.float64) + 1.5 * len(numbers) * constants.kB * obs["temperature"]
+        change = np.abs(etot - etot[0]) / abs(etot[0])
+        beyond = np.nonzero(change > MD_NVE_DRIFT)[0]
+        first = int(beyond[0]) + 1 if len(beyond) else None
+        res["md_collapse_step"][label] = first
+        log(f"[md ens4-flagship-10k] {label}, 50 NVE steps at "
+            f"{md.dt_fs} fs: NVE |change| / |E| {change[ENS_MD_STEPS - 1]:.2e} after {ENS_MD_STEPS} steps, "
+            f"{change[-1]:.2e} after 50; first step beyond {MD_NVE_DRIFT}: {first}; temperature "
+            f"{obs['temperature'][0]:.0f} -> {obs['temperature'].max():.0f} K at most")
+        if ens:
+            std = obs["epot_std"][:ENS_MD_STEPS]
+            if not (np.isfinite(std).all() and (std > 0).all()):
+                raise SystemExit("FAIL: ensemble MD's epot_std is not finite and positive")
+            log(f"[md ens4-flagship-10k] epot_std {std[0]:.6f} -> {std[-1]:.6f} eV over the first {ENS_MD_STEPS} "
+                f"steps")
+        del drv
+    drv = MDDriver(ens_params, cfg, md_system(coord, numbers, cell, torch.device("cuda")), md, ensemble=True,
+                   seed=0, device="cuda")
+    drv.state  # the initial forces, outside the window
+    name = f"ens4-flagship-10k exact first {ENS_MD_STEPS} NVE"
+    res["md"] = md_window(name, drv, fused_per, res["requests"]["ens4-flagship-10k fused"]["peak_bytes"],
+                          n_chunks=2, chunk=ENS_MD_STEPS // 2)
+    if res["md"]["etot_drift"] > MD_NVE_DRIFT:
+        raise SystemExit(f"FAIL: NVE total energy moved by more than {MD_NVE_DRIFT} of itself on {name}")
+    del drv
+    torch.cuda.empty_cache()
+    res["md_check"] = phase_md_card_vs_cpu("ens4 flagship", ens_params, cfg, ensemble=True, n_box=ENS_BOX,
+                                           steps=ENS_MD_CHECK_STEPS)
+
+    # the card against the CPU: a 300-atom box with the lr-heads set and
+    # Ewald (SRRep, DispParam, D3TS), binned; packed-8, molecule bins
+    ens_lr, cfg_lr = ensemble_params(lambda s: lr_heads_model(cfg, seed=s))
+    c3, n3, cell3 = build_box(ENS_BOX, seed=3)
+    res["checks"]["ens4-lr-heads-300"] = ens_card_vs_cpu(
+        "ens4 lr-heads-300 ewald", ens_lr, ewald_config(cfg_lr), {"coord": c3, "numbers": n3, "cell": cell3},
+        binned_threshold=256)
+    res["checks"]["ens4-packed-8"] = ens_card_vs_cpu("ens4 packed-8 flagship", ens_params, cfg, batch8,
+                                                     binned_threshold=512)
+
+    # the record's rows: the column-tiled A and B, and the member forms of D
+    # and E as the fused request and MD launch them (DSF on the flagship's
+    # LR grid); the other forms' times are in the phase's detail
+    fused_launches = {k: res["requests"]["ens4-flagship-10k fused"]["launches"][k] + res["md"]["launches"][k]
+                      for k in launches}
+    res["rows"] = []
+    for row in rows_ab:
+        res["rows"].append({**row, "name": f"{row['name']} (column tiles, G*F = {16 * n_e * f1})",
+                            "launches": fused_launches[row["name"]],
+                            "launches_per_md_step": {"ens4-flagship-10k exact": res["md"]["launches_per_step"][row["name"]]}})
+    for row in rows_de:
+        res["rows"].append({**row, "name": f"{row['name']} (member form, E = {n_e})",
+                            "launches": fused_launches[row["name"]],
+                            "launches_per_md_step": {"ens4-flagship-10k exact": res["md"]["launches_per_step"][row["name"]]}})
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[ensemble] phase done in {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
@@ -2606,7 +2975,11 @@ def main() -> None:
         results["artifact"] = phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir)
     results["second_order"] = phase_second_order(params, cfg, params_d3, cfg_d3)
     results["long_range"] = phase_long_range(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
+    single_per_request = {name: n // 3 for name, n in results["main"]["launches"].items()}
+    results["ensemble"] = phase_ensemble(params, cfg, coord, numbers, cell, single_per_request,
+                                         results["kernels_detail"])
     for k in kernels:
+        k["launches"] += results["ensemble"]["launches"][k["name"]]
         k["launches"] += results["long_range"]["launches"][k["name"]]
         k["launches"] += results["second_order"]["launches"][k["name"]]
         k["launches"] += results["artifact"]["launches"][k["name"]]
@@ -2618,6 +2991,7 @@ def main() -> None:
             for label in ("flagship-10k fast", "wb97m-d3-10k fast")
         }
 
+    kernels += results["ensemble"]["rows"]
     results["seconds"] = time.perf_counter() - t_run
     if args.out:
         with open(args.out, "w") as fh:

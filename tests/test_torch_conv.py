@@ -303,15 +303,58 @@ def test_kernel_tiles_fit_the_card(f):
         assert tcs.fwd_blocks(st) * tcs.WARPS >= st.b_tot * c
         assert tcs.bwd_tiles(st) * tcs.WARPS >= c
         assert tcs.bwd_smem_bytes(st) <= tcs.SMEM_LIMIT
-    with pytest.raises(ValueError, match="G\\*F"):
-        tcs.lane_columns(tcs.ConvStatic(b_tot=1, c=40, g=G_DIM, f=35, s_tot=27))
+    # a fused ensemble's member-stacked rows take column tiles: four
+    # flagship members (16 x 4 x 17 = 1,088 columns) two tiles of 544, the
+    # NSE model's four members (1,152) three of 384, eight members up to
+    # 4,352 columns; one column more is refused
+    for f_st, tiles, width in ((4 * 17, 2, 544), (4 * 18, 3, 384), (8 * 17, 4, 544), (8 * 18, 5, 480)):
+        st = tcs.ConvStatic(b_tot=512, c=40, g=G_DIM, f=f_st, s_tot=27)
+        assert tcs.col_tiles(st) == (tiles, width, 17) and tiles * width >= G_DIM * f_st
+        assert tcs.bwd_smem_bytes(st) <= tcs.SMEM_LIMIT
+    assert tcs.col_tiles(tcs.ConvStatic(1, 40, G_DIM, 272, 27))[:2] == (tcs.MAX_COL_TILES, 544)
+    with pytest.raises(ValueError, match="G\\*F <= 4352"):
+        tcs.lane_columns(tcs.ConvStatic(b_tot=1, c=40, g=G_DIM, f=273, s_tot=27))
     # the flagship's grid: 20,480 receiver rows in 2,560 blocks for A, 512 x 5
     # blocks for B, nine columns a lane
     st = tcs.ConvStatic(b_tot=512, c=40, g=G_DIM, f=17, s_tot=27)
     assert tcs.lane_columns(st) == 9 and tcs.fwd_blocks(st) == 2560 and tcs.bwd_tiles(st) == 5
+    assert tcs.col_tiles(st) == (1, 272, 9)  # one tile: the single model's launch
     # the molecule-bin layout of 64 molecules (capacity 120, radius 0: one
     # offset): 7,680 receiver rows in 960 blocks for A, 64 x 15 blocks of B
     # with 23,040 B of shared memory
     st = tcs.ConvStatic(b_tot=64, c=120, g=G_DIM, f=17, s_tot=1)
     assert tcs.lane_columns(st) == 9 and tcs.fwd_blocks(st) == 960 and tcs.bwd_tiles(st) == 15
     assert tcs.bwd_smem_bytes(st) == 23_040
+
+
+def test_column_tiles_partition_the_adjoint(case):
+    """Kernels A and B cut a fused ensemble's member-stacked row (here four
+    members of F = 17, 1,088 columns: two tiles of 544) into column tiles
+    that walk the same pairs: the forward and the feature adjoint are per
+    column, and the coordinate and lattice-shift adjoints are sums over the
+    columns, so each tile's partial is the adjoint of its own columns and
+    the tiles' partials add up to the whole row's (what the wrapper adds in
+    a fixed order).  Within 1e-5 of the largest magnitude."""
+    _sysj, syst, feats = case
+    st1, ops, _mnbr, _radius = _port_operands(syst, feats)
+    b, c, f = st1.b_tot, st1.c, 4 * (F_DIM + 1)
+    st = tcs.ConvStatic(b_tot=b, c=c, g=G_DIM, f=f, s_tot=st1.s_tot)
+    tiles, width, _m = tcs.col_tiles(st)
+    assert (tiles, width) == (2, 544)
+    rng = np.random.default_rng(17)
+    one = ops["a_gmajor"].reshape(b, c, G_DIM, F_DIM + 1)
+    ops["a_gmajor"] = torch.cat([one * s for s in (1.0, -0.5, 0.8, 1.2)], dim=-1).reshape(b, c, G_DIM * f)
+    gbar = torch.tensor(rng.normal(size=(b, 4, c, G_DIM * f)).astype(np.float32))
+    out = tcs.conv_forward_plain(st, **ops)
+    full = tcs.conv_backward_plain(st, **ops, gbar=gbar)
+    col = torch.arange(G_DIM * f)
+    parts = []
+    for t in range(tiles):
+        keep = ((col >= t * width) & (col < (t + 1) * width)).float()
+        tile_ops = dict(ops, a_gmajor=ops["a_gmajor"] * keep)
+        _close((tcs.conv_forward_plain(st, **tile_ops) * keep).numpy(), (out * keep).numpy())
+        part = tcs.conv_backward_plain(st, **tile_ops, gbar=gbar * keep)
+        _close((part[0] * keep).numpy(), (full[0] * keep).numpy())
+        parts.append(part)
+    for i in (1, 2):  # coordinates, lattice shifts
+        _close((parts[0][i] + parts[1][i]).numpy(), full[i].numpy())

@@ -184,6 +184,36 @@ def test_kernel_b_matches_plain(cuda_device, layout, f):
         _close(g, r)
 
 
+STACKED_F = [68, 72, 136]  # four members of F = 17 and 18 (1,088 and 1,152 columns), eight of F = 17
+
+
+@pytest.mark.parametrize("f", STACKED_F)
+@pytest.mark.parametrize("layout", ["2x2x2", "gas", "edges", "packed"])
+def test_kernel_a_matches_plain_at_stacked_widths(cuda_device, layout, f):
+    """A fused ensemble's member-stacked rows: kernel A in column tiles."""
+    st, ops, _mnbr, _gbar = _operands(layout, f)
+    assert cs.col_tiles(st)[0] > 1
+    out = cs.conv_stencil_forward(st, **_to(cuda_device, ops))
+    torch.cuda.synchronize()
+    _close(out, cs.conv_forward_plain(st, **ops))
+
+
+@pytest.mark.parametrize("f", STACKED_F)
+@pytest.mark.parametrize("layout", ["2x2x2", "gas", "edges", "packed"])
+def test_kernel_b_matches_plain_at_stacked_widths(cuda_device, layout, f):
+    """Kernel B in column tiles: the tiles' coordinate and shift partials
+    added by the wrapper, and the kernel as deterministic as one tile."""
+    st, ops, mnbr, gbar = _operands(layout, f)
+    dev_ops = _to(cuda_device, ops)
+    args = dict(mnbr=mnbr.to(cuda_device), gbar=gbar.to(cuda_device))
+    got = cs.conv_stencil_backward(st, **dev_ops, **args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, cs.conv_backward_plain(st, **ops, gbar=gbar)):
+        _close(g, r)
+    for x, y in zip(got, cs.conv_stencil_backward(st, **dev_ops, **args)):
+        assert torch.equal(x, y)
+
+
 def test_kernels_are_deterministic(cuda_device):
     """No float atomics: two runs agree bit for bit."""
     st, ops, mnbr, gbar = _operands("2x2x2", 17)
@@ -237,7 +267,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         cs.conv_stencil_forward(st, **{**dev_ops, "coord": dev_ops["coord"].transpose(0, 1)})
 
 
-def _narrow_model(device, d3=False):
+def _narrow_model(device, d3=False, seed=0):
     outputs = (
         ("energy_mlp", OutputHead(n_in=16, n_out=1, key_in="aim", key_out="energy",
                                   mlp=MLPSpec(hidden=(16, 16)))),
@@ -250,7 +280,7 @@ def _narrow_model(device, d3=False):
     cfg = AIMNet2Config(
         nfeature=4, ncomb_v=4, hidden=((32, 16), (32, 16), (32, 16)), aim_size=16, outputs=outputs
     )
-    return aimnet2_init(cfg, seed=0, device=device), cfg
+    return aimnet2_init(cfg, seed=seed, device=device), cfg
 
 
 def _box(n=60, a=12.0, seed=0):
@@ -326,7 +356,7 @@ def test_calculator_card_matches_cpu_with_d3(cuda_device):
 # kernels D and E
 
 
-def _pair_case(layout: str, term_name: str, seed: int = 5):
+def _pair_case(layout: str, term_name: str, seed: int = 5, members: int = 0):
     """Pair-sweep operands on the CPU.  ``banded``: 120 atoms in an 18 A box
     on 3x3x3 SR bins, cutoff 5 A (radius 1, nz >= 2r+1); ``images``: 60
     atoms in a 12 A box on its 1x1x1 LR grid, cutoff 15 A (radius 2: the
@@ -346,7 +376,8 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
     envelope at 4.6 A; ``srrep`` (GFN1 repulsion, two scalars an atom) sweeps
     at rc = 4 A with the cosine cutoff; ``d3ts`` (three scalars: the
     network's C6 and alpha, random and positive, and r4r2) at the layout's
-    cutoff."""
+    cutoff.  With ``members`` the term's member form: per-member charges,
+    or C6 and alpha, and the cotangent (B, C, members)."""
     rng = np.random.default_rng(seed)
     lr = None
     if layout == "packed":
@@ -416,12 +447,19 @@ def _pair_case(layout: str, term_name: str, seed: int = 5):
         term = d3e
         cn = eb.pair_sum_binned(sysb, cutoff, ps.D3CNTerm(), {"rcov": tables["rcov"][sysb.numbers]}, where)
         extras = eb.d3_pair_extras(sysb.species, sysb.numbers, cn, tables)
+    if members:
+        term = ps.MemberTerm(term, members)
+        n = sysb.natoms
+        for key in term.member_keys:
+            lo, hi = {"q": (-1.0, 1.0), "c6": (2.0, 40.0), "alpha": (3.0, 15.0)}[key]
+            vals = torch.tensor(rng.uniform(lo, hi, size=(n, members)).astype(np.float32))
+            extras[key] = vals * (sysb.numbers > 0)[:, None] if key == "q" else vals
     st, ops = eb.pair_operands(sysb, cutoff, term, extras, where)
     ops = {k: v.detach() for k, v in ops.items()}
     if layout == "edges":  # real atoms a suffix of each bin's slots, not a prefix
         for key in ("coord", "mask", "ext"):
             ops[key] = ops[key].flip(1).contiguous()
-    ct = torch.tensor(rng.normal(size=(st.b_tot, st.c)).astype(np.float32))
+    ct = torch.tensor(rng.normal(size=st.out_shape).astype(np.float32))
     return st, term, ops, ct
 
 
@@ -450,6 +488,61 @@ def test_kernel_e_matches_plain(cuda_device, layout, term_name):
     if st.v:  # the p and r columns of the extras adjoint each
         for cols in (slice(0, st.v), slice(st.v, 2 * st.v)):
             _close(got[1][..., cols], ref[1][..., cols])
+
+
+MEMBER_TERMS = ["dsf", "coulomb_simple", "coulomb_sr", "ewald_real", "d3ts"]
+
+
+@pytest.mark.parametrize("members", [3, 8])
+@pytest.mark.parametrize("term_name", MEMBER_TERMS)
+@pytest.mark.parametrize("layout", ["banded", "images", "edges", "gas", "packed"])
+def test_member_kernels_match_plain(cuda_device, layout, term_name, members):
+    """The member forms of kernels D and E (one output per ensemble member)
+    against their plain versions, the pairs contracted against the plain
+    count, and a repeat bit for bit."""
+    st, term, ops, ct = _pair_case(layout, term_name, members=members)
+    dev_ops = _to(cuda_device, ops)
+    counts = torch.zeros(st.b_tot * st.c, dtype=torch.int32, device=cuda_device)
+    out = ps.pair_sweep_forward(st, term, **dev_ops, pair_counts=counts)
+    got = ps.pair_sweep_backward(st, term, **dev_ops, ct=ct.to(cuda_device))
+    torch.cuda.synchronize()
+    assert out.shape == (st.b_tot, st.c, members)
+    _close(out, ps.pair_forward_plain(st, term, **ops))
+    for g, r in zip(got, ps.pair_backward_plain(st, term, **ops, ct=ct)):
+        _close(g, r)
+    plain = ps.pair_counts_plain(st, **{k: ops[k] for k in ("coord", "mask", "shift", "nbr", "inv")})
+    assert torch.equal(counts.long().cpu(), plain)
+    assert torch.equal(out, ps.pair_sweep_forward(st, term, **dev_ops))
+    for x, y in zip(got, ps.pair_sweep_backward(st, term, **dev_ops, ct=ct.to(cuda_device))):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "per_member"])
+def test_ensemble_calculator_card_matches_cpu(cuda_device, fused):
+    """A three-member ensemble of the narrow model on the binned layout:
+    the card against the CPU (energy 1e-5 relative, forces 1e-4 eV/A,
+    energy_std 1e-5 of max(1, |E|)); the fused request launches A and B
+    three times and D and E once, the per-member request once per member."""
+    from aimnetcentral_tpu_torch.calculators import EnsembleCalculator, stack_params
+
+    members = [_narrow_model(CPU, seed=s) for s in range(3)]
+    params = stack_params([m[0] for m in members])
+    cfg = members[0][1]
+    data = _box()
+    calcs = {dev: EnsembleCalculator((params, cfg), device=dev, fused=fused, binned_threshold=0)
+             for dev in ("cpu", "cuda")}
+    wrappers = (cs.conv_stencil_forward, cs.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
+    for fn in wrappers:
+        fn.launches = 0
+    card = calcs["cuda"].eval(data, forces=True)
+    torch.cuda.synchronize()
+    n = 1 if fused else 3
+    assert [fn.launches for fn in wrappers] == [3 * n, 3 * n, n, n]
+    cpu = calcs["cpu"].eval(data, forces=True)
+    np.testing.assert_allclose(card["energy"], cpu["energy"], rtol=1e-5)
+    np.testing.assert_allclose(card["forces"], cpu["forces"], atol=1e-4)
+    scale = max(1.0, float(np.abs(cpu["energy"]).max()))
+    np.testing.assert_allclose(card["energy_std"], cpu["energy_std"], atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("layout", ["images", "edges"])

@@ -43,5 +43,6 @@ def test_port_imports_no_jax():
                  "aimnetcentral_tpu_torch.config", "aimnetcentral_tpu_torch.io",
                  "aimnetcentral_tpu_torch.dynamics.vibrations", "aimnetcentral_tpu_torch.dynamics.saddle",
                  "aimnetcentral_tpu_torch.dynamics.neb", "aimnetcentral_tpu_torch.models.ewald",
-                 "aimnetcentral_tpu_torch.models.pme"):
+                 "aimnetcentral_tpu_torch.models.pme", "aimnetcentral_tpu_torch.models.ensemble_fused",
+                 "aimnetcentral_tpu_torch.calculators.ensemble"):
         assert must in names

@@ -276,17 +276,26 @@ def test_fire_relax_matches_jax(models, systems):
     np.testing.assert_allclose(info["fmax"], jinfo["fmax"], rtol=1e-4)
 
 
-def test_unported_paths_raise(models, systems):
-    """What the port's driver does not run yet raises: ensembles, an
-    unknown precision and a missing card.  (Gas-phase systems and
-    ``engine="indexed"`` run in the trajectory tests below; Ewald, which
-    raised before the rest of long range was ported, attaches its
-    discretisation and sizes the LR grid by its real-space cutoff:
-    tests/test_torch_ewald.py runs it.)"""
+def test_unported_paths_raise(models, systems, monkeypatch):
+    """What the port's driver refuses raises: members whose AEV constants
+    disagree on the fused ensemble path (JAX's ``ValueError``), an unknown
+    precision and a missing card.  Ensembles, which raised before they were
+    ported, build on stacked members (tests/test_torch_ensemble_md.py
+    holds their trajectories to JAX's); gas-phase systems and
+    ``engine="indexed"`` run in the trajectory tests below; Ewald attaches
+    its discretisation and sizes the LR grid by its real-space cutoff
+    (tests/test_torch_ewald.py runs it)."""
+    from aimnetcentral_tpu_torch.calculators import stack_params
+
     _jm, (tparams, tcfg) = models
     tsys = systems[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MDDriver(tparams, tcfg, tsys, MDConfig(), ensemble=True, device="cpu")
+    stacked = stack_params([tparams, tparams])
+    monkeypatch.setenv("AIMNET_ENSEMBLE_FUSED", "1")
+    drv = MDDriver(stacked, tcfg, tsys, MDConfig(), ensemble=True, device="cpu")
+    assert drv.ensemble and drv.ensemble_fused and drv.params["afv"]["weight"].shape[0] == 2
+    odd = {**stacked, "aev": {**stacked["aev"], "rc_s": stacked["aev"]["rc_s"] * torch.tensor([1.0, 1.1])}}
+    with pytest.raises(ValueError, match="AEV constant 'rc_s'"):
+        MDDriver(odd, tcfg, tsys, MDConfig(), ensemble=True, device="cpu")
     ewald = dataclasses.replace(
         tcfg, outputs=tuple(
             (n, dataclasses.replace(h, method="ewald") if isinstance(h, theads.LRCoulombHead) else h)

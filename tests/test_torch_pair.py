@@ -142,22 +142,17 @@ def test_plain_sweep_matches_jax(case, term_name):
         _close(g.numpy(), j_grads[2][k], 3e-5)
 
 
-def _kernel_emulation(st, term, ops, ct):
-    """What csrc/pair_walk.cuh computes (kernels D and E), written out in
-    torch: the full stencil walked from each receiver's side in the kernels'
-    order (the zero offset, the upper half through ``nbr``, the lower half
-    through ``inv`` with the displacement rounded as its half-stencil view
-    rounds it; an offset skipped where the candidate bin's box of real atoms
-    lies beyond the cutoff, which must drop no pair), the real pairs within
-    the cutoff compacted into each
-    receiver's queue in (offset, slot) order, each queued pair on lane
-    ``position % 32`` with the o = 0 / upper / lower conventions and each
-    term's hand derivatives, the lanes' partial sums added in lane order,
-    the per-(receiver, half offset) shift rows, and the wrapper's sum of
-    those rows over each bin's atoms.  Returns ``(out, (grad_coord,
-    grad_ext, grad_shift), pair counts per receiver row)``."""
-    coord, mask, ext, shift, nbr, inv = (ops[k] for k in ("coord", "mask", "ext", "shift", "nbr", "inv"))
-    b, c, v, s_tot, k = st.b_tot, st.c, st.v, st.s_tot, st.k
+def _walk(st, ops):
+    """The pairs of csrc/pair_walk.cuh's walk: the full stencil from each
+    receiver's side in the kernels' order (the zero offset, the upper half
+    through ``nbr``, the lower half through ``inv`` with the displacement
+    rounded as its half-stencil view rounds it; an offset skipped where the
+    candidate bin's box of real atoms lies beyond the cutoff, which must
+    drop no pair), the real pairs within the cutoff compacted into each
+    receiver's queue in (offset, slot) order, each on lane ``position %
+    32``.  Returns ``(recv, offs, cand, diff, lane, counts)``."""
+    coord, mask, shift, nbr, inv = (ops[k] for k in ("coord", "mask", "shift", "nbr", "inv"))
+    b, c, s_tot = st.b_tot, st.c, st.s_tot
     n_rows = b * c
     real = mask > 0.5
     slot = torch.arange(c)
@@ -197,8 +192,28 @@ def _kernel_emulation(st, term, ops, ct):
     counts = torch.bincount(recv, minlength=n_rows)
     first = torch.cumsum(counts, 0) - counts
     lane = (torch.arange(len(recv)) - first[recv]) % 32
+    return recv, offs, cand, diff, lane, counts
 
-    e_flat, ct_flat = ext.reshape(n_rows, k), ct.reshape(-1)
+
+def _lanes(n_rows, recv, lane, x):
+    """Each lane's partial sums, then the butterfly over the lanes."""
+    acc = torch.zeros((n_rows, 32) + x.shape[1:])
+    acc.index_put_((recv, lane), x, accumulate=True)
+    return acc.sum(1)
+
+
+def _kernel_emulation(st, term, ops, ct):
+    """What csrc/pair_walk.cuh computes (kernels D and E), written out in
+    torch: the pairs of ``_walk``, with the o = 0 / upper / lower
+    conventions and each term's hand derivatives, the lanes' partial sums
+    added in lane order, the per-(receiver, half offset) shift rows, and
+    the wrapper's sum of those rows over each bin's atoms.  Returns
+    ``(out, (grad_coord, grad_ext, grad_shift), pair counts per receiver
+    row)``."""
+    b, c, v, s_tot, k = st.b_tot, st.c, st.v, st.s_tot, st.k
+    n_rows = b * c
+    recv, offs, cand, diff, lane, counts = _walk(st, ops)
+    e_flat, ct_flat = ops["ext"].reshape(n_rows, k), ct.reshape(-1)
     d = torch.sqrt((diff * diff).sum(-1))
     si, sj = e_flat[recv, 2 * v :], e_flat[cand, 2 * v :]
     if st.ns == 1:
@@ -217,10 +232,8 @@ def _kernel_emulation(st, term, ops, ct):
     cq = torch.where(kind == 0, ctj, torch.where(kind == 2, cti + ctj, zero))  # on c_ji
     eff = cp * cij + cq * cji
 
-    def lanes(x):  # each lane's partial sums, then the butterfly over the lanes
-        acc = torch.zeros((n_rows, 32) + x.shape[1:])
-        acc.index_put_((recv, lane), x, accumulate=True)
-        return acc.sum(1)
+    def lanes(x):
+        return _lanes(n_rows, recv, lane, x)
 
     out = lanes(torch.where(kind == 2, cji, cij) * g)
     grad_coord = lanes(-(eff * gd / d)[:, None] * diff)
@@ -235,6 +248,34 @@ def _kernel_emulation(st, term, ops, ct):
     grad_shift = rows.reshape(b, c, s_tot, 3).sum(1).transpose(0, 1)
     return (out.reshape(b, c), (grad_coord.reshape(b, c, 3), grad_ext.reshape(b, c, k), grad_shift),
             counts)
+
+
+def _member_emulation(st, term, ops, ct):
+    """The member form of csrc/pair_walk.cuh in torch: the pairs of
+    ``_walk``; per pair each member's value and hand derivatives
+    (``MemberTerm.g_grad``: one shared factor, E products), E lanes' sums
+    a receiver, the pair cotangent ``ct_i,m + ct_j,m`` on every kind of
+    offset, the shift rows from ``cp_m`` (``ct_i,m`` at o = 0, the pair's
+    on the upper half).  Returns ``(out (B, C, E), (grad_coord, grad_ext,
+    grad_shift), counts)``."""
+    b, c, s_tot, k = st.b_tot, st.c, st.s_tot, st.k
+    n_rows = b * c
+    recv, offs, cand, diff, lane, counts = _walk(st, ops)
+    e_flat, ct_flat = ops["ext"].reshape(n_rows, k), ct.reshape(n_rows, -1)
+    d = torch.sqrt((diff * diff).sum(-1))
+    g, gd, jac = term.g_grad(d, e_flat[recv], e_flat[cand], torch.ones_like(d, dtype=torch.bool))
+    kind = torch.where(offs == 0, 0, torch.where(offs < s_tot, 1, 2))[:, None]
+    cti, ctj = ct_flat[recv], ct_flat[cand]
+    eff = cti + ctj  # (P, E)
+    cp = torch.where(kind == 0, cti, torch.where(kind == 1, eff, torch.zeros_like(eff)))
+    out = _lanes(n_rows, recv, lane, g)
+    grad_coord = _lanes(n_rows, recv, lane, -((eff * gd).sum(-1) / d)[:, None] * diff)
+    grad_ext = _lanes(n_rows, recv, lane, (eff[..., None] * jac).sum(1))
+    rows = torch.zeros(n_rows, s_tot, 3)
+    upper = kind[:, 0] < 2
+    rows.index_put_((recv[upper], offs[upper]), (((cp * gd).sum(-1) / d)[:, None] * diff)[upper], accumulate=True)
+    grad_shift = rows.reshape(b, c, s_tot, 3).sum(1).transpose(0, 1)
+    return (out.reshape(b, c, -1), (grad_coord.reshape(b, c, 3), grad_ext.reshape(b, c, k), grad_shift), counts)
 
 
 def _d2_limit(c: float) -> float:
@@ -480,3 +521,141 @@ def test_kernel_widths():
     with pytest.raises(ValueError, match="extras"):
         ps.check_width(ps.PairStatic(216, 80, 63, 3, 15.0), cn)
     assert ps.bwd_scratch_bytes(ps.PairStatic(216, 80, 63, 41, 15.0)) == 216 * 80 * 63 * 3 * 4
+
+
+def _member_term(name: str, cutoff: float, n: int):
+    """The member form of a term of the sweep tests, with the cutoff it
+    sweeps at."""
+    base = {
+        "dsf": ps.DSFTerm(alpha=0.2, dsf_rc=cutoff, rc=4.6),
+        "coulomb_simple": ps.CoulombSimpleTerm(rc=4.6),
+        "coulomb_sr": ps.CoulombSRTerm(rc=4.6),
+        "ewald_real": ps.EwaldRealTerm(eta=cutoff / 5.26, rc=4.6, subtract_sr=True),
+        "d3ts": ps.D3TSTerm(a1=0.49, a2=3.5, s8=0.78),
+    }[name]
+    return ps.MemberTerm(base, n), (4.6 if name == "coulomb_sr" else cutoff)
+
+
+def _member_extras(ex: dict, n: int) -> dict[str, torch.Tensor]:
+    """Per-member charges, C6 and alpha (L, n) from the case's seeded
+    draws, and the shared r4r2 (L,)."""
+    rng = np.random.default_rng(21)
+    L = len(ex["q"])
+    real = (np.abs(ex["q"]) > 0).astype(np.float32)
+    return {
+        "q": torch.tensor((rng.normal(size=(L, n)) * 0.3).astype(np.float32) * real[:, None]),
+        "c6": torch.tensor(rng.uniform(1.0, 30.0, size=(L, n)).astype(np.float32)),
+        "alpha": torch.tensor(rng.uniform(0.5, 3.0, size=(L, n)).astype(np.float32)),
+        "rr": torch.tensor(ex["rr"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["dsf", "coulomb_simple", "coulomb_sr", "ewald_real", "d3ts"])
+def test_member_kernel_algorithm_matches_plain(case, name):
+    """The member form of kernels D and E (one geometry and shared factor a
+    pair, E = 3 outputs a receiver) against its plain version and the
+    plain version's autograd, the pairs it contracts against the plain
+    count, and each member's sums against the single term swept with that
+    member's extras: sums 1e-5, gradients 3e-5 of their largest magnitude."""
+    _bj, bt, cutoff, layout, ex = case
+    term, cutoff = _member_term(name, cutoff, 3)
+    extras = _member_extras(ex, 3)
+    st, ops = teb.pair_operands(bt, cutoff, term, extras, layout)
+    assert st.members == 3 and st.k == len(term.shared_keys) + 3 * len(term.member_keys)
+    args = {k: ops[k] for k in ("coord", "mask", "ext", "shift", "nbr", "inv")}
+    ct = torch.tensor(np.random.default_rng(6).normal(size=(st.b_tot, st.c, 3)).astype(np.float32))
+    emu_out, emu_grads, counts = _member_emulation(st, term, ops, ct)
+    plain = ps.pair_forward_plain(st, term, **args)
+    assert plain.shape == (st.b_tot, st.c, 3)
+    _close(emu_out.numpy(), plain.numpy(), 1e-5)
+    for e, r in zip(emu_grads, ps.pair_backward_plain(st, term, **args, ct=ct)):
+        _close(e.numpy(), r.numpy(), 3e-5)
+    assert torch.equal(counts, ps.pair_counts_plain(st, **{k: args[k] for k in args if k != "ext"}))
+    for m in range(3):
+        single = {k: (v[:, m] if v.dim() == 2 else v) for k, v in extras.items()}
+        st1, ops1 = teb.pair_operands(bt, cutoff, term.term, single, layout)
+        one = ps.pair_forward_plain(st1, term.term, **{k: ops1[k] for k in args})
+        _close(plain[..., m].numpy(), one.numpy(), 1e-5)
+    assert float(plain.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("name", ["dsf", "coulomb_sr", "ewald_real", "d3ts"])
+def test_multi_sweeps_match_jax(case, name):
+    """``coulomb_dsf_binned_multi``, ``coulomb_sr_binned_multi``,
+    ``ewald_real_binned_multi`` and ``d3ts_binned_multi`` (E = 3) against
+    JAX's: per-member energies and the gradients of the coordinates and of
+    the member-stacked charges or dispersion parameters, for a seeded
+    cotangent of the members' energies; 1e-5 of the largest magnitude (3e-5
+    for the gradients)."""
+    bj, bt, cutoff, _layout, ex = case
+    ext = _member_extras(ex, 3)
+    eta = cutoff / 5.26
+    table = np.random.default_rng(8).uniform(1.0, 3.0, size=(95,)).astype(np.float32)
+    w = np.random.default_rng(9).normal(size=(1, 3)).astype(np.float32)
+    x0 = (torch.stack([ext["c6"], ext["alpha"]], -1) if name == "d3ts" else ext["q"]).numpy()
+
+    def run(mod, s, x, tab):
+        if name == "dsf":
+            return mod.coulomb_dsf_binned_multi(s, x, 4.6, 0.2, cutoff, "exp", True)
+        if name == "coulomb_sr":
+            return mod.coulomb_sr_binned_multi(s, x, 4.6, "exp")
+        if name == "ewald_real":
+            return mod.ewald_real_binned_multi(s, x, float(np.float32(eta)), cutoff)
+        return mod.d3ts_binned_multi(s, {"r4r2": tab}, x, 0.49, 3.5, 0.78)
+
+    def j_loss(coord, x):
+        e = run(jeb, bj.replace(coord=coord), x, jnp.asarray(table))
+        return (e * w).sum(), e
+
+    (_l, je), jg = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(bj.coord, jnp.asarray(x0))
+    coord = bt.coord.clone().requires_grad_(True)
+    xt = torch.tensor(x0, requires_grad=True)
+    te = run(teb, bt.replace(coord=coord), xt, torch.tensor(table))
+    tg = torch.autograd.grad((te * torch.tensor(w)).sum(), (coord, xt))
+    assert te.shape == (1, 3)
+    _close(te.detach().numpy(), je, 1e-5)
+    _close(tg[0].numpy(), jg[0], 3e-5)
+    _close(tg[1].numpy(), jg[1], 3e-5)
+
+
+@pytest.mark.parametrize("name", ["dsf", "coulomb_simple", "coulomb_sr", "ewald_real", "d3ts"])
+def test_member_hand_derivatives_match_autograd(name):
+    """``MemberTerm.g_grad`` (the formulas of csrc/pair_terms.cuh's member
+    functors: each member's value, dg/dd and the receiver's packed scalars'
+    Jacobian) against autograd of ``MemberTerm.g`` in float64, member by
+    member, within 1e-6 of the largest magnitude."""
+    term, _cut = _member_term(name, 15.0, 3)
+    rng = np.random.default_rng(5)
+    n_pairs, k = 200, len(term.scalar_keys)
+    d = torch.tensor(rng.uniform(0.8, 14.0, size=n_pairs), dtype=torch.float64, requires_grad=True)
+    si = torch.tensor(rng.uniform(0.5, 3.0, size=(n_pairs, k)), dtype=torch.float64, requires_grad=True)
+    sj = torch.tensor(rng.uniform(0.5, 3.0, size=(n_pairs, k)), dtype=torch.float64)
+    valid = torch.ones(n_pairs, dtype=torch.bool)
+    g = term.g(d, si, sj, valid)
+    hg, hd, jac = term.g_grad(d.detach(), si.detach(), sj, valid)
+    _close(hg.numpy(), g.detach().numpy(), 1e-6)
+    for m in range(3):
+        ad, asi = torch.autograd.grad(g[:, m].sum(), (d, si), retain_graph=True)
+        _close(hd[:, m].numpy(), ad.numpy(), 1e-6)
+        _close(jac[:, m].numpy(), asi.numpy(), 1e-6)
+
+
+def test_member_kernel_limits():
+    """The member form takes 1 to MAX_MEMBERS = 8 members of the five
+    terms (accumulators a lane of D and E); its extras are [shared, member
+    scalars]; E's shared memory and shift rows do not grow with E."""
+    for name in ("dsf", "coulomb_simple", "coulomb_sr", "ewald_real", "d3ts"):
+        term, _c = _member_term(name, 15.0, ps.MAX_MEMBERS)
+        k = len(term.scalar_keys)
+        st = ps.PairStatic(b_tot=216, c=80, s_tot=63, k=k, cutoff=15.0, ns=k, members=ps.MAX_MEMBERS)
+        ps.check_width(st, term)
+        assert ps.smem_bytes(st, adjoint=True) <= ps.SMEM_LIMIT
+        assert ps.bwd_scratch_bytes(st) == ps.bwd_scratch_bytes(ps.PairStatic(216, 80, 63, 1, 15.0))
+    assert len(_member_term("d3ts", 15.0, 8)[0].scalar_keys) == 1 + 2 * 8
+    with pytest.raises(ValueError, match="members"):
+        ps.MemberTerm(ps.D3TSTerm(a1=0.49, a2=3.5, s8=0.78), ps.MAX_MEMBERS + 1)
+    with pytest.raises(ValueError, match="no member form"):
+        ps.MemberTerm(ps.D3CNTerm(), 2)
+    term, _c = _member_term("dsf", 15.0, 4)
+    with pytest.raises(ValueError, match="members"):
+        ps.check_width(ps.PairStatic(216, 80, 63, 4, 15.0, ns=4, members=3), term)
