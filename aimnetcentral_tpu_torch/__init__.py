@@ -16,7 +16,12 @@ products on the indexed layout (``calculators/derivatives.py``; the kernels'
 wrappers are twice differentiable on the binned layouts), harmonic
 vibrations, IR intensities and RRHO thermochemistry, transition-state
 search and climbing-image NEB (``dynamics/``); MD and FIRE on the binned
-and the indexed engines.  See ROADMAP.md for what is still to come.
+and the indexed engines; ensembles (``calculators/ensemble.py``); the ASE,
+PySisyphus and TorchSim adapters, the observables harness
+(``validation/``) and the command line (``cli.py``).  See ROADMAP.md for
+what is still to come.
 """
+
+__version__ = "0.1.0"
 
 from aimnetcentral_tpu_torch.device import resolve_device  # noqa: F401

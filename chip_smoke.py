@@ -102,7 +102,26 @@ Phases (any failure exits nonzero; nothing is caught):
    spans); the card against the CPU on 1,200 atoms and an 8-molecule
    packed batch within ``CHECK_ABS``; a request with an element outside
    ``implemented_species`` refused without a launch;
-12. second_order: second derivatives at full width
+12. integrations: the adapters and the command line on the card
+   (``phase_integrations``), with tests/torch_fakes.py's fakes of ASE and
+   of a TorchSim state: AIMNet2ASE on flagship-10k (ten requests with
+   stress against ten direct ``eval`` requests on the same moved inputs,
+   within ``CHECK_ABS``; A, B 3 and D, E 1 a request; the median ms of
+   each path and the adapter's added host ms) and its ``get_hessian`` on
+   mol-113 (``eval(hessian=True)`` reshaped bit for bit, symmetric, no
+   launch); AIMNet2Pysis on mol-113 (forces in Hartree/Bohr, a repeat from
+   the cache); AIMNet2TorchSim on packed-32x113 (wb97m-d3, molecule bins,
+   A, B, D, E 3) and a 1,200-atom periodic state with stress (binned),
+   positions on the card (launches as a direct request, results within
+   ``CHECK_ABS`` of ``eval`` on the same batch, outputs on the card in
+   float64, ms a call and the host round trip); the CLI's ``sp`` (mol-113
+   xyz, the 1,200-atom box as CIF: the printed energy), ``md`` (NVE at 0 K,
+   20 steps on the box: ``final_epot_eV`` against ``MDDriver`` on the
+   calculator's binned System), ``relax``, ``freq``, ``neb`` and ``info``
+   on phase 11's wb97m-d3 artifact, each against the direct API (through
+   click's test runner, or the commands' plain bodies without click); the
+   validation model of tools/validate_torch.py on the card against the
+   committed tools/validate_baseline.json and against the CPU;: second derivatives at full width
    (``phase_second_order``): the dense Hessian of mol-113 (flagship and
    wb97m-d3) through ``AIMNet2Calculator.eval(hessian=True)`` at ``exact``
    (indexed, no launch), gated on being finite, symmetric, translation
@@ -121,7 +140,7 @@ Phases (any failure exits nonzero; nothing is caught):
    simple Coulomb): A, B, D and E as the primals (A 3, B 6, D 1, E 1)
    against the all-plain route on the card within a limit that the ``fast``
    tier must exceed, and the time of each route;
-13. long_range: Ewald, PME, SRRep, DispParam, D3TS and a model without
+14. long_range: Ewald, PME, SRRep, DispParam, D3TS and a model without
    d2features at full width (``phase_long_range``): D and E with the
    real-space Ewald term (its SR part inside; on ewald-10k's LR grid at
    21.7 A and on the 1,200-atom box's, where one atom meets several images
@@ -136,7 +155,7 @@ Phases (any failure exits nonzero; nothing is caught):
    at exact, the same 25 fs at 0.25 fs (the NVE gate) and a bitwise repeat
    of two drivers; one Ewald HVP card against CPU with a ``fast`` control;
    the phase's seconds;
-14. ensemble: four random flagship members (seeds 0-3) at full width and
+15. ensemble: four random flagship members (seeds 0-3) at full width and
    the exact tier (``phase_ensemble``): A and B at the fused forward's
    member-stacked widths (G*F = 1,024 and 1,088, column tiles) on the 10k
    request SR grid, beside the single model's 272, and the member forms of
@@ -166,7 +185,7 @@ ensemble phase's forms of A, B and of D, E (the fused request's and MD
 step's shapes: A and B at G*F = 1,088, D and E DSF's member form on the
 fused request's LR grid), counted over
 the fused requests and the ensemble MD window; ``launches`` counts every main-path run (both configurations'
-requests, the gas, packed and artifact phases' requests, the MD windows,
+requests, the gas, packed, artifact and integrations phases' requests, the MD windows,
 the second_order phase's IR request and kernel-route HVPs, and the
 long_range phase's requests and MD windows) and
 ``launches_per_md_step`` the launches per MD
@@ -2904,6 +2923,412 @@ def phase_ensemble(params, cfg, coord, numbers, cell, single_launches: dict, sin
     return res
 
 
+INT_SYMBOLS = {1: "H", 6: "C", 7: "N", 8: "O"}
+INT_ASE_REQUESTS = 10  # adapter requests on flagship-10k, each beside a direct one on the same moved input
+INT_TS_CALLS = 5  # timed TorchSim calls a state, each beside a direct request
+
+
+def voigt(stress) -> np.ndarray:
+    """A (3, 3) stress symmetrised, in ASE's Voigt order xx, yy, zz, yz, xz, xy."""
+    s = np.asarray(stress, dtype=np.float64)
+    s = 0.5 * (s + s.T)
+    return np.array([s[0, 0], s[1, 1], s[2, 2], s[1, 2], s[0, 2], s[0, 1]])
+
+
+def write_xyz(path: str, coord, numbers) -> None:
+    with open(path, "w") as fh:
+        fh.write(f"{len(numbers)}\n\n")
+        fh.writelines(f"{INT_SYMBOLS[int(z)]} {x:.8f} {y:.8f} {w:.8f}\n" for z, (x, y, w) in zip(numbers, coord))
+
+
+def write_cif(path: str, coord, numbers, cell) -> None:
+    """A P1 CIF of a box with an orthorhombic cell."""
+    frac = np.asarray(coord, np.float64) @ np.linalg.inv(np.asarray(cell, np.float64))
+    a, b, c = np.diag(cell)
+    lines = ["data_box", f"_cell_length_a {a:.8f}", f"_cell_length_b {b:.8f}", f"_cell_length_c {c:.8f}",
+             "_cell_angle_alpha 90", "_cell_angle_beta 90", "_cell_angle_gamma 90", "loop_",
+             "_atom_site_type_symbol", "_atom_site_fract_x", "_atom_site_fract_y", "_atom_site_fract_z"]
+    lines += [f"{INT_SYMBOLS[int(z)]} {x:.10f} {y:.10f} {w:.10f}" for z, (x, y, w) in zip(numbers, frac)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def counted(fn):
+    """``fn()``'s result and every kernel's launches while it ran (read as
+    differences: the phase's own count runs on underneath)."""
+    wrappers = counters()
+    before = read_counts(wrappers)
+    out = fn()
+    return out, {name: n - before[name] for name, n in read_counts(wrappers).items()}
+
+
+def gate(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SystemExit(f"FAIL: {msg}")
+
+
+def int_ase(calc, coord, numbers, cell, ase_mod) -> dict:
+    """AIMNet2ASE on flagship-10k against direct requests, and get_hessian
+    on mol-113."""
+    import torch
+    from torch_fakes import FakeAtoms, RecordingCalc
+
+    rng = np.random.default_rng(21)
+    inputs = [(coord + rng.normal(scale=0.05, size=coord.shape)).astype(np.float32) for _ in range(INT_ASE_REQUESTS)]
+    spy = RecordingCalc(calc)
+    ase_calc = ase_mod.AIMNet2ASE(spy)
+    per = {"conv_stencil_forward": 3, "conv_stencil_backward": 3, "pair_sweep_forward": 1, "pair_sweep_backward": 1}
+    t_direct, t_adapter, t_inner, diffs = [], [], [], {"energy": 0.0, "forces": 0.0, "stress": 0.0}
+    launches = {"direct": {n: 0 for n in per}, "adapter": {n: 0 for n in per}}
+    for x in inputs:
+        data = {"coord": x, "numbers": numbers, "charge": 0.0, "cell": cell}
+        t0 = time.perf_counter()
+        direct, n_direct = counted(lambda: calc.eval(data, forces=True, stress=True))
+        t_direct.append(time.perf_counter() - t0)
+        atoms = FakeAtoms(x.astype(np.float64), numbers, cell=cell.astype(np.float64), pbc=True)
+        t0 = time.perf_counter()
+        _none, n_adapter = counted(lambda: ase_calc.calculate(atoms, properties=("energy", "forces", "stress")))
+        t_adapter.append(time.perf_counter() - t0)
+        t_inner.append(spy.seconds[-1])
+        gate(calc._prep_cache["kind"] == "binned", "the ASE request on flagship-10k left the binned layout")
+        r = ase_calc.results
+        diffs["energy"] = max(diffs["energy"], abs(r["energy"] - float(direct["energy"][0])))
+        diffs["forces"] = max(diffs["forces"], float(np.abs(r["forces"] - direct["forces"]).max()))
+        diffs["stress"] = max(diffs["stress"], float(np.abs(r["stress"] - voigt(direct["stress"][0])).max()))
+        for n in per:
+            launches["direct"][n] += n_direct[n]
+            launches["adapter"][n] += n_adapter[n]
+    log(f"[integrations ase] flagship-10k, {INT_ASE_REQUESTS} adapter requests (energy, forces, stress) against "
+        f"{INT_ASE_REQUESTS} direct eval(forces=True, stress=True) on the same moved inputs: "
+        + ", ".join(f"max |d{k}| {v:.3e} (limit {CHECK_ABS[k]:.0e})" for k, v in diffs.items()))
+    gate(not over_limits(diffs, CHECK_ABS), f"the ASE adapter and eval disagree on flagship-10k: {diffs}")
+    for path, counts in launches.items():
+        want = {n: k * INT_ASE_REQUESTS for n, k in per.items()}
+        gate(counts == want, f"the {path} path launched {counts} over {INT_ASE_REQUESTS} requests, want {want}")
+    added = [a - i for a, i in zip(t_adapter, t_inner)]
+    res = {"diffs": diffs, "launches": launches, "direct_ms": float(np.median(t_direct)) * 1e3,
+           "adapter_ms": float(np.median(t_adapter)) * 1e3, "added_host_ms": float(np.median(added)) * 1e3}
+    log(f"[integrations ase] launches over the {INT_ASE_REQUESTS} adapter requests {launches['adapter']} (as the "
+        f"direct ones); median ms a request: direct {res['direct_ms']:.2f}, adapter {res['adapter_ms']:.2f}; the "
+        f"adapter's added host ms (its wall time less the calculator's): median {res['added_host_ms']:.3f}, "
+        f"max {max(added) * 1e3:.3f}")
+
+    mol = gas_cluster(113, seed=1)
+    t0 = time.perf_counter()
+    h, n_h = counted(lambda: ase_calc.get_hessian(FakeAtoms(mol["coord"].astype(np.float64), mol["numbers"])))
+    t_h = time.perf_counter() - t0
+    direct_h = calc.eval({"coord": mol["coord"], "numbers": mol["numbers"], "charge": 0.0}, hessian=True)["hessian"]
+    n3 = 3 * len(mol["numbers"])
+    ref = np.asarray(direct_h, dtype=np.float64).reshape(n3, n3)
+    asym = float(np.abs(h - h.T).max() / np.abs(h).max())
+    gate(not any(n_h.values()), f"get_hessian launched kernels: {n_h}")
+    gate(h.shape == (n3, n3) and np.isfinite(h).all(), f"get_hessian gave {h.shape}")
+    gate(np.array_equal(h, ref), f"get_hessian differs from eval(hessian=True) by {np.abs(h - ref).max():.3e}")
+    gate(asym <= SO_SYM_REL, f"get_hessian's asymmetry {asym:.3e} over {SO_SYM_REL:.0e}")
+    torch.cuda.synchronize()
+    log(f"[integrations ase] get_hessian on mol-113: ({n3}, {n3}), equal to eval(hessian=True) reshaped bit for "
+        f"bit, max |H - H^T| {asym:.2e} of max |H| (limit {SO_SYM_REL:.0e}), no launch, {t_h:.2f} s")
+    res.update(hessian_s=t_h, hessian_asym=asym, hessian_launches=n_h)
+    return res
+
+
+def int_pysis(calc, ase_mod) -> dict:
+    """AIMNet2Pysis on mol-113: forces in Hartree/Bohr against the direct
+    request's, and a repeat served from the adapter's cache."""
+    from aimnetcentral_tpu_torch import constants
+    from torch_fakes import RecordingCalc
+
+    mol = gas_cluster(113, seed=1)
+    elem = [INT_SYMBOLS[int(z)] for z in mol["numbers"]]
+    coords_bohr = mol["coord"].astype(np.float64).reshape(-1) / constants.Bohr
+    spy = RecordingCalc(calc)
+    pysis = ase_mod.AIMNet2Pysis(spy)
+    got = pysis.get_forces(elem, coords_bohr)
+    data = {"coord": (coords_bohr.reshape(-1, 3) * constants.Bohr).astype(np.float32), "numbers": mol["numbers"],
+            "charge": 0.0, "mult": 1.0}
+    direct = calc.eval(data, forces=True)
+    scale = constants.Bohr / constants.Hartree
+    df = float(np.abs(got["forces"] - direct["forces"].reshape(-1) * scale).max())
+    de = abs(got["energy"] - float(direct["energy"][0]) / constants.Hartree)
+    gate(df <= CHECK_ABS["forces"] * scale and de <= CHECK_ABS["energy"] / constants.Hartree,
+         f"the PySisyphus forces disagree with eval's: |dF| {df:.3e} Eh/Bohr, |dE| {de:.3e} Eh")
+    n_calls = len(spy.calls)
+    again, n_again = counted(lambda: pysis.get_forces(elem, coords_bohr))
+    gate(len(spy.calls) == n_calls and not any(n_again.values()), "a repeated PySisyphus request reached the card")
+    gate(np.array_equal(again["forces"], got["forces"]), "a cached PySisyphus request changed its forces")
+    log(f"[integrations pysis] mol-113 forces (Hartree/Bohr) against eval's times Bohr/Hartree: max |dF| {df:.3e} "
+        f"(limit {CHECK_ABS['forces'] * scale:.2e}), |dE| {de:.3e} Eh; a repeat is served from the cache, no launch")
+    return {"dF": df, "dE": de}
+
+
+def int_torchsim(label: str, calc, state, stress: bool, per_call: dict, kind: str) -> dict:
+    """AIMNet2TorchSim on a state on the card: layout, launches, results
+    against a direct ``eval`` on the same (B, N, 3) data, outputs on the
+    card in JAX's dtypes; ms a call and the host round trip."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators.torchsim_adapter import AIMNet2TorchSim
+    from torch_fakes import RecordingCalc
+
+    spy = RecordingCalc(calc)
+    adapter = AIMNet2TorchSim(spy, compute_stress=stress)
+    adapter(state)  # builds the layout
+    out, n_out = counted(lambda: adapter(state))
+    gate(calc._prep_cache["kind"] == kind, f"{label} ran on the {calc._prep_cache['kind']} layout, not {kind}")
+    gate(n_out == per_call, f"{label} launched {n_out} a call, want {per_call}")
+    data = adapter._state_to_data(state)
+    direct, n_direct = counted(lambda: calc.eval(data, forces=True, stress=stress))
+    gate(n_direct == n_out, f"{label}: a direct request launched {n_direct}, the adapter {n_out}")
+    diffs = {"energy": float(np.abs(out["energy"].cpu().numpy() - direct["energy"]).max()),
+             "forces": float(np.abs(out["forces"].cpu().numpy() - direct["forces"]).max())}
+    if stress:
+        diffs["stress"] = float(np.abs(out["stress"].cpu().numpy() - np.swapaxes(direct["stress"], -1, -2)).max())
+    gate(not over_limits(diffs, CHECK_ABS), f"{label}: the TorchSim adapter and eval disagree: {diffs}")
+    for k, v in out.items():
+        gate(v.device == state.positions.device and v.dtype == torch.float64,
+             f"{label}: {k} came back on {v.device} as {v.dtype}")
+    t_adapter, t_inner, t_direct = [], [], []
+    for _ in range(INT_TS_CALLS):
+        t0 = time.perf_counter()
+        adapter(state)
+        torch.cuda.synchronize()
+        t_adapter.append(time.perf_counter() - t0)
+        t_inner.append(spy.seconds[-1])
+        t0 = time.perf_counter()
+        calc.eval(data, forces=True, stress=stress)
+        t_direct.append(time.perf_counter() - t0)
+    trip = [a - i for a, i in zip(t_adapter, t_inner)]
+    res = {"layout": kind, "launches": n_out, "diffs": diffs, "ms": float(np.median(t_adapter)) * 1e3,
+           "direct_ms": float(np.median(t_direct)) * 1e3, "round_trip_ms": float(np.median(trip)) * 1e3}
+    log(f"[integrations torchsim {label}] {kind} layout, launches a call {n_out} (as a direct request); outputs on "
+        f"{state.positions.device} in float64; " + ", ".join(f"max |d{k}| {v:.3e}" for k, v in diffs.items())
+        + f"; ms a call (median of {INT_TS_CALLS}): adapter {res['ms']:.2f}, direct {res['direct_ms']:.2f}, host "
+        f"round trip {res['round_trip_ms']:.3f} (max {max(trip) * 1e3:.3f})")
+    return res
+
+
+def int_cli(artifact: str, work: str) -> dict:
+    """The CLI's serving commands on the card on the wb97m-d3 artifact,
+    each held against the direct API: through click's test runner, or the
+    plain command bodies where click is not installed."""
+    import torch
+
+    from aimnetcentral_tpu_torch import cli
+    from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver, fire_relax, frequencies_from_calculator
+    from aimnetcentral_tpu_torch.dynamics.neb import neb as neb_band
+    from aimnetcentral_tpu_torch.io import read_cif, read_xyz
+    from aimnetcentral_tpu_torch.kernels.build import SOURCES
+
+    try:
+        from click.testing import CliRunner
+    except ImportError:
+        CliRunner = None
+        log("[integrations cli] click is not installed here: the commands run through their plain bodies "
+            "(cli.run_*), which print the same text")
+
+    def command(name: str, args: list, body, **kw) -> str:
+        t0 = time.perf_counter()
+        if CliRunner is not None:
+            r = CliRunner().invoke(cli.cli, [name, *map(str, args)])
+            if r.exit_code != 0:
+                import traceback
+
+                if r.exc_info:
+                    traceback.print_exception(*r.exc_info)
+                raise SystemExit(f"FAIL: `{name}` exited {r.exit_code}: {r.output[-400:]}")
+            text = r.output
+        else:
+            out = body(**kw)
+            text = "\n".join(out) + "\n" if isinstance(out, list) else json.dumps(out) + "\n"
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return text
+
+    seconds: dict = {}
+    res: dict = {"click": CliRunner is not None}
+    mol = gas_cluster(113, seed=1)
+    mol_xyz = os.path.join(work, "mol-113.xyz")
+    write_xyz(mol_xyz, mol["coord"], mol["numbers"])
+    prod = {**mol, "coord": mol["coord"] + np.random.default_rng(5).normal(scale=0.15, size=mol["coord"].shape)}
+    prod_xyz = os.path.join(work, "mol-113-moved.xyz")
+    write_xyz(prod_xyz, prod["coord"], prod["numbers"])
+    box_c, numbers_c, cell_c = build_box(N_CHECK, seed=1)
+    box_cif, box_xyz = os.path.join(work, "box-1200.cif"), os.path.join(work, "box-1200.xyz")
+    write_cif(box_cif, box_c, numbers_c, cell_c)
+    write_xyz(box_xyz, box_c, numbers_c)
+    L = float(cell_c[0, 0])
+
+    def direct_calc():
+        return cli._load_calc(artifact, device="cuda")[0]
+
+    # sp on mol-113 (xyz) and on the box (CIF): energy to the printed digits
+    mc, mz = read_xyz(mol_xyz)
+    for label, path, data in (("mol-113", mol_xyz, {"coord": mc, "numbers": mz, "charge": 0.0}),
+                              ("box-1200", box_cif, None)):
+        if data is None:
+            s = read_cif(path)
+            data = {"coord": s["coord"], "numbers": s["numbers"], "charge": 0.0, "cell": s["cell"]}
+        text, n_cli = counted(lambda: command("sp", [artifact, path], cli.run_sp, model=artifact, xyz=path))
+        calc = direct_calc()
+        ref, n_ref = counted(lambda: calc.eval(data, forces=True, stress="cell" in data))
+        printed = text.split("energy (eV):")[1].split()[0]
+        want = f"{ref['energy'][0]:.6f}"
+        gate(printed == want, f"`sp` on {label} printed {printed}, eval gives {want}")
+        gate(n_cli == n_ref, f"`sp` on {label} launched {n_cli}, a direct request {n_ref}")
+        res[f"sp {label}"] = {"energy": printed, "launches": n_cli}
+        log(f"[integrations cli] sp {label}: E {printed} eV as eval's, launches {n_cli} (as a direct request)"
+            + (", stress printed" if "stress" in text else ""))
+
+    # md on the box: zero-temperature NVE, against MDDriver on the same System
+    md_args = ["--thermostat", "nve", "--temperature", 0, "--steps", 20, "--chunk", 10, "--cell", L]
+    text, n_cli = counted(lambda: command("md", [artifact, box_xyz, *md_args], cli.run_md, model=artifact,
+                                          xyz=box_xyz, steps=20, chunk=10, temperature=0.0, thermostat="nve", cell=L))
+    got = json.loads(text.strip().splitlines()[-1])
+    calc = direct_calc()
+    bc, bz = read_xyz(box_xyz)
+    system = calc.prepare_system({"coord": bc, "numbers": bz, "cell": np.eye(3, dtype=np.float32) * L})
+    gate(calc._prep_cache["kind"] == "binned", "the box's md System is not on the binned layout")
+    drv = MDDriver(calc.params, calc.cfg, system, MDConfig(dt_fs=0.5, temperature_K=0.0, thermostat="nve"),
+                   device=calc.device)
+    obs, n_ref = counted(lambda: drv.run(20, chunk=10))
+    de = abs(got["final_epot_eV"] - float(obs["epot"][-1]))
+    gate(de <= CHECK_ABS["energy"], f"`md` final_epot_eV {got['final_epot_eV']} against MDDriver's {obs['epot'][-1]}")
+    gate(n_cli == n_ref and n_cli["conv_stencil_forward"] > 0, f"`md` launched {n_cli}, MDDriver {n_ref}")
+    res["md box-1200"] = {"final_epot_eV": got["final_epot_eV"], "dE": de, "launches": n_cli}
+    log(f"[integrations cli] md box-1200 (NVE, 0 K, 20 steps, --cell {L:.4f}): final_epot_eV "
+        f"{got['final_epot_eV']:.6f}, MDDriver on the calculator's binned System {float(obs['epot'][-1]):.6f}, "
+        f"|dE| {de:.3e} (limit {CHECK_ABS['energy']:.0e}); launches {n_cli} (as MDDriver's)")
+
+    # relax on mol-113: FIRE's info dict
+    text, _n = counted(lambda: command("relax", [artifact, mol_xyz, "--max-steps", 20], cli.run_relax,
+                                       model=artifact, xyz=mol_xyz, max_steps=20))
+    got = json.loads(text.strip().splitlines()[-1])
+    calc = direct_calc()
+    _relaxed, ref = fire_relax(calc.params, calc.cfg, calc.prepare_system({"coord": mc, "numbers": mz}),
+                               fmax=0.05, max_steps=20)
+    gate(got == json.loads(json.dumps(ref)), f"`relax` printed {got}, fire_relax gives {ref}")
+    res["relax mol-113"] = got
+    log(f"[integrations cli] relax mol-113 --max-steps 20: {got} (as fire_relax)")
+
+    # freq on mol-113: frequencies against frequencies_from_calculator
+    text, n_cli = counted(lambda: command("freq", [artifact, mol_xyz, "--n-modes", 6], cli.run_freq, model=artifact,
+                                          xyz=mol_xyz, n_modes=6))
+    got = json.loads(text.strip().splitlines()[-1])
+    freqs, _modes = frequencies_from_calculator(direct_calc(), {"coord": mc, "numbers": mz, "charge": 0.0})
+    dfreq = max(float(np.abs(np.asarray(got["lowest_cm1"]) - np.round(freqs[:6], 2)).max()),
+                abs(got["highest_cm1"] - round(float(freqs[-1]), 2)))
+    gate(dfreq <= 1e-3 and not any(n_cli.values()), f"`freq` off by {dfreq} cm^-1, launches {n_cli}")
+    res["freq mol-113"] = {**got, "d_cm1": dfreq}
+    log(f"[integrations cli] freq mol-113 --n-modes 6: lowest {got['lowest_cm1']}, highest {got['highest_cm1']} "
+        f"cm^-1, within {dfreq:.1e} of frequencies_from_calculator (limit 1e-3), no launch")
+
+    # a short NEB between mol-113 and a moved copy
+    neb_args = ["--n-images", 5, "--max-steps", 5]
+    text, _n = counted(lambda: command("neb", [artifact, mol_xyz, prod_xyz, *neb_args], cli.run_neb, model=artifact,
+                                       reactant_xyz=mol_xyz, product_xyz=prod_xyz, n_images=5, max_steps=5))
+    got = json.loads(text.strip().splitlines()[-1])
+    calc = direct_calc()
+    pc, pz = read_xyz(prod_xyz)
+    _band, energies, info = neb_band(calc.params, calc.cfg, {"coord": mc, "numbers": mz, "charge": 0.0},
+                                     {"coord": pc, "numbers": pz, "charge": 0.0}, n_images=5, device=calc.device,
+                                     max_steps=5)
+    e = energies.cpu().numpy().astype(np.float64)
+    dbar = abs(got["barrier_eV"] - round(float(e.max() - e[0]), 6))
+    gate(got["steps"] == info["steps"] and got["i_ts"] == info["i_ts"] and dbar <= CHECK_ABS["energy"],
+         f"`neb` printed {got}, neb gives steps {info['steps']}, i_ts {info['i_ts']}, barrier {e.max() - e[0]}")
+    res["neb mol-113"] = got
+    log(f"[integrations cli] neb mol-113 (5 images, 5 iterations): barrier {got['barrier_eV']} eV, i_ts "
+        f"{got['i_ts']}, as neb()")
+
+    text = command("info", [], cli.run_info)
+    gate("cuda available: True" in text and f"{len(SOURCES)} of {len(SOURCES)}" in text, f"`info` printed {text}")
+    res["info"] = text.strip().splitlines()
+    for line in res["info"]:
+        log(f"[integrations cli] info: {line}")
+    torch.cuda.synchronize()
+    res["seconds"] = seconds
+    log("[integrations cli] seconds by command: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    return res
+
+
+def int_observables() -> dict:
+    """tools/validate_torch.py's model on the card against the committed
+    baseline and against the port's CPU dump."""
+    import importlib.util
+
+    from aimnetcentral_tpu_torch.validation import compare_observables, dump_observables
+
+    spec = importlib.util.spec_from_file_location("validate_torch", os.path.join(ROOT, "tools", "validate_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    limits = dict(energy_atol=tool.ENERGY_ATOL, force_atol=tool.FORCE_ATOL, charge_atol=tool.CHARGE_ATOL)
+    card, n_card = counted(lambda: dump_observables(tool.build_calculator("cuda")))
+    cpu = dump_observables(tool.build_calculator("cpu"))
+    res = {}
+    for label, ref in (("the committed baseline", tool.BASELINE), ("the CPU", cpu)):
+        ok, report = compare_observables(ref, card, **limits)
+        for line in report.splitlines():
+            log(f"[integrations observables] card against {label}: {line}")
+        gate(ok, f"the validation model's card dump fails against {label}")
+        res[label] = report
+    gate(not any(n_card.values()), f"the validation model launched kernels: {n_card}")
+    return res
+
+
+def phase_integrations(calc, calc_d3, coord, numbers, cell, artifact: str) -> dict:
+    """The integrations on the card (``phase_integrations``): the ASE
+    adapter on flagship-10k (ten requests against ten direct ones on the
+    same moved inputs: energy, forces and the symmetrised stress within
+    ``CHECK_ABS``, A, B 3 and D, E 1 a request, the adapter's added host
+    time) and its ``get_hessian`` on mol-113 (bit for bit
+    ``eval(hessian=True)`` reshaped, symmetric, no launch); PySisyphus on
+    mol-113 (forces times Bohr/Hartree, a repeat from the cache, no
+    launch); TorchSim on packed-32x113 (wb97m-d3, molecule bins, A, B, D,
+    E 3) and a 1,200-atom periodic state with stress (binned, A, B 3 and D,
+    E 1), positions on the card (launches as a direct request, results
+    within ``CHECK_ABS`` of a direct ``eval`` on the same (B, N, 3) data,
+    outputs on the card in float64, ms a call and the host round trip);
+    the CLI's ``sp`` (mol-113 xyz, the box as CIF), ``md`` (NVE at 0 K on
+    the box with ``--cell``), ``relax``, ``freq``, ``neb`` and ``info`` on
+    the wb97m-d3 artifact, each against the direct API; the validation
+    model's dump on the card against the committed baseline and the CPU.
+    The fakes of ASE and of a TorchSim state are tests/torch_fakes.py's."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_fakes import FakeSimState, fake_ase
+
+    t_phase = time.perf_counter()
+    wrappers = reset_counts()
+    res: dict = {}
+    with fake_ase("aimnetcentral_tpu_torch.calculators.ase_adapter") as (ase_mod,):
+        res["ase"] = int_ase(calc, coord, numbers, cell, ase_mod)
+        res["pysis"] = int_pysis(calc, ase_mod)
+
+    batch = [gas_cluster(113, seed=200 + k) for k in range(32)]
+    dev = torch.device("cuda")
+    state = FakeSimState(
+        positions=torch.tensor(np.concatenate([m["coord"] for m in batch]), device=dev),
+        atomic_numbers=torch.tensor(np.concatenate([m["numbers"] for m in batch]), device=dev),
+        system_idx=torch.tensor(np.repeat(np.arange(32), 113), device=dev),
+    )
+    three = {n: 3 for n in counters()}
+    res["torchsim packed-32x113"] = int_torchsim("packed-32x113", calc_d3, state, False, three, "packed")
+    box_c, numbers_c, cell_c = build_box(N_CHECK, seed=1)
+    state = FakeSimState(positions=torch.tensor(box_c, device=dev), atomic_numbers=torch.tensor(numbers_c, device=dev),
+                         cell=torch.tensor(cell_c.T.copy(), device=dev), pbc=True)
+    one = {**three, "pair_sweep_forward": 1, "pair_sweep_backward": 1}
+    res["torchsim periodic-1200"] = int_torchsim("periodic-1200", calc, state, True, one, "binned")
+
+    with tempfile.TemporaryDirectory() as work:
+        res["cli"] = int_cli(artifact, work)
+    res["observables"] = int_observables()
+    launches = read_counts(wrappers)
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[integrations] launches in the phase {launches}; phase done in {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
@@ -2973,6 +3398,8 @@ def main() -> None:
     results["md_gas"] = phase_md_gas(params, cfg, params_d3, cfg_d3)
     with tempfile.TemporaryDirectory() as out_dir:
         results["artifact"] = phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir)
+        results["integrations"] = phase_integrations(calc, calc_d3, coord, numbers, cell,
+                                                     os.path.join(out_dir, "artifact-wb97m-d3.pt"))
     results["second_order"] = phase_second_order(params, cfg, params_d3, cfg_d3)
     results["long_range"] = phase_long_range(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
     single_per_request = {name: n // 3 for name, n in results["main"]["launches"].items()}
@@ -2983,6 +3410,7 @@ def main() -> None:
         k["launches"] += results["long_range"]["launches"][k["name"]]
         k["launches"] += results["second_order"]["launches"][k["name"]]
         k["launches"] += results["artifact"]["launches"][k["name"]]
+        k["launches"] += results["integrations"]["launches"][k["name"]]
         k["launches"] += results["packed"]["launches"][k["name"]]
         k["launches"] += sum(w["launches"][k["name"]] for w in results["md_gas"]["windows"].values())
         k["launches"] += sum(w["launches"][k["name"]] for w in md_runs["windows"].values())

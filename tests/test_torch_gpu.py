@@ -930,3 +930,136 @@ def test_binned_dense_hessian_card_matches_cpu(cuda_device):
     ref = AIMNet2Calculator((params, cfg), device="cpu").eval(box, hessian=True)["hessian"]
     np.testing.assert_allclose(hs["cuda"].numpy(), hs["cpu"].numpy(), atol=1e-4, rtol=0)
     np.testing.assert_allclose(hs["cpu"].numpy(), ref, atol=1e-4, rtol=0)
+
+
+# -- the integrations: ASE, PySisyphus, TorchSim, the CLI and the observables -------------
+
+# chip_smoke.py's absolute limits of a card-against-CPU check
+CHECK_ABS = {"energy": 3e-5, "forces": 1e-5, "stress": 2e-8}
+COUNTERS = (cs.conv_stencil_forward, cs.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
+
+
+def _launches_of(fn) -> list[int]:
+    """The four kernels' launches while ``fn`` runs."""
+    for c in COUNTERS:
+        c.launches = 0
+    fn()
+    return [c.launches for c in COUNTERS]
+
+
+def _within_check_abs(card: dict, cpu: dict, keys=("energy", "forces", "stress")):
+    for k in keys:
+        if k in cpu:
+            np.testing.assert_allclose(np.asarray(card[k]), np.asarray(cpu[k]), rtol=0, atol=CHECK_ABS[k], err_msg=k)
+
+
+def test_ase_adapter_card_matches_cpu(cuda_device):
+    """AIMNet2ASE on the 60-atom box (binned, stress; wb97m-d3 heads: A, B
+    and D, E three times a request) and get_hessian of a molecule (indexed,
+    no launch), the card against the CPU."""
+    from torch_fakes import FakeAtoms, fake_ase
+
+    params, cfg = _narrow_model(CPU, d3=True)
+    box = _box()
+    mol = _cluster(12, 5)
+    res = []
+    with fake_ase("aimnetcentral_tpu_torch.calculators.ase_adapter") as (mod,):
+        for dev in (CPU, cuda_device):
+            ase_calc = mod.AIMNet2ASE(AIMNet2Calculator((params, cfg), device=dev, binned_threshold=0))
+            atoms = FakeAtoms(box["coord"], box["numbers"], cell=box["cell"], pbc=True)
+            launches = _launches_of(lambda: ase_calc.calculate(atoms, properties=("energy", "forces", "stress")))
+            assert launches == ([3, 3, 3, 3] if dev.type == "cuda" else [0, 0, 0, 0])
+            hess = []
+            assert _launches_of(lambda: hess.append(ase_calc.get_hessian(FakeAtoms(mol["coord"], mol["numbers"])))) \
+                == [0, 0, 0, 0]
+            res.append(({k: np.asarray(v) for k, v in ase_calc.results.items()}, hess[0]))
+    (cpu, h_cpu), (card, h_card) = res
+    _within_check_abs(card, cpu)
+    np.testing.assert_allclose(h_card, h_cpu, rtol=0, atol=1e-4)
+
+
+def test_pysis_adapter_card_matches_cpu(cuda_device):
+    from aimnetcentral_tpu_torch.calculators.ase_adapter import AIMNet2Pysis
+
+    params, cfg = _narrow_model(CPU, d3=True)
+    mol = _cluster(23, 1)
+    elem = [("X", "H", "He", "Li", "Be", "B", "C", "N", "O")[z] for z in mol["numbers"]]
+    coords = mol["coord"].astype(np.float64).reshape(-1) / constants.Bohr
+    cpu, card = (AIMNet2Pysis(AIMNet2Calculator((params, cfg), device=dev)).get_forces(elem, coords)
+                 for dev in (CPU, cuda_device))
+    scale = constants.Bohr / constants.Hartree
+    assert abs(card["energy"] - cpu["energy"]) <= CHECK_ABS["energy"] / constants.Hartree
+    np.testing.assert_allclose(card["forces"], cpu["forces"], rtol=0, atol=CHECK_ABS["forces"] * scale)
+
+
+@pytest.mark.parametrize("case", ["packed", "binned"])
+def test_torchsim_adapter_card_matches_cpu(cuda_device, case):
+    """A batch of molecules on the molecule-bin layout and a periodic box
+    with stress on the binned one, positions on the card: the outputs are
+    CUDA tensors in float64, within ``CHECK_ABS`` of the CPU's."""
+    from aimnetcentral_tpu_torch.calculators.torchsim_adapter import AIMNet2TorchSim
+    from torch_fakes import FakeSimState
+
+    params, cfg = _narrow_model(CPU, d3=True)
+    if case == "packed":
+        mols = [_cluster(n, 30 + n) for n in (40, 57, 74, 91)]
+        pos = np.concatenate([m["coord"] for m in mols])
+        numbers = np.concatenate([m["numbers"] for m in mols])
+        sys_idx = np.repeat(np.arange(len(mols)), [len(m["numbers"]) for m in mols])
+        extra, threshold = {"system_idx": sys_idx}, 128
+    else:
+        box = _box()
+        pos, numbers, threshold = box["coord"], box["numbers"], 0
+        extra = {"cell": box["cell"].T, "pbc": True}
+    outs = []
+    for dev in (CPU, cuda_device):
+        calc = AIMNet2Calculator((params, cfg), device=dev, binned_threshold=threshold)
+        state = FakeSimState(positions=torch.tensor(pos, device=dev), atomic_numbers=torch.tensor(numbers, device=dev),
+                             **{k: (torch.tensor(v, device=dev) if isinstance(v, np.ndarray) else v)
+                                for k, v in extra.items()})
+        adapter = AIMNet2TorchSim(calc, compute_stress=case == "binned")
+        launches = _launches_of(lambda: outs.append(adapter(state)))
+        assert calc._prep_cache["kind"] == case
+        assert launches == ([3, 3, 3, 3] if dev.type == "cuda" else [0, 0, 0, 0])
+        for k, v in outs[-1].items():
+            assert v.device.type == dev.type and v.dtype == torch.float64, k
+    cpu, card = ({k: v.cpu().numpy() for k, v in out.items()} for out in outs)
+    _within_check_abs(card, cpu)
+
+
+def test_cli_sp_card_matches_cpu(cuda_device, tmp_path):
+    """The ``sp`` command's body on a port-exported artifact: the card's
+    printed energy and largest force equal the CPU's to the printed
+    digits (within ``CHECK_ABS``)."""
+    from aimnetcentral_tpu_torch import cli
+    from aimnetcentral_tpu_torch.train.export import export_model
+
+    params, cfg = _narrow_model(CPU, d3=True)
+    path = str(tmp_path / "m.pt")
+    export_model(params, cfg, path, sae={1: -13.6, 6: -1029.8, 7: -1485.3, 8: -2042.6},
+                 implemented_species=[1, 6, 7, 8])
+    mol = _cluster(23, 1)
+    xyz = tmp_path / "mol.xyz"
+    symbols = {1: "H", 6: "C", 7: "N", 8: "O"}
+    xyz.write_text(f"{len(mol['numbers'])}\n\n" + "".join(
+        f"{symbols[int(z)]} {x:.8f} {y:.8f} {w:.8f}\n" for z, (x, y, w) in zip(mol["numbers"], mol["coord"])))
+    cpu, card = (cli.run_sp(path, str(xyz), device=dev) for dev in ("cpu", cuda_device.type))
+
+    def number(ls, key):
+        return float(next(ln for ln in ls if ln.startswith(key)).split(":")[1])
+
+    for key, tol in (("energy (eV)", CHECK_ABS["energy"]), ("max |force| (eV/A)", CHECK_ABS["forces"])):
+        assert abs(number(card, key) - number(cpu, key)) <= tol + 1e-6, key
+
+
+def test_validate_torch_card_reproduces_the_baseline(cuda_device):
+    """tools/validate_torch.py on the card against the committed baseline
+    (1e-5 eV, 1e-4 eV/A, charges 1e-5)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools", "validate_torch.py")
+    spec = importlib.util.spec_from_file_location("validate_torch", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.check(device="cuda")

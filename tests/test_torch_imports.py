@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: every module of
-``aimnetcentral_tpu_torch`` (dynamics and the indexed layout's neighbor
-builders included) and ``chip_smoke.py`` import in a fresh interpreter where
-both are blocked.  scipy is imported inside the kd-tree build only, never
+``aimnetcentral_tpu_torch`` (dynamics, the indexed layout's neighbor
+builders, the integrations and the CLI included), ``chip_smoke.py``,
+``tests/torch_fakes.py`` and ``tools/validate_torch.py`` import in a fresh
+interpreter where both are blocked.  scipy is imported inside the kd-tree build only, never
 when a module is imported."""
 
 import os
@@ -11,7 +12,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax, or of a jax submodule, raises
 sys.modules["aimnetcentral_tpu"] = None
 import aimnetcentral_tpu_torch
@@ -19,6 +20,12 @@ names = [m.name for m in pkgutil.walk_packages(aimnetcentral_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "tests")
+import torch_fakes
+spec = importlib.util.spec_from_file_location("validate_torch", "tools/validate_torch.py")
+validate_torch = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(validate_torch)
+validate_torch.validation_model()
 assert not any(k == "jax" or k.startswith(("jax.", "aimnetcentral_tpu.")) for k in sys.modules if sys.modules[k])
 assert not any(k == "scipy" or k.startswith("scipy.") for k in sys.modules)
 print(" ".join(names))
@@ -44,5 +51,9 @@ def test_port_imports_no_jax():
                  "aimnetcentral_tpu_torch.dynamics.vibrations", "aimnetcentral_tpu_torch.dynamics.saddle",
                  "aimnetcentral_tpu_torch.dynamics.neb", "aimnetcentral_tpu_torch.models.ewald",
                  "aimnetcentral_tpu_torch.models.pme", "aimnetcentral_tpu_torch.models.ensemble_fused",
-                 "aimnetcentral_tpu_torch.calculators.ensemble"):
+                 "aimnetcentral_tpu_torch.calculators.ensemble",
+                 "aimnetcentral_tpu_torch.calculators.ase_adapter",
+                 "aimnetcentral_tpu_torch.calculators.torchsim_adapter",
+                 "aimnetcentral_tpu_torch.validation", "aimnetcentral_tpu_torch.validation.observables",
+                 "aimnetcentral_tpu_torch.cli"):
         assert must in names
