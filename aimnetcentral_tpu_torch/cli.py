@@ -1,16 +1,17 @@
 """Command-line interface of the port (counterpart of the serving commands of
 aimnetcentral_tpu/cli.py).
 
-Commands: sp (single point), relax (FIRE), md, neb, freq, download,
-clear-model-cache and info.  Every command runs on the card unless the
-group's ``--device cpu`` is given:
+Commands: sp (single point), relax (FIRE), md, neb, freq, train, export,
+calc-sae, download, clear-model-cache and info.  Every command runs on the
+card unless the group's ``--device cpu`` is given:
 
     aimnet-torch sp model.pt water.xyz
     python -m aimnetcentral_tpu_torch.cli --device cpu sp model.pt water.xyz
 
 Each command's body is a plain function (``run_sp``, ``run_relax``,
-``run_md``, ``run_neb``, ``run_freq``, ``run_download``,
-``run_clear_model_cache``, ``run_info``) that takes the options and
+``run_md``, ``run_neb``, ``run_freq``, ``run_train``, ``run_export``,
+``run_calc_sae``, ``run_download``, ``run_clear_model_cache``,
+``run_info``) that takes the options and
 returns the lines or the dict the command prints; click only parses the
 options and echoes, so the bodies also run where click is not installed.
 The drivers get the calculator's own parameters, which live on its device.
@@ -251,6 +252,133 @@ def run_freq(model: str, xyz: str, charge: float = 0.0, n_modes: int = 12, ir: b
     return result
 
 
+def _deep_merge(base: dict, extra: dict) -> dict:
+    """Recursive dict merge, ``extra`` winning (several ``--config`` files
+    merge in order)."""
+    out = dict(base)
+    for k, v in extra.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _apply_dotted_overrides(cfg: dict, args: tuple[str, ...]) -> dict:
+    """Apply ``a.b.c=value`` overrides (values parsed as YAML), last."""
+    import yaml
+
+    for arg in args:
+        if "=" not in arg:
+            raise UsageError(f"override {arg!r} must be KEY.PATH=VALUE (e.g. data.train=x.h5)")
+        key, _, raw = arg.partition("=")
+        node = cfg
+        parts = key.split(".")
+        for p in parts[:-1]:
+            nxt = node.get(p)
+            if not isinstance(nxt, dict):
+                nxt = {}
+                node[p] = nxt
+            node = nxt
+        node[parts[-1]] = yaml.safe_load(raw)
+    return cfg
+
+
+DEFAULT_LOSS_TERMS = (
+    {"kind": "energy", "key_pred": "energy", "key_true": "energy", "weight": 1.0},
+    {"kind": "peratom", "key_pred": "forces", "key_true": "forces", "weight": 0.1},
+)
+
+
+def run_train(config_paths: tuple[str, ...], load_path: str | None = None, hyperpar: str | None = None,
+              overrides: tuple[str, ...] = (), device: str = "cuda") -> list[str]:
+    """Train a model from YAML config(s): later files merge over earlier
+    ones, dotted overrides apply last, Jinja2 hyperparameters render into
+    the configs.  The parameters start from the port's ``aimnet2_init``
+    at the config's ``seed`` (another stream than the JAX package's for the
+    same seed), or from ``--load``: a checkpoint of either package resumes
+    in full (parameters, optimizer, scheduler).  Returns the lines it
+    prints: the result as JSON, and the export's path when ``export`` is
+    set."""
+    from aimnetcentral_tpu_torch.config import load_yaml
+    from aimnetcentral_tpu_torch.data.sgdataset import SizeGroupedDataset
+    from aimnetcentral_tpu_torch.models.aimnet2 import aimnet2_init
+    from aimnetcentral_tpu_torch.models.convert import config_from_yaml
+    from aimnetcentral_tpu_torch.train.loss import LossConfig, LossTerm
+    from aimnetcentral_tpu_torch.train.step import detached
+    from aimnetcentral_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg_dict: dict = {}
+    for cp in config_paths:
+        cfg_dict = _deep_merge(cfg_dict, load_yaml(cp, hyperpar))
+    cfg_dict = _apply_dotted_overrides(cfg_dict, overrides)
+
+    model_cfg = config_from_yaml(cfg_dict["model"])
+    params = aimnet2_init(model_cfg, seed=int(cfg_dict.get("seed", 0)), device=device)
+
+    ds = SizeGroupedDataset(cfg_dict["data"]["train"])
+    val = SizeGroupedDataset(cfg_dict["data"]["val"]) if cfg_dict["data"].get("val") else None
+    sae = None
+    if cfg_dict["data"].get("sae", True):
+        sae = ds.apply_peratom_shift()
+        if val is not None:
+            val.apply_peratom_shift(sap_dict=sae)
+
+    terms = tuple(LossTerm(**t) for t in cfg_dict.get("loss", {}).get("terms", DEFAULT_LOSS_TERMS))
+    trainer = Trainer(model_cfg, params, ds, val_ds=val, tcfg=TrainerConfig(**cfg_dict.get("trainer", {})),
+                      loss_cfg=LossConfig(terms=terms), device=device)
+    if load_path:
+        # a full resume when the checkpoint carries the optimizer and the
+        # scheduler; a weights-only file restores the parameters
+        trainer.resume(load_path)
+    result = trainer.fit()
+    lines = [json.dumps({"best_val": result["best_val"], "epochs": len(result["history"])})]
+    if cfg_dict.get("export"):
+        from aimnetcentral_tpu_torch.train.export import export_model
+
+        export_model(detached(trainer.state.params), model_cfg, cfg_dict["export"], sae=sae)
+        lines.append(f"exported to {cfg_dict['export']}")
+    return lines
+
+
+def run_export(checkpoint: str, model_yaml: str, output: str, sae_path: str | None = None,
+               species: str | None = None, device: str = "cuda") -> str:
+    """Write a v2 ``.pt`` artifact from a training checkpoint of either
+    package: its parameters read into the port's template of the
+    architecture YAML on ``device``."""
+    import yaml
+
+    from aimnetcentral_tpu_torch.models.aimnet2 import aimnet2_init
+    from aimnetcentral_tpu_torch.models.convert import config_from_yaml
+    from aimnetcentral_tpu_torch.train.export import export_model
+    from aimnetcentral_tpu_torch.train.trainer import load_checkpoint_params
+
+    with open(model_yaml) as f:
+        cfg = config_from_yaml(yaml.safe_load(f))
+    params = load_checkpoint_params(checkpoint, aimnet2_init(cfg, seed=0, device=device))
+    sae = None
+    if sae_path:
+        with open(sae_path) as f:
+            sae = {int(k): float(v) for k, v in yaml.safe_load(f).items()}
+    spec = [int(s) for s in species.split(",")] if species else None
+    export_model(params, cfg, output, sae=sae, implemented_species=spec)
+    return f"exported {output}"
+
+
+def run_calc_sae(dataset: str, output: str) -> str:
+    """Per-element SAE regression of a dataset (an h5 file or a directory
+    of ``???.npz`` groups), written as YAML."""
+    import yaml
+
+    from aimnetcentral_tpu_torch.data.sgdataset import SizeGroupedDataset
+    from aimnetcentral_tpu_torch.train.sae import calc_sae
+
+    sae = calc_sae(SizeGroupedDataset(dataset))
+    with open(output, "w") as f:
+        yaml.safe_dump(sae, f)
+    return f"wrote SAE for {len(sae)} elements to {output}"
+
+
 def run_download(name: str) -> str:
     """Download a registry model into the cache; returns its path."""
     from aimnetcentral_tpu_torch.calculators.registry import download_model
@@ -434,6 +562,42 @@ if click is not None:
             run_freq, model, xyz, charge, n_modes, ir, thermo, temperature, pressure, symmetry_number, mult,
             obj["device"],
         )))
+
+    @cli.command()
+    @click.option("--config", "config_paths", required=True, multiple=True,
+                  help="training yaml (repeatable; later files override earlier ones)")
+    @click.option("--load", "load_path", default=None, help="checkpoint to resume from (either package's)")
+    @click.option("--hyperpar", default=None, help="YAML file of Jinja2 hyperparameters rendered into the config")
+    @click.argument("overrides", nargs=-1)
+    @click.pass_obj
+    def train(obj, config_paths, load_path, hyperpar, overrides) -> None:
+        """Train a model from YAML config(s).
+
+        Multiple ``--config`` files merge in order, and trailing OVERRIDES
+        are dotted assignments applied last, e.g. ``aimnet-torch train
+        --config base.yaml trainer.max_epochs=5 data.train=x.h5``.  The
+        ``trainer.precision`` key takes 'fast' (the default: TF32 matmuls on
+        the card) or 'exact' (FP32 throughout)."""
+        for line in _run(run_train, config_paths, load_path, hyperpar, overrides, obj["device"]):
+            click.echo(line)
+
+    @cli.command()
+    @click.argument("checkpoint")
+    @click.option("--model-yaml", required=True, help="architecture yaml")
+    @click.option("--output", required=True)
+    @click.option("--sae", "sae_path", default=None, help="SAE yaml from calc-sae")
+    @click.option("--species", default=None, help="comma-separated implemented species")
+    @click.pass_obj
+    def export(obj, checkpoint, model_yaml, output, sae_path, species) -> None:
+        """Export a training checkpoint (of either package) to a v2 .pt artifact."""
+        click.echo(run_export(checkpoint, model_yaml, output, sae_path, species, obj["device"]))
+
+    @cli.command("calc-sae")
+    @click.argument("dataset")
+    @click.argument("output")
+    def calc_sae_cmd(dataset, output) -> None:
+        """Per-element SAE regression for a dataset -> yaml."""
+        click.echo(run_calc_sae(dataset, output))
 
     @cli.command()
     @click.argument("name")

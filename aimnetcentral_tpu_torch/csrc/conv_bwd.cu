@@ -44,6 +44,18 @@
 // the tiles in a fixed order (still no atomics).  Shared memory depends on
 // C alone and is unchanged.
 //
+// The AEV constants' adjoint (a second build of the kernel, kConst): the
+// output depends on the radial shifts s_g, eta and rc through
+// gs_g = exp(-eta (d - s_g)^2) fc(d; rc).  With W_c = wbar_0 + sum_k wbar_k
+// u_k, the factor dbar already uses, each pair adds
+//     sbar_g += W_c 2 eta (d - s_g) gs_g,   etabar += -W_c (d - s_g)^2 gs_g,
+//     rcbar  += W_c e_g dfc/drc,  dfc/drc = -fc'(d) d / rc (zero beyond rc).
+// A lane keeps its columns' sbar in registers and one etabar and rcbar sum;
+// at the end the block adds them in shared memory, in warp and column order,
+// and writes its G + 2 partial sums to cbar (B, NJ, G + 2).  The wrapper
+// adds the blocks in a fixed order: no atomics, deterministic.  Training
+// alone asks for it, at a single model's widths (one column tile).
+//
 // What bounds it on an H100: like kernel A, the function's least time is
 // set by the bytes it moves (gbar, features and outputs, each once); its
 // operations are about twice kernel A's per real pair.  This kernel reads
@@ -55,6 +67,8 @@
 // once per 32 offsets, and two blocks an SM keep 16 warps in flight.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -71,8 +85,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Two blocks an SM at M = 9 (at most 128 registers a thread, none spilled):
 // on an H100 at the flagship's shapes that ran far faster than one block of
 // 156 registers.
-template <int M>  // columns of the G*F row a lane owns: c = lane + 32 m, m < M
-__global__ void __launch_bounds__(kThreads, M <= 9 ? 2 : 1)
+// The constants' build (kConst) holds M more registers a lane, so it asks
+// for one block an SM.
+template <int M, bool kConst>  // M: columns of the G*F row a lane owns, c = lane + 32 m, m < M
+__global__ void __launch_bounds__(kThreads, (M <= 9 && !kConst) ? 2 : 1)
 conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
                 const float* __restrict__ mask,      // (B*C)
                 const float* __restrict__ a,         // (B*C, G*F)
@@ -85,8 +101,10 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
                 float* __restrict__ grad_coord,      // (T, B*C, 3) receiver side
                 float* __restrict__ pgrad,           // (T, S, B, NJ, 3, C) partner side
                 int* __restrict__ pair_count,        // (B*C) or null
+                float* __restrict__ cbar,            // kConst: (B, NJ, G + 2) partial sums
                 int B, int C, int G, int F, int S, int W) {
   extern __shared__ float rows[];  // [2][kWarps][3][C]: partner rows, one per warp
+                                   // (kConst: then [kWarps][W + 2], the constants' sums)
   const int jb = blockIdx.x;
   const int jt = blockIdx.y;
   const int NJ = gridDim.y;
@@ -105,14 +123,16 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
   const float rc = scal[1];
   const float pi_rc = kPi / rc;
 
-  float sg[M], av[M], ga[M];
+  float sg[M], av[M], ga[M], sb[M];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     const int cl = lane + 32 * m;
     sg[m] = cl < ncol ? shifts_g[(col0 + cl) / F] : 0.0f;
     av[m] = (real_j && cl < ncol) ? a[row * GF + col0 + cl] : 0.0f;
     ga[m] = 0.0f;
+    sb[m] = 0.0f;
   }
+  float eb = 0.0f, rb = 0.0f;  // kConst: this lane's etabar and rcbar
   float xj0 = 0.0f, xj1 = 0.0f, xj2 = 0.0f;
   if (real_j) {
     xj0 = coord[3 * row + 0];
@@ -187,7 +207,7 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
 #pragma unroll
             for (int k = 0; k < 4; ++k) gv[m][k] = cl < ncol ? __ldg(gb + k * kstride + cl) : 0.0f;
           }
-          float ub0 = 0.0f, ub1 = 0.0f, ub2 = 0.0f, db = 0.0f;
+          float ub0 = 0.0f, ub1 = 0.0f, ub2 = 0.0f, db = 0.0f, we = 0.0f;
 #pragma unroll
           for (int m = 0; m < M; ++m) {
             const int cl = lane + 32 * m;
@@ -208,9 +228,16 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
               ub0 = fmaf(w1, gs, ub0);
               ub1 = fmaf(w2, gs, ub1);
               ub2 = fmaf(w3, gs, ub2);
-              db = fmaf(w0 + w1 * pux + w2 * puy + w3 * puz, dgs, db);
+              const float wc = w0 + w1 * pux + w2 * puy + w3 * puz;
+              db = fmaf(wc, dgs, db);
+              if (kConst) {
+                sb[m] = fmaf(wc * (2.0f * eta * dd), gs, sb[m]);
+                eb = fmaf(-wc * dd * dd, gs, eb);
+                we = fmaf(wc, e, we);
+              }
             }
           }
+          if (kConst) rb = fmaf(we, -pfcp * pd / rc, rb);  // dfc/drc = -fc' d / rc
           ub0 = warp_sum(ub0);
           ub1 = warp_sum(ub1);
           ub2 = warp_sum(ub2);
@@ -264,22 +291,53 @@ conv_bwd_kernel(const float* __restrict__ coord,     // (B*C, 3)
       if (pair_count != nullptr && blockIdx.z == 0) pair_count[row] = npair;
     }
   }
+
+  if (kConst) {
+    // the block's G + 2 sums: each warp's columns, then the warps in order
+    __syncthreads();  // the last offset's partner-row reads are done
+    float* red = rows;  // [kWarps][W] column sums, then [kWarps][2]
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int cl = lane + 32 * m;
+      if (cl < ncol) red[w * W + cl] = sb[m];
+    }
+    eb = warp_sum(eb);
+    rb = warp_sum(rb);
+    if (lane == 0) {
+      red[kWarps * W + 2 * w] = eb;
+      red[kWarps * W + 2 * w + 1] = rb;
+    }
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (t < G + 2) {
+      float sum = 0.0f;
+      for (int v = 0; v < kWarps; ++v) {
+        if (t < G) {
+          for (int f = 0; f < F; ++f) sum += red[v * W + t * F + f];
+        } else {
+          sum += red[kWarps * W + 2 * v + (t - G)];
+        }
+      }
+      cbar[(size_t(jb) * NJ + jt) * (G + 2) + t] = sum;
+    }
+  }
 }
 
-template <int M>
+template <int M, bool kConst>
 int launch(const float* coord, const float* mask, const float* a, const float* gbar,
            const int* mnbr, const float* shift, const float* shifts_g, const float* scal,
-           float* grad_a, float* grad_coord, float* pgrad, int* pair_count, int B, int C,
-           int G, int F, int S, int W, cudaStream_t stream) {
+           float* grad_a, float* grad_coord, float* pgrad, int* pair_count, float* cbar, int B,
+           int C, int G, int F, int S, int W, cudaStream_t stream) {
   // kernels/conv_stencil.py::bwd_smem_bytes computes the same number
-  const size_t smem = sizeof(float) * 2 * kWarps * 3 * size_t(C);
+  size_t smem = sizeof(float) * 2 * kWarps * 3 * size_t(C);
+  if (kConst) smem = std::max(smem, sizeof(float) * kWarps * (size_t(W) + 2));
   cudaError_t err = cudaFuncSetAttribute(
-      conv_bwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      conv_bwd_kernel<M, kConst>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid(B, (C + kWarps - 1) / kWarps, (G * F + W - 1) / W);
-  conv_bwd_kernel<M><<<grid, kThreads, smem, stream>>>(
+  conv_bwd_kernel<M, kConst><<<grid, kThreads, smem, stream>>>(
       coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord, pgrad, pair_count,
-      B, C, G, F, S, W);
+      cbar, B, C, G, F, S, W);
   return int(cudaGetLastError());
 }
 
@@ -296,10 +354,30 @@ extern "C" int conv_bwd_launch(const float* coord, const float* mask, const floa
   if (B < 1 || C < 1 || W < 1 || W > 32 * M || (G * F + W - 1) / W > 64)
     return int(cudaErrorInvalidValue);
   if (M == 9)
-    return launch<9>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
-                     pgrad, pair_count, B, C, G, F, S, W, st);
+    return launch<9, false>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
+                            pgrad, pair_count, nullptr, B, C, G, F, S, W, st);
   if (M == 17)
-    return launch<17>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
-                      pgrad, pair_count, B, C, G, F, S, W, st);
+    return launch<17, false>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
+                             pgrad, pair_count, nullptr, B, C, G, F, S, W, st);
+  return int(cudaErrorInvalidValue);
+}
+
+// The constants' build: as conv_bwd_launch, plus cbar (B, NJ, G + 2), the
+// blocks' partial sums of the adjoints of shifts_g, eta and rc.  One column
+// tile only (W == G * F).
+extern "C" int conv_bwd_const_launch(const float* coord, const float* mask, const float* a,
+                                     const float* gbar, const int* mnbr, const float* shift,
+                                     const float* shifts_g, const float* scal, float* grad_a,
+                                     float* grad_coord, float* pgrad, int* pair_count, float* cbar,
+                                     int B, int C, int G, int F, int S, int M, int W, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || C < 1 || W != G * F || W > 32 * M || G + 2 > kThreads)
+    return int(cudaErrorInvalidValue);
+  if (M == 9)
+    return launch<9, true>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
+                           pgrad, pair_count, cbar, B, C, G, F, S, W, st);
+  if (M == 17)
+    return launch<17, true>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
+                            pgrad, pair_count, cbar, B, C, G, F, S, W, st);
   return int(cudaErrorInvalidValue);
 }

@@ -20,6 +20,7 @@ from aimnetcentral_tpu_torch.kernels.conv_stencil import (
     ConvStatic,
     conv_backward_plain,
     conv_stencil_backward,
+    conv_stencil_backward_constants,
     conv_stencil_forward,
 )
 from aimnetcentral_tpu_torch.ops import binned as B
@@ -66,6 +67,12 @@ class ConvAcc(torch.autograd.Function):
     by double backward runs each conv pass's first adjoint (kernel B) in
     both of its backward passes: the second carries cotangents that depend
     on the pass's output back through the forward graph.
+
+    Where the AEV constants ``shifts_g`` and ``scal`` = (eta, rc) require
+    grad (training, which differentiates them as the JAX package's XLA
+    engine does), the first adjoint is kernel B's constants' build
+    (``conv_stencil_backward_constants``) and returns their adjoints too;
+    inference never asks for them, and runs the build without.
     """
 
     @staticmethod
@@ -78,36 +85,49 @@ class ConvAcc(torch.autograd.Function):
     def backward(ctx, gbar):
         a_gmajor, coord, shift, mask, nbr, mnbr, shifts_g, scal = ctx.saved_tensors
         gbar = gbar.contiguous()
+        constants = ctx.needs_input_grad[7] or ctx.needs_input_grad[8]
         if torch.is_grad_enabled():  # create_graph: the adjoint must itself be differentiable
-            grads = ConvAccBwd.apply(a_gmajor, coord, shift, gbar, ctx.st, mask, nbr, mnbr, shifts_g, scal)
+            grads = ConvAccBwd.apply(a_gmajor, coord, shift, gbar, ctx.st, mask, nbr, mnbr, shifts_g, scal,
+                                     constants)
         else:  # first order: kernel B alone, no node to record
-            grads = conv_stencil_backward(ctx.st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
-        return (*grads, None, None, None, None, None, None)
+            kernel = conv_stencil_backward_constants if constants else conv_stencil_backward
+            grads = kernel(ctx.st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
+        consts = tuple(grads[3:]) if constants else (None, None)
+        return (*grads[:3], None, None, None, None, *consts)
 
 
 class ConvAccBwd(torch.autograd.Function):
     """ConvAcc's adjoint as a differentiable function of ``a_gmajor``,
-    ``coord``, ``shift`` and the cotangent ``gbar``: kernel B (or its plain
-    version on the CPU) forward; backward the VJP of ``conv_backward_plain``
-    in all four, the reverse-mode form of ``jax.jvp`` of the twin's VJP in
+    ``coord``, ``shift`` and the cotangent ``gbar`` (and, with
+    ``constants``, of ``shifts_g`` and ``scal``, whose adjoints it then
+    returns too): kernel B (or its plain version on the CPU) forward;
+    backward the VJP of ``conv_backward_plain`` in all of them, the
+    reverse-mode form of ``jax.jvp`` of the twin's VJP in
     ``_conv_bwd_acc_jvp`` (conv_pallas.py:378-412).  The shift's tangent is
     complete: it carries the cell and the strain."""
 
     @staticmethod
-    def forward(ctx, a_gmajor, coord, shift, gbar, st, mask, nbr, mnbr, shifts_g, scal):
-        ctx.st = st
+    def forward(ctx, a_gmajor, coord, shift, gbar, st, mask, nbr, mnbr, shifts_g, scal, constants=False):
+        ctx.st, ctx.constants = st, constants
         ctx.save_for_backward(a_gmajor, coord, shift, gbar, mask, nbr, shifts_g, scal)
-        return conv_stencil_backward(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
+        kernel = conv_stencil_backward_constants if constants else conv_stencil_backward
+        return kernel(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
 
     @staticmethod
-    def backward(ctx, t_a, t_coord, t_shift):
+    def backward(ctx, *tangents):
         a_gmajor, coord, shift, gbar, mask, nbr, shifts_g, scal = ctx.saved_tensors
+        with_consts = ctx.needs_input_grad[8] or ctx.needs_input_grad[9]
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(True) for x in (a_gmajor, coord, shift, gbar)]
-            adj = conv_backward_plain(ctx.st, leaves[0], leaves[1], mask, leaves[2], nbr, shifts_g, scal,
-                                      leaves[3], create_graph=True)
-            grads = torch.autograd.grad(adj, leaves, (t_a, t_coord, t_shift), allow_unused=True)
-        return (*grads, None, None, None, None, None, None)
+            sg, sc = shifts_g, scal
+            if with_consts:
+                sg, sc = (x.detach().requires_grad_(True) for x in (shifts_g, scal))
+            adj = conv_backward_plain(ctx.st, leaves[0], leaves[1], mask, leaves[2], nbr, sg, sc, leaves[3],
+                                      create_graph=True, constants=ctx.constants)
+            wrt = leaves + ([sg, sc] if with_consts else [])
+            grads = torch.autograd.grad(adj, wrt, tangents, allow_unused=True)
+        consts = tuple(grads[4:]) if with_consts else (None, None)
+        return (*grads[:4], None, None, None, None, *consts, None)
 
 
 def conv_pass(

@@ -14,6 +14,10 @@ Replaces the two Pallas TPU kernels of aimnetcentral_tpu/kernels/conv_stencil.py
   replaces ``_bwd_kernel`` (conv_stencil.py:466) and the reassembly in
   conv_pallas.py::conv_bwd_acc.  Given the output cotangent it returns the
   feature, coordinate and lattice-shift adjoints.
+  ``conv_stencil_backward_constants`` is the same kernel's second build,
+  which also returns the adjoints of the AEV constants (the radial shifts,
+  eta and rc): training differentiates them, as the JAX package's XLA
+  engine does; inference never asks for them.
 
 Both kernels run one warp per receiver atom and contract only the real
 pairs within rc, which a ballot over the candidate slots picks out; FP32 on
@@ -108,20 +112,26 @@ def conv_forward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts
 
 
 def conv_backward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar,
-                        create_graph: bool = False):
+                        create_graph: bool = False, constants: bool = False):
     """Plain version of kernel B: the VJP of :func:`conv_forward_plain`
     through torch.autograd, in B's output frame ``(grad_a (B, C, G*F),
-    grad_coord (B, C, 3), grad_shift (S, B, 3))``.
+    grad_coord (B, C, 3), grad_shift (S, B, 3))``, and with ``constants``
+    also ``grad_shifts_g (G,)`` and ``grad_scal (2,)`` (the plain version of
+    :func:`conv_stencil_backward_constants`).
 
     With ``create_graph`` the caller's ``a_gmajor``, ``coord``, ``shift``
-    and ``gbar`` (leaves that require grad) stay in the graph, so the adjoint
-    can be differentiated again: the tangents of ConvAcc's second order
+    and ``gbar`` (and with ``constants`` ``shifts_g`` and ``scal``; leaves
+    that require grad) stay in the graph, so the adjoint can be
+    differentiated again: the tangents of ConvAcc's second order
     (kernels/conv_pass.py::ConvAccBwd)."""
     with torch.enable_grad():
         if not create_graph:
             a_gmajor, coord, shift = (x.detach().requires_grad_(True) for x in (a_gmajor, coord, shift))
+            if constants:
+                shifts_g, scal = (x.detach().requires_grad_(True) for x in (shifts_g, scal))
         out = conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
-        return torch.autograd.grad(out, (a_gmajor, coord, shift), gbar, create_graph=create_graph)
+        wrt = (a_gmajor, coord, shift) + ((shifts_g, scal) if constants else ())
+        return torch.autograd.grad(out, wrt, gbar, create_graph=create_graph)
 
 
 def pair_counts_plain(st: ConvStatic, coord, mask, shift, nbr, scal):
@@ -207,10 +217,13 @@ def bwd_scratch_bytes(st: ConvStatic) -> int:
     return 4 * tiles * (st.s_tot * st.b_tot * bwd_tiles(st) * 3 * st.c + st.b_tot * st.c * 3)
 
 
-def bwd_smem_bytes(st: ConvStatic) -> int:
+def bwd_smem_bytes(st: ConvStatic, constants: bool = False) -> int:
     """Shared memory of one kernel-B block: two buffers of one partner row
-    (3 x C) per warp (csrc/conv_bwd.cu::launch)."""
-    return 4 * 2 * WARPS * 3 * st.c
+    (3 x C) per warp; the constants' build reuses them for its per-warp
+    column sums (G*F + 2 a warp) where those are larger
+    (csrc/conv_bwd.cu::launch)."""
+    rows = 4 * 2 * WARPS * 3 * st.c
+    return max(rows, 4 * WARPS * (st.g * st.f + 2)) if constants else rows
 
 
 def _counts_arg(st: ConvStatic, pair_counts):
@@ -276,6 +289,49 @@ def gather_partner_adjoints(st: ConvStatic, nbr, dc_recv, pgrad):
     return dc, ds
 
 
+def _launch_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar,
+                     pair_counts, constants: bool):
+    """Kernel B's launch (``constants``: its constants' build) and the
+    fixed-order sums after it; the caller counts the launch."""
+    _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr, mnbr=mnbr,
+           shifts_g=shifts_g, scal=scal, gbar=gbar)
+    tiles, width, cols = col_tiles(st)
+    if constants and tiles > 1:
+        raise ValueError(f"the AEV constants' adjoint takes one column tile (G*F <= "
+                         f"{32 * LANE_COLUMNS[-1]}), not G*F = {st.g * st.f}")
+    counts = _counts_arg(st, pair_counts)
+    if bwd_smem_bytes(st, constants) > SMEM_LIMIT:
+        raise ValueError(f"conv kernel B does not take C={st.c}")
+    dev = a_gmajor.device
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    grad_a = torch.empty((st.b_tot, st.c, st.g * st.f), dtype=torch.float32, device=dev)
+    dc_recv = torch.empty((tiles, st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
+    pgrad = torch.empty((tiles, st.s_tot, st.b_tot, bwd_tiles(st), 3, st.c), dtype=torch.float32, device=dev)
+    args = [_ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(gbar), _ptr(mnbr), _ptr(shift),
+            _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad), counts]
+    cbar = None
+    if constants:
+        cbar = torch.empty((st.b_tot, bwd_tiles(st), st.g + 2), dtype=torch.float32, device=dev)
+        err = _bind("conv_bwd", "conv_bwd_const_launch", 13, 7)(
+            *args, _ptr(cbar), st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
+    else:
+        err = _bind("conv_bwd", "conv_bwd_launch", 12, 7)(
+            *args, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
+    if err != 0:
+        raise RuntimeError(f"conv kernel B launch failed: cudaError {err}")
+    # the column tiles' partials, then the atom tiles' partial row sums,
+    # each added in a fixed order
+    if tiles > 1:
+        dc_recv, pgrad = dc_recv.sum(0), pgrad.sum(0)
+    else:
+        dc_recv, pgrad = dc_recv[0], pgrad[0]
+    dc, ds = gather_partner_adjoints(st, nbr, dc_recv, pgrad.sum(2))
+    if not constants:
+        return grad_a, dc, ds
+    cb = cbar.reshape(-1, st.g + 2).sum(0)  # the blocks' partial sums
+    return grad_a, dc, ds, cb[: st.g], cb[st.g :]
+
+
 def conv_stencil_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar,
                           pair_counts=None):
     """Kernel B: ``(grad_a (B, C, G*F), grad_coord (B, C, 3), grad_shift
@@ -289,34 +345,31 @@ def conv_stencil_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnb
         if pair_counts is not None:
             raise ValueError("pair_counts: only the kernel counts its pairs")
         return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar)
-    _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr, mnbr=mnbr,
-           shifts_g=shifts_g, scal=scal, gbar=gbar)
-    tiles, width, cols = col_tiles(st)
-    counts = _counts_arg(st, pair_counts)
-    if bwd_smem_bytes(st) > SMEM_LIMIT:
-        raise ValueError(f"conv kernel B does not take C={st.c}")
-    dev = a_gmajor.device
-    grad_a = torch.empty((st.b_tot, st.c, st.g * st.f), dtype=torch.float32, device=dev)
-    dc_recv = torch.empty((tiles, st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
-    pgrad = torch.empty((tiles, st.s_tot, st.b_tot, bwd_tiles(st), 3, st.c), dtype=torch.float32, device=dev)
-    launch = _bind("conv_bwd", "conv_bwd_launch", 12, 7)
-    err = launch(
-        _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(gbar), _ptr(mnbr), _ptr(shift),
-        _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad), counts,
-        st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"conv kernel B launch failed: cudaError {err}")
+    out = _launch_backward(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar, pair_counts,
+                           constants=False)
     conv_stencil_backward.launches += 1
-    # the column tiles' partials, then the atom tiles' partial row sums,
-    # each added in a fixed order
-    if tiles > 1:
-        dc_recv, pgrad = dc_recv.sum(0), pgrad.sum(0)
-    else:
-        dc_recv, pgrad = dc_recv[0], pgrad[0]
-    dc, ds = gather_partner_adjoints(st, nbr, dc_recv, pgrad.sum(2))
-    return grad_a, dc, ds
+    return out
 
 
 conv_stencil_backward.launches = 0
+
+
+def conv_stencil_backward_constants(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal,
+                                    gbar, pair_counts=None):
+    """Kernel B's constants' build: :func:`conv_stencil_backward`'s three
+    adjoints and those of the AEV constants, ``grad_shifts_g (G,)`` and
+    ``grad_scal (2,)`` = (eta, rc).  Each block writes its G + 2 partial
+    sums and they are added here in a fixed order (no float atomics).  One
+    column tile only (G*F <= 544, a single model's widths): a wider row
+    raises ``ValueError``."""
+    if a_gmajor.device.type == "cpu":
+        if pair_counts is not None:
+            raise ValueError("pair_counts: only the kernel counts its pairs")
+        return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar, constants=True)
+    out = _launch_backward(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar, pair_counts,
+                           constants=True)
+    conv_stencil_backward_constants.launches += 1
+    return out
+
+
+conv_stencil_backward_constants.launches = 0

@@ -176,6 +176,23 @@ Phases (any failure exits nonzero; nothing is caught):
    (energy 1e-5 relative, forces 1e-4 eV/A, ``energy_std`` 1e-5 of
    max(1, |E|), a bitwise repeat); the phase's seconds.
 
+Then phase ``train`` (``phase_train``): the flagship configuration's
+force-loss train step on molecule bins, on 256 gas-phase clusters of 16,
+24, 32 and 48 atoms labelled by a second random-weight model (seed 1):
+one 8-molecule step card against CPU at ``exact`` (loss 1e-5 relative,
+each leaf's gradient within ten times the CPU f32 step's own error
+against f64, a ``fast`` control that must exceed it); kernel B's
+AEV-constants build (``conv_stencil_backward_constants``) against its
+plain version at a 64-molecule batch's shapes, in f32 and against f64,
+with its pair count, and no launch of it in any earlier phase; ten timed
+steps a tier at 64 molecules (ms, molecules/s, peak memory, idle share,
+launches a step: A 3, B's constants' build 6, D 1, E 2) and one profiled
+step's device time by part; two steps from one state bit for bit;
+``Trainer.fit`` for two epochs (the main path: its launches, its
+history, ``train_loss`` falling) with a checkpoint after the first and a
+resumed second epoch equal bit for bit; the CLI's ``calc-sae``, ``train``
+and ``export`` bodies, the artifact on the card within ``CHECK_ABS``.
+
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
@@ -186,8 +203,10 @@ step's shapes: A and B at G*F = 1,088, D and E DSF's member form on the
 fused request's LR grid), counted over
 the fused requests and the ensemble MD window; ``launches`` counts every main-path run (both configurations'
 requests, the gas, packed, artifact and integrations phases' requests, the MD windows,
-the second_order phase's IR request and kernel-route HVPs, and the
-long_range phase's requests and MD windows) and
+the second_order phase's IR request and kernel-route HVPs, the
+long_range phase's requests and MD windows, and the train phase's
+``Trainer.fit``); the last row is kernel B's AEV-constants build, counted
+over that fit; and
 ``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
 per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
@@ -3329,6 +3348,519 @@ def phase_integrations(calc, calc_d3, coord, numbers, cell, artifact: str) -> di
     return res
 
 
+TRAIN_SIZES = (16, 24, 32, 48)  # atoms a cluster, one size group each
+TRAIN_PER_SIZE = 64  # training clusters a group: 256 in all
+TRAIN_VAL_PER_SIZE = 16  # validation clusters a group
+TRAIN_BATCH = 64  # molecules a batch
+TRAIN_CHECK_SIZE, TRAIN_CHECK_MOLS = 32, 8  # the card-against-CPU batch
+TRAIN_TIMED_SIZE = 32  # the timed steps' size group (64 molecules, C = 32)
+TRAIN_TIMED = 10  # timed steps a tier
+# the gradient gate, per leaf: this times the CPU f32 step's own error
+# against f64 (relative to the leaf's largest |g|), or times the median
+# leaf's where that is larger
+TRAIN_NOISE_FACTOR = 10.0
+# launches a train step on molecule bins (flagship heads: simple Coulomb):
+# A in the forward; B's constants' build in the forces and in the parameter
+# gradient's first order; D in the forward, E in the forces and in the
+# energy term's first order
+TRAIN_PER_STEP = {"conv_stencil_forward": 3, "conv_stencil_backward": 0, "conv_stencil_backward_constants": 6,
+                  "pair_sweep_forward": 1, "pair_sweep_backward": 2}
+# a validation batch (forces, no parameter gradient)
+TRAIN_PER_VAL = {"conv_stencil_forward": 3, "conv_stencil_backward": 3, "conv_stencil_backward_constants": 0,
+                 "pair_sweep_forward": 1, "pair_sweep_backward": 1}
+
+
+def train_counters() -> dict:
+    """``counters()`` and kernel B's constants' build."""
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+
+    return {**counters(), "conv_stencil_backward_constants": cs.conv_stencil_backward_constants}
+
+
+def train_clusters(size: int, count: int, seed: int) -> list[dict]:
+    return [gas_cluster(size, seed=seed + k) for k in range(count)]
+
+
+def label_groups(teacher, groups: dict[int, list[dict]]) -> dict[int, dict]:
+    """Energy, force and charge labels of each size group's clusters from
+    the teacher calculator (one request a group)."""
+    out = {}
+    for size, mols in groups.items():
+        res = teacher.eval(mols, forces=True)
+        n = len(mols)
+        out[size] = {
+            "coord": np.stack([m["coord"] for m in mols]).astype(np.float32),
+            "numbers": np.stack([m["numbers"] for m in mols]).astype(np.int64),
+            "charge": np.zeros(n, np.float32),
+            "energy": np.asarray(res["energy"], np.float32),
+            "forces": np.asarray(res["forces"], np.float32).reshape(n, size, 3),
+            "charges": np.asarray(res["charges"], np.float32).reshape(n, size),
+        }
+    return out
+
+
+def train_gradient(params, cfg, system, labels, precision: str):
+    """The loss and every trainable leaf's gradient of one force-loss step
+    (``make_train_step``'s own computation) at ``precision``."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+    from aimnetcentral_tpu_torch.train import step as tstep
+    from aimnetcentral_tpu_torch.train.loss import LossConfig, MTLoss
+
+    state = tstep.init_train_state(params, tstep.make_optimizer())
+    leaves = [leaf for _p, leaf in state.trainable]
+    with ambient_matmul_context(tstep.ambient_for(precision)):
+        pred = tstep.predict(state.params, cfg, system, True, create_graph=True)
+        total, _ = MTLoss(LossConfig())(pred, labels, system)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    return float(total.detach()), {p: (torch.zeros_like(x) if g is None else g).detach().double().cpu()
+                                   for (p, x), g in zip(state.trainable, grads)}
+
+
+def leaf_errors(got: dict, ref: dict) -> dict:
+    """Each leaf's largest |got - ref| over its largest |ref|."""
+    return {p: float((got[p] - ref[p]).abs().max() / max(float(ref[p].abs().max()), 1e-30)) for p in ref}
+
+
+def train_constants_kernel(label: str, system, cfg, params) -> dict:
+    """Kernel B's constants' build against its plain version on the
+    molecule bins of a train batch (``system``), at both conv widths, in
+    f32, against a plain run in f64 (no farther than twice the f32 plain),
+    and its pairs against the plain count; times and bound."""
+    import torch
+
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+    from aimnetcentral_tpu_torch.kernels.conv_pass import build_conv_tables
+    from aimnetcentral_tpu_torch.ops.binned import stencil_radius
+
+    dev = torch.device("cuda")
+    grid = system.bins
+    tab = build_conv_tables(grid, stencil_radius(cfg.aev.rc_s, grid))
+    b, c, g = grid.total_bins, grid.capacity, cfg.nshifts
+    s_tot = tab["nbr"].shape[0]
+    aev = params["aev"]
+    base = dict(
+        coord=system.coord.reshape(b, c, 3).contiguous(),
+        mask=(system.numbers > 0).float().reshape(b, c).contiguous(),
+        shift=torch.as_tensor(tab["push"], device=dev).contiguous(),
+        nbr=torch.as_tensor(tab["nbr"], device=dev),
+        shifts_g=aev["shifts_s"].detach().contiguous(),
+        scal=torch.stack([aev["eta_s"], aev["rc_s"]]).detach().contiguous(),
+    )
+    mnbr = torch.as_tensor(tab["mnbr"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    names = ("grad_a", "grad_coord", "grad_shift", "grad_shifts_g", "grad_scal")
+    res = {"grid": {"b": b, "c": c, "s": s_tot}}
+    for f in (cfg.nfeature, cfg.nfeature + cfg.num_charge_channels):
+        st = cs.ConvStatic(b_tot=b, c=c, g=g, f=f, s_tot=s_tot)
+        ops = dict(base, a_gmajor=0.3 * torch.randn((b, c, g * f), generator=gen, device=dev))
+        gbar = torch.randn((b, 4, c, g * f), generator=gen, device=dev)
+        plain_rows = cs.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"], ops["nbr"], ops["scal"])
+        n_pairs = int(plain_rows.sum())
+        counts = torch.zeros(b * c, dtype=torch.int32, device=dev)
+        before = cs.conv_stencil_backward_constants.launches
+        got = cs.conv_stencil_backward_constants(st, **ops, mnbr=mnbr, gbar=gbar, pair_counts=counts)
+        torch.cuda.synchronize()
+        if not torch.equal(counts.long(), plain_rows):
+            raise SystemExit(f"FAIL: B's constants' build contracted other pairs than the plain count on {label}")
+        ref = cs.conv_backward_plain(st, **ops, gbar=gbar, constants=True)
+        errs = {n: (float((x - y).abs().max()), float(y.abs().max())) for n, x, y in zip(names, got, ref)}
+        for n, (e, s) in errs.items():
+            if e > REL_TOL * s:
+                raise SystemExit(f"FAIL: B's constants' build {n} disagrees with its plain version at F={f} on {label}")
+        again = cs.conv_stencil_backward_constants(st, **ops, mnbr=mnbr, gbar=gbar)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise SystemExit(f"FAIL: B's constants' build does not repeat bit for bit on {label}")
+        first3 = cs.conv_stencil_backward(st, **ops, mnbr=mnbr, gbar=gbar)
+        for n, x, y in zip(names, got, first3):
+            if float((x - y).abs().max()) > REL_TOL * float(y.abs().max()):
+                raise SystemExit(f"FAIL: B's two builds disagree on {n} on {label}")
+        ops64 = {k: (v.double() if v.is_floating_point() else v) for k, v in ops.items()}
+        ref64 = cs.conv_backward_plain(st, **ops64, gbar=gbar.double(), constants=True)
+        f64 = {n: (rel64(x, z), rel64(y, z)) for n, x, y, z in zip(names, got, ref, ref64)}
+        log(f"[train kernels {label}] F={f}: B constants' build against its plain version: "
+            + "; ".join(f"{n} {e:.2e} (of {s:.2e})" for n, (e, s) in errs.items())
+            + "; against f64: " + "; ".join(f"{n} kernel {a:.2e}, plain {p:.2e}" for n, (a, p) in f64.items()))
+        for n, (a, p) in f64.items():
+            if a > max(2.0 * p, F64_FLOOR):
+                raise SystemExit(f"FAIL: B's constants' build {n} is farther from f64 than twice the f32 plain on "
+                                 f"{label}")
+        ms = time_cuda(lambda: cs.conv_stencil_backward_constants(st, **ops, mnbr=mnbr, gbar=gbar), reps=10)
+        ms_b = time_cuda(lambda: cs.conv_stencil_backward(st, **ops, mnbr=mnbr, gbar=gbar), reps=10)
+        plain = time_cuda(lambda: cs.conv_backward_plain(st, **ops, gbar=gbar, constants=True), reps=3, warmup=1)
+        cs.conv_stencil_backward_constants.launches = before  # the checks' launches are not the main path's
+        feat = 4 * b * c * g * f
+        small = 4 * (b * c * 4 + 2 * s_tot * b * 3 + s_tot * b)
+        nbytes = feat + 4 * feat + feat + small + 4 * (b * c * 3 + s_tot * b * 3) + 4 * (g + 2)
+        # B's two contractions (2 x 2 x 4 G F a pair) and the constants' 10 a column a pair
+        flops = (16.0 + 10.0) * g * f * n_pairs
+        bnd, by = bound(nbytes, flops)
+        log(f"[train kernels {label}] F={f} (G*F = {g * f}): B constants' build {ms:.3f} ms, the build without "
+            f"{ms_b:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms by {by}; {n_pairs} real ordered pairs; "
+            f"{b} x {cs.bwd_tiles(st)} blocks, {cs.bwd_smem_bytes(st, True)} B shared memory")
+        res[f"F{f}"] = {"ms": ms, "ms_without": ms_b, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                        "pairs": n_pairs, "errors": errs, "f64": f64,
+                        "max_abs_err": max(e for e, _s in errs.values())}
+        del ops, ops64, gbar, got, ref, ref64, again, first3
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_profile(step, state, system, labels) -> dict:
+    """One profiled step: device time by part (A, B's two builds, D, E, the
+    plain second-order VJPs inside ConvAccBwd / PairAccBwd's backward, the
+    GEMMs elsewhere, the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from aimnetcentral_tpu_torch.kernels import conv_pass as cp
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+
+    saved = (cp.ConvAccBwd.backward, ps.PairAccBwd.backward)
+
+    def spanned(fn):
+        def backward(ctx, *grads):
+            with record_function("plain_second_order"):
+                return fn(ctx, *grads)
+        return staticmethod(backward)
+
+    cp.ConvAccBwd.backward = spanned(saved[0])
+    ps.PairAccBwd.backward = spanned(saved[1])
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, system, labels)
+            torch.cuda.synchronize()
+    finally:
+        cp.ConvAccBwd.backward, ps.PairAccBwd.backward = saved
+
+    # kernels launched by the torch ops inside the spans (each CPU event
+    # carries the kernels it launched); the kernels by name on the device
+    # timeline
+    events = prof.events()
+
+    def subtree_kernels(e, out):
+        out.extend(getattr(e, "kernels", []) or [])
+        for ch in e.cpu_children:
+            subtree_kernels(ch, out)
+        return out
+
+    def kind(name: str) -> str:
+        if "conv_fwd_kernel" in name:
+            return "A"
+        if "conv_bwd_kernel" in name:
+            return "B constants" if "true>" in name else "B"
+        if "pair_kernel<" in name:  # pair_kernel<Term, kAdjoint, M>
+            return "E" if ", true," in name else "D"
+        if any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "ampere_")):
+            return "GEMMs"
+        return "other"
+
+    inside = [k for e in events if e.name == "plain_second_order" for k in subtree_kernels(e, [])]
+    parts = {"A": 0.0, "B": 0.0, "B constants": 0.0, "D": 0.0, "E": 0.0, "plain second-order VJPs": 0.0,
+             "GEMMs": 0.0, "other": 0.0}
+    for e in events:
+        if on_device(e) and e.name != "plain_second_order":  # the span's own device-side annotation
+            parts[kind(e.name)] += (e.time_range.end - e.time_range.start) / 1e3
+    others: dict[str, float] = {}
+    for e in events:
+        if on_device(e) and e.name != "plain_second_order" and kind(e.name) == "other":
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    plain = {"GEMMs": 0.0, "other": 0.0}
+    for k in inside:
+        plain["GEMMs" if kind(k.name) == "GEMMs" else "other"] += float(k.duration) / 1e3
+    parts["plain second-order VJPs"] = plain["GEMMs"] + plain["other"]
+    parts["GEMMs"] -= plain["GEMMs"]
+    parts["other"] -= plain["other"]
+    total = sum(parts.values())
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
+    return {"parts_ms": parts, "device_ms": total, "plain_gemm_ms": plain["GEMMs"], "other_top": top}
+
+
+def phase_train(smi: str) -> dict:
+    """Training on the card at full width (``phase_train``): the flagship
+    configuration's force-loss train step on molecule bins, on 256
+    gas-phase clusters (``gas_cluster``) in four size groups of 16, 24, 32
+    and 48 atoms, labelled by a second random-weight model (seed 1) through
+    the port's calculator, 64 more for validation.  Gates: (a) one step on
+    an 8-molecule batch, card against the port's CPU run at ``exact``: the
+    loss within 1e-5 relative, every leaf's gradient within a limit set from
+    the CPU f32 step's own error against an f64 run (TRAIN_NOISE_FACTOR
+    times it, or times the median leaf's where that is larger), which the
+    ``fast`` step (the control) must exceed; (b) kernel B's constants' build against its plain
+    version at a 64-molecule batch's shapes, in f32 and against f64, with
+    the pair count; (c) launches per step and per validation batch
+    (``TRAIN_PER_STEP``, ``TRAIN_PER_VAL``), none of the constants' build
+    before this phase; (d) two steps from one state identical bit for bit;
+    (e) ``Trainer.fit`` for two epochs with a checkpoint after the first, a
+    resume whose second epoch equals the uninterrupted run's bit for bit,
+    and ``train_loss`` falling; (f) the ``calc-sae``, ``train`` (one epoch
+    on an npz-directory dataset) and ``export`` bodies of the CLI, the
+    artifact on the card within ``CHECK_ABS`` of the in-memory parameters.
+    Times: ms a step at 64 molecules (median of TRAIN_TIMED) at ``fast``
+    and ``exact``, molecules/s, peak memory, the idle share and the device
+    time by part of one profiled step."""
+    import copy
+
+    import torch
+    import yaml
+
+    from aimnetcentral_tpu_torch import cli as tcli
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.data.sgdataset import SizeGroupedDataset
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+    from aimnetcentral_tpu_torch.models import aimnet2_init
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.train import step as tstep
+    from aimnetcentral_tpu_torch.train.export import config_to_yaml
+    from aimnetcentral_tpu_torch.train.loss import LossConfig, MTLoss
+    from aimnetcentral_tpu_torch.train.trainer import Trainer, TrainerConfig, save_checkpoint
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    if cs.conv_stencil_backward_constants.launches != 0:
+        raise SystemExit(f"FAIL: kernel B's constants' build launched {cs.conv_stencil_backward_constants.launches} "
+                         f"times before the train phase (inference never asks for it)")
+    log(f"[train] no phase before this one launched B's constants' build")
+    cfg = flagship_config()
+    params = aimnet2_init(cfg, seed=0, device="cuda")
+
+    # the data: clusters labelled by a second random-weight model
+    t0 = time.perf_counter()
+    teacher = AIMNet2Calculator((aimnet2_init(cfg, seed=1, device="cuda"), cfg), device="cuda", binned_threshold=16)
+    train_groups = label_groups(teacher, {n: train_clusters(n, TRAIN_PER_SIZE, 10_000 + 100 * n)
+                                          for n in TRAIN_SIZES})
+    val_groups = label_groups(teacher, {n: train_clusters(n, TRAIN_VAL_PER_SIZE, 20_000 + 100 * n)
+                                        for n in TRAIN_SIZES})
+    if teacher._prep_cache["kind"] != "packed":
+        raise SystemExit("FAIL: the teacher's requests did not run on molecule bins")
+    del teacher
+    train_ds, val_ds = SizeGroupedDataset(train_groups), SizeGroupedDataset(val_groups)
+    res["data_s"] = time.perf_counter() - t0
+    log(f"[train] data: {len(train_ds)} training clusters in groups {train_ds.keys()}, {len(val_ds)} validation; "
+        f"labelled by the seed-1 model on molecule bins in {res['data_s']:.1f} s")
+    loss = MTLoss(LossConfig())
+
+    # (a) one step on 8 molecules: card against CPU
+    sample = train_ds[TRAIN_CHECK_SIZE].sample(np.arange(TRAIN_CHECK_MOLS))
+    sys_c, lab_c = train_ds.make_batch_system_packed(TRAIN_CHECK_SIZE, sample, device=cpu)
+    sys_d, lab_d = train_ds.make_batch_system_packed(TRAIN_CHECK_SIZE, sample, device=dev)
+    p_cpu = params_to(params, cpu)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = train_gradient(p_cpu, cfg, sys_c, lab_c, "exact")
+    t_cpu = time.perf_counter() - t0
+    to64 = lambda tree: tstep.tree_unflatten(tree, [x.double() for _p, x in tstep.tree_leaves(tree)])  # noqa: E731
+    l_64, g_64 = train_gradient(to64(p_cpu), cfg, sys_c.replace(coord=sys_c.coord.double()),
+                                {k: v.double() for k, v in lab_c.items()}, "exact")
+    l_card, g_card = train_gradient(params, cfg, sys_d, lab_d, "exact")
+    l_fast, g_fast = train_gradient(params, cfg, sys_d, lab_d, "fast")
+    noise = leaf_errors(g_cpu, g_64)
+    typical = float(np.median(list(noise.values())))
+    limit = {p: TRAIN_NOISE_FACTOR * max(n, typical) for p, n in noise.items()}
+    err = leaf_errors(g_card, g_cpu)
+    err_fast = leaf_errors(g_fast, g_cpu)
+    worst = max(err, key=lambda p: err[p] / limit[p])
+    worst_fast = max(err_fast, key=lambda p: err_fast[p] / limit[p])
+    dl = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"[train check] {smi}: one step on {TRAIN_CHECK_MOLS} molecules of {TRAIN_CHECK_SIZE} atoms (exact): loss "
+        f"card {l_card:.8g}, CPU {l_cpu:.8g} (rel {dl:.2e}, limit {REL_TOL}), f64 {l_64:.8g}; the CPU f32 "
+        f"gradient's own error against f64, by leaf: median {np.median(list(noise.values())):.2e}, largest "
+        f"{max(noise.values()):.2e}; card against CPU: worst leaf {worst} {err[worst]:.2e} (limit "
+        f"{limit[worst]:.2e}), largest {max(err.values()):.2e}; the fast control: worst {worst_fast} "
+        f"{err_fast[worst_fast]:.2e} (limit {limit[worst_fast]:.2e}), loss rel {abs(l_fast - l_cpu) / abs(l_cpu):.2e}; "
+        f"the CPU step {t_cpu:.2f} s")
+    if dl > REL_TOL or any(err[p] > limit[p] for p in err):
+        raise SystemExit("FAIL: the card's train step disagrees with the CPU's at the exact tier")
+    if not any(err_fast[p] > limit[p] for p in err_fast):
+        raise SystemExit("FAIL: the fast control does not exceed the exact gate: the gate cannot tell the tiers apart")
+    res["check"] = {"loss_rel": dl, "noise": noise, "err": err, "err_fast": err_fast, "limit": limit,
+                    "cpu_s": t_cpu}
+    del p_cpu, g_cpu, g_64, g_card, g_fast
+
+    # (b) kernel B's constants' build at a 64-molecule batch of 48 atoms
+    big = train_ds[48].sample(np.arange(TRAIN_BATCH))
+    sys_big, _lab = train_ds.make_batch_system_packed(48, big, device=dev)
+    res["kernel"] = train_constants_kernel("packed-64x48", sys_big, cfg, params)
+
+    # the timed steps: 64 molecules of TRAIN_TIMED_SIZE atoms
+    timed = train_ds[TRAIN_TIMED_SIZE].sample(np.arange(TRAIN_BATCH))
+    sys_t, lab_t = train_ds.make_batch_system_packed(TRAIN_TIMED_SIZE, timed, device=dev)
+    res["steps"] = {}
+    wrappers = train_counters()
+    for precision in ("fast", "exact"):
+        opt = tstep.make_optimizer()
+        state = tstep.init_train_state(params, opt)
+        step = tstep.make_train_step(cfg, loss, opt, precision=precision)
+        step(state, sys_t, lab_t)  # the first step: allocator and cuBLAS set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for fn in wrappers.values():
+            fn.launches = 0
+        times = []
+        for _ in range(TRAIN_TIMED):
+            t0 = time.perf_counter()
+            _s, metrics = step(state, sys_t, lab_t)
+            float(metrics["loss"])  # the Trainer reads the loss each step
+            times.append(time.perf_counter() - t0)
+        launches = read_counts(wrappers)
+        for name, n in launches.items():
+            if n != TRAIN_PER_STEP[name] * TRAIN_TIMED:
+                raise SystemExit(f"FAIL: {name} launched {n} times over {TRAIN_TIMED} train steps, expected "
+                                 f"{TRAIN_PER_STEP[name]} a step")
+        med = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated()
+        prof = train_profile(step, state, sys_t, lab_t)
+        idle = max(0.0, 1.0 - prof["device_ms"] / (med * 1e3))
+        log(f"[train step {precision}] {smi}: 64 molecules of {TRAIN_TIMED_SIZE} atoms (C = "
+            f"{sys_t.bins.capacity}): median {med * 1e3:.2f} ms a step over {TRAIN_TIMED} (min "
+            f"{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), {TRAIN_BATCH / med:.0f} molecules/s; peak "
+            f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the held {held / 2**30:.3f}); launches a step "
+            f"{ {k: v // TRAIN_TIMED for k, v in launches.items()} }; profiled step: device {prof['device_ms']:.2f} ms, "
+            f"idle share {idle:.3f}; by part: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in prof["parts_ms"].items())
+            + f" ms (GEMMs inside the plain VJPs {prof['plain_gemm_ms']:.2f} ms); the largest of the rest: "
+            + ", ".join(f"{n} {v:.2f}" for n, v in prof["other_top"]))
+        res["steps"][precision] = {"median_s": med, "times_s": times, "molecules_per_s": TRAIN_BATCH / med,
+                                   "peak_bytes": peak, "held_bytes": held, "idle_share": idle, "profile": prof,
+                                   "launches_per_step": {k: v // TRAIN_TIMED for k, v in launches.items()}}
+        del state, step
+        torch.cuda.empty_cache()
+
+    # (d) two steps from one state, bit for bit
+    opt = tstep.make_optimizer()
+    step = tstep.make_train_step(cfg, loss, opt, precision="fast")
+    state = tstep.init_train_state(params, opt)
+    step(state, sys_t, lab_t)
+    twins = [copy.deepcopy(state) for _ in range(2)]
+    outs = [step(s, sys_t, lab_t) for s in twins]
+    same = all(torch.equal(a, b) for (_p, a), (_q, b) in zip(tstep.tree_leaves(outs[0][0].params),
+                                                            tstep.tree_leaves(outs[1][0].params)))
+    same &= all(torch.equal(outs[0][1][k], outs[1][1][k]) for k in outs[0][1])
+    if not same:
+        raise SystemExit("FAIL: two train steps from one state differ")
+    log("[train repeat] two steps from one state (the second of a run) give the same parameters and metrics bit "
+        "for bit")
+    del twins, outs, state
+
+    # (e) the main path: Trainer.fit, two epochs, a checkpoint after the
+    # first; a resumed trainer's second epoch against the uninterrupted one
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = os.path.join(work, "epoch0.npz")
+        tcfg = TrainerConfig(max_epochs=2, batch_size=TRAIN_BATCH, checkpoint_dir=os.path.join(work, "ck"))
+        trainer = Trainer(cfg, params, train_ds, val_ds, tcfg=tcfg, device="cuda")
+        first_epoch = trainer.train_epoch
+
+        def train_epoch(epoch):
+            if epoch == 1:
+                save_checkpoint(ckpt, trainer.state, scheduler=trainer._checkpoint_scheduler())
+            return first_epoch(epoch)
+
+        trainer.train_epoch = train_epoch
+        wrappers = train_counters()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        fit = trainer.fit()
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        hist = fit["history"]
+        n_steps = 2 * sum(-(-len(g) // TRAIN_BATCH) for g in train_ds.groups)
+        n_val = 2 * sum(-(-len(g) // TRAIN_BATCH) for g in val_ds.groups)
+        for name, n in launches.items():
+            want = TRAIN_PER_STEP[name] * n_steps + TRAIN_PER_VAL[name] * n_val
+            if n != want:
+                raise SystemExit(f"FAIL: {name} launched {n} times in Trainer.fit, expected {want} ({n_steps} steps, "
+                                 f"{n_val} validation batches)")
+        log(f"[train fit] {smi}: two epochs ({n_steps} steps of {TRAIN_BATCH} molecules, {n_val} validation "
+            f"batches) in {t_fit:.2f} s; launches {launches}; history: "
+            + "; ".join(f"epoch {r['epoch']}: train_loss {r['train_loss']:.6g}, val_loss {r['val_loss']:.6g}, "
+                        f"energy_mae {r['energy_mae']:.4g}, forces_mae {r['forces_mae']:.4g}, "
+                        f"charges_mae {r['charges_mae']:.4g}" for r in hist))
+        if not hist[1]["train_loss"] < hist[0]["train_loss"]:
+            raise SystemExit("FAIL: train_loss did not fall over the two epochs")
+        resumed = Trainer(cfg, aimnet2_init(cfg, seed=5, device="cuda"), train_ds, val_ds, tcfg=tcfg, device="cuda")
+        resumed.resume(ckpt)
+        again = {**resumed.train_epoch(1), **resumed.validate()}
+        diff = [k for k in again if again[k] != hist[1][k]]
+        same_params = all(torch.equal(a, b) for (_p, a), (_q, b) in zip(tstep.tree_leaves(resumed.state.params),
+                                                                       tstep.tree_leaves(trainer.state.params)))
+        if diff or not same_params:
+            raise SystemExit(f"FAIL: the resumed second epoch differs from the uninterrupted one ({diff})")
+        log("[train fit] resumed from the checkpoint after the first epoch, the second epoch's record and the "
+            "parameters equal the uninterrupted run's bit for bit")
+        res["fit"] = {"history": hist, "seconds": t_fit, "launches": launches, "steps": n_steps,
+                      "val_batches": n_val}
+        res["launches"] = launches
+        del trainer, resumed
+
+        # (f) the CLI's bodies: calc-sae, train (one epoch), export
+        ddir = os.path.join(work, "data")
+        os.makedirs(ddir)
+        for size, g in train_groups.items():
+            np.savez(os.path.join(ddir, f"{size:03d}.npz"), **g)
+        t0 = time.perf_counter()
+        sae_path = os.path.join(work, "sae.yaml")
+        msg_sae = tcli.run_calc_sae(ddir, sae_path)
+        model_yaml = os.path.join(work, "model.yaml")
+        with open(model_yaml, "w") as f:
+            yaml.safe_dump(config_to_yaml(cfg), f, sort_keys=False)  # the heads in their order
+        config = {"model": config_to_yaml(cfg), "seed": 0, "data": {"train": ddir, "sae": True},
+                  "trainer": {"max_epochs": 1, "batch_size": TRAIN_BATCH,
+                              "checkpoint_dir": os.path.join(work, "cli-ck")}}
+        config_path = os.path.join(work, "train.yaml")
+        with open(config_path, "w") as f:
+            yaml.safe_dump(config, f, sort_keys=False)
+        lines = tcli.run_train((config_path,), device="cuda")
+        ck = os.path.join(work, "cli-ck", "best.npz")
+        art, art_sae = os.path.join(work, "trained.pt"), os.path.join(work, "trained-sae.pt")
+        msg_export = tcli.run_export(ck, model_yaml, art)
+        tcli.run_export(ck, model_yaml, art_sae, sae_path=sae_path)
+        t_cli = time.perf_counter() - t0
+        from aimnetcentral_tpu_torch.train.trainer import load_checkpoint_params
+
+        trained = load_checkpoint_params(ck, params)
+        mols = train_clusters(40, 4, 30_000)
+        # a calculator takes the atomic shift as a float64 host table beside
+        # the parameters, as the loader hands an artifact's over
+        shift64 = trained["outputs"]["atomic_shift"]["weight"].double().cpu().numpy()
+        direct = AIMNet2Calculator((trained, cfg, {"sae": {"atomic_shift": shift64}}), device="cuda").eval(
+            mols, forces=True)
+        loaded = AIMNet2Calculator(art, device="cuda").eval(mols, forces=True)
+        with_sae = AIMNet2Calculator(art_sae, device="cuda").eval(mols, forces=True)
+        with open(sae_path) as f:
+            sae = {int(k): float(v) for k, v in yaml.safe_load(f).items()}
+        shift = np.array([sum(sae[int(z)] for z in m["numbers"]) for m in mols])
+        diffs = {"energy": float(np.abs(loaded["energy"] - direct["energy"]).max()),
+                 "forces": float(np.abs(loaded["forces"] - direct["forces"]).max()),
+                 "energy with SAE": float(np.abs(with_sae["energy"] - shift - direct["energy"]).max())}
+        log(f"[train cli] {msg_sae}; train: {lines}; {msg_export}; {t_cli:.1f} s; the artifact on the card against "
+            f"the checkpoint's parameters in memory (4 clusters of 40 atoms): |dE| {diffs['energy']:.3e} eV, "
+            f"|dF| {diffs['forces']:.3e} eV/A, with the SAE artifact less the SAE sum |dE| "
+            f"{diffs['energy with SAE']:.3e} eV (limits {CHECK_ABS['energy']}, {CHECK_ABS['forces']})")
+        if (diffs["energy"] > CHECK_ABS["energy"] or diffs["forces"] > CHECK_ABS["forces"]
+                or diffs["energy with SAE"] > CHECK_ABS["energy"]):
+            raise SystemExit("FAIL: the exported artifact disagrees with the in-memory parameters")
+        if json.loads(lines[0])["epochs"] != 1:
+            raise SystemExit("FAIL: the train command did not run its one epoch")
+        res["cli"] = {"seconds": t_cli, "diffs": diffs, "train": lines}
+
+    k = res["kernel"][f"F{cfg.nfeature + cfg.num_charge_channels}"]
+    res["row"] = {"name": "conv_stencil_backward_constants", "route": "cuda",
+                  "source": "aimnetcentral_tpu_torch/csrc/conv_bwd.cu",
+                  "replaces": "aimnetcentral_tpu/kernels/conv_stencil.py:466",
+                  "launches": res["launches"]["conv_stencil_backward_constants"],
+                  "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                  "max_abs_err": k["max_abs_err"], "library_ms": None,
+                  "launches_per_train_step": TRAIN_PER_STEP["conv_stencil_backward_constants"]}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase done in {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
@@ -3344,6 +3876,9 @@ def main() -> None:
 
     results: dict = {"card": smi}
     results["build"] = phase_build()
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+
+    cs.conv_stencil_backward_constants.launches = 0  # phase train checks that no phase before it launched this
 
     cfg = flagship_config()
     params = aimnet2_init(cfg, seed=0, device="cuda")
@@ -3405,7 +3940,9 @@ def main() -> None:
     single_per_request = {name: n // 3 for name, n in results["main"]["launches"].items()}
     results["ensemble"] = phase_ensemble(params, cfg, coord, numbers, cell, single_per_request,
                                          results["kernels_detail"])
+    results["train"] = phase_train(smi)
     for k in kernels:
+        k["launches"] += results["train"]["launches"][k["name"]]
         k["launches"] += results["ensemble"]["launches"][k["name"]]
         k["launches"] += results["long_range"]["launches"][k["name"]]
         k["launches"] += results["second_order"]["launches"][k["name"]]
@@ -3420,6 +3957,7 @@ def main() -> None:
         }
 
     kernels += results["ensemble"]["rows"]
+    kernels.append(results["train"]["row"])
     results["seconds"] = time.perf_counter() - t_run
     if args.out:
         with open(args.out, "w") as fh:

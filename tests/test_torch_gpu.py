@@ -214,6 +214,38 @@ def test_kernel_b_matches_plain_at_stacked_widths(cuda_device, layout, f):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("f", [16, 17, 33])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_kernel_b_constants_match_plain(cuda_device, layout, f):
+    """Kernel B's constants' build: its five adjoints (the AEV constants'
+    among them) against autograd of the plain version, and bit for bit on
+    a repeat; the first three equal the build without the constants."""
+    st, ops, mnbr, gbar = _operands(layout, f)
+    dev_ops = _to(cuda_device, ops)
+    args = dict(mnbr=mnbr.to(cuda_device), gbar=gbar.to(cuda_device))
+    got = cs.conv_stencil_backward_constants(st, **dev_ops, **args)
+    torch.cuda.synchronize()
+    want = cs.conv_backward_plain(st, **ops, gbar=gbar, constants=True)
+    assert len(got) == len(want) == 5
+    for g, r in zip(got, want):
+        _close(g, r)
+    for x, y in zip(got, cs.conv_stencil_backward_constants(st, **dev_ops, **args)):
+        assert torch.equal(x, y)
+    for x, y in zip(got[:3], cs.conv_stencil_backward(st, **dev_ops, **args)):
+        _close(x, y.cpu())
+
+
+def test_kernel_b_constants_take_one_column_tile(cuda_device):
+    """The constants' build takes a single model's widths only: a row of
+    column tiles raises, and launches nothing."""
+    st, ops, mnbr, gbar = _operands("2x2x2", STACKED_F[0])
+    before = cs.conv_stencil_backward_constants.launches
+    with pytest.raises(ValueError, match="column tile"):
+        cs.conv_stencil_backward_constants(st, **_to(cuda_device, ops), mnbr=mnbr.to(cuda_device),
+                                           gbar=gbar.to(cuda_device))
+    assert cs.conv_stencil_backward_constants.launches == before
+
+
 def test_kernels_are_deterministic(cuda_device):
     """No float atomics: two runs agree bit for bit."""
     st, ops, mnbr, gbar = _operands("2x2x2", 17)
@@ -307,6 +339,72 @@ def test_calculator_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(card["charges"], cpu["charges"], atol=1e-5)
     np.testing.assert_allclose(card["forces"], cpu["forces"], atol=1e-5)
     np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)
+
+
+def _train_batch(device, n_mol=6, seed=3):
+    """A packed batch of gas-phase clusters of 5-16 atoms with random
+    energy, force and charge labels."""
+    from aimnetcentral_tpu_torch.data.sgdataset import SizeGroupedDataset
+
+    rng = np.random.default_rng(seed)
+    size = 16
+    mols = [_cluster(size, seed + k) for k in range(n_mol)]
+    sample = {
+        "coord": np.stack([m["coord"] for m in mols]),
+        "numbers": np.stack([m["numbers"] for m in mols]),
+        "charge": np.zeros(n_mol, np.float32),
+        "energy": rng.normal(size=n_mol).astype(np.float32),
+        "forces": (rng.normal(size=(n_mol, size, 3)) * 0.3).astype(np.float32),
+        "charges": (rng.normal(size=(n_mol, size)) * 0.1).astype(np.float32),
+    }
+    return SizeGroupedDataset({size: sample}).make_batch_system_packed(size, sample, device=device)
+
+
+def test_train_step_card_matches_cpu(cuda_device):
+    """One force-loss step on molecule bins at the exact tier, card
+    against CPU: the loss and the global norm (1e-5 relative), every
+    leaf's gradient (1e-4 of its largest magnitude); A 3, B's constants'
+    build 6 (the forces and the parameter gradient's first order), D 1,
+    E 2 (the forces and the energy term's first order), B's other build 0;
+    a calculator request afterwards launches no constants' build."""
+    from aimnetcentral_tpu_torch.train import step as tstep
+    from aimnetcentral_tpu_torch.train.loss import LossConfig, MTLoss
+
+    params, cfg = _narrow_model(CPU)
+    out = {}
+    for dev in (CPU, cuda_device):
+        system, labels = _train_batch(dev)
+        state = tstep.init_train_state(_params_to(params, dev), tstep.make_optimizer())
+        leaves = [leaf for _p, leaf in state.trainable]
+        loss = MTLoss(LossConfig())
+        with ambient_matmul_context("highest"):
+            pred = tstep.predict(state.params, cfg, system, True, create_graph=True)
+            grads = torch.autograd.grad(loss(pred, labels, system)[0], leaves, allow_unused=True)
+        for fn in (cs.conv_stencil_forward, cs.conv_stencil_backward, cs.conv_stencil_backward_constants,
+                   ps.pair_sweep_forward, ps.pair_sweep_backward):
+            fn.launches = 0
+        step = tstep.make_train_step(cfg, loss, tstep.make_optimizer(), precision="exact")
+        state, metrics = step(state, system, labels)
+        counts = [fn.launches for fn in (cs.conv_stencil_forward, cs.conv_stencil_backward,
+                                         cs.conv_stencil_backward_constants, ps.pair_sweep_forward,
+                                         ps.pair_sweep_backward)]
+        out[dev.type] = ({k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads], counts)
+    assert out["cpu"][2] == [0, 0, 0, 0, 0]
+    assert out["cuda"][2] == [3, 0, 6, 1, 2]
+    for k, v in out["cpu"][0].items():
+        assert out["cuda"][0][k] == pytest.approx(v, rel=1e-5), k
+    for g, r in zip(out["cuda"][1], out["cpu"][1]):
+        _close(g, r, rel=1e-4)
+    calc = AIMNet2Calculator((_params_to(params, cuda_device), cfg), device=cuda_device, binned_threshold=16)
+    calc.eval([_cluster(16, 3), _cluster(12, 4)], forces=True)
+    assert calc._prep_cache["kind"] == "packed"
+    assert cs.conv_stencil_backward_constants.launches == 6  # none more
+
+
+def _params_to(tree, dev):
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+
+    return params_to(tree, dev)
 
 
 @pytest.mark.parametrize("method", ["ewald", "pme"])

@@ -1,6 +1,6 @@
 """The port imports neither JAX nor the JAX package: every module of
 ``aimnetcentral_tpu_torch`` (dynamics, the indexed layout's neighbor
-builders, the integrations and the CLI included), ``chip_smoke.py``,
+builders, the integrations, training and the CLI included), ``chip_smoke.py``,
 ``tests/torch_fakes.py`` and ``tools/validate_torch.py`` import in a fresh
 interpreter where both are blocked.  scipy is imported inside the kd-tree build only, never
 when a module is imported."""
@@ -55,5 +55,9 @@ def test_port_imports_no_jax():
                  "aimnetcentral_tpu_torch.calculators.ase_adapter",
                  "aimnetcentral_tpu_torch.calculators.torchsim_adapter",
                  "aimnetcentral_tpu_torch.validation", "aimnetcentral_tpu_torch.validation.observables",
-                 "aimnetcentral_tpu_torch.cli"):
+                 "aimnetcentral_tpu_torch.cli", "aimnetcentral_tpu_torch.data",
+                 "aimnetcentral_tpu_torch.data.sgdataset", "aimnetcentral_tpu_torch.train.loss",
+                 "aimnetcentral_tpu_torch.train.metrics", "aimnetcentral_tpu_torch.train.sae",
+                 "aimnetcentral_tpu_torch.train.trackers", "aimnetcentral_tpu_torch.train.step",
+                 "aimnetcentral_tpu_torch.train.trainer"):
         assert must in names
