@@ -24,4 +24,16 @@ what is still to come.
 
 __version__ = "0.1.0"
 
+import torch as _torch
+
 from aimnetcentral_tpu_torch.device import resolve_device  # noqa: F401
+
+# torch computes exp, sqrt, cos, log and tanh of CPU floats through MKL's
+# vector-math library, which sets itself up on its first call.  When that
+# first call comes from several threads at once (a tensor large enough to
+# be split among them), a thread can take a 12-bit estimate for its whole
+# chunk (sqrt(1) = 0.999755859375, 4,096 units in the last place low), and
+# a CPU evaluation then disagrees with the card in the fourth digit.  One
+# call on this thread first sets the library up safely
+# (tools/cpu_vml_first_call.py measures both).
+_torch.exp(_torch.zeros(1))

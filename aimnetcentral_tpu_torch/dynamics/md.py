@@ -149,6 +149,17 @@ def _normal(gen: torch.Generator, numbers, atom_id, n_compact: int) -> torch.Ten
     return torch.where((numbers > 0)[:, None], z[atom_id], 0.0)
 
 
+def langevin_velocities(veloc: torch.Tensor, masses: torch.Tensor, real: torch.Tensor, dt: float,
+                        friction_fs: float, temperature_K: float, noise: torch.Tensor) -> torch.Tensor:
+    """The Langevin (BAOAB "O") update of velocity-Verlet velocities:
+    ``c1 v + sigma noise`` with ``c1 = exp(-gamma dt)`` and ``sigma =
+    sqrt((1 - c1^2) kT / m)``; ``masses`` (N, 1), ``real`` (N, 1), ``dt``
+    in internal time units, padding rows zero."""
+    c1 = math.exp(-(friction_fs / constants.fs) * dt)
+    sigma = torch.sqrt((1.0 - c1 * c1) * (constants.kB * temperature_K) / masses)
+    return torch.where(real, c1 * veloc + sigma * noise, 0.0)
+
+
 def kinetic_temperature(veloc: torch.Tensor, masses: torch.Tensor, numbers: torch.Tensor) -> torch.Tensor:
     real = numbers > 0
     ke = 0.5 * torch.where(real[:, None], masses[:, None] * veloc**2, 0.0).sum()
@@ -516,14 +527,10 @@ class MDDriver:
 
         rng_state = state.rng_state
         if md.thermostat == "langevin":
-            gamma = md.friction_fs / constants.fs
-            c1 = math.exp(-gamma * dt)
-            kT = constants.kB * md.temperature_K
-            sigma = torch.sqrt((1.0 - c1 * c1) * kT / m)
             self._gen.set_state(rng_state)
             noise = _normal(self._gen, system.numbers, atom_id, self._n_compact)
             rng_state = self._gen.get_state()
-            veloc = torch.where(real, c1 * veloc + sigma * noise, 0.0)
+            veloc = langevin_velocities(veloc, m, real, dt, md.friction_fs, md.temperature_K, noise)
         elif md.thermostat == "berendsen":
             t_now = kinetic_temperature(veloc, masses, system.numbers)
             lam = torch.sqrt(

@@ -33,9 +33,20 @@ class BinGrid:
     edge_hint: float  # targeted bin edge (Angstrom); a lower bound on the true edge
     periodic: bool
     margin: float = 0.0  # extra stencil reach for stale binnings (the reuse skin)
+    # per-axis override of ``periodic`` (a spatial-decomposition shard's
+    # extended grid is bounded along its sharded axes, whose halo planes
+    # supply the neighbours, and periodic along the others); None = every
+    # axis follows ``periodic``
+    periodic_axes: tuple[bool, bool, bool] | None = None
     # one molecule per bin (builders.system_molecule_bins): every pair is
     # within its bin, so every sweep runs at radius 0
     molecule_bins: bool = False
+
+    @property
+    def axes_periodic(self) -> tuple[bool, bool, bool]:
+        if self.periodic_axes is not None:
+            return self.periodic_axes
+        return (self.periodic,) * 3
 
     @property
     def total_bins(self) -> int:
@@ -115,16 +126,17 @@ def stencil_tables(grid: BinGrid, radius: int) -> tuple[np.ndarray, np.ndarray, 
     """Host tables for a stencil sweep: ``(nbr (S, B) int32, wraps (S, B, 3)
     f32, is_zero (S,) bool)``.  For step s, bin b's candidate bin is
     ``nbr[s, b]``, whose atoms are shifted by ``wraps[s, b] @ cell``.
-    Out-of-grid targets of gas-phase grids are -1."""
+    Periodic axes wrap; out-of-grid targets along a bounded axis (gas
+    phase, or a spatial shard's sharded axis) are -1."""
     nx, ny, nz = grid.nbins
     offs = stencil_offsets(radius)
     bx, by, bz = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
     bin3 = np.stack([bx, by, bz], axis=-1).reshape(-1, 3)
     target = bin3[None, :, :] + offs[:, None, :]  # (S, B, 3)
     nbins = np.array(grid.nbins)
-    per = grid.periodic
-    wrap = np.floor_divide(target, nbins) if per else np.zeros_like(target)
-    t = target - wrap * nbins if per else np.clip(target, 0, nbins - 1)
+    per = np.array(grid.axes_periodic)
+    wrap = np.where(per, np.floor_divide(target, nbins), 0)
+    t = np.where(per, target - wrap * nbins, np.clip(target, 0, nbins - 1))
     inside = np.all(per | ((target >= 0) & (target < nbins)), axis=-1)
     nbr = np.where(inside, (t[..., 0] * ny + t[..., 1]) * nz + t[..., 2], -1)
     is_zero = (offs == 0).all(axis=1)
@@ -136,7 +148,7 @@ def mirror_stencil_tables(grid: BinGrid, radius: int) -> tuple[np.ndarray, np.nd
     b' whose FORWARD step s had b as its candidate (nbr[s, b'] == b), and
     ``mwrap[s, b]`` the wrap that forward step applied, seen from b.
     Built from the offset mirror: b' = nbr(-offset, b), mwrap =
-    -wrap(-offset, b).  Gas-phase out-of-grid entries are -1."""
+    -wrap(-offset, b).  Out-of-grid entries along a bounded axis are -1."""
     offs = stencil_offsets(radius)
     key = {tuple(o): i for i, o in enumerate(offs)}
     mirror = np.array([key[tuple(-o)] for o in offs], dtype=np.int64)

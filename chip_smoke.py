@@ -37,10 +37,11 @@ Phases (any failure exits nonzero; nothing is caught):
 5. layers: host-clock times of binning and of each pair term's sweep,
    forward plus backward, through the kernels;
 6. the card against the port's own CPU run (plain versions) on a
-   ~1,200-atom box (3x3x3 LR grid): energy (1e-5 relative, with a floor of
+   500-atom box on the binned layouts (``CHECK_BOX``, ``CHECK_THRESHOLD``):
+   energy (1e-5 relative, with a floor of
    one f32 rounding of every term the energy sums), forces and stress, for
-   both configurations; a calculator request after a sub-skin move reuses
-   the prepared layout and equals a fresh calculator's within the absolute
+   both configurations; on the ~1,200-atom box a calculator request after a
+   sub-skin move reuses the prepared layout and equals a fresh calculator's within the absolute
    limits ``CHECK_ABS``, which the same request at the ``fast`` tier (the
    control) must exceed;
 7. MD (``dynamics.MDDriver``, Langevin, dt 0.5 fs, 300 K, skin 0.3 A):
@@ -58,7 +59,7 @@ Phases (any failure exits nonzero; nothing is caught):
    measurements are taken over the first 50 steps of a fresh NVE driver at
    each tier, gated at ``exact`` on the total energy (within 1e-4 of
    itself); two drivers of one seed give the same coordinates bit for bit
-   after 50 steps; on the 1,200-atom box, 10 NVE steps and 10 FIRE steps
+   after 50 steps; on the 500-atom box, 3 NVE steps and 3 FIRE steps
    of wb97m-d3 on the card at the exact tier against the CPU, per-step
    energies and forces and final coordinates within ``CHECK_ABS``, with the
    same steps at ``fast`` as the control that must exceed them;
@@ -72,7 +73,7 @@ Phases (any failure exits nonzero; nothing is caught):
    grid) and a bitwise repeat, with request times built and reused, peak
    memory and a profiled request; A, B, D and E against their plain
    versions on the 10k gas-phase grid as in phase 3; the card against the
-   CPU on mol-113, batch-8, periodic-500 and a 1,200-atom DSF cluster;
+   CPU on mol-113, batch-8, periodic-500 and a 500-atom DSF cluster;
 9. packed: gas-phase batches at or above ``binned_threshold`` on the
    molecule-bin layout (one molecule a bin, capacity 120, every sweep at
    radius 0; ``phase_packed``): packed-64 (flagship, 64 clusters of 40-120
@@ -99,7 +100,7 @@ Phases (any failure exits nonzero; nothing is caught):
    the LR grid) against their plain versions, and again on
    artifact-packed-32x113's molecule bins; artifact-mol-113 and
    artifact-packed-32x113 (launches, times, a bitwise repeat, the host's
-   spans); the card against the CPU on 1,200 atoms and an 8-molecule
+   spans); the card against the CPU on 500 atoms and an 8-molecule
    packed batch within ``CHECK_ABS``; a request with an element outside
    ``implemented_species`` refused without a launch;
 12. integrations: the adapters and the command line on the card
@@ -150,8 +151,8 @@ Phases (any failure exits nonzero; nothing is caught):
    phase 4 (launches A, B 3 and D, E 1, 1, 3, 1 a request; times, peak, a
    profiled request, a bitwise repeat), PME against Ewald within 2e-3 of
    max(1, |E|); ewald-periodic-500 (wb97m-d3, indexed, stress); the card
-   against the CPU on 1,200 atoms (Ewald on a charged cell, PME,
-   lr-heads) and on ewald-periodic-500; md-ewald-10k's first 50 NVE steps
+   against the CPU on 1,200 atoms (Ewald on a charged cell) and 500
+   (PME, lr-heads) and on ewald-periodic-500; md-ewald-10k's first 50 NVE steps
    at exact, the same 25 fs at 0.25 fs (the NVE gate) and a bitwise repeat
    of two drivers; one Ewald HVP card against CPU with a ``fast`` control;
    the phase's seconds;
@@ -193,6 +194,22 @@ history, ``train_loss`` falling) with a checkpoint after the first and a
 resumed second epoch equal bit for bit; the CLI's ``calc-sae``, ``train``
 and ``export`` bodies, the artifact on the card within ``CHECK_ABS``.
 
+Then phase ``spatial`` (``phase_spatial``): one periodic box sharded over
+ranks (aimnetcentral_tpu_torch/parallel/): one world of four ranks spawned
+after the kernels are built (gloo on one card, the halo buffers staged
+through the host; NCCL with a card a rank), on flagship-10k at full width
+on one grid as JAX plans it (DSF at 15 A, a halo of three planes): a ring
+of two and the 2 x 2 torus, energy and forces against the single-device
+port on the same binned system (the JAX package's tests/test_spatial.py
+limits), a bitwise repeat, each rank's A, B, D, E launches a request and
+no plain call on the card, request, halo-exchange and all-reduce ms and
+each rank's peak; 20 NVE steps of ``SpatialMDDriver`` on the ring against
+the single-device velocity Verlet from the same state, and its NVE drift;
+wb97m-d3 with Ewald and with PME on the ring (ewald-d3-10k, pme-d3-10k)
+against the single-device port, PME against Ewald; A, B, D and E against
+their plain versions on a ring shard's and a torus shard's extended grids
+(their mixed-periodicity tables), as phase 3.
+
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
 launch at F = 17; rows D and E are the three launches of one wb97m-d3-10k
@@ -204,8 +221,8 @@ fused request's LR grid), counted over
 the fused requests and the ensemble MD window; ``launches`` counts every main-path run (both configurations'
 requests, the gas, packed, artifact and integrations phases' requests, the MD windows,
 the second_order phase's IR request and kernel-route HVPs, the
-long_range phase's requests and MD windows, and the train phase's
-``Trainer.fit``); the last row is kernel B's AEV-constants build, counted
+long_range phase's requests and MD windows, the train phase's
+``Trainer.fit`` and every rank's runs in the spatial phase); the last row is kernel B's AEV-constants build, counted
 over that fit; and
 ``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
@@ -231,6 +248,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN = 10_000
 N_CHECK = 1_200
+CHECK_BOX = 500  # atoms of the card-against-CPU checks whose CPU side leads the run (as md-periodic-500)
+CHECK_THRESHOLD = 256  # the calculators' binned_threshold there, so the 500-atom box keeps the binned layouts
 N_TIMED = 10  # requests timed a configuration, after the three counted ones
 N_BUILT_GAS = 5  # requests of a phase-gas input timed each building its layout (some take seconds)
 FP32_PEAK = 67e12  # H100 SXM, FP32 outside the tensor cores (FLOP/s)
@@ -254,7 +273,8 @@ MD_PEAK_RATIO = 1.25  # MD peak memory against the single request's
 MD_HELD_GROWTH = 64 * 2**20  # bytes held after a window beyond those held before it
 MD_NVE_DRIFT = 1e-4  # NVE total energy change over the first 50 steps at the exact tier, of itself
 MD_SETTING = dict(dt_fs=0.5, temperature_K=300.0, thermostat="langevin", skin=0.3)  # bench.py:150
-MD_CHECK_STEPS = 10
+MD_CHECK_STEPS = 3  # NVE steps, and FIRE steps, of the MD check card against CPU
+MD_CHECK_LAG = 0.49  # of the skin: the MD check's injected displacement since the last re-bin (one re-bin in step 1)
 LR_CUTOFF = 15.0  # DSF's dsf_rc and the D3 cutoff of both configurations
 
 
@@ -1043,20 +1063,21 @@ def energy_terms_abs(params, cfg, sysb) -> float:
     return float(e_atom.abs().sum() + (e_total.double().sum() - e_atom.sum()).abs())
 
 
-def phase_card_vs_cpu(label: str, params, cfg) -> dict:
-    """Energy, forces and stress on the ~1,200-atom box, the card against
-    the port's CPU run.  The energy gate is 1e-5 relative with an absolute
-    floor of one f32 rounding of every term the energy sums
-    (``energy_terms_abs``): the random flagship's energy on this box is
-    near zero (0.09 eV), below the f32 noise of the sum of its terms."""
+def phase_card_vs_cpu(label: str, params, cfg, n_box: int = CHECK_BOX) -> dict:
+    """Energy, forces and stress on an ``n_box``-atom box on the binned
+    layout (``CHECK_THRESHOLD``), the card against the port's CPU run.
+    The energy gate is 1e-5 relative with an absolute floor of one f32
+    rounding of every term the energy sums (``energy_terms_abs``): the
+    random flagship's energy on this box is near zero (0.15 eV), below the
+    f32 noise of the sum of its terms."""
     import torch
 
     from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
     from aimnetcentral_tpu_torch.models.bridge import params_to
 
-    coord, numbers, cell = build_box(N_CHECK, seed=1)
+    coord, numbers, cell = build_box(n_box, seed=1)
     data = {"coord": coord, "numbers": numbers, "cell": cell}
-    calc = AIMNet2Calculator((params, cfg), device="cuda")
+    calc = AIMNet2Calculator((params, cfg), device="cuda", binned_threshold=CHECK_THRESHOLD)
     sysb = calc.prepare_system(data)
     grid = sysb.lr_bins
     floor = F32_EPS * energy_terms_abs(params, cfg, sysb)
@@ -1065,15 +1086,14 @@ def phase_card_vs_cpu(label: str, params, cfg) -> dict:
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu = AIMNet2Calculator((params_to(params, torch.device("cpu")), cfg), device="cpu").eval(
-        data, forces=True, stress=True
-    )
+    cpu = AIMNet2Calculator((params_to(params, torch.device("cpu")), cfg), device="cpu",
+                            binned_threshold=CHECK_THRESHOLD).eval(data, forces=True, stress=True)
     t_cpu = time.perf_counter() - t0
     de = abs(float(card["energy"][0] - cpu["energy"][0]))
     df = float(np.abs(card["forces"] - cpu["forces"]).max())
     ds = float(np.abs(card["stress"] - cpu["stress"]).max())
     e_tol = max(REL_TOL * abs(float(cpu["energy"][0])), floor)
-    log(f"[check {label}] {N_CHECK} atoms, LR grid {grid.nbins} C={grid.capacity}: "
+    log(f"[check {label}] {n_box} atoms, LR grid {grid.nbins} C={grid.capacity}: "
         f"E card {card['energy'][0]:.6f} cpu {cpu['energy'][0]:.6f} "
         f"|dE| {de:.3e} eV (limit {e_tol:.3e}: 1e-5 relative, floor {floor:.3e} = one f32 rounding of "
         f"the terms summed); max |dF| {df:.3e} eV/A; max |dstress| {ds:.3e} eV/A^3 "
@@ -1325,10 +1345,12 @@ def md_trace(drv, n_steps: int, n_atoms: int = N_CHECK) -> dict:
 
 
 def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None, ensemble: bool = False,
-                         n_box: int = N_CHECK, steps: int = MD_CHECK_STEPS) -> dict:
-    """On an ``n_box``-atom box (1,200): ``steps`` NVE steps from the same
+                         n_box: int = CHECK_BOX, steps: int = MD_CHECK_STEPS) -> dict:
+    """On an ``n_box``-atom box (500): ``steps`` NVE steps from the same
     injected 300 K velocities at the exact tier, and as many FIRE steps, on the
-    card and on the CPU.  Per step, the
+    card and on the CPU, each with one re-bin (or, indexed, one rebuild of
+    the lists) in its first step (``MD_CHECK_LAG``; a run without one
+    fails).  Per step, the
     potential energy and every force are held to the absolute limits
     ``CHECK_ABS``, and the final coordinates of both runs too; the same
     steps on the card at the ``fast`` tier are the control, which must come
@@ -1363,14 +1385,20 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None, ensem
                        ensemble=ensemble, device=dev)
         st = drv._state
         vel = torch.as_tensor(v0.astype(np.float32), device=dev)
+        real = (st.system.numbers > 0)[:, None]
+        # the last re-bin's reference positions put 0.49 skin behind in x:
+        # the first step carries atoms past skin / 2, so every run re-bins
+        # (binned) or rebuilds its lists (indexed) inside the compared steps
+        lag = torch.tensor([MD_CHECK_LAG * drv.md.skin, 0.0, 0.0], device=dev)
         drv._state = dataclasses.replace(
-            st, veloc=torch.where((st.system.numbers > 0)[:, None], vel[st.atom_id.clamp(max=n - 1)], 0.0)
+            st, veloc=torch.where(real, vel[st.atom_id.clamp(max=n - 1)], 0.0),
+            ref_coord=torch.where(real, st.ref_coord - lag, st.ref_coord),
         )
         runs[key] = md_trace(drv, steps, n)
         if tier == "exact" and fire:
             # FIRE on a fixed binned layout of the same box
-            grid = dataclasses.replace(B.plan_bins(cell, N_CHECK, cfg.aev.rc_s + 0.3), margin=0.3)
-            lr_grid = B.plan_lr_bins(cell, N_CHECK, drv._lr_cutoff(), margin=0.3)
+            grid = dataclasses.replace(B.plan_bins(cell, n_box, cfg.aev.rc_s + 0.3), margin=0.3)
+            lr_grid = B.plan_lr_bins(cell, n_box, drv._lr_cutoff(), margin=0.3)
             sysb, _perm, ovf = B.to_binned_system(system, grid, lr_grid)
             if bool(ovf.any()):
                 raise SystemExit("FAIL: the FIRE layout overflowed")
@@ -1404,6 +1432,9 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None, ensem
         dfire = float(np.abs(runs["card"]["fire"] - cpu["fire"]).max())
         log(f"[md check {label}] {steps} FIRE steps: max |dx| {dfire:.3e} A (limit {CHECK_ABS['coord']:.1e}), fmax "
             f"{runs['card']['fire_fmax']:.4f} / {cpu['fire_fmax']:.4f} eV/A")
+    rebins = {key: run["rebins"] for key, run in runs.items()}
+    if min(rebins.values()) < 1:
+        raise SystemExit(f"FAIL: the MD check on {label} compared no re-bin: {rebins}")
     limits = {k: CHECK_ABS[k] for k in ("energy", "forces", "coord")}
     if ensemble:
         limits["epot_std"] = CHECK_ABS["energy"]
@@ -1412,7 +1443,7 @@ def phase_md_card_vs_cpu(label: str, params, cfg, mol: dict | None = None, ensem
                          f"{over_limits(diffs['card'], limits)}, FIRE {dfire:.3e} A")
     if not over_limits({k: diffs["card fast"][k] for k in ("energy", "forces")}, limits):
         raise SystemExit(f"FAIL: the fast-tier MD control passed the limits on {label}: they cannot see TF32")
-    return {"diffs": diffs, "fire_coord_A": dfire, "card_s": runs["card"]["s"], "cpu_s": cpu["s"]}
+    return {"diffs": diffs, "fire_coord_A": dfire, "rebins": rebins, "card_s": runs["card"]["s"], "cpu_s": cpu["s"]}
 
 
 def gas_cluster(n_atoms: int, seed: int = 0) -> dict:
@@ -1634,7 +1665,7 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
     repeat, request times built and reused, peak memory.  Kernels A, B, D
     and E against their plain versions on the 10k gas-phase grid, and the
     card against the CPU on mol-113, batch-8, periodic-500 (both) and a
-    1,200-atom DSF cluster on its gas-phase grid."""
+    500-atom DSF cluster on its gas-phase grid (``CHECK_THRESHOLD``)."""
     from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
 
     cfg_dsf = dsf_config(cfg)
@@ -1680,7 +1711,8 @@ def phase_gas(params, cfg, params_d3, cfg_d3) -> dict:
         ("batch-8 flagship", params, cfg, batch, False, 1024),
         ("periodic-500 wb97m-d3", params_d3, cfg_d3, box, True, 1024),
         ("periodic-500-split wb97m-d3", params_d3, cfg_split, box, True, 1024),
-        ("cluster-1200-dsf flagship", params, cfg_dsf, gas_cluster(N_CHECK, seed=5), False, 1024),
+        (f"cluster-{CHECK_BOX}-dsf flagship", params, cfg_dsf, gas_cluster(CHECK_BOX, seed=5), False,
+         CHECK_THRESHOLD),
     ):
         res["checks"][label] = gas_card_vs_cpu(label, p, c, data, stress, threshold)
     return res
@@ -1817,8 +1849,8 @@ def phase_md_gas(params, cfg, params_d3, cfg_d3) -> dict:
     evaluation on the grid), no overflow, fewer rebuilds than steps, the
     total energy within ``MD_NVE_DRIFT`` of itself, and two drivers of one
     seed equal bit for bit after a chunk; A, B, D and E held to their plain
-    versions on md-cluster-10k-dsf's SR and LR grids; then 10 steps of
-    md-mol-113 on the card against the CPU within ``CHECK_ABS``, with a
+    versions on md-cluster-10k-dsf's SR and LR grids; then ``MD_CHECK_STEPS``
+    steps of md-mol-113 on the card against the CPU within ``CHECK_ABS``, with a
     ``fast`` control that must exceed it."""
     import torch
 
@@ -2008,11 +2040,11 @@ def phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dic
         del calc_g
         torch.cuda.empty_cache()
 
-    box_c, numbers_c, cell_c = build_box(N_CHECK, seed=1)
+    box_c, numbers_c, cell_c = build_box(CHECK_BOX, seed=1)
     batch8 = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
     res["checks"] = {
-        "artifact-1200": artifact_card_vs_cpu("artifact-1200", path, {"coord": box_c, "numbers": numbers_c,
-                                                                      "cell": cell_c}, True),
+        f"artifact-{CHECK_BOX}": artifact_card_vs_cpu(f"artifact-{CHECK_BOX}", path, {
+            "coord": box_c, "numbers": numbers_c, "cell": cell_c}, True, binned_threshold=CHECK_THRESHOLD),
         "artifact-packed-8": artifact_card_vs_cpu("artifact-packed-8", path, batch8, False, binned_threshold=512),
     }
     if res["checks"]["artifact-packed-8"]["layout"] != "packed":
@@ -2663,8 +2695,8 @@ def phase_long_range(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> di
     res["checks"]["ewald-1200 charged"] = gas_card_vs_cpu(
         "ewald-1200 flagship, charge +1", params, cfg_ew,
         {"coord": c_small, "numbers": n_small, "cell": cell_small, "charge": 1.0}, True)
-    res["checks"]["pme-1200"] = phase_card_vs_cpu("pme-1200 flagship", params, cfg_pme)
-    res["checks"]["lr-heads-1200"] = phase_card_vs_cpu("lr-heads-1200", params_lr, cfg_lr)
+    res["checks"][f"pme-{CHECK_BOX}"] = phase_card_vs_cpu(f"pme-{CHECK_BOX} flagship", params, cfg_pme)
+    res["checks"][f"lr-heads-{CHECK_BOX}"] = phase_card_vs_cpu(f"lr-heads-{CHECK_BOX}", params_lr, cfg_lr)
     res["checks"]["ewald-periodic-500"] = gas_card_vs_cpu("ewald-periodic-500 wb97m-d3", params_d3, cfg_d3_ew,
                                                           box500, True)
 
@@ -3861,6 +3893,420 @@ def phase_train(smi: str) -> dict:
     return res
 
 
+SPATIAL_WORLD = 4  # ranks of the spatial phase's world: a ring of two uses the first two, the 2 x 2 torus all four
+SPATIAL_TIMED = 3  # timed spatial requests a configuration, after one that uploads the tables
+SPATIAL_MD_STEPS = 20  # NVE steps of SpatialMDDriver on the 10k ring
+SPATIAL_MD_CHUNK = 10  # steps between its global re-bins
+SPATIAL_E_TOL = (2e-6, 2e-5)  # energy rtol, atol (the JAX package's tests/test_spatial.py)
+SPATIAL_F_TOL = (3e-5, 3e-6)  # forces: of the largest |F|, plus absolute (the same tests)
+
+
+def plain_spies() -> dict:
+    """Count the calls of the kernels' plain versions that get CUDA tensors
+    (the port takes a plain version only for CPU tensors); returns the
+    counts, which the wrapped functions fill."""
+    import torch
+
+    from aimnetcentral_tpu_torch.kernels import conv_pass as cp
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+
+    counts: dict = {}
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kw.values())):
+                counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for mod, name in ((cs, "conv_forward_plain"), (cs, "conv_backward_plain"), (cp, "conv_backward_plain"),
+                      (ps, "pair_forward_plain"), (ps, "pair_backward_plain")):
+        setattr(mod, name, spy(name, getattr(mod, name)))
+    return counts
+
+
+def spatial_request(job: dict, device, wrappers: dict, plain: dict) -> dict:
+    """One rank's share of a spatial configuration: a request that uploads
+    the tables, ``SPATIAL_TIMED`` timed requests (energy and the assembled
+    forces at the exact tier; the kernels' launches and the plain calls
+    counted over them, the rank's peak memory), a bitwise repeat, and one
+    more request with the collectives timed."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.parallel import collectives as co
+    from aimnetcentral_tpu_torch.parallel.mesh import make_spatial_mesh
+    from aimnetcentral_tpu_torch.parallel.spatial import make_spatial_energy_fn, plan_spatial, spatial_forces
+
+    n_sp, n_spy = job["mesh"]
+    spec = plan_spatial(job["system"], job["cfg"], n_sp, n_spy)
+    mesh = make_spatial_mesh(n_sp, n_spy, device)
+    if mesh is None:
+        return {}
+    system = job["system"].to(device)
+    params = params_to(job["params"], device)
+    efn = make_spatial_energy_fn(job["cfg"], spec, mesh, ewald_kpts=system.ewald_kpts)
+    args = (params, system.coord, system.numbers, system.charge, system.cell[0], system.mult)
+    with ambient_matmul_context("highest"):
+        first = spatial_forces(efn, *args)
+        torch.cuda.synchronize()
+        reset_counts()
+        plain.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for _ in range(SPATIAL_TIMED):
+            t0 = time.perf_counter()
+            out = spatial_forces(efn, *args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = read_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated(device)
+        repeat = bool(torch.equal(first["forces"], out["forces"]) and torch.equal(first["energy"], out["energy"]))
+        co.clock.reset()
+        co.clock.on = True
+        spatial_forces(efn, *args)
+        co.clock.on = False
+    return {
+        "energy": float(out["energy"][0]), "forces": out["forces"].cpu().numpy() if mesh.lead else None,
+        "request_ms": sorted(times)[len(times) // 2] * 1e3, "launches_per_request": {
+            k: v / SPATIAL_TIMED for k, v in launches.items()}, "plain_calls": dict(plain), "peak_bytes": peak,
+        "repeat_bitwise": repeat, "exchange_ms": 1e3 * co.clock.exchange,
+        "all_reduce_ms": 1e3 * co.clock.all_reduce, "coords": mesh.coords,
+        "halo": spec.halo, "ext_nbins": spec.ext_grid.nbins,
+    }
+
+
+def spatial_md(job: dict, device, wrappers: dict, plain: dict) -> dict:
+    """One rank's share of ``SPATIAL_MD_STEPS`` NVE steps of SpatialMDDriver
+    at the exact tier: the epot trace, the initial state and the end
+    velocities (global slot order), ms a step, launches."""
+    import torch
+
+    from aimnetcentral_tpu_torch.dynamics import MDConfig
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.parallel.spatial import SpatialMDDriver
+
+    n_sp, n_spy = job["mesh"]
+    params = params_to(job["params"], device)
+    md = MDConfig(dt_fs=0.5, temperature_K=300.0, thermostat="nve", precision="exact")
+    drv = SpatialMDDriver(params, job["cfg"], job["system"], md, n_sp, seed=0, n_spy=n_spy, device=device)
+    veloc0, masses0 = drv.gather(drv.veloc), drv.gather(drv.masses)
+    reset_counts()
+    plain.clear()
+    drv.run(0)  # the initial forces
+    epot0 = float(drv.epot[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = drv.run(SPATIAL_MD_STEPS, chunk=SPATIAL_MD_CHUNK)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SPATIAL_MD_STEPS
+    lead = drv.mesh.lead
+    veloc1, masses1 = drv.gather(drv.veloc), drv.gather(drv.masses)
+    return {
+        "epot0": epot0, "epot": out["epot"], "step_ms": step_ms, "launches": read_counts(wrappers),
+        "plain_calls": dict(plain),
+        **({"veloc0": veloc0.cpu().numpy(), "masses0": masses0.cpu().numpy(), "veloc1": veloc1.cpu().numpy(),
+            "masses1": masses1.cpu().numpy()} if lead else {}),
+    }
+
+
+def spatial_rank(rank: int, device, jobs: list, out_dir: str) -> None:
+    """The body of one rank of the spatial phase's world (spawned: it
+    imports this file, and loads the kernels the parent built).  Every rank
+    takes part in every job's group creation; ranks beyond a job's mesh
+    then wait for the next."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from aimnetcentral_tpu_torch.parallel.mesh import make_spatial_mesh
+
+    wrappers, plain = counters(), plain_spies()
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(), "device": str(device)}
+    for job in jobs:
+        n_sp, n_spy = job["mesh"]
+        if rank >= n_sp * n_spy:
+            make_spatial_mesh(n_sp, n_spy, device)
+            continue
+        run = spatial_md if job["kind"] == "md" else spatial_request
+        res[job["name"]] = run(job, device, wrappers, plain)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def ext_shard(spec, sysb, coords):
+    """The extended grid of the rank at mesh ``coords`` built in one
+    process by periodic indexing (what its halo exchanges give it): the
+    layout on which that rank's kernels run."""
+    import torch
+
+    from aimnetcentral_tpu_torch.ops.math import cellmul
+
+    nx, ny, _nz = spec.grid.nbins
+    dev = sysb.coord.device
+    xi = (torch.arange(spec.nx_ext, device=dev) + coords[0] * spec.nx_local - spec.halo) % nx
+    y0 = coords[1] * spec.ny_local - spec.hy if spec.n_spy > 1 else 0
+    yi = (torch.arange(spec.ny_ext, device=dev) + y0) % ny
+
+    def ext(x):
+        t = x.reshape((nx, ny, spec.col_slots) + x.shape[1:])
+        return t[xi][:, yi].reshape((-1,) + x.shape[1:])
+
+    numbers = ext(sysb.numbers)
+    return sysb.replace(
+        coord=ext(sysb.coord) + cellmul(spec.halo_wraps(coords, dev), sysb.cell[0]), numbers=numbers,
+        mol_idx=torch.where((numbers > 0) & spec.core_mask(dev), 0, 1), bins=spec.ext_grid,
+    )
+
+
+def single_reference(params, cfg, sysb, reps: int = 1) -> tuple[float, np.ndarray, float]:
+    """The single-device port on the same binned system at the exact tier:
+    energy, forces and the median ms of ``reps`` requests."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+    from aimnetcentral_tpu_torch.models import aimnet2_apply
+
+    times = []
+    with ambient_matmul_context("highest"):
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = sysb.coord.detach().requires_grad_(True)
+            e = aimnet2_apply(params, cfg, sysb.replace(coord=c), sae_external=True)["energy"].sum()
+            (g,) = torch.autograd.grad(e, c)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return float(e.detach()), (-g).cpu().numpy(), sorted(times[1:])[len(times[1:]) // 2] * 1e3
+
+
+def spatial_agree(label: str, got_e: float, got_f, ref_e: float, ref_f, numbers) -> dict:
+    """Energy and forces against the reference within ``SPATIAL_E_TOL``
+    and ``SPATIAL_F_TOL``; fails beyond them."""
+    real = np.asarray(numbers) > 0
+    de = abs(got_e - ref_e)
+    e_lim = SPATIAL_E_TOL[0] * abs(ref_e) + SPATIAL_E_TOL[1]
+    df = float(np.abs(got_f - ref_f)[real].max()) if got_f is not None else 0.0
+    f_lim = SPATIAL_F_TOL[0] * float(np.abs(ref_f).max()) + SPATIAL_F_TOL[1]
+    log(f"[spatial {label}] against the single-device port: E {got_e:.6f} / {ref_e:.6f} eV, |dE| {de:.3e} "
+        f"(limit {e_lim:.3e}); max |dF| {df:.3e} eV/A (limit {f_lim:.3e})")
+    if de > e_lim or df > f_lim:
+        raise SystemExit(f"FAIL: the spatial decomposition disagrees with the single-device port on {label}")
+    return {"dE": de, "dE_limit": e_lim, "dF": df, "dF_limit": f_lim}
+
+
+def spatial_systems(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
+    """The spatial phase's binned systems, on one grid as JAX plans it (the
+    calculator's SR grid of the 10k box, its LR twin dropped), with their
+    calculators: flagship-10k, ewald-d3-10k and pme-d3-10k (wb97m-d3 with
+    Ewald or PME)."""
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+
+    data = {"coord": coord, "numbers": numbers, "cell": cell}
+    one_grid = dict(lr_bins=None, lr_slot=None, lr_inv=None)
+    cfg_ew, cfg_pme = ewald_config(cfg_d3), ewald_config(cfg_d3, "pme")
+    calc = AIMNet2Calculator((params, cfg), device="cuda")
+    calc_ew = AIMNet2Calculator((params_d3, cfg_ew), device="cuda")
+    return {
+        "calc": calc, "sysb": calc.prepare_system(data).replace(**one_grid),
+        "calc_ew": calc_ew, "cfg_ew": cfg_ew, "sys_ew": calc_ew.prepare_system(data).replace(**one_grid),
+        "cfg_pme": cfg_pme,
+        "sys_pme": AIMNet2Calculator((params_d3, cfg_pme), device="cuda").prepare_system(data).replace(**one_grid),
+    }
+
+
+def phase_spatial_kernels(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
+    """A, B, D and E against their plain versions (as phase 3) on the
+    extended grids of the spatial phase's shards: a ring shard's (10 x 8 x
+    8, bounded in x) and a torus shard's (10 x 10 x 8, bounded in x and y)
+    for A and B, the ring shard's for D and E with DSF at S = 172, and the
+    D3 energy term's K = 41 extras at S = 172 on ewald-d3's ring shard."""
+    from aimnetcentral_tpu_torch.parallel.spatial import plan_spatial
+
+    t_phase = time.perf_counter()
+    sy = spatial_systems(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
+    calc, sysb = sy["calc"], sy["sysb"]
+    res: dict = {}
+    for label, spec_args in (("ring", (2, 1)), ("torus", (2, 2))):
+        spec = plan_spatial(sysb, cfg, *spec_args)
+        shard = ext_shard(spec, sysb, (0, 0))
+        log(f"[spatial kernels] {label} shard 0: global grid {spec.grid.nbins} C={spec.grid.capacity}, halo "
+            f"{spec.halo}, extended grid {spec.ext_grid.nbins} periodic axes {spec.ext_grid.axes_periodic}")
+        _rows, res[f"{label} A, B"] = phase_kernels(calc, shard, f"spatial {label} shard", fs=(cfg.nfeature + 1,))
+        if label == "ring":
+            _rows, res["ring D, E"] = phase_pair_kernels(calc, shard, "spatial ring shard")
+    spec_ew = plan_spatial(sy["sys_ew"], sy["cfg_ew"], 2, 1)
+    _rows, res["ewald-d3 ring D, E"] = phase_pair_kernels(
+        sy["calc_ew"], ext_shard(spec_ew, sy["sys_ew"], (0, 0)), "spatial ewald-d3 ring shard", only=("d3_energy",))
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[spatial kernels] done in {res['seconds']:.1f} s")
+    return res
+
+
+def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
+    """Spatial decomposition on the card (``parallel/``): one world of
+    ``SPATIAL_WORLD`` ranks spawned after the parent built the kernels
+    (each rank loads the built libraries): gloo with the halo buffers
+    staged through the host on one card, NCCL with a card a rank.  On
+    flagship-10k at full width (DSF at 15 A under PBC, the calculator's SR
+    grid, one grid as JAX plans it: a halo of three planes): a ring of two
+    and the 2 x 2 torus, each rank's A, B, D, E launches and no plain call
+    on the card, energy and forces against the single-device port on the
+    same binned system, a bitwise repeat, request and exchange ms, each
+    rank's peak; 20 NVE steps of SpatialMDDriver on the ring against the
+    single-device velocity Verlet from the same state, and its NVE drift;
+    wb97m-d3 with Ewald (ewald-d3-10k: the real-space cutoff's halo of four
+    planes, the largest a ring of two on eight planes holds) and with PME
+    on the ring, against the single-device port and PME against Ewald."""
+    import pickle
+
+    import torch
+
+    from aimnetcentral_tpu_torch import constants
+    from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+    from aimnetcentral_tpu_torch.models import aimnet2_apply
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.models.heads import auto_switch_simple_to_dsf
+    from aimnetcentral_tpu_torch.parallel.mesh import spawn
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    sy = spatial_systems(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
+    sysb, sys_ew, sys_pme, cfg_ew, cfg_pme = sy["sysb"], sy["sys_ew"], sy["sys_pme"], sy["cfg_ew"], sy["cfg_pme"]
+    cfg_dsf = auto_switch_simple_to_dsf(cfg)
+
+    # the single-device port on the same binned systems
+    ref_e, ref_f, single_ms = single_reference(params, cfg_dsf, sysb, reps=SPATIAL_TIMED)
+    ew_e, ew_f, _ms = single_reference(params_d3, cfg_ew, sys_ew)
+    pme_e, pme_f, _ms = single_reference(params_d3, cfg_pme, sys_pme)
+    log(f"[spatial] single-device flagship-10k request (energy and forces, exact): {single_ms:.2f} ms")
+
+    # the ranks get the references' own parameters (one pickled copy each)
+    cpu = torch.device("cpu")
+    p_cpu, p_d3_cpu = params_to(params, cpu), params_to(params_d3, cpu)
+    flagship = {"cfg": cfg, "params": p_cpu, "system": sysb.to(cpu)}
+    jobs = [
+        {"name": "ring flagship-10k", "kind": "request", "mesh": (2, 1), **flagship},
+        {"name": "torus flagship-10k", "kind": "request", "mesh": (2, 2), **flagship},
+        {"name": "md ring flagship-10k", "kind": "md", "mesh": (2, 1), **flagship},
+        {"name": "ring ewald-d3-10k", "kind": "request", "mesh": (2, 1), "cfg": cfg_ew, "params": p_d3_cpu,
+         "system": sys_ew.to(cpu)},
+        {"name": "ring pme-d3-10k", "kind": "request", "mesh": (2, 1), "cfg": cfg_pme, "params": p_d3_cpu,
+         "system": sys_pme.to(cpu)},
+    ]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        spawn(spatial_rank, SPATIAL_WORLD, args=(jobs, out_dir), device="cuda")
+        ranks = []
+        for r in range(SPATIAL_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+    res["world_s"] = time.perf_counter() - t0
+    log(f"[spatial] world of {SPATIAL_WORLD} ranks: backend {ranks[0]['backend']}, world size {ranks[0]['world']}, "
+        f"devices {[r['device'] for r in ranks]} ({torch.cuda.device_count()} card(s): "
+        f"{'NCCL' if ranks[0]['backend'] == 'nccl' else 'gloo, buffers staged through the host'}); "
+        f"{res['world_s']:.1f} s from spawn to join")
+    res["backend"], res["world"] = ranks[0]["backend"], ranks[0]["world"]
+
+    launches = {name: 0 for name in counters()}
+    per_request = {"ring flagship-10k": 1, "torus flagship-10k": 1, "ring ewald-d3-10k": 3, "ring pme-d3-10k": 3}
+    refs = {"ring flagship-10k": (ref_e, ref_f), "torus flagship-10k": (ref_e, ref_f),
+            "ring ewald-d3-10k": (ew_e, ew_f), "ring pme-d3-10k": (pme_e, pme_f)}
+    for job in jobs:
+        name = job["name"]
+        n_ranks = job["mesh"][0] * job["mesh"][1]
+        shares = [r[name] for r in ranks[:n_ranks]]
+        for r, share in enumerate(shares):
+            got = share.get("launches_per_request", share.get("launches"))
+            if any(v == 0 for v in got.values()) or share["plain_calls"]:
+                raise SystemExit(f"FAIL: rank {r} of {name} launched {got}, plain calls on the card "
+                                 f"{share['plain_calls']}")
+            if job["kind"] == "request":
+                want = {"conv_stencil_forward": 3, "conv_stencil_backward": 3,
+                        "pair_sweep_forward": per_request[name], "pair_sweep_backward": per_request[name]}
+                if got != want:
+                    raise SystemExit(f"FAIL: rank {r} of {name} launched {got} a request, expected {want}")
+                if not share["repeat_bitwise"]:
+                    raise SystemExit(f"FAIL: rank {r} of {name}: a repeated request differs")
+                for k, v in got.items():
+                    launches[k] += int(v * SPATIAL_TIMED)
+            else:
+                for k, v in got.items():
+                    launches[k] += v
+        if job["kind"] == "request":
+            lead = shares[0]
+            res[name] = {
+                "agree": spatial_agree(name, lead["energy"], lead["forces"], *refs[name], job["system"].numbers),
+                "request_ms": [s["request_ms"] for s in shares], "exchange_ms": [s["exchange_ms"] for s in shares],
+                "all_reduce_ms": [s["all_reduce_ms"] for s in shares],
+                "peak_bytes": [s["peak_bytes"] for s in shares], "launches_per_request": lead["launches_per_request"],
+                "halo": lead["halo"], "ext_nbins": lead["ext_nbins"], "energy": lead["energy"],
+            }
+            log(f"[spatial {name}] {n_ranks} ranks ({ranks[0]['backend']}), halo {lead['halo']} planes, extended "
+                f"grid {lead['ext_nbins']}: request {', '.join(f'{s:.2f}' for s in res[name]['request_ms'])} ms by "
+                f"rank (single device {single_ms:.2f} ms), halo exchanges "
+                f"{', '.join(f'{s:.2f}' for s in res[name]['exchange_ms'])} ms and all-reduces "
+                f"{', '.join(f'{s:.2f}' for s in res[name]['all_reduce_ms'])} ms of a timed request (synchronised), "
+                f"peak {', '.join(f'{s / 2**30:.3f}' for s in res[name]['peak_bytes'])} GiB by rank; launches a "
+                f"request on every rank {lead['launches_per_request']}; no plain call on the card; a repeat "
+                f"bit for bit")
+
+    # PME against Ewald on the same ring
+    d_lr = abs(res["ring pme-d3-10k"]["energy"] - res["ring ewald-d3-10k"]["energy"])
+    lr_lim = LR_PME_REL * max(1.0, abs(res["ring ewald-d3-10k"]["energy"]))
+    log(f"[spatial] ring PME against ring Ewald: |dE| {d_lr:.3e} eV (limit {lr_lim:.3e})")
+    if d_lr > lr_lim:
+        raise SystemExit("FAIL: spatial PME and Ewald disagree beyond LR_PME_REL")
+
+    # MD: the single-device velocity Verlet from SpatialMDDriver's state
+    md = ranks[0]["md ring flagship-10k"]
+    dt = float(np.float32(0.5) * np.float32(constants.fs))
+    m = torch.as_tensor(md["masses0"], device="cuda")[:, None]
+    veloc = torch.as_tensor(md["veloc0"], device="cuda")
+    c = sysb.coord
+    real = (sysb.numbers > 0)[:, None]
+    ref_epot = []
+    with ambient_matmul_context("highest"):
+        def force(x):
+            x = x.detach().requires_grad_(True)
+            e = aimnet2_apply(params, cfg_dsf, sysb.replace(coord=x), sae_external=True)["energy"].sum()
+            return -torch.autograd.grad(e, x)[0], float(e.detach())
+
+        f, e0 = force(c)
+        for _ in range(SPATIAL_MD_STEPS):
+            v_half = veloc + 0.5 * dt * torch.where(real, f / m, 0.0)
+            c = c + dt * v_half
+            f, e = force(c)
+            veloc = v_half + 0.5 * dt * torch.where(real, f / m, 0.0)
+            ref_epot.append(e)
+    d_md = np.abs(md["epot"] - np.array(ref_epot))
+    md_lim = SPATIAL_E_TOL[0] * np.abs(ref_epot) + SPATIAL_E_TOL[1]
+
+    def etot(epot, v, mass):
+        return float(epot) + 0.5 * float((mass[:, None] * v.astype(np.float64) ** 2).sum())
+
+    e_first, e_last = etot(md["epot0"], md["veloc0"], md["masses0"]), etot(md["epot"][-1], md["veloc1"], md["masses1"])
+    drift = abs(e_last - e_first) / abs(e_first)
+    res["md"] = {"step_ms": [r["md ring flagship-10k"]["step_ms"] for r in ranks[:2]],
+                 "epot_max_dE": float(d_md.max()),
+                 "etot_first_last_eV": (e_first, e_last), "etot_drift": drift,
+                 "launches": [r["md ring flagship-10k"]["launches"] for r in ranks[:2]]}
+    log(f"[spatial md ring flagship-10k] {SPATIAL_MD_STEPS} NVE steps (0.5 fs, exact, a global re-bin every "
+        f"{SPATIAL_MD_CHUNK}): {res['md']['step_ms'][0]:.2f} ms a step; epot against the single-device velocity "
+        f"Verlet from the same state: largest |dE| {d_md.max():.3e} eV (limit {md_lim.min():.3e} and up); total "
+        f"energy {e_first:.4f} -> {e_last:.4f} eV, drift {drift:.2e} (limit {MD_NVE_DRIFT:.0e}); launches by rank "
+        f"{res['md']['launches']}")
+    if (d_md > md_lim).any() or drift > MD_NVE_DRIFT:
+        raise SystemExit("FAIL: spatial MD disagrees with the single-device velocity Verlet or drifts")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[spatial] launches in the phase's main-path runs (every rank) {launches}; phase done in "
+        f"{res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
@@ -3941,7 +4387,10 @@ def main() -> None:
     results["ensemble"] = phase_ensemble(params, cfg, coord, numbers, cell, single_per_request,
                                          results["kernels_detail"])
     results["train"] = phase_train(smi)
+    results["spatial_kernels"] = phase_spatial_kernels(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
+    results["spatial"] = phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
     for k in kernels:
+        k["launches"] += results["spatial"]["launches"][k["name"]]
         k["launches"] += results["train"]["launches"][k["name"]]
         k["launches"] += results["ensemble"]["launches"][k["name"]]
         k["launches"] += results["long_range"]["launches"][k["name"]]

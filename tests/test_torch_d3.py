@@ -127,7 +127,7 @@ def test_dftd3_binned_matches(binned):
     def e_j(coord, cell):
         return jeb.dftd3_binned(bj.replace(coord=coord, cell=cell), {k: jnp.asarray(v) for k, v in t.items()}, **kw).sum()
 
-    ej, (gcj, gsj) = jax.value_and_grad(e_j, argnums=(0, 1))(bj.coord, bj.cell)
+    ej, (gcj, gsj) = jax.jit(jax.value_and_grad(e_j, argnums=(0, 1)))(bj.coord, bj.cell)
     coord = bt.coord.clone().requires_grad_(True)
     cell = bt.cell.clone().requires_grad_(True)
     et = teb.dftd3_binned(bt.replace(coord=coord, cell=cell), {k: torch.tensor(v) for k, v in t.items()}, **kw).sum()

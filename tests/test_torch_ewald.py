@@ -24,6 +24,7 @@ binned real-space sum uses JAX's rational erfc on both sides, the indexed
 one the exact erfc.
 """
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -153,11 +154,11 @@ def test_indexed_ewald_matches_jax(name):
     qp[: len(q)] = q
 
     def jfn(coord, cell):
-        s = jsys.replace(coord=coord, cell=cell)
-        return jewald.coulomb_periodic({"charges": jnp.asarray(qp)}, s).sum()
+        e = jewald.coulomb_periodic({"charges": jnp.asarray(qp)}, jsys.replace(coord=coord, cell=cell))
+        return e.sum(), e
 
-    je = jewald.coulomb_periodic({"charges": jnp.asarray(qp)}, jsys)
-    jg = jax.grad(jfn, argnums=(0, 1))(jsys.coord, jsys.cell)
+    # one compile instead of eager dispatch of every op, forward and backward
+    (_sum, je), jg = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True))(jsys.coord, jsys.cell)
     coord = tsys.coord.clone().requires_grad_(True)
     cell = tsys.cell.clone().requires_grad_(True)
     te = tewald.coulomb_periodic({"charges": torch.tensor(qp)}, tsys.replace(coord=coord, cell=cell))
@@ -202,10 +203,10 @@ def test_binned_ewald_matches_jax(name):
         assert min(bt.lr_bins.nbins) < 2 * radius + 1  # bins recur at several offsets
 
     def jfn(coord, cell):
-        return jewald.coulomb_periodic_binned({"charges": jnp.asarray(qs)}, bj.replace(coord=coord, cell=cell)).sum()
+        e = jewald.coulomb_periodic_binned({"charges": jnp.asarray(qs)}, bj.replace(coord=coord, cell=cell))
+        return e.sum(), e
 
-    je = jewald.coulomb_periodic_binned({"charges": jnp.asarray(qs)}, bj)
-    jg = jax.grad(jfn, argnums=(0, 1))(bj.coord, bj.cell)
+    (_sum, je), jg = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True))(bj.coord, bj.cell)
     coord = bt.coord.clone().requires_grad_(True)
     cell = bt.cell.clone().requires_grad_(True)
     te = tewald.coulomb_periodic_binned({"charges": torch.tensor(qs)}, bt.replace(coord=coord, cell=cell))
@@ -259,12 +260,22 @@ def models():
     return (jparams, jcfg), (tparams, tcfg)
 
 
-def _calcs(models, method: str, threshold: int, **kw):
+@pytest.fixture(scope="module")
+def jax_fns():
+    """One cache of jitted functions for every JAX calculator of the module.
+    Its keys carry the config, the tier and the derivatives asked for, and a
+    jitted function compiles again only for new shapes, so the tests that
+    send one box (neutral and charged) share one compile."""
+    return collections.OrderedDict()
+
+
+def _calcs(models, jax_fns, method: str, threshold: int, **kw):
     (jp, jc), (tp, tc) = models
     jcalc = JCalculator((jp, jc, {"sae": {}}), binned_threshold=threshold, **kw)
     tcalc = TCalculator((tp, tc, {"sae": {}}), device="cpu", binned_threshold=threshold, **kw)
     jcalc.set_lrcoulomb_method(method)
     tcalc.set_lrcoulomb_method(method)
+    jcalc._fn_cache = jax_fns
     return jcalc, tcalc
 
 
@@ -289,10 +300,10 @@ CALC_INPUTS = {
 
 
 @pytest.mark.parametrize("name", list(CALC_INPUTS))
-def test_calculator_matches_jax(models, name):
+def test_calculator_matches_jax(models, jax_fns, name):
     make, threshold, kind = CALC_INPUTS[name]
     data = make()
-    jcalc, tcalc = _calcs(models, "ewald", threshold)
+    jcalc, tcalc = _calcs(models, jax_fns, "ewald", threshold)
     stress = name != "batch"
     ref = jcalc.eval(data, forces=True, stress=stress)
     got = tcalc.eval(data, forces=True, stress=stress)
@@ -311,8 +322,8 @@ def test_calculator_matches_jax(models, name):
         _compare(again, jcalc.eval(moved, forces=True, stress=True), ("energy", "forces", "stress"))
 
 
-def test_ewald_needs_a_cell(models):
-    jcalc, tcalc = _calcs(models, "ewald", 1024)
+def test_ewald_needs_a_cell(models, jax_fns):
+    jcalc, tcalc = _calcs(models, jax_fns, "ewald", 1024)
     gas = {k: v for k, v in _box().items() if k != "cell"}
     for calc in (jcalc, tcalc):
         with pytest.raises(ValueError, match="periodic cell"):
@@ -320,11 +331,11 @@ def test_ewald_needs_a_cell(models):
 
 
 @pytest.mark.parametrize("method", ["ewald", "pme"])
-def test_hvp_matches_jax(models, method):
+def test_hvp_matches_jax(models, jax_fns, method):
     """H v with Ewald and with PME on a small box (the indexed layout, plain
     torch twice differentiated), within 1e-5 of its largest magnitude."""
     data = _box(24, 7.0, seed=4)
-    jcalc, tcalc = _calcs(models, method, 1024)
+    jcalc, tcalc = _calcs(models, jax_fns, method, 1024)
     v = np.random.default_rng(5).normal(size=(24, 3)).astype(np.float32)
     ref = np.asarray(jcalc.hessian_vector_product(data, v))
     got = tcalc.hessian_vector_product(data, v)
@@ -332,12 +343,12 @@ def test_hvp_matches_jax(models, method):
     _rel_close(got, ref)
 
 
-def test_dense_hessian_matches_jax(models):
+def test_dense_hessian_matches_jax(models, jax_fns):
     """The dense Hessian with Ewald on a 10-atom box against JAX's, within
     1e-5 of its largest magnitude (JAX leaves the padding rows to jacfwd;
     both are sliced to the real atoms)."""
     data = _box(10, 6.0, seed=6)
-    jcalc, tcalc = _calcs(models, "ewald", 1024)
+    jcalc, tcalc = _calcs(models, jax_fns, "ewald", 1024)
     ref = np.asarray(jcalc.eval(data, hessian=True)["hessian"])
     got = tcalc.eval(data, hessian=True)["hessian"]
     assert got.shape == (10, 3, 10, 3)

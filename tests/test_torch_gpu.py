@@ -1161,3 +1161,37 @@ def test_validate_torch_card_reproduces_the_baseline(cuda_device):
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     assert tool.check(device="cuda")
+
+
+def test_spatial_ring_card_matches_single_device(cuda_device, tmp_path):
+    """A ring of two ranks (parallel/spatial.py) on the card, the backend
+    the hardware gives (gloo staged through the host on one card, NCCL on
+    two): energy and the assembled forces of a 400-atom DSF box against the
+    single-device port on the same binned system, within the JAX package's
+    tests/test_spatial.py limits."""
+    from torch_spatial_worker import run_world
+
+    from aimnetcentral_tpu_torch.models import aimnet2_apply
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.models.heads import auto_switch_simple_to_dsf
+
+    params, cfg = _narrow_model(CPU)
+    cfg = auto_switch_simple_to_dsf(cfg)
+    cfg = dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, dsf_rc=9.0) if isinstance(h, LRCoulombHead) else h) for n, h in cfg.outputs))
+    box = _box(400, 22.0, seed=3)
+    system = system_from_molecules([box], CPU)
+    sysb, _perm, ovf = B.to_binned_system(system, B.plan_bins(box["cell"], 400, 5.3, safety=2.5))
+    assert int(ovf.sum()) == 0 and sysb.bins.nbins[0] == 4
+    (out, _rank1) = run_world(2, [("ring", "energy", dict(system=sysb, cfg=cfg, params=params, n_sp=2))],
+                              str(tmp_path), device="cuda")
+    out = out["ring"]
+    card = sysb.to(cuda_device)
+    with ambient_matmul_context("highest"):
+        c = card.coord.detach().requires_grad_(True)
+        e = aimnet2_apply(params_to(params, cuda_device), cfg, card.replace(coord=c), sae_external=True)["energy"].sum()
+        (g,) = torch.autograd.grad(e, c)
+    np.testing.assert_allclose(float(out["energy"][0]), float(e), rtol=2e-6, atol=2e-5)
+    real = sysb.numbers.numpy() > 0
+    g = g.cpu().numpy()
+    assert np.abs(out["forces"] + g)[real].max() < 3e-5 * np.abs(g).max() + 3e-6

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: every module of
 ``aimnetcentral_tpu_torch`` (dynamics, the indexed layout's neighbor
 builders, the integrations, training and the CLI included), ``chip_smoke.py``,
-``tests/torch_fakes.py`` and ``tools/validate_torch.py`` import in a fresh
+``tests/torch_fakes.py``, ``tests/torch_spatial_worker.py`` (the spatial tests'
+ranks) and ``tools/validate_torch.py`` import in a fresh
 interpreter where both are blocked.  scipy is imported inside the kd-tree build only, never
 when a module is imported."""
 
@@ -22,6 +23,7 @@ for name in names:
 import chip_smoke
 sys.path.insert(0, "tests")
 import torch_fakes
+import torch_spatial_worker  # what the spatial tests' spawned ranks import
 spec = importlib.util.spec_from_file_location("validate_torch", "tools/validate_torch.py")
 validate_torch = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(validate_torch)
@@ -59,5 +61,7 @@ def test_port_imports_no_jax():
                  "aimnetcentral_tpu_torch.data.sgdataset", "aimnetcentral_tpu_torch.train.loss",
                  "aimnetcentral_tpu_torch.train.metrics", "aimnetcentral_tpu_torch.train.sae",
                  "aimnetcentral_tpu_torch.train.trackers", "aimnetcentral_tpu_torch.train.step",
-                 "aimnetcentral_tpu_torch.train.trainer"):
+                 "aimnetcentral_tpu_torch.train.trainer", "aimnetcentral_tpu_torch.parallel",
+                 "aimnetcentral_tpu_torch.parallel.mesh", "aimnetcentral_tpu_torch.parallel.collectives",
+                 "aimnetcentral_tpu_torch.parallel.spatial"):
         assert must in names

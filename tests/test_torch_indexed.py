@@ -288,11 +288,11 @@ def test_calc_distances(lists, layout):
     _close(tr, jr, 1e-6)
     loss = (torch.where(tnb.pair_mask(tsys.nbmat), td, 0.0) * torch.tensor(w)).sum()
     if cell is None:
-        jg = jax.grad(jfn)(jsys.coord, None)
+        jg = jax.jit(jax.grad(jfn))(jsys.coord, None)
         (tg,) = torch.autograd.grad(loss, [coord])
         _close(tg, jg)
     else:
-        jg, jgc = jax.grad(jfn, argnums=(0, 1))(jsys.coord, jsys.cell)
+        jg, jgc = jax.jit(jax.grad(jfn, argnums=(0, 1)))(jsys.coord, jsys.cell)
         tg, tgc = torch.autograd.grad(loss, [coord, cell])
         _close(tg, jg)
         _close(tgc, jgc)
@@ -343,7 +343,7 @@ def test_conv_sv(lists, aev_params, d2features):
                              jsys.nbmat, d2features)
     _close(out, jout)
     ga, gc = torch.autograd.grad((out * torch.tensor(wout)).sum(), [ta, coord])
-    jga, jgc = jax.grad(jfn, argnums=(0, 1))(jnp.asarray(a), jsys.coord)
+    jga, jgc = jax.jit(jax.grad(jfn, argnums=(0, 1)))(jnp.asarray(a), jsys.coord)
     _close(ga, jga)
     _close(gc, jgc)
 
@@ -388,7 +388,7 @@ def test_lr_terms(lists, layout, term):
     e = tfn(coord)
     np.testing.assert_allclose(e.detach().numpy(), np.asarray(jfn(jsys.coord)), rtol=1e-5, atol=1e-6)
     (g,) = torch.autograd.grad(e.sum(), [coord])
-    _close(g, jax.grad(lambda c: jfn(c).sum())(jsys.coord))
+    _close(g, jax.jit(jax.grad(lambda c: jfn(c).sum()))(jsys.coord))
 
 
 def test_srcoulomb_head(lists):
@@ -430,7 +430,8 @@ def test_d3_forces_stay_finite_with_padding_and_isolated_atoms():
     e = tlr.dftd3_energy({}, tsys.replace(coord=coord), tables, 0.566, 3.128, 0.3908)
     (g,) = torch.autograd.grad(e.sum(), [coord])
     assert bool(torch.isfinite(e).all()) and bool(torch.isfinite(g).all())
-    jg = jax.grad(lambda c: jlr.dftd3_energy({}, jsys.replace(coord=c), jt, 0.566, 3.128, 0.3908).sum())(jsys.coord)
+    jg = jax.jit(jax.grad(lambda c: jlr.dftd3_energy({}, jsys.replace(coord=c), jt, 0.566, 3.128, 0.3908).sum()))(
+        jsys.coord)
     _close(g, jg)
     np.testing.assert_allclose(e.detach().numpy(), np.asarray(
         jlr.dftd3_energy({}, jsys, jt, 0.566, 3.128, 0.3908)), rtol=1e-5)
@@ -457,7 +458,7 @@ def test_binned_d3_matches_jax_at_high_coordination():
     bt, _pt, ovf_t = tB.to_binned_system(tbuilders.system_from_molecules([mol], CPU, n_pad=96), *grids[1])
     assert not bool(np.asarray(ovf_j).any()) and not bool(ovf_t.any())
     kw = dict(a1=0.566, a2=3.128, s8=0.3908)
-    ej, gj = jax.value_and_grad(lambda c: jeb.dftd3_binned(bj.replace(coord=c), t, **kw).sum())(bj.coord)
+    ej, gj = jax.jit(jax.value_and_grad(lambda c: jeb.dftd3_binned(bj.replace(coord=c), t, **kw).sum()))(bj.coord)
     coord_t = bt.coord.clone().requires_grad_(True)
     et = teb.dftd3_binned(bt.replace(coord=coord_t), {k: torch.as_tensor(v) for k, v in t.items()}, **kw).sum()
     (gt,) = torch.autograd.grad(et, [coord_t])

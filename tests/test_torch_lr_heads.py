@@ -151,8 +151,9 @@ def test_jax_srrep_layouts(models):
     grid = jB.plan_bins(mol["cell"], 60, 3.75, safety=3.0)
     bsys, _p, _o = jB.to_binned_system(jbuilders.system_from_molecules([mol], build_nbmat=False, n_pad=64), grid)
     for cutoff_fn in ("cosine_cutoff", "exp_cutoff", "none"):
-        e_i = float(jlr.srrep_energy({}, isys, {"gfn1_ab": gfn1}, 4.0, cutoff_fn)[0])
-        e_b = float(jeb.srrep_binned(bsys, gfn1, 4.0, cutoff_fn)[0])
+        # jitted: one compile a function instead of eager dispatch of its ops
+        e_i = float(jax.jit(lambda s, g: jlr.srrep_energy({}, s, {"gfn1_ab": g}, 4.0, cutoff_fn)[0])(isys, gfn1))
+        e_b = float(jax.jit(lambda s, g: jeb.srrep_binned(s, g, 4.0, cutoff_fn)[0])(bsys, gfn1))
         assert e_i > 1.0  # close contacts: the term is not empty
         assert abs(e_i - e_b) < 1e-5 * abs(e_i), cutoff_fn
 

@@ -132,7 +132,7 @@ def test_packed_apply_matches_jax(models, config):
         out = jaimnet2.aimnet2_apply(jparams, jcfg, jsys.replace(coord=coord), sae_external=True)
         return out["energy"].sum(), out
 
-    (_e, jout), jgrad = jax.value_and_grad(j_energy, has_aux=True)(jsys.coord)
+    (_e, jout), jgrad = jax.jit(jax.value_and_grad(j_energy, has_aux=True))(jsys.coord)
     coord = tsys.coord.clone().requires_grad_(True)
     tout = taimnet2.aimnet2_apply(tparams, tcfg, tsys.replace(coord=coord), sae_external=True)
     (tgrad,) = torch.autograd.grad(tout["energy"].sum(), coord)
@@ -156,7 +156,7 @@ def test_coulomb_simple_binned_matches_jax(envelope, subtract_sr):
         e = jeb.coulomb_simple_binned(jsys.replace(coord=coord), qj, 4.6, envelope, subtract_sr)
         return (e * w).sum(), e
 
-    (_l, je), jg = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(jsys.coord, jnp.asarray(q))
+    (_l, je), jg = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True))(jsys.coord, jnp.asarray(q))
     coord = tsys.coord.clone().requires_grad_(True)
     qt = torch.tensor(q, requires_grad=True)
     te = teb.coulomb_simple_binned(tsys.replace(coord=coord), qt, 4.6, envelope, subtract_sr)
@@ -183,7 +183,7 @@ def test_coulomb_sr_binned_matches_jax(envelope):
         e = jeb.coulomb_sr_binned(jsys.replace(coord=coord), qj, 4.6, envelope)
         return (e * w).sum(), e
 
-    (_l, je), jg = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(jsys.coord, jnp.asarray(q))
+    (_l, je), jg = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True))(jsys.coord, jnp.asarray(q))
     coord = tsys.coord.clone().requires_grad_(True)
     qt = torch.tensor(q, requires_grad=True)
     te = teb.coulomb_sr_binned(tsys.replace(coord=coord), qt, 4.6, envelope)

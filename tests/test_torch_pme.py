@@ -28,7 +28,7 @@ from aimnetcentral_tpu_torch import builders as tbuilders  # noqa: E402
 from aimnetcentral_tpu_torch.models import ewald as tewald  # noqa: E402
 from aimnetcentral_tpu_torch.models import pme as tpme  # noqa: E402
 from test_torch_calculator import _box  # noqa: E402
-from test_torch_ewald import _batch, _calcs, _compare, _energy_close, _rel_close, models  # noqa: E402, F401
+from test_torch_ewald import _batch, _calcs, _compare, _energy_close, _rel_close, jax_fns, models  # noqa: E402, F401
 
 CPU = torch.device("cpu")
 
@@ -93,7 +93,7 @@ def test_pme_energy_matches_jax_and_ewald(charged):
     # the reciprocal part alone against JAX's, with its gradients
     jc, jcell = jnp.asarray(tsys.coord.numpy()), jnp.asarray(tsys.cell[0].numpy())
     je = j_recip(jc, jcell)
-    jg = jax.grad(j_recip, argnums=(0, 1))(jc, jcell)
+    jg = jax.jit(jax.grad(j_recip, argnums=(0, 1)))(jc, jcell)
     te = tpme.pme_reciprocal_energy(coord, q, cell, torch.tensor(np.float32(p.eta)), mesh)
     tg = torch.autograd.grad(te, (coord, cell))
     _energy_close(te.detach().numpy(), je)
@@ -137,10 +137,10 @@ PME_INPUTS = {
 
 
 @pytest.mark.parametrize("name", list(PME_INPUTS))
-def test_calculator_pme_matches_jax(models, name):
+def test_calculator_pme_matches_jax(models, jax_fns, name):
     make, threshold, kind = PME_INPUTS[name]
     data = make()
-    jcalc, tcalc = _calcs(models, "pme", threshold)
+    jcalc, tcalc = _calcs(models, jax_fns, "pme", threshold)
     stress = name != "batch"
     ref = jcalc.eval(data, forces=True, stress=stress)
     got = tcalc.eval(data, forces=True, stress=stress)
@@ -148,10 +148,10 @@ def test_calculator_pme_matches_jax(models, name):
     assert tcalc._prep_cache["kind"] == kind and tcalc._prep_cache["system"].pme_mesh is not None
 
 
-def test_calculator_pme_agrees_with_ewald(models):
+def test_calculator_pme_agrees_with_ewald(models, jax_fns):
     """The whole model's energy with PME against Ewald, both layouts."""
     for threshold in (0, 1024):
-        _j, pme = _calcs(models, "pme", threshold)
-        _j, ewald = _calcs(models, "ewald", threshold)
+        _j, pme = _calcs(models, jax_fns, "pme", threshold)
+        _j, ewald = _calcs(models, jax_fns, "ewald", threshold)
         e_p, e_e = pme.eval(_box())["energy"][0], ewald.eval(_box())["energy"][0]
         assert e_p == pytest.approx(e_e, abs=2e-3 * max(1.0, abs(e_e)))
