@@ -43,8 +43,11 @@ def mol_onehot(mol_idx: torch.Tensor, num_mol: int, dtype: torch.dtype) -> torch
 
 
 def mol_sum(x: torch.Tensor, mol_idx: torch.Tensor, num_mol: int) -> torch.Tensor:
-    """Per-molecule sum: (N, ...) -> (num_mol, ...)."""
-    x2d = x.reshape(x.shape[0], -1)
+    """Per-molecule sum: (N, ...) -> (num_mol, ...).  Padding rows are
+    dropped, not multiplied by zero, so an inf or NaN there (the zero
+    distances of a padded molecule's stacked atoms) stays out of the sums
+    and their gradients, as in JAX's segment sum."""
+    x2d = torch.where((mol_idx < num_mol)[:, None], x.reshape(x.shape[0], -1), 0.0)
     out = mol_onehot(mol_idx, num_mol, torch.float64) @ x2d.double()
     return out.to(x.dtype).reshape((num_mol,) + x.shape[1:])
 

@@ -1,4 +1,6 @@
+from aimnetcentral_tpu_torch.parallel.collectives import all_reduce_mean  # noqa: F401
 from aimnetcentral_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
     batch_sharding,
     init_distributed,
     make_mesh,
@@ -6,4 +8,5 @@ from aimnetcentral_tpu_torch.parallel.mesh import (  # noqa: F401
     replicate,
     shard_system,
     spawn,
+    world_mesh,
 )

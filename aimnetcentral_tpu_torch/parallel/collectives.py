@@ -17,6 +17,15 @@ These ``torch.autograd.Function``s are their counterparts on a
   cotangent to its own term unchanged.  An all-reduce backward there
   (``torch.distributed.nn.functional.all_reduce``'s) would count every
   force ``world_size`` times.
+- :func:`all_reduce_mean` averages one flat buffer over the mesh (the
+  data-parallel step's gradients), not differentiated.  The backend's
+  all-reduce leaves the same bits on every rank (gloo's and NCCL's ring
+  reduce each chunk once and hand it round), so the replicated parameters
+  stay replicated bit for bit.
+
+Each function takes the :class:`~aimnetcentral_tpu_torch.parallel.mesh.Mesh`
+it reduces over: the whole mesh, or this rank's slice of it
+(``Mesh.sub``), as each ensemble member's ring on an ``(ens, sp)`` mesh.
 
 The model built on these differentiates each rank's own core energy, and
 the all-reduces inside it carry the cross-rank terms.  Every rank must run
@@ -29,9 +38,10 @@ Point-to-point pairs are posted together (``batch_isend_irecv``) and
 matched by order (NCCL) or by tag (gloo).  With gloo on a card the buffers
 go through the host (``Mesh.stage``).
 
-:data:`clock` adds up the host seconds of the halo exchanges' swaps and of
-the all-reduces, each call between two synchronisations of its device; it
-is off unless ``clock.on`` is set, as the kernels' launch counters are
+:data:`clock` adds up the host seconds of the halo exchanges' swaps, of
+the all-reduces and of the mean all-reduces, each call between two
+synchronisations of its device;
+it is off unless ``clock.on`` is set, as the kernels' launch counters are
 read by whoever resets them.
 """
 
@@ -75,15 +85,16 @@ def ring(mesh: Mesh, axis: str) -> Ring:
 @dataclasses.dataclass
 class Clock:
     """Host seconds in the collectives while ``on``: ``exchange`` (the halo
-    exchanges' point-to-point swaps, forward and backward) and
-    ``all_reduce`` (every all-reduce)."""
+    exchanges' point-to-point swaps, forward and backward), ``all_reduce``
+    (every sum) and ``mean`` (the mean all-reduces)."""
 
     on: bool = False
     exchange: float = 0.0
     all_reduce: float = 0.0
+    mean: float = 0.0
 
     def reset(self) -> None:
-        self.exchange = self.all_reduce = 0.0
+        self.exchange = self.all_reduce = self.mean = 0.0
 
     @contextlib.contextmanager
     def timing(self, key: str, device: torch.device) -> Iterator[None]:
@@ -157,8 +168,8 @@ def halo_exchange(x: torch.Tensor, mesh: Mesh, axis: str, dim: int, h: int) -> t
     return _HaloExchange.apply(x, mesh, ring(mesh, axis), dim, h)
 
 
-def _all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    with clock.timing("all_reduce", x.device):
+def _all_reduce(x: torch.Tensor, mesh: Mesh, key: str = "all_reduce") -> torch.Tensor:
+    with clock.timing(key, x.device):
         buf = x.detach().clone().contiguous()
         if mesh.stage:
             host = buf.cpu()
@@ -202,12 +213,24 @@ def sum_replicated(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _SumReplicated.apply(x, mesh)
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
-    """Every rank's ``x`` (same shape on all), in mesh rank order; not
-    differentiated."""
+def _gather(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
     src = x.detach().contiguous()
     if mesh.stage:
         src = src.cpu()
     out = [torch.empty_like(src) for _ in range(mesh.size)]
     dist.all_gather(out, src, group=mesh.group)
-    return [t.to(x.device) for t in out]
+    return out
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """Every rank's ``x`` (same shape on all), in mesh rank order; not
+    differentiated."""
+    return [t.to(x.device) for t in _gather(x, mesh)]
+
+
+def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The mean of the flat buffer ``x`` over the ranks of ``mesh``; not
+    differentiated."""
+    if x.dim() != 1:
+        raise ValueError(f"all_reduce_mean takes one flat buffer, not a tensor of shape {tuple(x.shape)}")
+    return _all_reduce(x, mesh, "mean") / mesh.size

@@ -6,9 +6,13 @@ The port runs one process (rank) per shard, started by ``torchrun`` or by
 :func:`spawn` (``torch.multiprocessing`` with the ``spawn`` start method: a
 process that has started CUDA cannot ``fork`` one that uses it), and a
 :class:`Mesh` lays the ranks of a ``torch.distributed`` world out on named
-axes: ``("sp",)`` or ``("sp", "spy")`` for spatial decomposition, ``("dp",
-"ens")`` for data and ensemble parallelism (:func:`make_mesh`, which the
-data-parallel trainer builds on).
+axes: ``("sp",)`` or ``("sp", "spy")`` for spatial decomposition, with
+``"ens"`` in front to give each ensemble member its own ring or torus
+(``make_spatial_mesh(..., n_ens=2)``), and ``("dp", "ens")`` for data and
+ensemble parallelism (:func:`make_mesh`, which the data-parallel train
+step and trainer build on).  :meth:`Mesh.sub` is the slice of this rank
+over some of the axes: the spatial collectives of one member run on its
+``("sp", "spy")`` slice, never across members.
 
 The backend follows the hardware (:func:`init_distributed`), and the
 choice is logged:
@@ -25,6 +29,7 @@ Nothing falls back silently: a failed initialisation raises.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import os
 from typing import Any, Callable
@@ -44,17 +49,19 @@ class Mesh:
     """Ranks of the world laid out row-major over ``shape`` on named axes.
 
     ``coords`` are this rank's coordinates, ``group`` the process group of
-    every rank of the mesh, ``axis_groups[name]`` the group of the ranks
-    that share this rank's other coordinates (its line along that axis).
-    ``stage`` is True when collectives on ``device`` tensors go through
-    host buffers (gloo on a card)."""
+    every rank of the mesh, ``slice_groups[axes]`` the group of the ranks
+    that share this rank's coordinates on every axis but ``axes`` (its
+    slice over ``axes``, for each nonempty proper subset of the axes in
+    axis order; over one axis, its line).  ``stage`` is True when
+    collectives on ``device`` tensors go through host buffers (gloo on a
+    card)."""
 
     axis_names: tuple[str, ...]
     shape: tuple[int, ...]
     ranks: tuple[int, ...]  # global ranks, row-major over ``shape``
     coords: tuple[int, ...]
     group: Any
-    axis_groups: dict[str, Any]
+    slice_groups: dict[tuple[str, ...], Any]
     device: torch.device
     backend: str
 
@@ -63,10 +70,38 @@ class Mesh:
         return len(self.ranks)
 
     @property
+    def index(self) -> int:
+        """This rank's row-major position in the mesh."""
+        return int(np.ravel_multi_index(self.coords, self.shape))
+
+    @property
     def lead(self) -> bool:
-        """Whether this rank is the mesh's first: the one that adds the
-        terms every rank computes alike (a replicated energy) to its share."""
+        """Whether this rank is the mesh's first (on a :meth:`sub` mesh, the
+        first of its slice): the one that adds the terms every rank computes
+        alike (a replicated energy) to its share, and that writes files."""
         return all(c == 0 for c in self.coords)
+
+    def sub(self, axes: tuple[str, ...]) -> "Mesh":
+        """This rank's slice over ``axes`` as a mesh of its own: the ranks
+        that share this rank's coordinates on the other axes, laid out over
+        ``axes`` (in the mesh's axis order), with that slice's group."""
+        if not axes or not set(axes) <= set(self.axis_names):
+            raise ValueError(f"axes {axes} are not all axes of the mesh {self.axis_names}")
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if axes == self.axis_names:
+            return self
+        keep = [self.axis_names.index(a) for a in axes]
+        shape = tuple(self.shape[i] for i in keep)
+        ranks = []
+        for flat in range(int(np.prod(shape))):
+            c = list(self.coords)
+            for i, ci in zip(keep, np.unravel_index(flat, shape)):
+                c[i] = int(ci)
+            ranks.append(self.rank_at(tuple(c)))
+        slices = {k: g for k, g in self.slice_groups.items() if set(k) < set(axes)}
+        return dataclasses.replace(self, axis_names=axes, shape=shape, ranks=tuple(ranks),
+                                   coords=tuple(self.coords[i] for i in keep), group=self.slice_groups[axes],
+                                   slice_groups=slices)
 
     @property
     def stage(self) -> bool:
@@ -132,12 +167,38 @@ def card_backend(n_cards: int, local_rank: int, local_world: int) -> tuple[str, 
     return "gloo", local_rank % n_cards
 
 
-def _axis_lines(shape: tuple[int, ...], axis: int) -> list[list[int]]:
-    """Every line of the row-major grid ``shape`` along ``axis``, as flat
-    indices, in one order every rank computes alike."""
+def _slices(shape: tuple[int, ...], axes: tuple[int, ...]) -> list[list[int]]:
+    """Every slice of the row-major grid ``shape`` over ``axes`` (the points
+    that differ only there), as flat indices row-major over ``axes``, in one
+    order every rank computes alike."""
     idx = np.arange(int(np.prod(shape))).reshape(shape)
-    lines = np.moveaxis(idx, axis, -1).reshape(-1, shape[axis])
+    rest = [a for a in range(len(shape)) if a not in axes]
+    lines = np.transpose(idx, rest + list(axes)).reshape(-1, int(np.prod([shape[a] for a in axes])))
     return [list(map(int, row)) for row in lines]
+
+
+def _proper_subsets(n: int) -> list[tuple[int, ...]]:
+    """The nonempty proper subsets of ``range(n)``, each in axis order, by
+    size then lexicographically."""
+    return [c for k in range(1, n) for c in itertools.combinations(range(n), k)]
+
+
+def _default_device(device: torch.device | None) -> torch.device:
+    """``device``, else the card init_distributed chose, else the CPU."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
+def world_mesh(device: torch.device | None = None) -> Mesh:
+    """The default world as a one-axis mesh (``("world",)``) on its default
+    group: no group is created, so one rank may build it alone."""
+    if not dist.is_initialized():
+        raise RuntimeError("call init_distributed (or torch.distributed.init_process_group) first")
+    n = dist.get_world_size()
+    return Mesh(axis_names=("world",), shape=(n,), ranks=tuple(range(n)), coords=(dist.get_rank(),),
+                group=dist.group.WORLD, slice_groups={}, device=_default_device(device),
+                backend=dist.get_backend())
 
 
 def _make(axis_names: tuple[str, ...], shape: tuple[int, ...], device: torch.device | None) -> Mesh | None:
@@ -151,32 +212,37 @@ def _make(axis_names: tuple[str, ...], shape: tuple[int, ...], device: torch.dev
     if n > world:
         raise ValueError(f"a mesh of {shape} needs {n} ranks; the world has {world}")
     backend = dist.get_backend()
-    if device is None:  # the card init_distributed chose, else the CPU
-        device = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() else "cpu"
     ranks = list(range(n))
     group = dist.new_group(ranks)
     me = dist.get_rank()
-    axis_groups: dict[str, Any] = {}
-    for axis, name in enumerate(axis_names):
-        for line in _axis_lines(shape, axis):
-            g = dist.new_group([ranks[i] for i in line])
-            if me in line:
-                axis_groups[name] = g
+    slice_groups: dict[tuple[str, ...], Any] = {}
+    for axes in _proper_subsets(len(shape)):
+        for members in _slices(tuple(shape), axes):
+            g = dist.new_group([ranks[i] for i in members])
+            if me in members:
+                slice_groups[tuple(axis_names[a] for a in axes)] = g
     if me >= n:
         return None
     coords = tuple(int(c) for c in np.unravel_index(me, shape))
     return Mesh(axis_names=axis_names, shape=tuple(shape), ranks=tuple(ranks), coords=coords, group=group,
-                axis_groups=axis_groups, device=torch.device(device), backend=backend)
+                slice_groups=slice_groups, device=_default_device(device), backend=backend)
 
 
-def make_spatial_mesh(n_sp: int, n_spy: int = 1, device: torch.device | None = None) -> Mesh | None:
+def make_spatial_mesh(n_sp: int, n_spy: int = 1, device: torch.device | None = None,
+                      n_ens: int = 1) -> Mesh | None:
     """A ring over x-slabs, or (``n_spy > 1``) a 2-D torus over (x, y)
     column tiles: axis names ``("sp",)`` / ``("sp", "spy")``, the world's
-    first ``n_sp * n_spy`` ranks (x-major, as JAX's device array).  Every
-    rank of the world calls it; those beyond the mesh get None."""
-    if n_spy == 1:
-        return _make(("sp",), (n_sp,), device)
-    return _make(("sp", "spy"), (n_sp, n_spy), device)
+    first ``n_sp * n_spy`` ranks (x-major, as JAX's device array).  With
+    ``n_ens > 1`` an ``"ens"`` axis goes in front, ens-major (JAX's
+    ``devices.reshape(n_ens, n_sp[, n_spy])``): each member's ring or torus
+    is one slice of ``n_sp * n_spy`` ranks.  Every rank of the world calls
+    it; those beyond the mesh get None."""
+    names, shape = ("sp",), (n_sp,)
+    if n_spy > 1:
+        names, shape = ("sp", "spy"), (n_sp, n_spy)
+    if n_ens > 1:
+        names, shape = ("ens",) + names, (n_ens,) + shape
+    return _make(names, shape, device)
 
 
 def make_mesh(n_dp: int | None = None, n_ens: int = 1, device: torch.device | None = None) -> Mesh | None:

@@ -33,6 +33,13 @@ in, each rank reads its own tile, the total energy comes out on every
 rank), :func:`spatial_forces` (global forces, cell gradient and stress on
 every rank) and :class:`SpatialMDDriver`.  Every rank of the mesh calls
 each of them with the same arguments.
+
+Ensembles compose with the decomposition on an ``(ens, sp)`` or ``(ens,
+sp, spy)`` mesh (``make_spatial_mesh(..., n_ens=E)``, ``ens_axis="ens"``):
+each slice along ``ens`` evaluates one member of parameters stacked on a
+leading member axis over its own ring or torus, every spatial collective
+runs on that slice (``Mesh.sub``), and the member energies are gathered
+over ``ens``.
 """
 
 from __future__ import annotations
@@ -223,16 +230,38 @@ def plan_spatial(system: System, cfg: AIMNet2Config, n_sp: int, n_spy: int = 1) 
     )
 
 
+def _member(tree, m: int):
+    """Member ``m`` of a tree stacked on a leading member axis."""
+    if isinstance(tree, dict):
+        return {k: _member(v, m) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_member(v, m) for v in tree)
+    return tree[m]
+
+
 class SpatialEnergy:
     """``fn(params, coord, numbers, charge, cell, mult=None)`` -> the total
-    energy (1,), the same on every rank (:func:`make_spatial_energy_fn`).
-    ``tile_energy`` takes this rank's tile instead of the global arrays."""
+    energy (1,), the same on every rank (:func:`make_spatial_energy_fn`);
+    with ``ens_axis``, the members' energies (n_ens,).  ``tile_energy``
+    takes this rank's tile (and one member's parameters) instead of the
+    global arrays.  ``sp`` is the mesh of this rank's ring or torus, which
+    every spatial collective runs on; ``member`` is this rank's member."""
 
     def __init__(self, cfg: AIMNet2Config, spec: SpatialSpec, mesh: Mesh, ewald_kpts=None,
-                 observables: bool = False):
+                 ens_axis: str | None = None, observables: bool = False):
         cfg = auto_switch_simple_to_dsf(cfg)
-        if tuple(mesh.shape) != ((spec.n_sp,) if spec.n_spy == 1 else (spec.n_sp, spec.n_spy)):
-            raise ValueError(f"the mesh {mesh.shape} does not match the plan ({spec.n_sp}, {spec.n_spy})")
+        if observables and ens_axis is not None:
+            raise ValueError("observables mode returns single-model outputs; run it per member")
+        sp_axes = ("sp",) if spec.n_spy == 1 else ("sp", "spy")
+        if ens_axis is None:
+            self.sp, self.ens, self.member = mesh, None, 0
+        else:
+            if mesh.axis_names != (ens_axis,) + sp_axes:
+                raise ValueError(f"an ensemble over {ens_axis!r} needs a mesh on {(ens_axis,) + sp_axes}, "
+                                 f"not {mesh.axis_names}")
+            self.sp, self.ens, self.member = mesh.sub(sp_axes), mesh.sub((ens_axis,)), mesh.coords[0]
+        if tuple(self.sp.shape) != ((spec.n_sp,) if spec.n_spy == 1 else (spec.n_sp, spec.n_spy)):
+            raise ValueError(f"the mesh {self.sp.shape} does not match the plan ({spec.n_sp}, {spec.n_spy})")
         for name, head in cfg.outputs:
             if not isinstance(head, ROUTED_HEADS):
                 raise ValueError(f"head {name!r} is not routed spatially")
@@ -244,11 +273,12 @@ class SpatialEnergy:
         dev = mesh.device
         self.kpts = None if ewald_kpts is None else torch.as_tensor(ewald_kpts, dtype=torch.float32, device=dev)
         self.core = spec.core_mask(dev)
-        self.wraps = spec.halo_wraps(mesh.coords, dev)
-        self.lead = 1.0 if mesh.lead else 0.0  # a replicated term enters the lead rank's share only
+        self.wraps = spec.halo_wraps(self.sp.coords, dev)
+        # a replicated term enters the share of its ring's lead rank only
+        self.lead = 1.0 if self.sp.lead else 0.0
 
     def tile(self, arr: torch.Tensor) -> torch.Tensor:
-        return self.spec.tile(arr, self.mesh.coords)
+        return self.spec.tile(arr, self.sp.coords)
 
     def exchange(self, x: torch.Tensor) -> torch.Tensor:
         """A tile's slot array (core slots, ...) -> the extended grid's
@@ -256,17 +286,23 @@ class SpatialEnergy:
         torus the y halos over the x-extended tile, corners included)."""
         spec = self.spec
         t = x.reshape((spec.nx_local, spec.ny_local, spec.col_slots) + x.shape[1:])
-        t = halo_exchange(t, self.mesh, "sp", 0, spec.halo)
+        t = halo_exchange(t, self.sp, "sp", 0, spec.halo)
         if spec.n_spy > 1:
-            t = halo_exchange(t, self.mesh, "spy", 1, spec.hy)
+            t = halo_exchange(t, self.sp, "spy", 1, spec.hy)
         return t.reshape((-1,) + x.shape[1:])
 
     def __call__(self, params: dict, coord, numbers, charge, cell, mult=None):
-        return self.tile_energy(params, self.tile(coord), self.tile(numbers), charge, cell, mult)
+        if self.ens is None:
+            return self.tile_energy(params, self.tile(coord), self.tile(numbers), charge, cell, mult)
+        e = self.tile_energy(_member(params, self.member), self.tile(coord), self.tile(numbers), charge, cell, mult)
+        # every member's energy on every rank; only this rank's own member
+        # carries its graph, so a backward gives its member's gradient
+        others = all_gather(e, self.ens)
+        return torch.cat([e if m == self.member else others[m] for m in range(len(others))])
 
     def _mol_sum(self, x: torch.Tensor, mol_idx_core: torch.Tensor) -> torch.Tensor:
         """The molecule's sum over every rank's core atoms."""
-        return all_reduce_sum(mol_sum(x, mol_idx_core, 1), self.mesh)
+        return all_reduce_sum(mol_sum(x, mol_idx_core, 1), self.sp)
 
     def _nse(self, big_q, q_u, f_u, mol_idx_core, epsilon: float = 1e-6):
         """ops/math.py::nse with the molecule's sums over every rank."""
@@ -279,7 +315,7 @@ class SpatialEnergy:
         """The total energy from this rank's tile (the core slot rows of
         the global slot arrays); with ``observables`` a dict (module
         docstring of :func:`make_spatial_energy_fn`)."""
-        cfg, spec, mesh = self.cfg, self.spec, self.mesh
+        cfg, spec, mesh = self.cfg, self.spec, self.sp
         c = cfg.num_charge_channels
         n_core = numbers_t.shape[0]
         numbers_ext = self.exchange(numbers_t)
@@ -358,12 +394,12 @@ class SpatialEnergy:
 
     def _gather(self, tile: torch.Tensor) -> torch.Tensor:
         """A per-slot quantity in global slot order, on every rank."""
-        return self.spec.untile(all_gather(tile, self.mesh))
+        return self.spec.untile(all_gather(tile, self.sp))
 
     def _multipole(self, head, p, coord_t, numbers_t, q_core):
         """Dipole or quadrupole of the box from every rank's core charges
         (models/heads.py's, with the sums over the mesh)."""
-        mesh = self.mesh
+        mesh = self.sp
         real = numbers_t > 0
         r = coord_t
         if head.center_coord:
@@ -384,7 +420,7 @@ class SpatialEnergy:
         sum (its SR part inside, as the port's binned Ewald) through D and E
         on the extended grid; the structure factors S(k), or PME's spread
         mesh, summed over the ranks, so k-space needs no halo."""
-        spec, mesh = self.spec, self.mesh
+        spec, mesh = self.spec, self.sp
         eta = spec.ewald_eta
         q_ext = torch.where(sys_ext.numbers > 0, q_ext, 0.0)
         e_real = eb.ewald_real_binned(sys_ext, q_ext, eta, spec.ewald_r_static, head.subtract_sr, head.rc,
@@ -434,7 +470,7 @@ class SpatialEnergy:
 
 
 def make_spatial_energy_fn(cfg: AIMNet2Config, spec: SpatialSpec, mesh: Mesh, ewald_kpts=None,
-                           observables: bool = False) -> SpatialEnergy:
+                           ens_axis: str | None = None, observables: bool = False) -> SpatialEnergy:
     """Build ``fn(params, coord, numbers, charge, cell, mult=None)`` -> the
     total energy (1,), on every rank of ``mesh``.
 
@@ -445,11 +481,18 @@ def make_spatial_energy_fn(cfg: AIMNet2Config, spec: SpatialSpec, mesh: Mesh, ew
     (:func:`spatial_forces` does, and assembles the global forces).
     ``ewald_kpts`` is the System's ``ewald_kpts`` (Ewald and PME heads).
 
+    ``ens_axis`` (``"ens"``): ``mesh`` is ``make_spatial_mesh(n_sp, n_spy,
+    n_ens=E)``'s, ``params`` are stacked on a leading member axis
+    (``calculators.ensemble.stack_params``), and the function returns the
+    members' energies (E,), the same on every rank; each slice along
+    ``ens_axis`` evaluates its member on its own ring or torus.
+
     ``observables=True`` returns a dict: ``energy``, ``charges`` (global
     slot order, on every rank) and, where the config has the heads,
     ``dipole``/``quadrupole`` (``spin_charges`` for NSE models), each summed
-    over the mesh as the energy is."""
-    return SpatialEnergy(cfg, spec, mesh, ewald_kpts, observables)
+    over the mesh as the energy is.  It takes no ``ens_axis``
+    (``ValueError``): run it per member."""
+    return SpatialEnergy(cfg, spec, mesh, ewald_kpts, ens_axis, observables)
 
 
 def spatial_forces(efn: SpatialEnergy, params: dict, coord, numbers, charge, cell, mult=None,
@@ -458,8 +501,10 @@ def spatial_forces(efn: SpatialEnergy, params: dict, coord, numbers, charge, cel
     gradient dE/dcell (3, 3) and the stress (3, 3), on every rank (and an
     observables function's other outputs).  Each rank's backward gives the
     forces on its own tile; one all-gather assembles them, an all-reduce
-    the cell gradient."""
-    mesh = efn.mesh
+    the cell gradient.  On an ensemble function every output has a leading
+    member axis: energies (E,), forces (E, L, 3), each member's the
+    gradient of its own energy (gathered over ``ens``)."""
+    sp = efn.sp
     coord = coord.detach().requires_grad_(True)
     cell = cell.detach().requires_grad_(stress)
     res = efn(params, coord, numbers, charge, cell, mult)
@@ -467,13 +512,15 @@ def spatial_forces(efn: SpatialEnergy, params: dict, coord, numbers, charge, cel
     e = res["energy"] if isinstance(res, dict) else res
     wrt = [coord, cell] if stress else [coord]
     grads = torch.autograd.grad(e.sum(), wrt)
-    out["forces"] = -efn.spec.untile(all_gather(efn.tile(grads[0]), mesh))
+    forces = -efn.spec.untile(all_gather(efn.tile(grads[0]), sp))
+    members = (lambda x: torch.stack(all_gather(x, efn.ens))) if efn.ens is not None else (lambda x: x)
+    out["forces"] = members(forces)
     if stress:
-        g_cell = all_reduce_sum(grads[1], mesh)
+        g_cell = all_reduce_sum(grads[1], sp)
         # dE/dS for coord' = coord S, cell' = cell S, over the volume
-        virial = cellmul(coord.detach().T, -out["forces"]) + cellmul(cell.detach().T, g_cell)
-        out["cell_grad"] = g_cell
-        out["stress"] = virial / torch.abs(torch.linalg.det(cell.detach()))
+        virial = cellmul(coord.detach().T, -forces) + cellmul(cell.detach().T, g_cell)
+        out["cell_grad"] = members(g_cell)
+        out["stress"] = members(virial / torch.abs(torch.linalg.det(cell.detach())))
     return out
 
 

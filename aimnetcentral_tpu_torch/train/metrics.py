@@ -1,10 +1,13 @@
 """Streaming regression metrics: MAE / RMSE / R^2 per target (counterpart
-of aimnetcentral_tpu/train/metrics.py, single process).
+of aimnetcentral_tpu/train/metrics.py).
 
 ``RegMultiMetric`` accumulates on the host in float64 numpy, as the JAX
 package's does; ``batch_stats`` is the same accumulator contribution as
 tensors on the batch's device, which ``RegMultiMetric.update_from_stats``
-merges.
+merges.  Across ranks: :func:`reduce_stats` sums ``batch_stats`` over a
+mesh axis (JAX's ``psum`` over ``dp``), :func:`allreduce_accumulators`
+sums the host accumulators in float64 over a mesh or the default world
+(``compute(multihost=True)``).
 """
 
 from __future__ import annotations
@@ -70,7 +73,11 @@ class RegMultiMetric:
             for f, v in st.items():
                 a[f] += float(v)
 
-    def compute(self) -> dict[str, float]:
+    def compute(self, multihost: bool = False) -> dict[str, float]:
+        """``multihost=True`` sums the accumulators over the processes of
+        the default world first (:func:`allreduce_accumulators_multihost`)."""
+        if multihost:
+            self._acc = allreduce_accumulators_multihost(self._acc)
         out: dict[str, float] = {}
         for c in self.configs:
             a = self._acc[c.key_pred]
@@ -106,3 +113,41 @@ def batch_stats(pred: torch.Tensor, true: torch.Tensor, mask: torch.Tensor | Non
         "sum_true": (t * m).sum(),
         "sum_true_sq": (t * t * m).sum(),
     }
+
+
+def reduce_stats(stats: dict[str, Any], mesh, axis: str = "dp") -> dict[str, Any]:
+    """``batch_stats`` results (one dict per target, or one target's dict)
+    summed over the ranks of ``mesh`` that share this rank's other
+    coordinates (its line along ``axis``): JAX's ``reduce_stats``, a
+    ``psum`` over the axis."""
+    from aimnetcentral_tpu_torch.parallel.collectives import all_reduce_sum
+
+    if all(isinstance(v, torch.Tensor) for v in stats.values()):
+        keys = sorted(stats)
+        total = all_reduce_sum(torch.stack([stats[k].reshape(()) for k in keys]), mesh.sub((axis,)))
+        return {k: total[i] for i, k in enumerate(keys)}
+    return {k: reduce_stats(v, mesh, axis) for k, v in stats.items()}
+
+
+def allreduce_accumulators(acc: dict[str, dict[str, float]], mesh) -> dict[str, dict[str, float]]:
+    """Host accumulators summed in float64 over the ranks of ``mesh``."""
+    from aimnetcentral_tpu_torch.parallel.collectives import all_reduce_sum
+
+    keys = sorted(acc)
+    fields = sorted(next(iter(acc.values())))
+    local = torch.tensor([[acc[k][f] for f in fields] for k in keys], dtype=torch.float64)
+    total = all_reduce_sum(local.to(mesh.device), mesh).cpu().numpy()
+    return {k: {f: float(total[i, j]) for j, f in enumerate(fields)} for i, k in enumerate(keys)}
+
+
+def allreduce_accumulators_multihost(acc: dict[str, dict[str, float]]) -> dict[str, dict[str, float]]:
+    """Host accumulators summed in float64 over every process of the
+    default world (multi-process data-parallel evaluation); unchanged in
+    one process."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return acc
+    from aimnetcentral_tpu_torch.parallel.mesh import world_mesh
+
+    return allreduce_accumulators(acc, world_mesh())

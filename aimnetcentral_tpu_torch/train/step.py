@@ -7,8 +7,15 @@ through every conv pass and pair sweep.  On molecule bins its primal and
 first adjoints run kernels A, B (in its AEV-constants build), D and E, and
 its second-order tangents the plain versions (kernels/conv_pass.py::
 ConvAcc, kernels/pair_sweep.py::PairAcc), as the JAX package runs them on
-its XLA twin.  Data parallelism across devices is not part of the port: a
-step takes one ``System`` and its labels.
+its XLA twin.
+
+Data parallelism (``mesh``): each rank of a ``parallel.make_mesh`` mesh
+takes its own microbatch, and the step's gradient is the mean over the
+mesh's ranks of their microbatch gradients, as JAX's loss is the mean
+over its stacked microbatches.  One flat buffer (the gradients, the loss
+and its components) goes through ``parallel.collectives.all_reduce_mean``
+before the clip and Adam, so every rank applies the same update and the
+replicated parameters stay the same bits on every rank.
 
 The optimizer is ``torch.optim.Adam`` behind a global-norm clip, after the
 JAX package's optax chain ``clip_by_global_norm -> add_decayed_weights ->
@@ -233,12 +240,28 @@ def predict(params: dict, cfg: AIMNet2Config, system: System, with_forces: bool,
     return {**out, "forces": -g}
 
 
+def mean_over_mesh(mesh, grads: list[torch.Tensor], scalars: dict[str, torch.Tensor]):
+    """The gradients and the 0-d ``scalars`` averaged over the mesh's ranks
+    in one flat buffer (``collectives.all_reduce_mean``)."""
+    from aimnetcentral_tpu_torch.parallel.collectives import all_reduce_mean
+
+    keys = list(scalars)
+    flat = torch.cat([g.reshape(-1) for g in grads] + [scalars[k].reshape(1).to(grads[0].dtype) for k in keys])
+    flat = all_reduce_mean(flat, mesh)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at : at + g.numel()].view_as(g))
+        at += g.numel()
+    return out, {k: flat[at + i] for i, k in enumerate(keys)}
+
+
 def make_train_step(
     cfg: AIMNet2Config,
     loss: MTLoss,
     optimizer: Optimizer,
     with_forces: bool = True,
     precision: str = "fast",
+    mesh=None,
 ):
     """Build ``step(state, batch, labels) -> (state, metrics)``.
 
@@ -248,7 +271,12 @@ def make_train_step(
     matmuls on the card) or ``"exact"`` (TF32 off); the tier's context
     wraps the forward and both derivatives.  ``metrics``: ``loss``, the
     loss's components and ``grad_norm`` (the trainable leaves' global norm
-    before clipping), as 0-d tensors on the batch's device."""
+    before clipping), as 0-d tensors on the batch's device.
+
+    ``mesh`` (``parallel.make_mesh``'s): every rank of the mesh calls the
+    step with its own microbatch (the trainer's split); the gradient, the
+    loss and its components are their means over the mesh's ranks (JAX's
+    ``n_dev`` microbatches are this mesh's ``size``)."""
     ambient = ambient_for(precision)
 
     def step(state: TrainState, batch: System, labels: dict) -> tuple[TrainState, dict]:
@@ -260,10 +288,12 @@ def make_train_step(
         # a leaf the loss does not reach still takes Adam's step with a zero
         # gradient, as in optax (its moments decay)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        scalars = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}}
+        if mesh is not None:
+            grads, scalars = mean_over_mesh(mesh, grads, scalars)
         with torch.no_grad():
             norm = optimizer.apply(state.opt_state, leaves, grads)
         state.step += 1
-        metrics = {"loss": total.detach(), **{k: v.detach() for k, v in comps.items()}, "grad_norm": norm}
-        return state, metrics
+        return state, {**scalars, "grad_norm": norm}
 
     return step

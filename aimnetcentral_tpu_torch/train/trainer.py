@@ -1,12 +1,17 @@
 """The training loop: epochs, validation, checkpoints, learning-rate
-scheduling (counterpart of aimnetcentral_tpu/train/trainer.py, one device).
+scheduling (counterpart of aimnetcentral_tpu/train/trainer.py).
 
 - one train step per batch, each size group one batch shape;
 - validation each epoch at the training tier, with streaming metrics;
 - a ReduceLROnPlateau-style scheduler, TerminateOnNaN and TerminateOnLowLR;
 - checkpoints in the JAX package's npz layout, so a checkpoint written by
   either package resumes in the other (:func:`save_checkpoint`);
-- a JSONL metrics log, or a tracker (``train/trackers.py``).
+- a JSONL metrics log, or a tracker (``train/trackers.py``);
+- data parallelism over the ranks of a ``parallel.make_mesh`` mesh: each
+  host batch split into one microbatch a rank as JAX splits it over its
+  devices, the step's gradient averaged over the ranks
+  (``train/step.py``), the validation losses and metrics reduced over
+  them; only the mesh's lead rank writes files.
 """
 
 from __future__ import annotations
@@ -152,13 +157,33 @@ def load_checkpoint_full(path: str, state_template: TrainState) -> tuple[TrainSt
     return state, sched
 
 
+def spread_padding(system, n_mol: int, size: int):
+    """An indexed microbatch (``make_batch_system``'s, ``n_mol`` molecules
+    of ``size`` atoms padded to ``system.num_mol``) with its padded
+    molecules' atoms moved 1, 2, 3, ... A along x from the point where
+    ``make_batch_system`` stacks them.  Stacked, each padded atom is at zero distance
+    from its neighbours, and the force loss's gradient is NaN in both
+    packages (ROADMAP.md section 3); apart, their energies, forces and
+    charges stay 0 and the loss is the same."""
+    lo, hi = n_mol * size, system.num_mol * size
+    if hi == lo:
+        return system
+    coord = system.coord.clone()
+    coord[lo:hi, 0] += torch.arange(1, hi - lo + 1, dtype=coord.dtype, device=coord.device)
+    return system.replace(coord=coord)
+
+
 # ---------------------------------------------------------------------------
 # the trainer
 
 
 class Trainer:
     """Fit ``params`` of ``cfg`` on ``train_ds``; validate on ``val_ds``
-    each epoch.  Runs on ``device`` (the card unless ``"cpu"``)."""
+    each epoch.  Runs on ``device`` (the card unless ``"cpu"``).
+
+    ``mesh`` (``parallel.make_mesh``'s, ``dp`` by ``ens``): every rank of
+    the mesh constructs the trainer and calls ``fit`` alike, on its mesh
+    device; the parameters are the mesh's first rank's, replicated."""
 
     def __init__(
         self,
@@ -169,6 +194,7 @@ class Trainer:
         tcfg: TrainerConfig = TrainerConfig(),
         loss_cfg: LossConfig = LossConfig(),
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if tcfg.layout not in ("packed", "indexed"):
             raise ValueError(f"layout must be 'packed' or 'indexed', got {tcfg.layout!r}")
@@ -176,14 +202,21 @@ class Trainer:
         self.tcfg = tcfg
         self.train_ds = train_ds
         self.val_ds = val_ds
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.n_dev = 1 if mesh is None else mesh.size
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.optimizer = make_optimizer(
             learning_rate=tcfg.learning_rate, grad_clip=tcfg.grad_clip, weight_decay=tcfg.weight_decay
         )
-        self.state = init_train_state(params_to(params, self.device), self.optimizer)
+        params = params_to(params, self.device)
+        if mesh is not None:
+            from aimnetcentral_tpu_torch.parallel.mesh import replicate
+
+            params = replicate(mesh, params)
+        self.state = init_train_state(params, self.optimizer)
         self.loss = MTLoss(loss_cfg)
         self._step_fn = make_train_step(cfg, self.loss, self.optimizer, tcfg.with_forces,
-                                        precision=tcfg.precision)
+                                        precision=tcfg.precision, mesh=mesh)
         self._ambient = ambient_for(tcfg.precision)
         self._lr = tcfg.learning_rate
         self._best_val = float("inf")
@@ -201,9 +234,32 @@ class Trainer:
         self._plateau = int(sched.get("plateau", 0))
         self._best_val = sched.get("best_val", float("inf"))
 
+    @property
+    def lead(self) -> bool:
+        """Whether this rank writes checkpoints, logs and tracker records."""
+        return self.mesh is None or self.mesh.lead
+
     def _batch(self, ds: SizeGroupedDataset, size: int, sample: dict):
-        make = ds.make_batch_system_packed if self.tcfg.layout == "packed" else ds.make_batch_system
-        return make(size, sample, pad_mols=len(sample["numbers"]), device=self.device)
+        """This rank's microbatch of a host batch: JAX's split into
+        ``n_dev`` parts of ``ceil(b / n_dev)`` molecules (the last ones
+        short or empty), each padded to that many; on the indexed layout
+        the padded molecules' atoms are spread apart (:func:`spread_padding`)."""
+        b = len(sample["numbers"])
+        per_dev = int(np.ceil(b / self.n_dev))
+        d = 0 if self.mesh is None else self.mesh.index
+        part = {k: v[d * per_dev : (d + 1) * per_dev] for k, v in sample.items()}
+        if self.tcfg.layout == "packed":
+            return ds.make_batch_system_packed(size, part, pad_mols=per_dev, device=self.device)
+        system, labels = ds.make_batch_system(size, part, pad_mols=per_dev, device=self.device)
+        return spread_padding(system, len(part["numbers"]), size), labels
+
+    def _mean(self, x: float) -> float:
+        """A per-rank number's mean over the mesh."""
+        if self.mesh is None:
+            return x
+        from aimnetcentral_tpu_torch.parallel.collectives import all_reduce_mean
+
+        return float(all_reduce_mean(torch.tensor([x], dtype=torch.float32, device=self.device), self.mesh)[0])
 
     def train_epoch(self, epoch: int) -> dict[str, float]:
         sampler = SizeGroupedSampler(
@@ -238,7 +294,7 @@ class Trainer:
             with ambient_matmul_context(self._ambient):
                 pred = predict(params, self.cfg, batch, with_forces=True, create_graph=False)
                 total, _ = self.loss(pred, labels, batch)
-            losses.append(float(total.detach()))
+            losses.append(self._mean(float(total.detach())))
             real = (batch.numbers > 0).cpu().numpy().ravel()
             mask = {"forces": real, "charges": real}
             if "energy" in labels:
@@ -248,6 +304,10 @@ class Trainer:
                 {k: v.cpu().numpy() for k, v in labels.items()},
                 weights=mask,
             )
+        if self.mesh is not None:
+            from aimnetcentral_tpu_torch.train.metrics import allreduce_accumulators
+
+            metric._acc = allreduce_accumulators(metric._acc, self.mesh)
         out = metric.compute()
         out["val_loss"] = float(np.mean(losses)) if losses else float("nan")
         return out
@@ -258,7 +318,7 @@ class Trainer:
     def fit(self) -> dict[str, Any]:
         tcfg = self.tcfg
         tracker = None
-        if tcfg.tracker:
+        if tcfg.tracker and self.lead:
             from aimnetcentral_tpu_torch.train.trackers import make_tracker
 
             tracker = make_tracker(
@@ -272,7 +332,7 @@ class Trainer:
             val = self.validate()
             rec = {"epoch": epoch, "lr": self._lr, "wall_s": round(time.time() - t0, 2), **tr, **val}
             history.append(rec)
-            if tcfg.log_file and tcfg.tracker != "jsonl":
+            if tcfg.log_file and tcfg.tracker != "jsonl" and self.lead:
                 # (the jsonl tracker already writes this record to log_file)
                 with open(tcfg.log_file, "a") as f:
                     f.write(json.dumps(rec) + "\n")
@@ -283,7 +343,7 @@ class Trainer:
             if score < self._best_val - 1e-12:
                 self._best_val = score
                 self._plateau = 0
-                if tcfg.checkpoint_dir:
+                if tcfg.checkpoint_dir and self.lead:
                     os.makedirs(tcfg.checkpoint_dir, exist_ok=True)
                     save_checkpoint(os.path.join(tcfg.checkpoint_dir, "best.npz"), self.state,
                                     scheduler=self._checkpoint_scheduler())

@@ -208,7 +208,19 @@ the single-device velocity Verlet from the same state, and its NVE drift;
 wb97m-d3 with Ewald and with PME on the ring (ewald-d3-10k, pme-d3-10k)
 against the single-device port, PME against Ewald; A, B, D and E against
 their plain versions on a ring shard's and a torus shard's extended grids
-(their mixed-periodicity tables), as phase 3.
+(their mixed-periodicity tables), as phase 3.  In the same world:
+``ens_spatial``, two flagship-10k members (seeds 0 and 1) on a 2 ens x 2
+sp mesh (``ens_axis``), each member's energy and forces against that
+member's single-device port within the same limits, a bitwise repeat,
+each rank's launches (A, B 3, D, E 1 a request); ``dp_train``, the train
+phase's 64-molecule batch of 32-atom clusters split over the four ranks
+(``Trainer(mesh=make_mesh())``, 16 molecules a rank), one ``fast`` step's
+loss, ``grad_norm`` and averaged gradients against the single-process
+step on the card that takes the same microbatches in turn (within 1e-5),
+the parameters the same bits on every rank after three steps, each
+rank's launches a step (A 3, B's constants' build 6, D 1, E 2), no plain
+call on the card outside the K3 rules' backward; ms a step by rank, the
+gradient mean's ms and bytes, molecules/s and rank 0's idle share.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  In the record, rows A and B are one
@@ -223,7 +235,7 @@ requests, the gas, packed, artifact and integrations phases' requests, the MD wi
 the second_order phase's IR request and kernel-route HVPs, the
 long_range phase's requests and MD windows, the train phase's
 ``Trainer.fit`` and every rank's runs in the spatial phase); the last row is kernel B's AEV-constants build, counted
-over that fit; and
+over that fit and every rank's gated data-parallel step; and
 ``launches_per_md_step`` the launches per MD
 step by configuration.  ``--out`` writes the full results (build logs,
 per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
@@ -3546,26 +3558,11 @@ def train_profile(step, state, system, labels) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from aimnetcentral_tpu_torch.kernels import conv_pass as cp
-    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
-
-    saved = (cp.ConvAccBwd.backward, ps.PairAccBwd.backward)
-
-    def spanned(fn):
-        def backward(ctx, *grads):
-            with record_function("plain_second_order"):
-                return fn(ctx, *grads)
-        return staticmethod(backward)
-
-    cp.ConvAccBwd.backward = spanned(saved[0])
-    ps.PairAccBwd.backward = spanned(saved[1])
-    try:
+    with k3_wrapped(lambda: record_function("plain_second_order")):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(state, system, labels)
             torch.cuda.synchronize()
-    finally:
-        cp.ConvAccBwd.backward, ps.PairAccBwd.backward = saved
 
     # kernels launched by the torch ops inside the spans (each CPU event
     # carries the kernels it launched); the kernels by name on the device
@@ -3716,8 +3713,10 @@ def phase_train(smi: str) -> dict:
     sys_big, _lab = train_ds.make_batch_system_packed(48, big, device=dev)
     res["kernel"] = train_constants_kernel("packed-64x48", sys_big, cfg, params)
 
-    # the timed steps: 64 molecules of TRAIN_TIMED_SIZE atoms
+    # the timed steps: 64 molecules of TRAIN_TIMED_SIZE atoms (the spatial
+    # phase's world splits the same batch over its ranks)
     timed = train_ds[TRAIN_TIMED_SIZE].sample(np.arange(TRAIN_BATCH))
+    res["dp_sample"] = {"size": TRAIN_TIMED_SIZE, "sample": timed}
     sys_t, lab_t = train_ds.make_batch_system_packed(TRAIN_TIMED_SIZE, timed, device=dev)
     res["steps"] = {}
     wrappers = train_counters()
@@ -3899,12 +3898,58 @@ SPATIAL_MD_STEPS = 20  # NVE steps of SpatialMDDriver on the 10k ring
 SPATIAL_MD_CHUNK = 10  # steps between its global re-bins
 SPATIAL_E_TOL = (2e-6, 2e-5)  # energy rtol, atol (the JAX package's tests/test_spatial.py)
 SPATIAL_F_TOL = (3e-5, 3e-6)  # forces: of the largest |F|, plus absolute (the same tests)
+ENS_SEEDS = (0, 1)  # the ens x sp members: flagship-10k at these seeds
+DP_REPLICA_STEPS = 3  # data-parallel steps after which every rank's parameters must be the same bits
+DP_TIMED = 5  # timed data-parallel steps a rank
+DP_REL = 1e-5  # the DP step against the single process: loss, grad_norm relative; each leaf of its largest |g|
+
+
+K3_DEPTH = [0]  # > 0 inside the K3 rules' backward (ConvAccBwd, PairAccBwd)
+
+
+@contextlib.contextmanager
+def k3_wrapped(around):
+    """The K3 rules' backward (``ConvAccBwd``, ``PairAccBwd``: the VJPs of
+    the plain versions, by design the force loss's second-order tangents)
+    run inside the context manager ``around()`` while this one is open."""
+    from aimnetcentral_tpu_torch.kernels import conv_pass as cp
+    from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
+
+    saved = (cp.ConvAccBwd.backward, ps.PairAccBwd.backward)
+
+    def wrapped(fn):
+        def backward(ctx, *grads):
+            with around():
+                return fn(ctx, *grads)
+        return staticmethod(backward)
+
+    cp.ConvAccBwd.backward, ps.PairAccBwd.backward = wrapped(saved[0]), wrapped(saved[1])
+    try:
+        yield
+    finally:
+        cp.ConvAccBwd.backward, ps.PairAccBwd.backward = saved
+
+
+@contextlib.contextmanager
+def _k3_depth():
+    K3_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        K3_DEPTH[0] -= 1
+
+
+def k3_spans():
+    """Mark the K3 rules' backward so that ``plain_spies`` leaves their
+    plain versions out."""
+    return k3_wrapped(_k3_depth)
 
 
 def plain_spies() -> dict:
     """Count the calls of the kernels' plain versions that get CUDA tensors
-    (the port takes a plain version only for CPU tensors); returns the
-    counts, which the wrapped functions fill."""
+    (the port takes a plain version only for CPU tensors), outside the K3
+    rules' backward (``k3_spans``); returns the counts, which the wrapped
+    functions fill."""
     import torch
 
     from aimnetcentral_tpu_torch.kernels import conv_pass as cp
@@ -3915,7 +3960,7 @@ def plain_spies() -> dict:
 
     def spy(name, fn):
         def wrapped(*args, **kw):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kw.values())):
+            if not K3_DEPTH[0] and any(isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kw.values())):
                 counts[name] = counts.get(name, 0) + 1
             return fn(*args, **kw)
         return wrapped
@@ -3941,13 +3986,15 @@ def spatial_request(job: dict, device, wrappers: dict, plain: dict) -> dict:
     from aimnetcentral_tpu_torch.parallel.spatial import make_spatial_energy_fn, plan_spatial, spatial_forces
 
     n_sp, n_spy = job["mesh"]
+    n_ens = job.get("n_ens", 1)
     spec = plan_spatial(job["system"], job["cfg"], n_sp, n_spy)
-    mesh = make_spatial_mesh(n_sp, n_spy, device)
+    mesh = make_spatial_mesh(n_sp, n_spy, device, n_ens=n_ens)
     if mesh is None:
         return {}
     system = job["system"].to(device)
     params = params_to(job["params"], device)
-    efn = make_spatial_energy_fn(job["cfg"], spec, mesh, ewald_kpts=system.ewald_kpts)
+    efn = make_spatial_energy_fn(job["cfg"], spec, mesh, ewald_kpts=system.ewald_kpts,
+                                 ens_axis="ens" if n_ens > 1 else None)
     args = (params, system.coord, system.numbers, system.charge, system.cell[0], system.mult)
     with ambient_matmul_context("highest"):
         first = spatial_forces(efn, *args)
@@ -3969,7 +4016,8 @@ def spatial_request(job: dict, device, wrappers: dict, plain: dict) -> dict:
         spatial_forces(efn, *args)
         co.clock.on = False
     return {
-        "energy": float(out["energy"][0]), "forces": out["forces"].cpu().numpy() if mesh.lead else None,
+        "energy": float(out["energy"][0]) if n_ens == 1 else out["energy"].cpu().numpy(),
+        "forces": out["forces"].cpu().numpy() if mesh.lead else None, "member": efn.member,
         "request_ms": sorted(times)[len(times) // 2] * 1e3, "launches_per_request": {
             k: v / SPATIAL_TIMED for k, v in launches.items()}, "plain_calls": dict(plain), "peak_bytes": peak,
         "repeat_bitwise": repeat, "exchange_ms": 1e3 * co.clock.exchange,
@@ -4012,6 +4060,101 @@ def spatial_md(job: dict, device, wrappers: dict, plain: dict) -> dict:
     }
 
 
+def dp_train_share(job: dict, device, wrappers: dict, plain: dict) -> dict:
+    """One rank's share of the data-parallel train step (``dp_train``):
+    ``Trainer(mesh=make_mesh())`` over the world splits the batch as JAX
+    does and takes this rank's microbatch; one ``fast`` step whose averaged
+    gradients the optimizer hands over (rank 0 returns them), its launches;
+    ``DP_REPLICA_STEPS`` steps from a fresh state and a digest of the
+    parameters after them; ``DP_TIMED`` timed steps, one with the mean
+    all-reduce clocked, one profiled on rank 0."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from aimnetcentral_tpu_torch.data.sgdataset import SizeGroupedDataset
+    from aimnetcentral_tpu_torch.models.bridge import params_to
+    from aimnetcentral_tpu_torch.parallel import collectives as co
+    from aimnetcentral_tpu_torch.parallel.mesh import make_mesh
+    from aimnetcentral_tpu_torch.train import step as tstep
+    from aimnetcentral_tpu_torch.train.loss import LossConfig, MTLoss
+    from aimnetcentral_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    mesh = make_mesh(device=device)
+    rank = dist.get_rank()
+    cfg, size, sample = job["cfg"], job["size"], job["sample"]
+    ds = SizeGroupedDataset({size: sample})
+    trainer = Trainer(cfg, params_to(job["params"], device), ds, tcfg=TrainerConfig(batch_size=len(sample["numbers"])),
+                      device=device, mesh=mesh)
+    system, labels = trainer._batch(ds, size, sample)
+    loss = MTLoss(LossConfig())
+    taken: list = []
+
+    class Capturing(tstep.Optimizer):
+        def apply(self, adam, leaves, grads):
+            if rank == 0:
+                taken.extend(g.detach().cpu() for g in grads)
+            return super().apply(adam, leaves, grads)
+
+    wrappers = train_counters()
+    with k3_spans():
+        # the gated step: the main path's counts from 0
+        opt = Capturing()
+        state = tstep.init_train_state(trainer.state.params, opt)
+        step = tstep.make_train_step(cfg, loss, opt, precision="fast", mesh=mesh)
+        plain.clear()
+        for fn in wrappers.values():
+            fn.launches = 0
+        _s, metrics = step(state, system, labels)
+        torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+        plain_calls = dict(plain)
+        gated = {k: float(v) for k, v in metrics.items()}
+
+        # replication: every rank the same parameters after a few steps
+        opt = tstep.make_optimizer()
+        state = tstep.init_train_state(trainer.state.params, opt)
+        step = tstep.make_train_step(cfg, loss, opt, precision="fast", mesh=mesh)
+        for _ in range(DP_REPLICA_STEPS):
+            step(state, system, labels)
+        digest = hashlib.sha256()
+        for _p, x in tstep.tree_leaves(state.params):
+            digest.update(x.detach().cpu().numpy().tobytes())
+
+        times = []
+        for _ in range(DP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _s, m = step(state, system, labels)
+            float(m["loss"])  # the Trainer reads the loss each step
+            times.append(time.perf_counter() - t0)
+        co.clock.reset()
+        co.clock.on = True
+        step(state, system, labels)
+        co.clock.on = False
+        mean_ms = 1e3 * co.clock.mean
+        # the mean's one flat buffer: every trainable leaf's gradient, the loss and its components
+        mean_bytes = 4 * (sum(x.numel() for _p, x in state.trainable) + len(gated) - 1)
+        prof = train_profile(step, state, system, labels) if rank == 0 else None
+        if rank != 0:
+            step(state, system, labels)  # rank 0's profiled step's partner
+    return {
+        "metrics": gated, "grads": {p: g for (p, _x), g in zip(state.trainable, taken)} if rank == 0 else None,
+        "launches": launches, "plain_calls": plain_calls, "digest": digest.hexdigest(),
+        "step_ms": sorted(times)[len(times) // 2] * 1e3, "mean_ms": mean_ms, "mean_bytes": mean_bytes,
+        "profile": prof, "molecules": int(labels["energy"].numel()), "index": mesh.index,
+    }
+
+
+def job_ranks(job: dict) -> int:
+    """The ranks of the world a job's mesh holds (the first ones)."""
+    if job["kind"] == "dp_train":
+        return SPATIAL_WORLD
+    n_sp, n_spy = job["mesh"]
+    return job.get("n_ens", 1) * n_sp * n_spy
+
+
 def spatial_rank(rank: int, device, jobs: list, out_dir: str) -> None:
     """The body of one rank of the spatial phase's world (spawned: it
     imports this file, and loads the kernels the parent built).  Every rank
@@ -4025,13 +4168,13 @@ def spatial_rank(rank: int, device, jobs: list, out_dir: str) -> None:
 
     wrappers, plain = counters(), plain_spies()
     res = {"backend": dist.get_backend(), "world": dist.get_world_size(), "device": str(device)}
+    runs = {"md": spatial_md, "request": spatial_request, "dp_train": dp_train_share}
     for job in jobs:
-        n_sp, n_spy = job["mesh"]
-        if rank >= n_sp * n_spy:
-            make_spatial_mesh(n_sp, n_spy, device)
+        if rank >= job_ranks(job):
+            n_sp, n_spy = job["mesh"]
+            make_spatial_mesh(n_sp, n_spy, device, n_ens=job.get("n_ens", 1))
             continue
-        run = spatial_md if job["kind"] == "md" else spatial_request
-        res[job["name"]] = run(job, device, wrappers, plain)
+        res[job["name"]] = runs[job["kind"]](job, device, wrappers, plain)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(res, fh)
 
@@ -4145,7 +4288,102 @@ def phase_spatial_kernels(params, cfg, params_d3, cfg_d3, coord, numbers, cell) 
     return res
 
 
-def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
+def dp_reference(params, cfg, size: int, sample: dict, n_dev: int) -> dict:
+    """The data-parallel step's single-process reference on the card: the
+    batch split as the trainer splits it, each microbatch's ``fast`` loss
+    and gradients in turn, added up in order and averaged (in f32, as
+    ``all_reduce_mean`` averages them), and the global norm."""
+    import torch
+
+    from aimnetcentral_tpu_torch.data.sgdataset import SizeGroupedDataset
+
+    ds = SizeGroupedDataset({size: sample})
+    b = len(sample["numbers"])
+    per = -(-b // n_dev)
+    losses, grads = [], None
+    for d in range(n_dev):
+        part = {k: v[d * per : (d + 1) * per] for k, v in sample.items()}
+        system, labels = ds.make_batch_system_packed(size, part, pad_mols=per, device="cuda")
+        loss, g = train_gradient(params, cfg, system, labels, "fast")
+        losses.append(np.float32(loss))
+        g = {p: x.float() for p, x in g.items()}
+        grads = g if grads is None else {p: grads[p] + g[p] for p in grads}
+    grads = {p: x / n_dev for p, x in grads.items()}
+    norm = float(torch.sqrt(sum((x * x).sum() for x in grads.values())))
+    return {"loss": float(sum(losses[1:], losses[0]) / np.float32(n_dev)), "grad_norm": norm, "grads": grads}
+
+
+def dp_gates(name: str, shares: list[dict], ref: dict, smi: str, backend: str) -> dict:
+    """The data-parallel step's gates over every rank's share: rank 0's
+    loss, grad_norm and averaged gradients against the single-process
+    reference within ``DP_REL``, every rank's metrics the same, the
+    parameters' digests equal after ``DP_REPLICA_STEPS`` steps, each rank's
+    launches ``TRAIN_PER_STEP`` and no plain call on the card outside the
+    K3 rules; logs the times."""
+    lead = shares[0]
+    m = lead["metrics"]
+    d_loss = abs(m["loss"] - ref["loss"]) / abs(ref["loss"])
+    d_norm = abs(m["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    err = {p: float((g - ref["grads"][p].cpu()).abs().max() / max(float(ref["grads"][p].abs().max()), 1e-30))
+           for p, g in lead["grads"].items()}
+    bitwise = all(bool((g == ref["grads"][p].cpu()).all()) for p, g in lead["grads"].items())
+    worst = max(err, key=err.get)
+    step_ms = [s["step_ms"] for s in shares]
+    mol_s = sum(s["molecules"] for s in shares) / (max(step_ms) / 1e3)
+    prof = lead["profile"]
+    idle = max(0.0, 1.0 - prof["device_ms"] / lead["step_ms"])
+    log(f"[dp_train {name}] {smi}: {len(shares)} ranks ({sum(s['molecules'] for s in shares)} molecules, "
+        f"{lead['molecules']} a rank, {'a card a rank, NCCL' if backend == 'nccl' else 'one card through gloo'}), one fast step against the single process: loss "
+        f"{m['loss']:.8g} / {ref['loss']:.8g} (rel {d_loss:.2e}), grad_norm {m['grad_norm']:.8g} / "
+        f"{ref['grad_norm']:.8g} (rel {d_norm:.2e}), averaged gradients: worst leaf {worst} {err[worst]:.2e} of its "
+        f"largest |g| (limit {DP_REL}), bit for bit: {bitwise}; launches a step by rank "
+        f"{[s['launches'] for s in shares]}; plain calls on the card outside the K3 rules "
+        f"{[s['plain_calls'] for s in shares]}")
+    mean_ms = ", ".join(f"{x['mean_ms']:.2f}" for x in shares)
+    log(f"[dp_train {name}] {smi}: ms a step by rank {', '.join(f'{x:.2f}' for x in step_ms)} (median of "
+        f"{DP_TIMED}); the mean all-reduce {mean_ms} ms of a step by rank "
+        f"(synchronised), {lead['mean_bytes']:,} bytes a rank; {mol_s:.0f} molecules/s; rank 0's profiled step: "
+        f"device {prof['device_ms']:.2f} ms, idle share {idle:.3f}; by part: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in prof["parts_ms"].items()) + " ms")
+    if d_loss > DP_REL or d_norm > DP_REL or err[worst] > DP_REL:
+        raise SystemExit("FAIL: the data-parallel step disagrees with the single process's averaged microbatches")
+    if any(s["metrics"] != m for s in shares):
+        raise SystemExit("FAIL: the data-parallel step's metrics differ between ranks")
+    if len({s["digest"] for s in shares}) != 1:
+        raise SystemExit(f"FAIL: the parameters differ between ranks after {DP_REPLICA_STEPS} data-parallel steps")
+    for r, share in enumerate(shares):
+        if share["launches"] != TRAIN_PER_STEP or share["plain_calls"]:
+            raise SystemExit(f"FAIL: rank {r} of {name} launched {share['launches']} in a step (expected "
+                             f"{TRAIN_PER_STEP}), plain calls on the card {share['plain_calls']}")
+    return {"loss_rel": d_loss, "grad_norm_rel": d_norm, "worst_leaf": (worst, err[worst]), "bitwise": bitwise,
+            "step_ms": step_ms, "mean_ms": [s["mean_ms"] for s in shares], "mean_bytes": lead["mean_bytes"],
+            "molecules_per_s": mol_s, "idle_share_rank0": idle, "profile_rank0": prof,
+            "launches_per_step": [s["launches"] for s in shares]}
+
+
+def ens_gates(name: str, shares: list[dict], refs: list, numbers, single_ms: float, smi: str) -> dict:
+    """The ens x sp request's gates: every rank holds the same member
+    energies; each member's energy and forces against that member's
+    single-device port (``spatial_agree``); logs the times."""
+    lead = shares[0]
+    if any(not np.array_equal(s["energy"], lead["energy"]) for s in shares):
+        raise SystemExit(f"FAIL: the ranks of {name} hold different member energies")
+    agree = [spatial_agree(f"{name} member {m}", float(lead["energy"][m]), lead["forces"][m], *refs[m], numbers)
+             for m in range(len(refs))]
+    out = {"agree": agree, "energies": [float(e) for e in lead["energy"]],
+           "members": [s["member"] for s in shares], "request_ms": [s["request_ms"] for s in shares],
+           "exchange_ms": [s["exchange_ms"] for s in shares], "all_reduce_ms": [s["all_reduce_ms"] for s in shares],
+           "peak_bytes": [s["peak_bytes"] for s in shares], "launches_per_request": lead["launches_per_request"]}
+    log(f"[spatial {name}] {smi}: {len(shares)} ranks, members by rank {out['members']}: request "
+        f"{', '.join(f'{x:.2f}' for x in out['request_ms'])} ms by rank (single device, one member "
+        f"{single_ms:.2f} ms), halo exchanges {', '.join(f'{x:.2f}' for x in out['exchange_ms'])} ms and "
+        f"all-reduces {', '.join(f'{x:.2f}' for x in out['all_reduce_ms'])} ms (synchronised), peak "
+        f"{', '.join(f'{x / 2**30:.3f}' for x in out['peak_bytes'])} GiB by rank; launches a request on every rank "
+        f"{lead['launches_per_request']}; a repeat bit for bit")
+    return out
+
+
+def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell, train_sample: dict, smi: str) -> dict:
     """Spatial decomposition on the card (``parallel/``): one world of
     ``SPATIAL_WORLD`` ranks spawned after the parent built the kernels
     (each rank loads the built libraries): gloo with the halo buffers
@@ -4159,7 +4397,18 @@ def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
     single-device velocity Verlet from the same state, and its NVE drift;
     wb97m-d3 with Ewald (ewald-d3-10k: the real-space cutoff's halo of four
     planes, the largest a ring of two on eight planes holds) and with PME
-    on the ring, against the single-device port and PME against Ewald."""
+    on the ring, against the single-device port and PME against Ewald.
+
+    In the same world: ``ens_spatial``, two flagship-10k members
+    (``ENS_SEEDS``) on a 2 ens x 2 sp mesh, each member's energy and forces
+    against that member's single-device port, a bitwise repeat, each rank's
+    launches; ``dp_train``, the train phase's train-64x32 batch split over
+    the four ranks (16 molecules each), one ``fast`` step's loss,
+    ``grad_norm`` and averaged gradients against ``dp_reference``, the
+    parameters the same bits on every rank after ``DP_REPLICA_STEPS``
+    steps, each rank's launches a step (``TRAIN_PER_STEP``), no plain call
+    on the card outside the K3 rules, ms a step by rank, the mean
+    all-reduce's ms and bytes, molecules/s and rank 0's idle share."""
     import pickle
 
     import torch
@@ -4182,6 +4431,15 @@ def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
     ew_e, ew_f, _ms = single_reference(params_d3, cfg_ew, sys_ew)
     pme_e, pme_f, _ms = single_reference(params_d3, cfg_pme, sys_pme)
     log(f"[spatial] single-device flagship-10k request (energy and forces, exact): {single_ms:.2f} ms")
+    from aimnetcentral_tpu_torch.calculators.ensemble import stack_params
+    from aimnetcentral_tpu_torch.models import aimnet2_init
+
+    members = [params] + [aimnet2_init(cfg, seed=s, device="cuda") for s in ENS_SEEDS[1:]]
+    ens_refs = [(ref_e, ref_f)] + [single_reference(p, cfg_dsf, sysb)[:2] for p in members[1:]]
+    t0 = time.perf_counter()
+    dp_ref = dp_reference(params, cfg, train_sample["size"], train_sample["sample"], SPATIAL_WORLD)
+    log(f"[dp_train] single-process reference on the card ({SPATIAL_WORLD} microbatches in turn, fast): loss "
+        f"{dp_ref['loss']:.8g}, grad_norm {dp_ref['grad_norm']:.8g}, {time.perf_counter() - t0:.1f} s")
 
     # the ranks get the references' own parameters (one pickled copy each)
     cpu = torch.device("cpu")
@@ -4195,6 +4453,10 @@ def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
          "system": sys_ew.to(cpu)},
         {"name": "ring pme-d3-10k", "kind": "request", "mesh": (2, 1), "cfg": cfg_pme, "params": p_d3_cpu,
          "system": sys_pme.to(cpu)},
+        {"name": "ens2 x ring flagship-10k", "kind": "request", "mesh": (2, 1), "n_ens": len(ENS_SEEDS),
+         **flagship, "params": stack_params([params_to(p, cpu) for p in members])},
+        {"name": "dp_train train-64x32", "kind": "dp_train", "mesh": (SPATIAL_WORLD, 1), "cfg": cfg,
+         "params": p_cpu, **train_sample},
     ]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -4211,12 +4473,20 @@ def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
     res["backend"], res["world"] = ranks[0]["backend"], ranks[0]["world"]
 
     launches = {name: 0 for name in counters()}
-    per_request = {"ring flagship-10k": 1, "torus flagship-10k": 1, "ring ewald-d3-10k": 3, "ring pme-d3-10k": 3}
+    per_request = {"ring flagship-10k": 1, "torus flagship-10k": 1, "ring ewald-d3-10k": 3, "ring pme-d3-10k": 3,
+                   "ens2 x ring flagship-10k": 1}
     refs = {"ring flagship-10k": (ref_e, ref_f), "torus flagship-10k": (ref_e, ref_f),
             "ring ewald-d3-10k": (ew_e, ew_f), "ring pme-d3-10k": (pme_e, pme_f)}
     for job in jobs:
         name = job["name"]
-        n_ranks = job["mesh"][0] * job["mesh"][1]
+        if job["kind"] == "dp_train":
+            res["dp_train"] = dp_gates(name, [r[name] for r in ranks], dp_ref, smi, res["backend"])
+            for k in launches:
+                launches[k] += sum(share["launches"][k] for share in [r[name] for r in ranks])
+            launches["conv_stencil_backward_constants"] = sum(
+                r[name]["launches"]["conv_stencil_backward_constants"] for r in ranks)
+            continue
+        n_ranks = job_ranks(job)
         shares = [r[name] for r in ranks[:n_ranks]]
         for r, share in enumerate(shares):
             got = share.get("launches_per_request", share.get("launches"))
@@ -4235,7 +4505,9 @@ def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell) -> dict:
             else:
                 for k, v in got.items():
                     launches[k] += v
-        if job["kind"] == "request":
+        if job.get("n_ens", 1) > 1:
+            res[name] = ens_gates(name, shares, ens_refs, job["system"].numbers, single_ms, smi)
+        elif job["kind"] == "request":
             lead = shares[0]
             res[name] = {
                 "agree": spatial_agree(name, lead["energy"], lead["forces"], *refs[name], job["system"].numbers),
@@ -4388,7 +4660,8 @@ def main() -> None:
                                          results["kernels_detail"])
     results["train"] = phase_train(smi)
     results["spatial_kernels"] = phase_spatial_kernels(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
-    results["spatial"] = phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
+    results["spatial"] = phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell,
+                                       results["train"].pop("dp_sample"), smi)
     for k in kernels:
         k["launches"] += results["spatial"]["launches"][k["name"]]
         k["launches"] += results["train"]["launches"][k["name"]]
@@ -4406,6 +4679,7 @@ def main() -> None:
         }
 
     kernels += results["ensemble"]["rows"]
+    results["train"]["row"]["launches"] += results["spatial"]["launches"]["conv_stencil_backward_constants"]
     kernels.append(results["train"]["row"])
     results["seconds"] = time.perf_counter() - t_run
     if args.out:

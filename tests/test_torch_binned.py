@@ -15,6 +15,7 @@ from aimnetcentral_tpu.ops import binned as jB
 from aimnetcentral_tpu_torch.builders import system_from_molecules as t_system_from_molecules
 from aimnetcentral_tpu_torch.models import engine_binned as teb
 from aimnetcentral_tpu_torch.ops import binned as tB
+from torch_train_helpers import one_torch_thread  # noqa: E402, F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 # jitted as the JAX calculator runs it: eager dispatch of its many small ops

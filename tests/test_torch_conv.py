@@ -22,6 +22,7 @@ from aimnetcentral_tpu_torch.builders import system_from_molecules as t_system_f
 from aimnetcentral_tpu_torch.kernels import conv_stencil as tcs
 from aimnetcentral_tpu_torch.kernels.conv_pass import ConvAcc, build_conv_tables, conv_pass
 from aimnetcentral_tpu_torch.ops import binned as tB
+from torch_train_helpers import one_torch_thread  # noqa: E402, F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 REL = 1e-5

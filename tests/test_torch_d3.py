@@ -37,6 +37,7 @@ from aimnetcentral_tpu_torch.models import heads as theads
 from aimnetcentral_tpu_torch.models import modules as tmodules
 from aimnetcentral_tpu_torch.models.bridge import params_from_numpy
 from aimnetcentral_tpu_torch.ops import binned as tB
+from torch_train_helpers import one_torch_thread  # noqa: E402, F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 NARROW = dict(nfeature=4, ncomb_v=4, hidden=((32, 16), (32, 16), (32, 16)), aim_size=16)

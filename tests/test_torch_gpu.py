@@ -1195,3 +1195,88 @@ def test_spatial_ring_card_matches_single_device(cuda_device, tmp_path):
     real = sysb.numbers.numpy() > 0
     g = g.cpu().numpy()
     assert np.abs(out["forces"] + g)[real].max() < 3e-5 * np.abs(g).max() + 3e-6
+
+
+def _spatial_narrow(dsf_rc=9.0, seed=0):
+    from aimnetcentral_tpu_torch.models.heads import auto_switch_simple_to_dsf
+
+    params, cfg = _narrow_model(CPU, seed=seed)
+    cfg = auto_switch_simple_to_dsf(cfg)
+    cfg = dataclasses.replace(cfg, outputs=tuple(
+        (n, dataclasses.replace(h, dsf_rc=dsf_rc) if isinstance(h, LRCoulombHead) else h) for n, h in cfg.outputs))
+    return params, cfg
+
+
+def test_spatial_ens_card_matches_cpu(cuda_device, tmp_path):
+    """Two members on an (ens 2, sp 2) mesh of four ranks on the card (gloo
+    staged through the host on one card): each member's energy and forces
+    against the single-device port on the CPU, within the JAX package's
+    tests/test_spatial.py limits; every rank holds both members."""
+    from torch_spatial_worker import run_world
+
+    from aimnetcentral_tpu_torch.calculators.ensemble import stack_params
+    from aimnetcentral_tpu_torch.models import aimnet2_apply
+
+    members = [_spatial_narrow(seed=s) for s in (0, 1)]
+    cfg = members[0][1]
+    box = _box(400, 22.0, seed=3)
+    sysb, _perm, ovf = B.to_binned_system(system_from_molecules([box], CPU), B.plan_bins(box["cell"], 400, 5.3,
+                                                                                         safety=2.5))
+    assert int(ovf.sum()) == 0 and sysb.bins.nbins[0] == 4
+    outs = run_world(4, [("ens", "energy", dict(system=sysb, cfg=cfg, params=stack_params([p for p, _c in members]),
+                                                 n_sp=2, n_ens=2))], str(tmp_path), device="cuda")
+    real = sysb.numbers.numpy() > 0
+    for m, (params, _c) in enumerate(members):
+        c = sysb.coord.detach().requires_grad_(True)
+        e = aimnet2_apply(params, cfg, sysb.replace(coord=c), sae_external=True)["energy"].sum()
+        (g,) = torch.autograd.grad(e, c)
+        g = g.numpy()
+        for out in (o["ens"] for o in outs):
+            np.testing.assert_allclose(float(out["energy"][m]), float(e), rtol=2e-6, atol=2e-5)
+            assert np.abs(out["forces"][m] + g)[real].max() < 3e-5 * np.abs(g).max() + 3e-6
+
+
+def test_dp_train_step_card_matches_cpu(cuda_device, tmp_path):
+    """The data-parallel train step on two ranks on the card (molecule
+    bins, force loss, ``exact``): the loss, ``grad_norm`` and every averaged
+    leaf against the CPU's mean of the two microbatches' steps (each leaf
+    within 1e-4 of its largest |g|, the loss and norm 1e-5 relative); the
+    parameters after the step the same bits on both ranks."""
+    from torch_spatial_worker import run_world
+
+    from aimnetcentral_tpu_torch.data.sgdataset import SizeGroupedDataset
+    from aimnetcentral_tpu_torch.train import step as tstep
+    from aimnetcentral_tpu_torch.train.loss import LossConfig, MTLoss
+
+    params, cfg = _narrow_model(CPU)
+    rng = np.random.default_rng(0)
+    size, b = 6, 4
+    sample = {"coord": rng.uniform(-2.5, 2.5, size=(b, size, 3)).astype(np.float32),
+              "numbers": rng.choice([1, 6, 8], size=(b, size)), "energy": rng.normal(size=b).astype(np.float32),
+              "forces": (rng.normal(size=(b, size, 3)) * 0.1).astype(np.float32),
+              "charges": (rng.normal(size=(b, size)) * 0.1).astype(np.float32), "charge": np.zeros(b, np.float32)}
+    outs = run_world(2, [("dp", "train_step", dict(cfg=cfg, params=params, sample=sample, size=size, layout="packed",
+                                                    with_forces=True, precision="exact", lr=1e-3))],
+                     str(tmp_path), device="cuda")
+    ds = SizeGroupedDataset({size: sample})
+    state = tstep.init_train_state(params, tstep.make_optimizer())
+    leaves = [x for _p, x in state.trainable]
+    losses, grads = [], []
+    for d in range(2):
+        part = {k: v[2 * d : 2 * d + 2] for k, v in sample.items()}
+        system, labels = ds.make_batch_system_packed(size, part, pad_mols=2, device="cpu")
+        pred = tstep.predict(state.params, cfg, system, True, create_graph=True)
+        total, _ = MTLoss(LossConfig())(pred, labels, system)
+        losses.append(float(total))
+        grads.append(torch.autograd.grad(total, leaves, allow_unused=True))
+    mean = {p: sum(torch.zeros_like(x) if g[i] is None else g[i] for g in grads) / 2
+            for i, (p, x) in enumerate(state.trainable)}
+    norm = float(torch.sqrt(sum((g * g).sum() for g in mean.values())))
+    for out in (o["dp"] for o in outs):
+        assert out["metrics"]["loss"] == pytest.approx(np.mean(losses), rel=1e-5)
+        assert out["metrics"]["grad_norm"] == pytest.approx(norm, rel=1e-5)
+        for p, g in out["grads"].items():
+            want = mean[p].detach().numpy()
+            np.testing.assert_allclose(g, want, atol=1e-4 * max(float(np.abs(want).max()), 1e-7), rtol=0, err_msg=p)
+    for a, b_ in zip(outs[0]["dp"]["params"], outs[1]["dp"]["params"]):
+        np.testing.assert_array_equal(a, b_)

@@ -65,6 +65,22 @@ def test_mol_sum_and_expand(rng):
     _close(tnb.expand_mol(s_t, torch.tensor(mol_idx)), jnb.expand_mol(s_j, mol_idx.astype(np.int32)), atol=1e-6)
 
 
+def test_mol_sum_drops_non_finite_padding(rng):
+    """An inf or NaN in a padding row stays out of every molecule's sum
+    and out of the gradient of the real rows, as in JAX's segment sum."""
+    n, num_mol = 37, 3
+    mol_idx = np.sort(rng.integers(0, num_mol + 1, size=n)).astype(np.int64)
+    mol_idx[-2:] = num_mol
+    x = rng.normal(size=(n, 4)).astype(np.float32)
+    x[-2] = np.inf
+    x[-1] = np.nan
+    xt = torch.tensor(x, requires_grad=True)
+    s_t = tnb.mol_sum(xt, torch.tensor(mol_idx), num_mol)
+    _close(s_t, jnb.mol_sum(x, mol_idx.astype(np.int32), num_mol), atol=1e-6)
+    (g,) = torch.autograd.grad(s_t.sum(), xt)
+    np.testing.assert_array_equal(g.numpy(), (mol_idx < num_mol)[:, None] * np.ones_like(x))
+
+
 def test_mask_pad_atoms(rng):
     numbers = rng.integers(0, 3, size=25)
     x = rng.normal(size=(25, 5)).astype(np.float32)

@@ -27,6 +27,7 @@ from aimnetcentral_tpu_torch.builders import system_from_molecules as t_system_f
 from aimnetcentral_tpu_torch.kernels import pair_sweep as ps
 from aimnetcentral_tpu_torch.models import engine_binned as teb
 from aimnetcentral_tpu_torch.ops import binned as tB
+from torch_train_helpers import one_torch_thread  # noqa: E402, F401  (an autouse fixture)
 
 CPU = torch.device("cpu")
 j_to_binned_system = jax.jit(jB.to_binned_system, static_argnums=(1, 2))

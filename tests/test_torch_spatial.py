@@ -39,6 +39,7 @@ from torch_spatial_helpers import (  # noqa: E402
     verlet_reference,
     replace_head,
 )
+from torch_train_helpers import one_torch_thread  # noqa: E402, F401  (an autouse fixture)
 
 MD_STEPS, MD_CHUNK, MD_DT = 2, 1, 0.2  # a global re-bin after each step
 LANGEVIN = dict(temperature_K=300.0, friction_fs=0.1)  # strong friction: the noise moves step 2's epot

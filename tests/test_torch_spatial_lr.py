@@ -25,6 +25,7 @@ from torch_spatial_helpers import (  # noqa: E402
     model,
     narrow_config,
 )
+from torch_train_helpers import one_torch_thread  # noqa: E402, F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -29,7 +29,7 @@ from aimnetcentral_tpu_torch.ops import binned as tB  # noqa: E402
 from aimnetcentral_tpu_torch.train import step as tstep  # noqa: E402
 from aimnetcentral_tpu_torch.train.trainer import _opt_leaves  # noqa: E402
 from test_packed_train import _cfg_with_coulomb  # noqa: E402
-from torch_train_helpers import jax_leaves, port_params  # noqa: E402
+from torch_train_helpers import jax_leaves, one_torch_thread, port_params  # noqa: E402, F401  (a fixture)
 
 CPU = torch.device("cpu")
 LR = 1e-3

@@ -5,6 +5,8 @@ import dataclasses
 import importlib
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
@@ -34,3 +36,15 @@ def jax_leaves(tree):
         key = "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
         out[key] = np.asarray(x)
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread while the importing module runs: test files run side
+    by side in worker processes, and the plain versions are many small ops,
+    which several threads per worker only slow down on shared cores (the
+    same fixture as test_torch_md.py's)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
