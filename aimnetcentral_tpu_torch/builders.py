@@ -166,15 +166,21 @@ def system_molecule_bins(
     num_mol).  Every pair is within its bin, so every sweep runs at radius 0
     (``ops/binned.py::stencil_radius``) and an unbounded pair term (simple
     Coulomb) sums every pair of a molecule.  ``capacity`` and ``pad_mols``
-    fix the shapes across batches; padding molecules hold no atoms."""
+    fix the shapes across batches; padding molecules hold no atoms.  With
+    ``pad_mols``, ``molecules`` may be empty (a data-parallel rank's part of
+    a short batch): ``pad_mols`` empty bins of ``capacity`` (8 without one).
+    JAX's ``system_molecule_bins`` raises there."""
     num_real = len(molecules)
+    if not num_real and not pad_mols:
+        raise ValueError("no molecules and no pad_mols: the layout's shape is unknown")
     num_mol = pad_mols or num_real
     if num_mol < num_real:
         raise ValueError(f"pad_mols={num_mol} is below the {num_real} molecules given")
     sizes = [len(np.asarray(m["numbers"])) for m in molecules]
-    c = capacity or max(8, int(np.ceil(max(sizes) / 8)) * 8)
-    if max(sizes) > c:
-        raise ValueError(f"a molecule of {max(sizes)} atoms exceeds capacity {c}")
+    largest = max(sizes, default=0)
+    c = capacity or max(8, int(np.ceil(largest / 8)) * 8)
+    if largest > c:
+        raise ValueError(f"a molecule of {largest} atoms exceeds capacity {c}")
     if any(m.get("cell") is not None for m in molecules):
         raise ValueError("the molecule-bin layout is for gas-phase molecules")
 

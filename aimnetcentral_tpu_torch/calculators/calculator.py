@@ -13,10 +13,10 @@ indexed layout (host neighbor matrices).  ``eval`` returns per-molecule
 energies and charges, forces and stress in input atom order, with the
 self-atomic energies added in float64 on the host (and the dipole and
 quadrupole of models that carry those heads).  ``model`` is a parameter
-tuple, a ``LoadedModel`` or a registry name, alias, ``.pt`` path or Hugging
-Face directory (models/loader.py), whose metadata decides the external
-long-range heads and the species and charge checks of ``eval``.  While the
-topology is
+tuple, a ``LoadedModel`` or a registry name, alias, ``.pt`` path, trusted
+legacy ``.jpt`` path or Hugging Face directory (models/loader.py), whose
+metadata decides the external long-range heads and the species and charge
+checks of ``eval``.  While the topology is
 unchanged and no atom moved farther than ``reuse_skin / 2``, the prepared
 layout is reused (grids and lists reach the skin beyond every cutoff, so
 the result is exact); the molecule-bin layout is reused after any move (its
@@ -211,9 +211,10 @@ class AIMNet2Calculator:
     periodic boxes.
 
     ``model`` is ``(params, cfg)``, ``(params, cfg, aux)``, a
-    ``LoadedModel`` or a registry name, alias, ``.pt`` path or Hugging Face
-    directory; ``aux['sae']`` holds float64 self-atomic-energy tables
-    applied on the host, ``aux['metadata']`` the artifact's metadata.
+    ``LoadedModel`` or a registry name, alias, ``.pt`` or trusted ``.jpt``
+    path or Hugging Face directory; ``aux['sae']`` holds float64
+    self-atomic-energy tables applied on the host, ``aux['metadata']`` the
+    artifact's metadata.
     ``needs_coulomb`` / ``needs_dispersion`` override the metadata's
     external long-range heads (None follows it).  Runs on
     ``device`` ("cuda" unless the caller asks for "cpu"); CUDA tensors run
@@ -282,6 +283,16 @@ class AIMNet2Calculator:
     def is_nse(self) -> bool:
         """True for two-channel (spin-resolved NSE) models."""
         return self.cfg.num_charge_channels == 2
+
+    @classmethod
+    def from_legacy_jit(cls, path: str, **calculator_kwargs: Any) -> "AIMNet2Calculator":
+        """A calculator of a trusted legacy ``.jpt`` TorchScript archive
+        (``models.loader.load_jpt_model``), with the calculator's keywords
+        (``device``, ``precision``, ...); ``path`` is the model, so a
+        ``model`` keyword raises ``TypeError``."""
+        if "model" in calculator_kwargs:
+            raise TypeError("from_legacy_jit() does not accept a model keyword argument.")
+        return cls(load_model(path), **calculator_kwargs)
 
     @property
     def has_external_coulomb(self) -> bool:

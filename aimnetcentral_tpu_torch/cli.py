@@ -2,16 +2,17 @@
 aimnetcentral_tpu/cli.py).
 
 Commands: sp (single point), relax (FIRE), md, neb, freq, train, export,
-calc-sae, download, clear-model-cache and info.  Every command runs on the
-card unless the group's ``--device cpu`` is given:
+convert, calc-sae, download, clear-model-cache and info.  Every command
+runs on the card unless the group's ``--device cpu`` is given (``convert``
+reads and writes files on the host):
 
     aimnet-torch sp model.pt water.xyz
     python -m aimnetcentral_tpu_torch.cli --device cpu sp model.pt water.xyz
 
 Each command's body is a plain function (``run_sp``, ``run_relax``,
 ``run_md``, ``run_neb``, ``run_freq``, ``run_train``, ``run_export``,
-``run_calc_sae``, ``run_download``, ``run_clear_model_cache``,
-``run_info``) that takes the options and
+``run_convert``, ``run_calc_sae``, ``run_download``,
+``run_clear_model_cache``, ``run_info``) that takes the options and
 returns the lines or the dict the command prints; click only parses the
 options and echoes, so the bodies also run where click is not installed.
 The drivers get the calculator's own parameters, which live on its device.
@@ -365,6 +366,18 @@ def run_export(checkpoint: str, model_yaml: str, output: str, sae_path: str | No
     return f"exported {output}"
 
 
+def run_convert(jpt: str, output: str, model_yaml: str | None = None, species: str | None = None,
+                family: str | None = None) -> str:
+    """Convert a trusted legacy ``.jpt`` TorchScript archive to a v2 ``.pt``
+    artifact (``models.convert_v1.convert_v1_model``, on the host); without
+    ``model_yaml`` the architecture is read from the archive."""
+    from aimnetcentral_tpu_torch.models.convert_v1 import convert_v1_model
+
+    spec = [int(s) for s in species.split(",")] if species else None
+    convert_v1_model(jpt, model_yaml, output_path=output, implemented_species=spec, family=family)
+    return f"converted {jpt} -> {output}"
+
+
 def run_calc_sae(dataset: str, output: str) -> str:
     """Per-element SAE regression of a dataset (an h5 file or a directory
     of ``???.npz`` groups), written as YAML."""
@@ -591,6 +604,17 @@ if click is not None:
     def export(obj, checkpoint, model_yaml, output, sae_path, species) -> None:
         """Export a training checkpoint (of either package) to a v2 .pt artifact."""
         click.echo(run_export(checkpoint, model_yaml, output, sae_path, species, obj["device"]))
+
+    @cli.command()
+    @click.argument("jpt")
+    @click.option("--model-yaml", default=None,
+                  help="Architecture YAML; omit to infer it by TorchScript introspection.")
+    @click.option("--output", required=True)
+    @click.option("--species", default=None)
+    @click.option("--family", default=None)
+    def convert(jpt, model_yaml, output, species, family) -> None:
+        """Convert a legacy TorchScript .jpt artifact to the v2 .pt format."""
+        click.echo(run_convert(jpt, output, model_yaml, species, family))
 
     @cli.command("calc-sae")
     @click.argument("dataset")

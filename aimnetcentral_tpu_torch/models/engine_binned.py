@@ -339,8 +339,10 @@ def dftd3_binned(
     on the LR twin layout: the coordination numbers, then the energy with
     ``c6_ij = p_i . r_j``, r = M p.
     """
-    if not system.species:
+    if system.species is None:
         raise ValueError("binned D3 needs System.species (set by builders)")
+    if not system.species:  # no real atom (a data-parallel rank's empty part)
+        return system.coord.new_zeros(system.num_mol)
     cn = pair_sum_binned(
         system, smoothing_off, D3CNTerm(), {"rcov": tables["rcov"][system.numbers]}, layout="lr"
     )

@@ -11,9 +11,13 @@ and repos, registry names (counterpart of aimnetcentral_tpu/models/loader.py).
   the model's own output chain.
 - The float64 self-atomic-energy tables go to ``aux["sae"]``.
 
+- Legacy ``.jpt`` TorchScript archives (``load_jpt_model``): the
+  architecture is read back from the scripted module
+  (models/convert_v1.py), the embedded long-range heads stay in the model
+  (``coulomb_mode: full_embedded``).
+
 Parameters come back as float32 tensors on the CPU; the calculator moves
-them to its device.  Legacy ``.jpt`` TorchScript archives are not ported
-yet.
+them to its device.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
 from aimnetcentral_tpu_torch.models.convert import config_from_yaml, convert_state_dict
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, head_init
 from aimnetcentral_tpu_torch.models.validation import (
+    LEGACY_JPT_IMPORT_POLICY,
     REGISTRY_IMPORT_POLICY,
     ModelImportPolicy,
     resolve_model_import_policy,
@@ -253,6 +258,56 @@ def load_hf_repo(repo_dir: str, member: int | str = 0, registry_family: str | No
     return LoadedModel(params=init_missing_heads(params, cfg), cfg=cfg, aux=aux, metadata=metadata)
 
 
+def load_jpt_model(path: str, registry_family: str | None = None) -> LoadedModel:
+    """Load a trusted legacy ``.jpt`` TorchScript model.
+
+    A TorchScript archive holds executable code: load ``.jpt`` files only
+    from sources whose code and provenance you trust.  The archive is read on the host
+    (``torch.jit.load(..., map_location="cpu")``) and never run: the
+    architecture comes from its scripted heads
+    (``convert_v1.infer_model_yaml_from_scripted``), checked against
+    ``LEGACY_JPT_IMPORT_POLICY``, and the state dict maps onto the port's
+    parameters.  The embedded long-range heads stay embedded
+    (``coulomb_mode: full_embedded``); ``convert_v1_model`` (the
+    ``convert`` command) writes the v2 artifact with them externalised.
+    """
+    from aimnetcentral_tpu_torch.models.convert_v1 import extract_species_from_afv, infer_model_yaml_from_scripted
+
+    jit_model = torch.jit.load(path, map_location="cpu")
+    tree = infer_model_yaml_from_scripted(jit_model)
+    # the inferred tree names only v1 classes; the allowlist checks it anyway
+    validate_model_yaml_tree(tree, LEGACY_JPT_IMPORT_POLICY)
+    cfg = config_from_yaml(tree)
+    sd = {k: v.detach().cpu().numpy() for k, v in jit_model.state_dict().items()}
+    params, aux = convert_state_dict(sd, cfg)
+
+    # the D3 parameters come from a tabulated DFTD3 head only, never D3TS
+    d3_params = next(
+        ({"s8": h.s8, "a1": h.a1, "a2": h.a2, "s6": h.s6} for _n, h in cfg.outputs if h.kind == "dftd3"), None
+    )
+    has_lr = any(h.kind == "lrcoulomb" for _, h in cfg.outputs)
+    metadata = apply_family_defaults(
+        {
+            "format_version": 1,
+            "cutoff": float(jit_model.cutoff),
+            "needs_coulomb": False,
+            "needs_dispersion": False,
+            "coulomb_mode": "full_embedded" if has_lr else "none",
+            "coulomb_sr_rc": None,
+            "coulomb_sr_envelope": None,
+            "d3_params": d3_params,
+            "has_embedded_lr": has_lr,
+            "has_embedded_d3ts": any(h.kind == "d3ts" for _, h in cfg.outputs),
+            "implemented_species": extract_species_from_afv(np.asarray(sd["afv.weight"])),
+            "family": None,
+            "supports_charged_systems": None,
+        },
+        registry_family,
+    )
+    aux["metadata"] = metadata
+    return LoadedModel(params=params, cfg=cfg, aux=aux, metadata=metadata)
+
+
 def load_model(
     path: str,
     registry_family: str | None = None,
@@ -260,8 +315,8 @@ def load_model(
     model_import_mode: Literal["extend", "replace", "unsafe"] = "extend",
 ) -> LoadedModel:
     """Dispatch on the artifact's kind: a v2 ``.pt`` file, a Hugging Face
-    style directory or a repo id.  Legacy ``.jpt`` TorchScript archives
-    raise ``NotImplementedError``."""
+    style directory or a repo id, or a trusted legacy ``.jpt`` archive
+    (``load_jpt_model``; import settings do not apply to it)."""
     if os.path.isdir(path):
         return load_hf_repo(path, registry_family=registry_family)
     if not os.path.exists(path) and "/" in path and not path.endswith(".pt"):
@@ -274,10 +329,7 @@ def load_model(
     if path.lower().endswith(".jpt"):
         if model_import_paths is not None or model_import_mode != "extend":
             raise ValueError("Import settings are not supported for .jpt sources.")
-        raise NotImplementedError(
-            "legacy .jpt TorchScript archives are not ported yet (ROADMAP.md, queue 1: "
-            "load_jpt_model and models/convert_v1.py)"
-        )
+        return load_jpt_model(path, registry_family=registry_family)
     return load_v2_artifact(
         path,
         registry_family=registry_family,

@@ -102,7 +102,17 @@ Phases (any failure exits nonzero; nothing is caught):
    artifact-packed-32x113 (launches, times, a bitwise repeat, the host's
    spans); the card against the CPU on 500 atoms and an 8-molecule
    packed batch within ``CHECK_ABS``; a request with an element outside
-   ``implemented_species`` refused without a launch;
+   ``implemented_species`` refused without a launch; then phase ``legacy``
+   (``phase_legacy``): a legacy v1 ``.jpt`` of the same weights, written by
+   tests/torch_jpt_helpers.py with the reference's head names (embedded
+   ``lrcoulomb`` and ``dftd3``), through ``from_legacy_jit`` on the card
+   (v1 metadata, ``full_embedded``), legacy-10k as phase 4 (A, B, D, E 3 a
+   request) against the in-memory source model within the artifact gate,
+   card against CPU on 500 atoms and packed-8 within ``CHECK_ABS``, the
+   ``convert`` command's v2 file on the 10k box (D, E 4 a request) within
+   the same gate of the legacy model, and refusals without a launch (Cl,
+   an unknown head class, import settings, a ``model`` keyword,
+   ``needs_coulomb`` on an embedded Coulomb);
 12. integrations: the adapters and the command line on the card
    (``phase_integrations``), with tests/torch_fakes.py's fakes of ASE and
    of a TorchSim state: AIMNet2ASE on flagship-10k (ten requests with
@@ -231,14 +241,16 @@ ensemble phase's forms of A, B and of D, E (the fused request's and MD
 step's shapes: A and B at G*F = 1,088, D and E DSF's member form on the
 fused request's LR grid), counted over
 the fused requests and the ensemble MD window; ``launches`` counts every main-path run (both configurations'
-requests, the gas, packed, artifact and integrations phases' requests, the MD windows,
+requests, the gas, packed, artifact, legacy and integrations phases' requests, the MD windows,
 the second_order phase's IR request and kernel-route HVPs, the
 long_range phase's requests and MD windows, the train phase's
 ``Trainer.fit`` and every rank's runs in the spatial phase); the last row is kernel B's AEV-constants build, counted
 over that fit and every rank's gated data-parallel step; and
 ``launches_per_md_step`` the launches per MD
-step by configuration.  ``--out`` writes the full results (build logs,
-per-F and per-term kernel detail, profiles) as JSON.  Imports nothing of
+step by configuration.  A line ``[smoke] <phase> done at <s> s`` marks
+the end of each phase (``timeline`` in the results).  ``--out`` writes the
+full results (build logs, per-F and per-term kernel detail, profiles) as
+JSON.  Imports nothing of
 JAX.
 """
 
@@ -283,6 +295,7 @@ MD_WARM = 2  # chunks run before timing (the synthetic box starts violently)
 MD_TIMED = 4  # timed chunks a window
 MD_PEAK_RATIO = 1.25  # MD peak memory against the single request's
 MD_HELD_GROWTH = 64 * 2**20  # bytes held after a window beyond those held before it
+MD_PROFILED = 5  # steps of a window's profiled chunk: the profiler's averages take ~15 s for 25 steps of 10k atoms
 MD_NVE_DRIFT = 1e-4  # NVE total energy change over the first 50 steps at the exact tier, of itself
 MD_SETTING = dict(dt_fs=0.5, temperature_K=300.0, thermostat="langevin", skin=0.3)  # bench.py:150
 MD_CHECK_STEPS = 3  # NVE steps, and FIRE steps, of the MD check card against CPU
@@ -1187,10 +1200,12 @@ def on_device(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def device_busy_ms(prof, spans: tuple = ()) -> float:
+def device_busy_ms(prof, spans: tuple = (), events=None) -> float:
     """Device time of a profile's kernel-level events (ms), leaving out the
-    device side of the ``record_function`` spans named in ``spans``."""
-    return sum(dev_us(e) for e in prof.key_averages() if on_device(e) and e.key not in spans) / 1e3
+    device side of the ``record_function`` spans named in ``spans``;
+    ``events``: the profile's ``key_averages()`` when the caller has them."""
+    events = prof.key_averages() if events is None else events
+    return sum(dev_us(e) for e in events if on_device(e) and e.key not in spans) / 1e3
 
 
 def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunks: int = MD_TIMED,
@@ -1258,19 +1273,19 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunk
     if held > MD_HELD_GROWTH:
         raise SystemExit(f"FAIL: MD holds {held} B more after the window than before on {label}")
 
-    # one more chunk under the profiler: device busy against the unprofiled
-    # step time (the profiler slows the host)
+    # one more chunk of MD_PROFILED steps under the profiler: device busy
+    # against the unprofiled step time (the profiler slows the host)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        drv.run(chunk, chunk=chunk)
+        drv.run(MD_PROFILED, chunk=MD_PROFILED)
         torch.cuda.synchronize()
-    busy = device_busy_ms(prof) / chunk
+    events = prof.key_averages()
+    busy = device_busy_ms(prof, events=events) / MD_PROFILED
     idle = max(0.0, 1 - busy / ms)
-    top = sorted((e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")),
-                 key=dev_us, reverse=True)[:3]
-    log(f"[md {label}] profiled chunk: device busy {busy:.2f} ms a step, idle share against the "
-        f"unprofiled step time {idle:.3f}; most device time a step: "
-        + "; ".join(f"{dev_us(e) / 1e3 / chunk:.2f} ms {e.key[:60]}" for e in top))
+    top = sorted((e for e in events if on_device(e)), key=dev_us, reverse=True)[:3]
+    log(f"[md {label}] profiled chunk of {MD_PROFILED} steps: device busy {busy:.2f} ms a step, idle share "
+        f"against the unprofiled step time {idle:.3f}; most device time a step: "
+        + "; ".join(f"{dev_us(e) / 1e3 / MD_PROFILED:.2f} ms {e.key[:60]}" for e in top))
     return {
         "total_s": total_s, "ms_per_step": ms, "steps_per_s": 1e3 / ms, "chunk_ms_per_step": per_step,
         "hot": hot, "rebins_per_100": rebins * 100 / steps, "retried_chunks": regrows, "peak_bytes": peak,
@@ -1590,8 +1605,8 @@ def gas_request(label: str, calc, data, stress: bool, per_request: dict, n_built
         for attr in spans.values():
             delattr(calc, attr)
     names = (*spans, "pair operands")
-    busy = device_busy_ms(prof, names)
     events = prof.key_averages()
+    busy = device_busy_ms(prof, names, events=events)
     host = {e.key: (e.cpu_time_total / 1e3, e.count) for e in events if e.key in names and not on_device(e)}
     host_launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                               "cudaLaunchKernelExC"))
@@ -1745,17 +1760,18 @@ def moved_batch(mols: list[dict], scale: float, seed: int = 12) -> list[dict]:
     return out
 
 
-def agree(label: str, got: dict, ref: dict, floor: float) -> dict:
+def agree(label: str, got: dict, ref: dict, floor: float, phase: str = "packed") -> dict:
     """Per-molecule energies within 1e-5 relative (with the f32 floor) and
-    forces within 1e-4 eV/A of ``ref``."""
+    forces within 1e-4 eV/A of ``ref``; whether the two are the same bits."""
     de = np.abs(got["energy"] - ref["energy"])
     e_tol = np.maximum(REL_TOL * np.abs(ref["energy"]), floor)
     df = float(np.abs(got["forces"] - ref["forces"]).max())
-    log(f"[packed {label}] largest |dE| {de.max():.3e} eV (limit {e_tol.min():.3e}: 1e-5 relative, floor "
-        f"{floor:.3e}); max |dF| {df:.3e} eV/A (limit 1e-4)")
+    same = bool(np.array_equal(got["energy"], ref["energy"]) and np.array_equal(got["forces"], ref["forces"]))
+    log(f"[{phase} {label}] largest |dE| {de.max():.3e} eV (limit {e_tol.min():.3e}: 1e-5 relative, floor "
+        f"{floor:.3e}); max |dF| {df:.3e} eV/A (limit 1e-4); the same bits: {same}")
     if (de > e_tol).any() or df > 1e-4:
         raise SystemExit(f"FAIL: {label} disagree")
-    return {"dE": float(de.max()), "dE_limit": float(e_tol.min()), "dF": df}
+    return {"dE": float(de.max()), "dE_limit": float(e_tol.min()), "dF": df, "same_bits": same}
 
 
 def phase_packed(params, cfg, params_d3, cfg_d3) -> dict:
@@ -2066,20 +2082,157 @@ def phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dic
     # before any layout is built or kernel launched
     bad = {"coord": coord, "numbers": numbers.copy(), "cell": cell}
     bad["numbers"][0] = 17
+    refused_without_launch("a request with Cl", lambda: calc.eval(bad, forces=True), ValueError,
+                           "implemented_species", phase="artifact")
+    res["launches"] = launches
+    return res
+
+
+def refused_without_launch(label: str, call, exc_type: type, match: str, phase: str = "legacy") -> str:
+    """``call()`` raises ``exc_type`` with ``match`` in its message and
+    launches no kernel."""
     wrappers = counters()
     for fn in wrappers.values():
         fn.launches = 0
     try:
-        calc.eval(bad, forces=True)
-    except ValueError as e:
-        refused = str(e)
+        call()
+    except exc_type as e:
+        message = str(e)
     else:
-        raise SystemExit("FAIL: a request with Cl passed the species gate")
-    gate = {name: fn.launches for name, fn in wrappers.items()}
-    if any(gate.values()):
-        raise SystemExit(f"FAIL: the refused request launched kernels: {gate}")
-    log(f"[artifact] a request with Cl is refused without a launch: {refused[:90]}")
-    res["launches"] = launches
+        raise SystemExit(f"FAIL: {label} was not refused")
+    if match not in message:
+        raise SystemExit(f"FAIL: {label} refused with another message: {message}")
+    launched = {name: fn.launches for name, fn in wrappers.items()}
+    if any(launched.values()):
+        raise SystemExit(f"FAIL: the refused {label} launched kernels: {launched}")
+    log(f"[{phase}] {label}: {exc_type.__name__} without a launch: {message[:90]}")
+    return message
+
+
+LEGACY_CUTOFF = 5.0  # the root cutoff of the legacy archive (the reference YAMLs' aev rc_s)
+LEGACY_HEADS = {"external_dftd3": "dftd3"}  # wb97m-d3's heads as the reference's aimnet2_dftd3_wb97m.yaml names them
+
+
+def phase_legacy(params_d3, cfg_d3, coord, numbers, cell, out_dir: str) -> dict:
+    """A legacy v1 ``.jpt`` of wb97m-d3's full-width random weights (seed 0)
+    through the port's legacy path.  The archive is written by
+    tests/torch_jpt_helpers.py (the TorchScript stand-in of a v1 archive:
+    the reference's state-dict layout, root cutoff 5.0, heads named as the
+    reference's aimnet2_dftd3_wb97m.yaml names them, ``lrcoulomb`` and
+    ``dftd3``, both embedded).  ``AIMNet2Calculator.from_legacy_jit(path)``
+    loads it on the card (metadata: format_version 1, ``full_embedded``,
+    the D3 head's parameters; no external Coulomb method).  Then:
+    legacy-10k (A, B 3, D, E 3 a request: DSF, the embedded simple Coulomb
+    switched in the box, D3 CN, D3 energy) as phase 4, against the
+    in-memory source model (its weights and the config read back from the
+    archive: the heads' rc come back rounded to f32) within phase
+    ``artifact``'s gate (``agree``), with whether the two are the same bits; the card
+    against the CPU on the 500-atom box and an 8-molecule packed batch
+    within ``CHECK_ABS``; ``run_convert`` (no model YAML, species 1, 6, 7
+    and 8) writes the v2 artifact, whose heads are phase ``artifact``'s:
+    legacy-v2-10k (D, E 4 a request) within the same gate of the legacy
+    model, Cl refused; and refusals without a launch: an unknown head
+    class, import settings, a ``model`` keyword, ``needs_coulomb`` on an
+    embedded Coulomb."""
+    import torch
+
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.cli import run_convert
+    from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, SRCoulombHead
+    from aimnetcentral_tpu_torch.models.loader import load_model
+    from aimnetcentral_tpu_torch.train.export import config_to_yaml, params_to_state_dict
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_jpt_helpers import make_introspectable_jpt
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg_d3, outputs=tuple((LEGACY_HEADS.get(n, n), h) for n, h in cfg_d3.outputs))
+    params = {**params_d3, "outputs": {LEGACY_HEADS.get(n, n): p for n, p in params_d3["outputs"].items()}}
+    sd, tree = params_to_state_dict(params, cfg), config_to_yaml(cfg)
+    path = os.path.join(out_dir, "legacy-wb97m-d3.jpt")
+    t0 = time.perf_counter()
+    make_introspectable_jpt(sd, tree, LEGACY_CUTOFF, path)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    calc = AIMNet2Calculator.from_legacy_jit(path)
+    t_load = time.perf_counter() - t0
+    md, d3 = calc.metadata, dict(cfg.outputs)["dftd3"]
+    want_d3 = {"s8": d3.s8, "a1": d3.a1, "a2": d3.a2, "s6": d3.s6}
+    names = [n for n, _ in calc.cfg.outputs]
+    if not (md["format_version"] == 1 and md["coulomb_mode"] == "full_embedded" and md["d3_params"] == want_d3
+            and calc.coulomb_method is None and calc.device.type == "cuda" and names == [n for n, _ in cfg.outputs]):
+        raise SystemExit(f"FAIL: the legacy archive loaded as {names} on {calc.device} with {md}")
+    log(f"[legacy] archive written in {t_write:.2f} s ({os.path.getsize(path) / 2**20:.1f} MiB), loaded onto the "
+        f"card in {t_load:.2f} s; heads {names}; format_version 1, {md['coulomb_mode']}, d3_params {md['d3_params']}, "
+        "coulomb_method None")
+    res: dict = {"write_s": t_write, "load_s": t_load, "archive_bytes": os.path.getsize(path)}
+    conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
+
+    res["main"] = phase_main_path("legacy-10k", calc, coord, numbers, cell,
+                                  {**conv, "pair_sweep_forward": 3, "pair_sweep_backward": 3})
+    data = {"coord": coord, "numbers": numbers, "cell": cell}
+    if calc._prep_cache["kind"] != "binned":
+        raise SystemExit("FAIL: legacy-10k did not run on the binned layout")
+    table = params["outputs"]["atomic_shift"]["weight"].detach().cpu().numpy().astype(np.float64).reshape(-1)
+    source = AIMNet2Calculator((params, calc.cfg, {"sae": {"atomic_shift": table}}), device="cuda")
+    legacy_out = calc.eval(data, forces=True)
+    floor = F32_EPS * energy_terms_abs(params, calc.cfg, source.prepare_system(data))
+    res["against_source"] = agree("legacy-10k against the in-memory source model", legacy_out,
+                                  source.eval(data, forces=True), floor, phase="legacy")
+    del source
+    torch.cuda.empty_cache()
+
+    box_c, numbers_c, cell_c = build_box(CHECK_BOX, seed=1)
+    batch8 = [gas_cluster(n, seed=10 + k) for k, n in enumerate(GAS_BATCH)]
+    res["checks"] = {
+        f"legacy-{CHECK_BOX}": artifact_card_vs_cpu(f"legacy-{CHECK_BOX}", path, {
+            "coord": box_c, "numbers": numbers_c, "cell": cell_c}, True, binned_threshold=CHECK_THRESHOLD),
+        "legacy-packed-8": artifact_card_vs_cpu("legacy-packed-8", path, batch8, False, binned_threshold=512),
+    }
+    if res["checks"]["legacy-packed-8"]["layout"] != "packed":
+        raise SystemExit("FAIL: legacy-packed-8 did not run on the molecule-bin layout")
+
+    v2 = os.path.join(out_dir, "legacy-wb97m-d3-v2.pt")
+    t0 = time.perf_counter()
+    log(f"[legacy] {run_convert(path, v2, species=','.join(map(str, ARTIFACT_SPECIES)))}")
+    res["convert_s"] = time.perf_counter() - t0
+    conv_calc = AIMNet2Calculator(v2)
+    heads = dict(conv_calc.cfg.outputs)
+    sr, coul, d3v2 = heads.get("srcoulomb"), heads.get("external_coulomb"), heads.get("external_dftd3")
+    if not (isinstance(sr, SRCoulombHead) and isinstance(coul, LRCoulombHead) and coul.method == "simple"
+            and not coul.subtract_sr and isinstance(d3v2, DFTD3Head) and "lrcoulomb" not in heads
+            and "dftd3" not in heads and conv_calc.metadata["implemented_species"] == ARTIFACT_SPECIES):
+        raise SystemExit(f"FAIL: the converted artifact loaded with other heads: {list(heads)}")
+    log(f"[legacy] converted in {res['convert_s']:.2f} s; heads {list(heads)}")
+    res["converted"] = phase_main_path("legacy-v2-10k", conv_calc, coord, numbers, cell,
+                                       {**conv, "pair_sweep_forward": 4, "pair_sweep_backward": 4})
+    res["converted_against_legacy"] = agree("legacy-v2-10k against legacy-10k", conv_calc.eval(data, forces=True),
+                                            legacy_out, floor, phase="legacy")
+
+    bad = {"coord": coord, "numbers": numbers.copy(), "cell": cell}
+    bad["numbers"][0] = 17
+    weird = os.path.join(out_dir, "legacy-weird.jpt")
+    make_introspectable_jpt(sd, tree, LEGACY_CUTOFF, weird, head_class_override={"lrcoulomb": "Weird"})
+    res["refused"] = {
+        "cl_request": refused_without_launch("a request with Cl on legacy-v2", lambda: conv_calc.eval(
+            bad, forces=True), ValueError, "implemented_species"),
+        "unknown_head_class": refused_without_launch(
+            "an archive with an unknown head class", lambda: AIMNet2Calculator.from_legacy_jit(weird),
+            ValueError, "unrecognized class"),
+        "import_settings": refused_without_launch(
+            "import settings", lambda: load_model(path, model_import_mode="unsafe"), ValueError,
+            "Import settings are not supported"),
+        "model_keyword": refused_without_launch(
+            "a model keyword", lambda: AIMNet2Calculator.from_legacy_jit(path, model=path), TypeError,
+            "model keyword"),
+        "needs_coulomb": refused_without_launch(
+            "needs_coulomb on an embedded Coulomb", lambda: AIMNet2Calculator(path, needs_coulomb=True),
+            ValueError, "full_embedded"),
+    }
+    res["launches"] = {name: res["main"]["launches"][name] + res["converted"]["launches"][name]
+                       for name in counters()}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[legacy] the phase in {res['seconds']:.1f} s")
     return res
 
 
@@ -4592,8 +4745,15 @@ def main() -> None:
     from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
     from aimnetcentral_tpu_torch.models import aimnet2_init
 
-    results: dict = {"card": smi}
+    results: dict = {"card": smi, "timeline": {}}
+
+    def done(name: str) -> None:
+        """The seconds since the start at which phase ``name`` ended."""
+        results["timeline"][name] = time.perf_counter() - t_run
+        log(f"[smoke] {name} done at {results['timeline'][name]:.1f} s")
+
     results["build"] = phase_build()
+    done("build")
     from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
 
     cs.conv_stencil_backward_constants.launches = 0  # phase train checks that no phase before it launched this
@@ -4624,6 +4784,7 @@ def main() -> None:
         log(f"[kernels MD] the MD drivers' LR layout has the request's shapes (grid, capacity, stencil radius "
             f"{lr_shape(sys_d3)}): the D and E check above holds for MD")
     kernels += pair_rows
+    done("kernels")
     conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
     results["main"] = phase_main_path(
         "flagship-10k", calc, coord, numbers, cell,
@@ -4635,33 +4796,50 @@ def main() -> None:
     )
     for k in kernels:
         k["launches"] = results["main"]["launches"][k["name"]] + results["main_d3"]["launches"][k["name"]]
+    done("main")
     results["layers"] = phase_layers(calc_d3, coord, numbers, cell)
     results["check"] = phase_card_vs_cpu("flagship", params, cfg)
     results["check_d3"] = phase_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
     results["reuse"] = phase_reuse("wb97m-d3", params_d3, cfg_d3)
+    done("layers, checks, reuse")
     results["gas"] = phase_gas(params, cfg, params_d3, cfg_d3)
+    done("gas")
     for k in kernels:
         k["launches"] += results["gas"]["launches"][k["name"]]
 
     peaks = {"flagship-10k": results["main"]["peak_bytes"], "wb97m-d3-10k": results["main_d3"]["peak_bytes"]}
     md_runs = phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, peaks)
     results["md"] = md_runs
+    done("md")
     results["md_check"] = phase_md_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
+    done("md_check")
     results["packed"] = phase_packed(params, cfg, params_d3, cfg_d3)
+    done("packed")
     results["md_gas"] = phase_md_gas(params, cfg, params_d3, cfg_d3)
+    done("md_gas")
     with tempfile.TemporaryDirectory() as out_dir:
         results["artifact"] = phase_artifact(params_d3, cfg_d3, coord, numbers, cell, out_dir)
+        done("artifact")
+        results["legacy"] = phase_legacy(params_d3, cfg_d3, coord, numbers, cell, out_dir)
+        done("legacy")
         results["integrations"] = phase_integrations(calc, calc_d3, coord, numbers, cell,
                                                      os.path.join(out_dir, "artifact-wb97m-d3.pt"))
+    done("integrations")
     results["second_order"] = phase_second_order(params, cfg, params_d3, cfg_d3)
+    done("second_order")
     results["long_range"] = phase_long_range(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
+    done("long_range")
     single_per_request = {name: n // 3 for name, n in results["main"]["launches"].items()}
     results["ensemble"] = phase_ensemble(params, cfg, coord, numbers, cell, single_per_request,
                                          results["kernels_detail"])
+    done("ensemble")
     results["train"] = phase_train(smi)
+    done("train")
     results["spatial_kernels"] = phase_spatial_kernels(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
+    done("spatial_kernels")
     results["spatial"] = phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell,
                                        results["train"].pop("dp_sample"), smi)
+    done("spatial")
     for k in kernels:
         k["launches"] += results["spatial"]["launches"][k["name"]]
         k["launches"] += results["train"]["launches"][k["name"]]
@@ -4669,6 +4847,7 @@ def main() -> None:
         k["launches"] += results["long_range"]["launches"][k["name"]]
         k["launches"] += results["second_order"]["launches"][k["name"]]
         k["launches"] += results["artifact"]["launches"][k["name"]]
+        k["launches"] += results["legacy"]["launches"][k["name"]]
         k["launches"] += results["integrations"]["launches"][k["name"]]
         k["launches"] += results["packed"]["launches"][k["name"]]
         k["launches"] += sum(w["launches"][k["name"]] for w in results["md_gas"]["windows"].values())

@@ -14,10 +14,12 @@ imports no JAX) runs every case while the test process runs JAX's:
   1e-5, every trainable leaf's averaged gradient within 1e-5 of that
   leaf's largest magnitude (floor 1e-7), and the parameters after the
   step the same bits on both ranks.  Four molecules over two ranks, an
-  uneven split (three: two and one padded to two) on both layouts, and
-  one with an empty microbatch (one: one and none, padded to one, on the
-  indexed layout: both packages' molecule-bin builders raise on a part
-  with no molecules, ROADMAP.md section 3).  Where an indexed microbatch
+  uneven split (three: two and one padded to two) and one with an empty
+  microbatch (one: one and none, padded to one), each on both layouts.
+  JAX's ``system_molecule_bins`` raises on a part with no molecules, where the
+  port's gives empty bins (ROADMAP.md section 3): there the port's
+  molecule-bin step is held to JAX's step on the same microbatches on the
+  indexed layout.  Where an indexed microbatch
   holds padded molecules, JAX's gradient is NaN (their stacked atoms at
   zero distance, ROADMAP.md section 3) and the port's trainer spreads
   those atoms apart (``trainer.spread_padding``): its loss is held to
@@ -33,8 +35,14 @@ imports no JAX) runs every case while the test process runs JAX's:
   same on both ranks, only the lead rank writing the checkpoint and the
   log; the lead's checkpoint resumed in one port process and in JAX's
   mesh trainer, each training one more epoch (the same record within that
-  limit).
+  limit);
+- an epoch of ``Trainer(mesh=...)`` on the default layout (molecule bins)
+  whose last batch, a size group of one molecule, leaves a rank with no
+  molecule: it finishes, finite, the same on both ranks, and gives the
+  indexed layout's record within that limit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -62,9 +70,10 @@ from torch_train_helpers import jax_leaves, port_object, port_params  # noqa: E4
 
 LR = 1e-3
 N_DEV = 2
+SIZE_SHORT = 5  # atoms of the short epoch's one-molecule size group
 # (layout, molecules): an even split, an uneven one, one with an empty part
-# (both packages' molecule-bin builders raise on a part with no molecules)
-SPLITS = [("packed", 4), ("indexed", 4), ("packed", 3), ("indexed", 3), ("indexed", 1)]
+# (indexed first: it is the reference of the molecule-bin step there)
+SPLITS = [("packed", 4), ("indexed", 4), ("packed", 3), ("indexed", 3), ("indexed", 1), ("packed", 1)]
 STEPS = [(layout, n, precision) for layout, n in SPLITS for precision in ("fast", "exact")]
 
 
@@ -121,6 +130,14 @@ def _jax_step(jcfg, jparams, layout, n, step_fns):
     return metrics, grads
 
 
+def _short_last_batch(train):
+    """``train`` plus a size group of one molecule (the first five atoms of
+    its last molecule, with their labels): a batch that leaves one of the
+    two ranks with no molecule."""
+    (g,) = train.values()
+    return {**train, SIZE_SHORT: {k: (v[-1:, :SIZE_SHORT] if v.ndim > 1 else v[-1:]) for k, v in g.items()}}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The world's tasks and JAX's references, computed side by side."""
@@ -140,10 +157,22 @@ def runs(tmp_path_factory):
     tasks.append(("trainer", "trainer", dict(
         cfg=tcfg, params=tparams, train=train, val=val, loss_cfg=_loss(tloss),
         tcfg=_tcfg(ttrainer.TrainerConfig, d / "t", log_file=str(d / "t.jsonl")))))
+    for layout in ("packed", "indexed"):
+        tasks.append((("short", layout), "trainer", dict(
+            cfg=tcfg, params=tparams, train=_short_last_batch(train), val=val, loss_cfg=_loss(tloss),
+            tcfg=dataclasses.replace(_tcfg(ttrainer.TrainerConfig, d / f"short-{layout}"), max_epochs=1,
+                                     layout=layout))))
     world = World(N_DEV, tasks)
 
     step_fns = {}
-    steps = {(layout, n): _jax_step(jcfg, jparams, layout, n, step_fns) for layout, n in SPLITS}
+    steps = {}
+    for layout, n in SPLITS:
+        if layout == "packed" and n < N_DEV:
+            # a part holds no molecule, where JAX's system_molecule_bins
+            # raises: JAX's step on the same microbatches, indexed
+            steps[layout, n] = steps["indexed", n]
+        else:
+            steps[layout, n] = _jax_step(jcfg, jparams, layout, n, step_fns)
     jt = jtrainer.Trainer(jcfg, jparams, JDataset(train), JDataset(val), tcfg=_tcfg(jtrainer.TrainerConfig, d / "j"),
                           loss_cfg=_loss(jloss), mesh=j_make_mesh(n_dp=N_DEV))
     fit = jt.fit()
@@ -232,3 +261,18 @@ def test_dp_checkpoint_resumes_in_both_packages(runs):
     got, want = runs["resumed"]["port"], runs["resumed"]["jax"]
     assert got["step"] == want["step"] > 0
     _same_record(got, want)
+
+
+def test_dp_epoch_with_an_empty_rank(runs):
+    """The default layout's epoch whose last batch leaves rank 1 with no
+    molecule finishes on both ranks, finite and the same bits, and gives
+    the indexed layout's record (whose empty microbatch adds a zero loss
+    and gradient)."""
+    for layout in ("packed", "indexed"):
+        outs = [r[("short", layout)] for r in runs["ranks"]]
+        assert len(outs[0]["history"]) == 1 and outs[0]["history"] == outs[1]["history"]
+        assert all(np.isfinite(v) for v in outs[0]["history"][0].values())
+        for a, b in zip(outs[0]["params"], outs[1]["params"]):
+            np.testing.assert_array_equal(a, b)
+    _same_record(runs["ranks"][0][("short", "packed")]["history"][0],
+                 runs["ranks"][0][("short", "indexed")]["history"][0])

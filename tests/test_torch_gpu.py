@@ -450,6 +450,39 @@ def test_calculator_card_matches_cpu_with_d3(cuda_device):
     np.testing.assert_allclose(card["stress"], cpu["stress"], atol=1e-6)
 
 
+def test_legacy_jpt_card_matches_cpu(cuda_device, tmp_path):
+    """A hand-made legacy ``.jpt`` of the wb97m-d3 head set (the
+    reference's head names: embedded ``lrcoulomb`` and ``dftd3``) through
+    ``from_legacy_jit`` on the card (no ``device`` given) against the CPU:
+    the box on the binned layout (A, B, D, E 3 each) and a molecule-bin
+    batch, within the smoke's ``CHECK_ABS`` limits."""
+    from aimnetcentral_tpu_torch.train.export import config_to_yaml, params_to_state_dict
+    from torch_jpt_helpers import make_introspectable_jpt
+
+    params, cfg = _narrow_model(CPU, d3=True)
+    cfg = dataclasses.replace(cfg, outputs=tuple(("dftd3" if n == "external_dftd3" else n, h) for n, h in cfg.outputs))
+    params = {**params, "outputs": {("dftd3" if n == "external_dftd3" else n): p
+                                    for n, p in params["outputs"].items()}}
+    path = str(tmp_path / "legacy.jpt")
+    make_introspectable_jpt(params_to_state_dict(params, cfg), config_to_yaml(cfg), 5.0, path)
+    counters = (cs.conv_stencil_forward, cs.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
+    limits = {"energy": 3e-5, "forces": 1e-5, "stress": 2e-8}
+    batch = [_cluster(n, 10 + n) for n in (16, 12, 9, 5)]
+    for data, threshold, stress, kind in ((_box(), 0, True, "binned"), (batch, 16, False, "packed")):
+        cpu = AIMNet2Calculator.from_legacy_jit(path, device="cpu", binned_threshold=threshold).eval(
+            data, forces=True, stress=stress)
+        calc = AIMNet2Calculator.from_legacy_jit(path, binned_threshold=threshold)
+        assert calc.device.type == "cuda" and calc.coulomb_method is None
+        for fn in counters:
+            fn.launches = 0
+        card = calc.eval(data, forces=True, stress=stress)
+        assert calc._prep_cache["kind"] == kind
+        assert [fn.launches for fn in counters] == [3, 3, 3, 3]
+        for key, limit in limits.items():
+            if key in card:
+                np.testing.assert_allclose(card[key], cpu[key], rtol=0, atol=limit, err_msg=key)
+
+
 # ---------------------------------------------------------------------------
 # kernels D and E
 

@@ -2,7 +2,8 @@
 ``aimnetcentral_tpu_torch`` (dynamics, the indexed layout's neighbor
 builders, the integrations, training and the CLI included), ``chip_smoke.py``,
 ``tests/torch_fakes.py``, ``tests/torch_spatial_worker.py`` (the spatial tests'
-ranks) and ``tools/validate_torch.py`` import in a fresh
+ranks), ``tests/torch_jpt_helpers.py`` (the legacy archives) and
+``tools/validate_torch.py`` import in a fresh
 interpreter where both are blocked.  scipy is imported inside the kd-tree build only, never
 when a module is imported."""
 
@@ -24,6 +25,7 @@ import chip_smoke
 sys.path.insert(0, "tests")
 import torch_fakes
 import torch_spatial_worker  # what the spatial tests' spawned ranks import
+import torch_jpt_helpers  # chip_smoke.py's legacy archives
 spec = importlib.util.spec_from_file_location("validate_torch", "tools/validate_torch.py")
 validate_torch = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(validate_torch)
@@ -47,7 +49,8 @@ def test_port_imports_no_jax():
                  "aimnetcentral_tpu_torch.ops.neighbors", "aimnetcentral_tpu_torch.ops.cell_list",
                  "aimnetcentral_tpu_torch.builders",
                  "aimnetcentral_tpu_torch.models.lr", "aimnetcentral_tpu_torch.models.loader",
-                 "aimnetcentral_tpu_torch.models.convert", "aimnetcentral_tpu_torch.models.validation",
+                 "aimnetcentral_tpu_torch.models.convert", "aimnetcentral_tpu_torch.models.convert_v1",
+                 "aimnetcentral_tpu_torch.models.validation",
                  "aimnetcentral_tpu_torch.calculators.registry", "aimnetcentral_tpu_torch.train.export",
                  "aimnetcentral_tpu_torch.config", "aimnetcentral_tpu_torch.io",
                  "aimnetcentral_tpu_torch.dynamics.vibrations", "aimnetcentral_tpu_torch.dynamics.saddle",

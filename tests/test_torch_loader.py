@@ -405,16 +405,6 @@ def test_family_defaults_match_jax(meta, call):
         assert tloader.apply_family_defaults(meta, call) == jloader.apply_family_defaults(meta, call)
 
 
-def test_jpt_is_not_ported(tmp_path):
-    path = str(tmp_path / "legacy.jpt")
-    _jit_archive(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloader.load_model(path)
-    for loader in (jloader, tloader):
-        with pytest.raises(ValueError, match="Import settings"):
-            loader.load_model(path, model_import_mode="unsafe")
-
-
 # -- species, charge and mult -------------------------------------------------------
 
 

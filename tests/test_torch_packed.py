@@ -96,6 +96,35 @@ def test_system_molecule_bins_matches_jax(shape):
         tbuilders.system_molecule_bins(mols, CPU, capacity=8)
 
 
+@pytest.mark.parametrize("config", ["flagship", "wb97m-d3"])
+def test_empty_part_is_padding_bins(models, config):
+    """A data-parallel rank's part with no molecule (``pad_mols`` given):
+    that many empty bins laid out as JAX lays out padding molecules
+    (coordinate 1.0, number 0, ``mol_idx`` = num_mol), on which the model
+    gives zero energies and a zero coordinate gradient, D3 included.  JAX's
+    ``system_molecule_bins`` raises there; without ``pad_mols`` both
+    packages raise."""
+    padded = tbuilders.system_molecule_bins(PACKED[:1], CPU, capacity=16, pad_mols=3)
+    t = tbuilders.system_molecule_bins([], CPU, capacity=16, pad_mols=2)
+    np.testing.assert_array_equal(t.coord.numpy(), padded.coord[16:].numpy())
+    np.testing.assert_array_equal(t.numbers.numpy(), padded.numbers[16:].numpy())
+    np.testing.assert_array_equal(t.charge.numpy(), padded.charge[1:].numpy())
+    assert (t.mol_idx == 2).all() and t.mult is None and t.species == ()
+    assert (t.bins.nbins, t.bins.capacity, t.bins.molecule_bins) == ((2, 1, 1), 16, True)
+    assert tbuilders.system_molecule_bins([], CPU, pad_mols=1).bins.capacity == 8
+    with pytest.raises(ValueError):
+        jbuilders.system_molecule_bins([], capacity=16, pad_mols=2)
+    for build in (lambda: jbuilders.system_molecule_bins([]), lambda: tbuilders.system_molecule_bins([], CPU)):
+        with pytest.raises(ValueError):
+            build()
+    _j, (tparams, tcfg, _a) = models[config, "simple"]
+    coord = t.coord.clone().requires_grad_(True)
+    out = taimnet2.aimnet2_apply(tparams, tcfg, t.replace(coord=coord), sae_external=True)
+    (grad,) = torch.autograd.grad(out["energy"].sum(), coord, allow_unused=True)
+    np.testing.assert_array_equal(out["energy"].detach().numpy(), np.zeros(2, np.float32))
+    assert grad is None or not grad.any()
+
+
 def test_radius_zero_tables():
     """A molecule-bin grid sweeps at radius 0 whatever the cutoff (inf
     included): its stencil, mirror and conv tables hold the zero offset
