@@ -47,7 +47,12 @@ from aimnetcentral_tpu_torch.calculators import derivatives
 from aimnetcentral_tpu_torch.device import resolve_device
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
 from aimnetcentral_tpu_torch.models.bridge import params_to
-from aimnetcentral_tpu_torch.models.ewald import attach_ewald, estimate_ewald_parameters, warn_ewald_above_limit
+from aimnetcentral_tpu_torch.models.ewald import (  # noqa: F401  (EWALD_ATOM_GUIDANCE_LIMIT: JAX's calculator's name)
+    EWALD_ATOM_GUIDANCE_LIMIT,
+    attach_ewald,
+    estimate_ewald_parameters,
+    warn_ewald_above_limit,
+)
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, auto_switch_simple_to_dsf
 from aimnetcentral_tpu_torch.models.loader import LoadedModel, attach_external_lr, init_missing_heads, load_model
 from aimnetcentral_tpu_torch.models.validation import validate_runtime_model_metadata
@@ -57,22 +62,23 @@ from aimnetcentral_tpu_torch.system import System
 ATOM_BUCKET = 16  # the compact atom count is padded to a multiple of this
 
 
-def precision_tiers(precision: str) -> str:
-    """Map a precision tier to the matmul precision of its force
-    evaluation, after the JAX package's mapping
-    (calculators/calculator.py::precision_tiers):
+def precision_tiers(precision: str) -> tuple[str, str | None]:
+    """Map a precision tier to ``(matmul_precision, conv_precision)``, the
+    JAX package's mapping (calculators/calculator.py::precision_tiers), the
+    one source shared by the calculators, MD, spatial MD and training:
 
-    - ``exact``    -> "highest": full f32 matmuls (TF32 off);
-    - ``balanced`` -> "highest": exact outside the conv kernels, which on
-      the TPU split each operand for three bf16 passes.  The port's conv
-      kernels contract in FP32 on the CUDA cores, at least as exact as that
-      split, so ``balanced`` computes what ``exact`` does until a kernel
-      uses the tensor cores (and then reads a conv precision of its own);
-    - ``fast``     -> "default": TF32 matmuls.
+    - ``exact``    -> ("highest", None): TF32 off everywhere; kernels A and
+      B run their FP32 builds;
+    - ``balanced`` -> ("highest", "f32x3"): TF32 off outside the conv
+      kernels, which split each operand into a TF32 high and low part for
+      three tensor-core passes (the "3xtf32" builds, JAX's hand-split
+      ``_mxu_dot``);
+    - ``fast``     -> ("default", None): TF32 matmuls, and kernels A and B
+      in one TF32 pass (conv_pass.resolve_conv_mode: "f32" under TF32).
     """
     if precision not in ("exact", "balanced", "fast"):
         raise ValueError(f"precision must be 'exact', 'balanced' or 'fast', got {precision!r}")
-    return "default" if precision == "fast" else "highest"
+    return "default" if precision == "fast" else "highest", "f32x3" if precision == "balanced" else None
 
 
 @contextlib.contextmanager
@@ -649,15 +655,17 @@ class AIMNet2Calculator:
         system = self.prepare_system(data, allow_binned=not hessian)
         cfg_eff = self._effective_cfg(system.cell is not None)
         fn = self._get_fn(cfg_eff, forces, stress, hessian)
-        with ambient_matmul_context(precision_tiers(self.precision)):
-            out = fn(self.params, system)
+        out = fn(self.params, system)  # at the tier's precisions (``_get_fn``)
         return self._postprocess(out, system)
 
     __call__ = eval
 
     def _get_fn(self, cfg: AIMNet2Config, forces: bool, stress: bool, hessian: bool):
-        """The evaluation ``f(params, system) -> outputs`` of a request."""
-        return derivatives.make_eval_fn(cfg, forces=forces, stress=stress, hessian=hessian, sae_external=True)
+        """The evaluation ``f(params, system) -> outputs`` of a request, at
+        the calculator's tier."""
+        mm_prec, conv_prec = precision_tiers(self.precision)
+        return derivatives.make_eval_fn(cfg, forces=forces, stress=stress, hessian=hessian, sae_external=True,
+                                        matmul_precision=mm_prec, conv_precision=conv_prec)
 
     def hessian_vector_product(
         self, data: Mapping[str, Any] | list | tuple, v: np.ndarray, *, validate_species: bool = True
@@ -673,8 +681,8 @@ class AIMNet2Calculator:
         n_real = int((system.numbers > 0).sum())
         v_pad = torch.zeros((system.natoms, 3), dtype=system.coord.dtype, device=self.device)
         v_pad[:n_real] = torch.as_tensor(np.asarray(v, dtype=np.float32).reshape(n_real, 3), device=self.device)
-        with ambient_matmul_context(precision_tiers(self.precision)):
-            hv = derivatives.make_hvp_fn(cfg_eff)(self.params, system, v_pad)
+        mm_prec = precision_tiers(self.precision)[0]
+        hv = derivatives.make_hvp_fn(cfg_eff, matmul_precision=mm_prec)(self.params, system, v_pad)
         return hv[:n_real].cpu().numpy()
 
     def _postprocess(self, out: Mapping[str, torch.Tensor], system: System) -> dict[str, np.ndarray]:

@@ -120,13 +120,21 @@ def make_eval_fn(
     stress: bool = False,
     hessian: bool = False,
     sae_external: bool = True,
+    matmul_precision: str | None = None,
+    conv_precision: str | None = None,
 ) -> Callable[[dict, System], dict]:
     """``f(params, system) -> outputs``: ``energy`` (num_mol,), plus
     ``forces`` (N, 3), ``stress`` (num_mol, 3, 3) and ``hessian`` (N, 3,
     N, 3) as requested, and ``charges`` (and ``mol_element_counts`` under
     SAE externalization, the dipole and quadrupole of models with those
     heads).  As in JAX, a Hessian request without stress also returns the
-    forces."""
+    forces.
+
+    ``matmul_precision`` ("highest" or "default", a tier's first half,
+    calculators/calculator.py::precision_tiers) wraps the forward and the
+    gradient in ``ambient_matmul_context``; ``None`` keeps the caller's
+    ambient.  ``conv_precision`` is kernels A and B's mode
+    (``aimnet2_apply``)."""
 
     def collect(data: dict) -> dict:
         out = {"energy": data["energy"].detach()}
@@ -136,9 +144,14 @@ def make_eval_fn(
         return out
 
     def eval_fn(params: dict, system: System) -> dict:
+        with _ambient(matmul_precision):
+            return eval_inner(params, system)
+
+    def eval_inner(params: dict, system: System) -> dict:
         if not (forces or stress or hessian):
             with torch.no_grad():
-                return collect(aimnet2_apply(params, cfg, system, sae_external=sae_external))
+                return collect(aimnet2_apply(params, cfg, system, sae_external=sae_external,
+                                             conv_precision=conv_precision))
         coord = system.coord.detach().requires_grad_(True)
         inputs = [coord]
         sys2 = system.replace(coord=coord)
@@ -155,7 +168,7 @@ def make_eval_fn(
             sys2 = apply_strain(sys2, scaling)
         saved = SavedTensorBytes()
         with saved.counting() if hessian else contextlib.nullcontext():
-            data = aimnet2_apply(params, cfg, sys2, sae_external=sae_external)
+            data = aimnet2_apply(params, cfg, sys2, sae_external=sae_external, conv_precision=conv_precision)
             grads = torch.autograd.grad(data["energy"].sum(), inputs, create_graph=hessian)
         out = collect(data)
         if forces or (hessian and not stress):
@@ -172,13 +185,18 @@ def make_eval_fn(
     return eval_fn
 
 
-def make_hvp_fn(cfg: AIMNet2Config, sae_external: bool = True) -> Callable[[dict, System, torch.Tensor], torch.Tensor]:
+def make_hvp_fn(cfg: AIMNet2Config, sae_external: bool = True,
+                matmul_precision: str | None = None) -> Callable[[dict, System, torch.Tensor], torch.Tensor]:
     """Matrix-free Hessian-vector product ``hvp(params, system, v) -> H v``
     (N, 3): the gradient of ``<dE/dcoord, v>``, one double backward.  On a
     binned layout ``v`` is in slot order and the kernels' K3 rules carry
-    the second order."""
+    the second order.  ``matmul_precision`` as :func:`make_eval_fn`'s."""
 
     def hvp(params: dict, system: System, v: torch.Tensor) -> torch.Tensor:
+        with _ambient(matmul_precision):
+            return hvp_inner(params, system, v)
+
+    def hvp_inner(params: dict, system: System, v: torch.Tensor) -> torch.Tensor:
         coord = system.coord.detach().requires_grad_(True)
         energy = aimnet2_apply(params, cfg, system.replace(coord=coord), sae_external=sae_external)["energy"]
         (grad,) = torch.autograd.grad(energy.sum(), coord, create_graph=True)
@@ -186,6 +204,15 @@ def make_hvp_fn(cfg: AIMNet2Config, sae_external: bool = True) -> Callable[[dict
         return hv
 
     return hvp
+
+
+def _ambient(matmul_precision: str | None):
+    """A tier's matmul context, or the caller's ambient for ``None``."""
+    if matmul_precision is None:
+        return contextlib.nullcontext()
+    from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+
+    return ambient_matmul_context(matmul_precision)
 
 
 def real_atom_hessian(h: torch.Tensor, n_real: int) -> torch.Tensor:

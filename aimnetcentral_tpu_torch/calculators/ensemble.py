@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from aimnetcentral_tpu_torch.calculators import derivatives
-from aimnetcentral_tpu_torch.calculators.calculator import AIMNet2Calculator
+from aimnetcentral_tpu_torch.calculators.calculator import AIMNet2Calculator, ambient_matmul_context, precision_tiers
 from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
 from aimnetcentral_tpu_torch.models.ensemble_fused import aimnet2_apply_ensemble, member_params
 from aimnetcentral_tpu_torch.models.heads import head_init
@@ -131,7 +131,9 @@ class EnsembleCalculator(AIMNet2Calculator):
     def _get_fn(self, cfg: AIMNet2Config, forces: bool, stress: bool, hessian: bool):
         if self._fused and not (stress or hessian):
             return self._fused_fn(cfg, forces)
-        single = derivatives.make_eval_fn(cfg, forces=forces, stress=stress, hessian=hessian, sae_external=True)
+        mm_prec, conv_prec = precision_tiers(self.precision)
+        single = derivatives.make_eval_fn(cfg, forces=forces, stress=stress, hessian=hessian, sae_external=True,
+                                          matmul_precision=mm_prec, conv_precision=conv_prec)
 
         def ens_fn(params: dict, system: System) -> dict:
             # the mean is linear: the members' mean forces, stress and
@@ -150,6 +152,8 @@ class EnsembleCalculator(AIMNet2Calculator):
         return ens_fn
 
     def _fused_fn(self, cfg: AIMNet2Config, forces: bool):
+        mm_prec, conv_prec = precision_tiers(self.precision)
+
         def collect(data: dict) -> dict:
             out = {"energy": data["energy"].mean(0).detach(), "energy_std": _std(data["energy"]).detach()}
             for k in _KEEP:
@@ -161,11 +165,17 @@ class EnsembleCalculator(AIMNet2Calculator):
             return out
 
         def fused_fn(params: dict, system: System) -> dict:
+            with ambient_matmul_context(mm_prec):
+                return fused_inner(params, system)
+
+        def fused_inner(params: dict, system: System) -> dict:
             if not forces:
                 with torch.no_grad():
-                    return collect(aimnet2_apply_ensemble(params, cfg, system, sae_external=True))
+                    return collect(aimnet2_apply_ensemble(params, cfg, system, sae_external=True,
+                                                          conv_precision=conv_prec))
             coord = system.coord.detach().requires_grad_(True)
-            data = aimnet2_apply_ensemble(params, cfg, system.replace(coord=coord), sae_external=True)
+            data = aimnet2_apply_ensemble(params, cfg, system.replace(coord=coord), sae_external=True,
+                                          conv_precision=conv_prec)
             (g,) = torch.autograd.grad(data["energy"].mean(0).sum(), coord)
             out = collect(data)
             out["forces"] = torch.where((system.numbers > 0)[:, None], -g, 0.0)

@@ -70,6 +70,8 @@
 
 #include <algorithm>
 
+#include "conv_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;  // atoms a block: one warp each
@@ -341,6 +343,413 @@ int launch(const float* coord, const float* mask, const float* a, const float* g
   return int(cudaGetLastError());
 }
 
+// The tensor-core builds (csrc/conv_mma.cuh: the modes, the tiles and the
+// exact W).  Block (jb, tile of kRows atoms j, shift-and-column tile); for
+// each offset s and each kSlots partner slots i of p = mnbr[s, jb]:
+//   the geometry pass (one pair a thread, the forward's displacement
+//   x_j + shift[s, p] - x_i) into shared memory, the live slots packed;
+//   phase 1, warp w the shift g = g0 + w: grad_a[j, g, f] += sum_{k, i}
+//     W_k[i, j, g] gbar[p, k, i, g, f] by mma.sync (depth: the live slots);
+//   phase 2, warp (q, t): wbar_k[j, i, g] = sum_f a[j, g, f] gbar[p, k, i,
+//     g, f] by mma.sync (depth: the tile's columns) for the live slots of
+//     tile t (eight) and the shifts g0 + q + 4 m; each pair's ubar and dbar
+//     summed over those shifts in registers, then over the four q in order
+//     through shared memory;
+//   the chain rule per pair in FP32: rbar into the atom's coordinate sum
+//     (a warp's butterfly) and the partner rows (the kRows atoms in order).
+// The constants' build adds each pair's sbar, etabar and rcbar terms (as
+// the FP32 build) and reduces them in warp order at the end.  The column
+// sums of several shift-and-column tiles are partials the wrapper adds in a
+// fixed order, as the FP32 build's column tiles: no atomics, deterministic.
+namespace cm = conv_mma;
+
+constexpr int kGeoPitch = cm::kSlots + 1;  // a padded row of the geometry and partner-row buffers
+constexpr int kMmaSmemFloats = 6 * cm::kRows * kGeoPitch                 // geometry: d, fc, fc', ux, uy, uz
+                               + 4 * cm::kRows * cm::kSlots * 4          // phase 2's partial sums by q
+                               + cm::kRows * cm::kGTile * cm::kFTile     // the tile's features
+                               + 3 * cm::kRows * kGeoPitch               // partner rows by atom
+                               + cm::kWarps * 6;                         // the constants' warp sums
+
+template <int kMode, bool kConst>
+__global__ void __launch_bounds__(cm::kThreads, 1)
+conv_bwd_mma_kernel(const float* __restrict__ coord,     // (B*C, 3)
+                    const float* __restrict__ mask,      // (B*C)
+                    const float* __restrict__ a,         // (B*C, G*F)
+                    const float* __restrict__ gbar,      // (B, 4, C, G*F)
+                    const int* __restrict__ mnbr,        // (S, B), -1 = no partner
+                    const float* __restrict__ shift,     // (S, B, 3) forward frame
+                    const float* __restrict__ shifts_g,  // (G)
+                    const float* __restrict__ scal,      // (2) eta, rc
+                    float* __restrict__ grad_a,          // (B*C, G*F)
+                    float* __restrict__ grad_coord,      // (T, B*C, 3) receiver side
+                    float* __restrict__ pgrad,           // (T, S, B, NJ, 3, C) partner side
+                    float* __restrict__ cbar,            // kConst: (B, NJ, G + 2) partial sums
+                    int B, int C, int G, int F, int S) {
+  using M = cm::Mma<kMode>;
+  extern __shared__ float smem[];
+  float* geo = smem;                                           // [6][kRows][kGeoPitch]
+  float* red = geo + 6 * cm::kRows * kGeoPitch;                // [4][kRows][kSlots][4]
+  float* aj = red + 4 * cm::kRows * cm::kSlots * 4;            // [kRows][kGTile][kFTile]
+  float* prt = aj + cm::kRows * cm::kGTile * cm::kFTile;       // [3][kRows][kGeoPitch]
+  float* csum = prt + 3 * cm::kRows * kGeoPitch;               // [kWarps][6]
+  __shared__ unsigned rowmask[cm::kRows];
+  __shared__ int live[cm::kSlots];
+#define GEO(v, r, c) geo[((v) * cm::kRows + (r)) * kGeoPitch + (c)]
+
+  const int jb = blockIdx.x;
+  const int jt = blockIdx.y;
+  const int NJ = gridDim.y;
+  const int g0 = (blockIdx.z % cm::g_tiles(G)) * cm::kGTile;
+  const int f0 = (blockIdx.z / cm::g_tiles(G)) * cm::kFTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;
+  const int t4 = lane & 3;
+  const int j0 = jt * cm::kRows;
+  const int GF = G * F;
+  const size_t kstride = size_t(C) * GF;  // gbar's k stride
+  grad_coord += size_t(blockIdx.z) * B * C * 3;
+  pgrad += size_t(blockIdx.z) * S * B * NJ * 3 * C;
+  const float eta = scal[0];
+  const float rc = scal[1];
+  const float pi_rc = __fdiv_rn(cm::kPi, rc);
+
+  // the geometry pass's row: atom j0 + warp, partner slot i0 + lane
+  const int jr = j0 + warp;
+  const size_t jrow = size_t(jb) * C + jr;
+  const bool real_j = jr < C && mask[jrow] > 0.5f;
+  const float xj0 = real_j ? coord[3 * jrow + 0] : 0.0f;
+  const float xj1 = real_j ? coord[3 * jrow + 1] : 0.0f;
+  const float xj2 = real_j ? coord[3 * jrow + 2] : 0.0f;
+
+  for (int t = threadIdx.x; t < cm::kRows * cm::kGTile * cm::kFTile; t += cm::kThreads) {
+    const int jj = j0 + t / (cm::kGTile * cm::kFTile);
+    const int gg = g0 + (t / cm::kFTile) % cm::kGTile;
+    const int ff = f0 + t % cm::kFTile;
+    const size_t jrw = size_t(jb) * C + jj;
+    aj[t] = (jj < C && gg < G && ff < F && mask[jrw] > 0.5f) ? a[jrw * GF + size_t(gg) * F + ff] : 0.0f;
+  }
+  const bool any_real = __syncthreads_or(real_j);
+
+  // phase 1: warp w, shift g1
+  const int g1 = g0 + warp;
+  const bool gwarp = g1 < G;
+  const float sg1 = gwarp ? shifts_g[g1] : 0.0f;
+  float ga[cm::kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < cm::kNT; ++nt) ga[nt][0] = ga[nt][1] = ga[nt][2] = ga[nt][3] = 0.0f;
+  // phase 2: warp 4 q + t
+  const int it = warp & 3;
+  const int q2 = warp >> 2;
+  constexpr int kGq = cm::kGTile / 4;  // shifts a phase-2 warp walks
+  float gc0 = 0.0f, gc1 = 0.0f, gc2 = 0.0f;
+  float sbm[kGq];
+#pragma unroll
+  for (int m = 0; m < kGq; ++m) sbm[m] = 0.0f;
+  float eb = 0.0f, rbc = 0.0f;  // kConst: etabar and rcbar
+
+  for (int s = 0; s < S; ++s) {
+    const int p = mnbr[size_t(s) * B + jb];  // the same for the whole block
+    float* prow = pgrad + ((size_t(s) * B + jb) * NJ + jt) * 3 * C;
+    if (p < 0 || !any_real) {  // nothing to send
+      for (int t = threadIdx.x; t < 3 * C; t += cm::kThreads) prow[t] = 0.0f;
+      continue;
+    }
+    const float* sh = shift + (size_t(s) * B + p) * 3;
+    const float sh0 = sh[0], sh1 = sh[1], sh2 = sh[2];
+    for (int i0 = 0; i0 < C; i0 += cm::kSlots) {
+      __syncthreads();  // the previous step's readers are done
+      const int i = i0 + lane;
+      bool vp = false;
+      float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f;
+      if (real_j && i < C) {
+        const size_t pr = size_t(p) * C + i;
+        vp = mask[pr] > 0.5f && !(s == 0 && i == jr);
+        xi0 = coord[3 * pr + 0];
+        xi1 = coord[3 * pr + 1];
+        xi2 = coord[3 * pr + 2];
+      }
+      const cm::Geom pg = cm::pair_geometry(xj0, xj1, xj2, sh0, sh1, sh2, xi0, xi1, xi2, vp, rc, pi_rc);
+      GEO(0, warp, lane) = pg.d;
+      GEO(1, warp, lane) = pg.fc;
+      GEO(2, warp, lane) = pg.within ? -0.5f * pi_rc * sinf(pg.d * pi_rc) : 0.0f;
+      GEO(3, warp, lane) = pg.ux;
+      GEO(4, warp, lane) = pg.uy;
+      GEO(5, warp, lane) = pg.uz;
+      const unsigned m = __ballot_sync(0xffffffffu, pg.within);
+      if (lane == 0) rowmask[warp] = m;
+      __syncthreads();
+      unsigned livem = 0;
+#pragma unroll
+      for (int r = 0; r < cm::kRows; ++r) livem |= rowmask[r];
+      if (livem == 0) {  // no pair in these slots: their partner rows are zero
+        if (threadIdx.x < 3 * cm::kSlots) {
+          const int c = threadIdx.x % cm::kSlots;
+          if (i0 + c < C) prow[(threadIdx.x / cm::kSlots) * C + i0 + c] = 0.0f;
+        }
+        continue;  // the same for the whole block
+      }
+      if (warp == 0 && ((livem >> lane) & 1u)) live[__popc(livem & ((1u << lane) - 1u))] = lane;
+      __syncthreads();
+      const int nl = __popc(livem);
+      const float* gb = gbar + (size_t(p) * 4 * C + i0) * GF;  // gbar[p, 0, i0, 0, 0]
+
+      if (gwarp) {  // phase 1
+        for (int k0 = 0; k0 < nl; k0 += M::K) {
+          float gsv[2][M::NK], uv[3][2][M::NK];
+          int cc[M::NK];
+#pragma unroll
+          for (int q = 0; q < M::NK; ++q) {
+            const int pidx = k0 + M::kidx(t4, q);
+            const int c = pidx < nl ? live[pidx] : -1;
+            cc[q] = c;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float gs = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
+              if (c >= 0) {
+                const int row = gid + 8 * r;
+                const float fc = GEO(1, row, c);
+                if (fc != 0.0f) {
+                  gs = __fmul_rn(cm::gauss(GEO(0, row, c), sg1, eta), fc);
+                  ux = GEO(3, row, c);
+                  uy = GEO(4, row, c);
+                  uz = GEO(5, row, c);
+                }
+              }
+              gsv[r][q] = gs;
+              uv[0][r][q] = ux;
+              uv[1][r][q] = uy;
+              uv[2][r][q] = uz;
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float w[2][M::NK];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int q = 0; q < M::NK; ++q) w[r][q] = k == 0 ? gsv[r][q] : __fmul_rn(gsv[r][q], uv[k - 1][r][q]);
+            cm::OpA aop;
+            cm::make_a<kMode>(w, aop);
+#pragma unroll
+            for (int nt = 0; nt < cm::kNT; ++nt) {
+              const int f = f0 + nt * 8 + gid;
+              float bv[M::NK];
+#pragma unroll
+              for (int q = 0; q < M::NK; ++q)
+                bv[q] = (cc[q] >= 0 && f < F) ? __ldg(gb + size_t(cc[q]) * GF + k * kstride + size_t(g1) * F + f)
+                                              : 0.0f;
+              cm::OpB bop;
+              cm::make_b<kMode>(bv, bop);
+              cm::mma<kMode>(ga[nt], aop, bop);
+            }
+          }
+        }
+      }
+
+      if (it * 8 < nl) {  // phase 2
+        float pp[4][4];   // pairs e (row gid + 8 (e >> 1), live slot it * 8 + 2 t4 + (e & 1)): ubar, dbar
+        float wep[4];     // kConst: sum over g of W_c e_g
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pp[e][0] = pp[e][1] = pp[e][2] = pp[e][3] = wep[e] = 0.0f;
+        const int pcol = it * 8 + gid;  // the B operand's column
+        const int ccol = pcol < nl ? live[pcol] : -1;
+#pragma unroll
+        for (int mq = 0; mq < kGq; ++mq) {
+          const int gl = q2 + 4 * mq;
+          const int gg = g0 + gl;
+          if (gg >= G) break;
+          float wacc[4][4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) wacc[k][0] = wacc[k][1] = wacc[k][2] = wacc[k][3] = 0.0f;
+#pragma unroll
+          for (int kf = 0; kf < cm::kFTile; kf += M::K) {
+            float av[2][M::NK];
+            int fq[M::NK];
+#pragma unroll
+            for (int q = 0; q < M::NK; ++q) {
+              const int fl = kf + M::kidx(t4, q);
+              fq[q] = fl;
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                av[r][q] = fl < cm::kFTile ? aj[((gid + 8 * r) * cm::kGTile + gl) * cm::kFTile + fl] : 0.0f;
+            }
+            cm::OpA aop;
+            cm::make_a<kMode>(av, aop);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              float bv[M::NK];
+#pragma unroll
+              for (int q = 0; q < M::NK; ++q) {
+                const int fl = fq[q];
+                bv[q] = (ccol >= 0 && fl < cm::kFTile && f0 + fl < F)
+                            ? __ldg(gb + size_t(ccol) * GF + k * kstride + size_t(gg) * F + f0 + fl)
+                            : 0.0f;
+              }
+              cm::OpB bop;
+              cm::make_b<kMode>(bv, bop);
+              cm::mma<kMode>(wacc[k], aop, bop);
+            }
+          }
+          const float sgv = shifts_g[gg];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = gid + 8 * (e >> 1);
+            const int pc = it * 8 + 2 * t4 + (e & 1);
+            if (pc >= nl) continue;
+            const int c = live[pc];
+            const float fc = GEO(1, row, c);
+            if (fc == 0.0f) continue;
+            const float d = GEO(0, row, c);
+            const float dd = d - sgv;
+            const float ex = expf(-eta * dd * dd);
+            const float gs = ex * fc;
+            const float dgs = ex * (GEO(2, row, c) - 2.0f * eta * dd * fc);
+            const float w0 = wacc[0][e], w1 = wacc[1][e], w2 = wacc[2][e], w3 = wacc[3][e];
+            pp[e][0] = fmaf(w1, gs, pp[e][0]);
+            pp[e][1] = fmaf(w2, gs, pp[e][1]);
+            pp[e][2] = fmaf(w3, gs, pp[e][2]);
+            const float wc = w0 + w1 * GEO(3, row, c) + w2 * GEO(4, row, c) + w3 * GEO(5, row, c);
+            pp[e][3] = fmaf(wc, dgs, pp[e][3]);
+            if (kConst) {
+              sbm[mq] = fmaf(wc * (2.0f * eta * dd), gs, sbm[mq]);
+              eb = fmaf(-wc * dd * dd, gs, eb);
+              wep[e] = fmaf(wc, ex, wep[e]);
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = gid + 8 * (e >> 1);
+          const int pc = it * 8 + 2 * t4 + (e & 1);
+          if (pc >= nl) continue;
+          const int c = live[pc];
+          float* dst = red + ((q2 * cm::kRows + row) * cm::kSlots + c) * 4;
+          dst[0] = pp[e][0];
+          dst[1] = pp[e][1];
+          dst[2] = pp[e][2];
+          dst[3] = pp[e][3];
+          if (kConst && GEO(1, row, c) != 0.0f)
+            rbc = fmaf(wep[e], -GEO(2, row, c) * GEO(0, row, c) / rc, rbc);  // dfc/drc = -fc' d / rc
+        }
+      }
+      __syncthreads();
+
+      // the chain rule per pair: thread (atom j0 + warp, slot lane)
+      float rb0 = 0.0f, rb1 = 0.0f, rb2 = 0.0f;
+      if (GEO(1, warp, lane) != 0.0f) {
+        float ub0 = 0.0f, ub1 = 0.0f, ub2 = 0.0f, db = 0.0f;
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const float* src = red + ((qq * cm::kRows + warp) * cm::kSlots + lane) * 4;
+          ub0 += src[0];
+          ub1 += src[1];
+          ub2 += src[2];
+          db += src[3];
+        }
+        const float ux = GEO(3, warp, lane), uy = GEO(4, warp, lane), uz = GEO(5, warp, lane);
+        const float inv_d = 1.0f / GEO(0, warp, lane);
+        const float uu = ub0 * ux + ub1 * uy + ub2 * uz;
+        rb0 = db * ux + (ub0 - uu * ux) * inv_d;
+        rb1 = db * uy + (ub1 - uu * uy) * inv_d;
+        rb2 = db * uz + (ub2 - uu * uz) * inv_d;
+      }
+      gc0 += warp_sum(rb0);
+      gc1 += warp_sum(rb1);
+      gc2 += warp_sum(rb2);
+      prt[(0 * cm::kRows + warp) * kGeoPitch + lane] = -rb0;
+      prt[(1 * cm::kRows + warp) * kGeoPitch + lane] = -rb1;
+      prt[(2 * cm::kRows + warp) * kGeoPitch + lane] = -rb2;
+      __syncthreads();
+      if (threadIdx.x < 3 * cm::kSlots) {  // the tile's partner rows: its atoms in order
+        const int comp = threadIdx.x / cm::kSlots;
+        const int c = threadIdx.x % cm::kSlots;
+        if (i0 + c < C) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int r = 0; r < cm::kRows; ++r) sum += prt[(comp * cm::kRows + r) * kGeoPitch + c];
+          prow[comp * C + i0 + c] = sum;
+        }
+      }
+    }
+  }
+
+  if (gwarp) {
+#pragma unroll
+    for (int nt = 0; nt < cm::kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + gid + 8 * (e >> 1);
+        const int f = f0 + nt * 8 + 2 * t4 + (e & 1);
+        if (j < C && f < F) grad_a[(size_t(jb) * C + j) * GF + size_t(g1) * F + f] = ga[nt][e];
+      }
+  }
+  if (lane == 0 && jr < C) {
+    grad_coord[3 * jrow + 0] = gc0;
+    grad_coord[3 * jrow + 1] = gc1;
+    grad_coord[3 * jrow + 2] = gc2;
+  }
+
+  if (kConst) {  // one shift-and-column tile: G <= kGTile, F <= kFTile
+    __syncthreads();
+#pragma unroll
+    for (int mq = 0; mq < kGq; ++mq) sbm[mq] = warp_sum(sbm[mq]);
+    eb = warp_sum(eb);
+    rbc = warp_sum(rbc);
+    if (lane == 0) {
+#pragma unroll
+      for (int mq = 0; mq < kGq; ++mq) csum[warp * 6 + mq] = sbm[mq];
+      csum[warp * 6 + 4] = eb;
+      csum[warp * 6 + 5] = rbc;
+    }
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (t < G + 2) {
+      float sum = 0.0f;
+      if (t < G) {  // shift t: phase-2 warps 4 (t % 4) + 0..3, slot t / 4
+        for (int v = 0; v < 4; ++v) sum += csum[(4 * (t % 4) + v) * 6 + t / 4];
+      } else {
+        for (int v = 0; v < cm::kWarps; ++v) sum += csum[v * 6 + 4 + (t - G)];
+      }
+      cbar[(size_t(jb) * NJ + jt) * (G + 2) + t] = sum;
+    }
+  }
+#undef GEO
+}
+
+template <int kMode, bool kConst>
+int launch_mma(const float* coord, const float* mask, const float* a, const float* gbar, const int* mnbr,
+               const float* shift, const float* shifts_g, const float* scal, float* grad_a,
+               float* grad_coord, float* pgrad, float* cbar, int B, int C, int G, int F, int S,
+               cudaStream_t stream) {
+  // kernels/conv_stencil.py::MMA_BWD_SMEM computes the same number
+  const int smem = int(sizeof(float)) * kMmaSmemFloats;
+  cudaError_t err = cudaFuncSetAttribute(conv_bwd_mma_kernel<kMode, kConst>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(B, (C + cm::kRows - 1) / cm::kRows, cm::g_tiles(G) * cm::f_tiles(F));
+  conv_bwd_mma_kernel<kMode, kConst><<<grid, cm::kThreads, smem, stream>>>(
+      coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord, pgrad, cbar, B, C, G, F, S);
+  return int(cudaGetLastError());
+}
+
+template <bool kConst>
+int launch_mma_mode(int mode, const float* coord, const float* mask, const float* a, const float* gbar,
+                    const int* mnbr, const float* shift, const float* shifts_g, const float* scal,
+                    float* grad_a, float* grad_coord, float* pgrad, float* cbar, int B, int C, int G,
+                    int F, int S, cudaStream_t st) {
+  if (mode == cm::kTF32)
+    return launch_mma<cm::kTF32, kConst>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
+                                         grad_coord, pgrad, cbar, B, C, G, F, S, st);
+  if (mode == cm::k3xTF32)
+    return launch_mma<cm::k3xTF32, kConst>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
+                                           grad_coord, pgrad, cbar, B, C, G, F, S, st);
+  if (mode == cm::kBF16)
+    return launch_mma<cm::kBF16, kConst>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
+                                         grad_coord, pgrad, cbar, B, C, G, F, S, st);
+  return int(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // M, the columns a lane owns, and W, the columns a tile owns, are
@@ -380,4 +789,26 @@ extern "C" int conv_bwd_const_launch(const float* coord, const float* mask, cons
     return launch<17, true>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord,
                             pgrad, pair_count, cbar, B, C, G, F, S, W, st);
   return int(cudaErrorInvalidValue);
+}
+
+// The tensor-core builds: mode 1 TF32, 2 3xTF32, 3 bf16 (conv_mma.cuh);
+// kernels/conv_stencil.py::MMA_MODES.  grad_coord (T, B*C, 3) and pgrad
+// (T, S, B, NJ, 3, C) hold the partials of the T = mma_tiles shift-and-
+// column tiles, NJ = ceil(C / 16) atom tiles; ``constants`` != 0 also
+// writes cbar (B, NJ, G + 2) and takes one tile only.  No pair counts.
+extern "C" int conv_bwd_mma_launch(const float* coord, const float* mask, const float* a,
+                                   const float* gbar, const int* mnbr, const float* shift,
+                                   const float* shifts_g, const float* scal, float* grad_a,
+                                   float* grad_coord, float* pgrad, float* cbar, int B, int C, int G,
+                                   int F, int S, int mode, int constants, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = cm::g_tiles(G) * cm::f_tiles(F);
+  if (B < 1 || C < 1 || G < 1 || F < 1 || (C + cm::kRows - 1) / cm::kRows > 65535 || tiles > 64 ||
+      (constants && (tiles != 1 || cbar == nullptr)))
+    return int(cudaErrorInvalidValue);
+  if (constants)
+    return launch_mma_mode<true>(mode, coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
+                                 grad_coord, pgrad, cbar, B, C, G, F, S, st);
+  return launch_mma_mode<false>(mode, coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
+                                grad_coord, pgrad, nullptr, B, C, G, F, S, st);
 }

@@ -46,6 +46,8 @@
 
 #include <cuda_runtime.h>
 
+#include "conv_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;  // receiver rows a block: one warp each
@@ -175,6 +177,168 @@ int launch(const float* coord, const float* mask, const float* a, const int* nbr
   return int(cudaGetLastError());
 }
 
+// The tensor-core builds (csrc/conv_mma.cuh: the modes, the tiles and the
+// exact W): block (b, receiver tile of kRows slots, shift-and-column tile),
+// warp w the radial shift g0 + w.  For each stencil offset and each kSlots
+// candidate slots: the geometry pass (one pair a thread) into shared memory,
+// the live slots packed, then out[k, i, g, f] += W_k[i, j, g] a[j, g, f] by
+// mma.sync over the live slots, four k's a depth step sharing each B
+// operand.  Every output element is written once, every sum in a fixed
+// order: no atomics, deterministic.
+namespace cm = conv_mma;
+
+template <int kMode>
+__global__ void __launch_bounds__(cm::kThreads, 1)
+conv_fwd_mma_kernel(const float* __restrict__ coord,     // (B*C, 3)
+                    const float* __restrict__ mask,      // (B*C)
+                    const float* __restrict__ a,         // (B*C, G*F)
+                    const int* __restrict__ nbr,         // (S, B), -1 = no candidate
+                    const float* __restrict__ shift,     // (S, B, 3)
+                    const float* __restrict__ shifts_g,  // (G)
+                    const float* __restrict__ scal,      // (2) eta, rc
+                    float* __restrict__ out,             // (B, 4, C, G*F)
+                    int B, int C, int G, int F, int S) {
+  using M = cm::Mma<kMode>;
+  __shared__ float geo[5][cm::kRows][cm::kSlots + 1];  // d, fc (0: no pair), ux, uy, uz
+  __shared__ unsigned rowmask[cm::kRows];
+  __shared__ int live[cm::kSlots];
+
+  const int b = blockIdx.x;
+  const int i0 = blockIdx.y * cm::kRows;
+  const int gt = blockIdx.z % cm::g_tiles(G);
+  const int f0 = (blockIdx.z / cm::g_tiles(G)) * cm::kFTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;
+  const int t4 = lane & 3;
+  const int g = gt * cm::kGTile + warp;
+  const bool gwarp = g < G;
+  const int GF = G * F;
+  const float eta = scal[0];
+  const float rc = scal[1];
+  const float pi_rc = __fdiv_rn(cm::kPi, rc);
+  const float sg = gwarp ? shifts_g[g] : 0.0f;
+
+  // the geometry pass: row warp (receiver slot i0 + warp), slot lane
+  const int gi = i0 + warp;
+  const size_t grow = size_t(b) * C + gi;
+  const bool real_i = gi < C && mask[grow] > 0.5f;
+  const float xi0 = real_i ? coord[3 * grow + 0] : 0.0f;
+  const float xi1 = real_i ? coord[3 * grow + 1] : 0.0f;
+  const float xi2 = real_i ? coord[3 * grow + 2] : 0.0f;
+  const bool any_real = __syncthreads_or(real_i);
+
+  float acc[4][cm::kNT][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int nt = 0; nt < cm::kNT; ++nt) acc[k][nt][0] = acc[k][nt][1] = acc[k][nt][2] = acc[k][nt][3] = 0.0f;
+
+  for (int s = 0; any_real && s < S; ++s) {
+    const int n = nbr[size_t(s) * B + b];
+    if (n < 0) continue;  // gas-phase step without a candidate bin
+    const float* sh = shift + (size_t(s) * B + b) * 3;
+    const float sh0 = sh[0], sh1 = sh[1], sh2 = sh[2];
+    for (int j0 = 0; j0 < C; j0 += cm::kSlots) {
+      __syncthreads();  // the previous step's readers are done
+      const int j = j0 + lane;
+      bool vp = false;
+      float xj0 = 0.0f, xj1 = 0.0f, xj2 = 0.0f;
+      if (real_i && j < C) {
+        const size_t cr = size_t(n) * C + j;
+        vp = mask[cr] > 0.5f && !(s == 0 && j == gi);
+        xj0 = coord[3 * cr + 0];
+        xj1 = coord[3 * cr + 1];
+        xj2 = coord[3 * cr + 2];
+      }
+      const cm::Geom pg = cm::pair_geometry(xj0, xj1, xj2, sh0, sh1, sh2, xi0, xi1, xi2, vp, rc, pi_rc);
+      geo[0][warp][lane] = pg.d;
+      geo[1][warp][lane] = pg.fc;
+      geo[2][warp][lane] = pg.ux;
+      geo[3][warp][lane] = pg.uy;
+      geo[4][warp][lane] = pg.uz;
+      const unsigned m = __ballot_sync(0xffffffffu, pg.within);
+      if (lane == 0) rowmask[warp] = m;
+      __syncthreads();
+      unsigned livem = 0;
+#pragma unroll
+      for (int r = 0; r < cm::kRows; ++r) livem |= rowmask[r];
+      if (livem == 0) continue;  // the same for the whole block
+      if (warp == 0 && ((livem >> lane) & 1u)) live[__popc(livem & ((1u << lane) - 1u))] = lane;
+      __syncthreads();
+      const int nl = __popc(livem);
+      if (!gwarp) continue;
+      for (int k0 = 0; k0 < nl; k0 += M::K) {
+        // this lane's pairs: rows gid, gid + 8; depth k0 + kidx(q) -> live slot
+        float w[4][2][M::NK];
+        float av[cm::kNT][M::NK];
+#pragma unroll
+        for (int q = 0; q < M::NK; ++q) {
+          const int p = k0 + M::kidx(t4, q);
+          const int c = p < nl ? live[p] : -1;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float gs = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
+            if (c >= 0) {
+              const int row = gid + 8 * r;
+              const float fc = geo[1][row][c];
+              if (fc != 0.0f) {
+                gs = __fmul_rn(cm::gauss(geo[0][row][c], sg, eta), fc);
+                ux = geo[2][row][c];
+                uy = geo[3][row][c];
+                uz = geo[4][row][c];
+              }
+            }
+            w[0][r][q] = gs;
+            w[1][r][q] = __fmul_rn(gs, ux);
+            w[2][r][q] = __fmul_rn(gs, uy);
+            w[3][r][q] = __fmul_rn(gs, uz);
+          }
+          // a live slot holds a real atom (it has a pair within rc)
+          const float* arow = a + (size_t(n) * C + j0 + (c >= 0 ? c : 0)) * GF + size_t(g) * F;
+#pragma unroll
+          for (int nt = 0; nt < cm::kNT; ++nt) {
+            const int f = f0 + nt * 8 + gid;
+            av[nt][q] = (c >= 0 && f < F) ? __ldg(arow + f) : 0.0f;
+          }
+        }
+        cm::OpB bop[cm::kNT];
+#pragma unroll
+        for (int nt = 0; nt < cm::kNT; ++nt) cm::make_b<kMode>(av[nt], bop[nt]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          cm::OpA aop;
+          cm::make_a<kMode>(w[k], aop);
+#pragma unroll
+          for (int nt = 0; nt < cm::kNT; ++nt) cm::mma<kMode>(acc[k][nt], aop, bop[nt]);
+        }
+      }
+    }
+  }
+
+  if (!gwarp) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int nt = 0; nt < cm::kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + gid + 8 * (e >> 1);
+        const int f = f0 + nt * 8 + 2 * t4 + (e & 1);
+        if (i < C && f < F) out[((size_t(b) * 4 + k) * C + i) * GF + size_t(g) * F + f] = acc[k][nt][e];
+      }
+}
+
+template <int kMode>
+int launch_mma(const float* coord, const float* mask, const float* a, const int* nbr, const float* shift,
+               const float* shifts_g, const float* scal, float* out, int B, int C, int G, int F, int S,
+               cudaStream_t stream) {
+  const dim3 grid(B, (C + cm::kRows - 1) / cm::kRows, cm::g_tiles(G) * cm::f_tiles(F));
+  conv_fwd_mma_kernel<kMode><<<grid, cm::kThreads, 0, stream>>>(coord, mask, a, nbr, shift, shifts_g, scal,
+                                                                out, B, C, G, F, S);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // M, the columns a lane owns, and W, the columns a tile owns, are
@@ -192,5 +356,24 @@ extern "C" int conv_fwd_launch(const float* coord, const float* mask, const floa
   if (M == 17)
     return launch<17>(coord, mask, a, nbr, shift, shifts_g, scal, out, pair_count, B, C, G,
                       F, S, W, st);
+  return int(cudaErrorInvalidValue);
+}
+
+// The tensor-core builds: mode 1 TF32, 2 3xTF32, 3 bf16 (conv_mma.cuh);
+// kernels/conv_stencil.py::MMA_MODES.  No pair counts.
+extern "C" int conv_fwd_mma_launch(const float* coord, const float* mask, const float* a,
+                                   const int* nbr, const float* shift, const float* shifts_g,
+                                   const float* scal, float* out, int B, int C, int G, int F, int S,
+                                   int mode, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 1 || C < 1 || G < 1 || F < 1 || (C + cm::kRows - 1) / cm::kRows > 65535 ||
+      cm::g_tiles(G) * cm::f_tiles(F) > 65535)
+    return int(cudaErrorInvalidValue);
+  if (mode == cm::kTF32)
+    return launch_mma<cm::kTF32>(coord, mask, a, nbr, shift, shifts_g, scal, out, B, C, G, F, S, st);
+  if (mode == cm::k3xTF32)
+    return launch_mma<cm::k3xTF32>(coord, mask, a, nbr, shift, shifts_g, scal, out, B, C, G, F, S, st);
+  if (mode == cm::kBF16)
+    return launch_mma<cm::kBF16>(coord, mask, a, nbr, shift, shifts_g, scal, out, B, C, G, F, S, st);
   return int(cudaErrorInvalidValue);
 }

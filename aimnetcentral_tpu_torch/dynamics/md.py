@@ -21,7 +21,7 @@ the rebuild when an atom moved more than ``skin / 2`` since the last one,
 the forces, the second half kick, then the thermostat (Langevin, Berendsen
 or none) and the optional isotropic Berendsen barostat.  The forces come
 from ``aimnet2_apply(..., sae_external=True)`` through autograd, inside the
-precision tier's context.
+precision tier's context, with the tier's conv precision.
 
 The JAX driver fuses a chunk of steps into one ``lax.scan`` executable and
 decides the re-bin on the device (``lax.cond``).  Here a chunk is a Python
@@ -107,8 +107,10 @@ class MDConfig:
     barostat_tau_fs: float = 1000.0
     compressibility_eV_A3: float = 73.2  # ~water (4.57e-5 / bar)
     # force-eval precision tier (calculators/calculator.py::precision_tiers):
-    # None (= "fast": TF32 matmuls, fine for thermostatted MD), "balanced"
-    # or "exact" (full f32 matmuls, for NVE and drift-sensitive runs)
+    # None (= "fast": TF32 matmuls and one TF32 pass in kernels A and B,
+    # fine for thermostatted MD), "balanced" (full f32 matmuls, A and B on
+    # the 3xTF32 split: ~1e-6 eV/A of exact forces) or "exact" (full f32
+    # everywhere, for NVE and drift-sensitive runs)
     precision: str | None = None
 
 
@@ -416,22 +418,30 @@ class MDDriver:
 
     # -- energy/forces ------------------------------------------------------
 
+    def _tier(self) -> tuple[str, str | None]:
+        """The MDConfig tier's ``(matmul_precision, conv_precision)``."""
+        return precision_tiers(self.md.precision or "fast")
+
     def _tier_context(self):
         """The tier's matmul context; it wraps the forward and
         ``torch.autograd.grad``, whose backward GEMMs run when the gradient
         is pulled."""
-        return ambient_matmul_context(precision_tiers(self.md.precision or "fast"))
+        return ambient_matmul_context(self._tier()[0])
 
     def _energy_members(self, params: Any, system: System) -> torch.Tensor:
         """Per-member energies (E, num_mol) of an ensemble (the fused
-        forward, or one forward per member), (num_mol,) of a single model."""
+        forward, or one forward per member), (num_mol,) of a single model;
+        kernels A and B in the tier's conv mode."""
+        conv_prec = self._tier()[1]
         if not self.ensemble:
-            return aimnet2_apply(params, self.cfg, system, sae_external=True)["energy"]
+            return aimnet2_apply(params, self.cfg, system, sae_external=True, conv_precision=conv_prec)["energy"]
         if self.ensemble_fused:
-            return aimnet2_apply_ensemble(params, self.cfg, system, sae_external=True)["energy"]
+            return aimnet2_apply_ensemble(params, self.cfg, system, sae_external=True,
+                                          conv_precision=conv_prec)["energy"]
         n_e = params["afv"]["weight"].shape[0]
         return torch.stack([
-            aimnet2_apply(member_params(params, e), self.cfg, system, sae_external=True)["energy"]
+            aimnet2_apply(member_params(params, e), self.cfg, system, sae_external=True,
+                          conv_precision=conv_prec)["energy"]
             for e in range(n_e)
         ])
 

@@ -7,11 +7,17 @@ backward), and ``conv_pass``: the g-major layout prep and the ``agh``
 combine.  The TPU's block-diagonal gamma packing and banded z-row grid
 exist for its 128-lane tiles and sequential grid; the port keeps the
 per-offset tables and lets the kernels run one block per bin.
+
+``resolve_conv_mode`` maps the JAX package's ``conv_precision`` to the
+build of kernels A and B a pass launches (conv_stencil.CONV_MODES), and
+``ConvAcc`` runs its backward in the mode its forward ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
 
 import numpy as np
 import torch
@@ -26,6 +32,34 @@ from aimnetcentral_tpu_torch.kernels.conv_stencil import (
 from aimnetcentral_tpu_torch.ops import binned as B
 from aimnetcentral_tpu_torch.ops.math import cellmul
 from aimnetcentral_tpu_torch.system import System
+
+
+CONV_PRECISIONS = ("f32", "f32x3", "bf16")
+
+
+def resolve_conv_mode(conv_precision: str | None, device) -> str:
+    """The build of kernels A and B that a conv pass on ``device`` runs for
+    the JAX package's ``conv_precision`` (``None`` reads
+    ``AIMNET_CONV_PRECISION``, default "f32"; conv_pallas.py:594):
+
+    - on the card, "f32" runs "tf32" when ``torch.backends.cuda.matmul.
+      allow_tf32`` is on (the ``fast`` tier's ambient; JAX's "f32" is one
+      dot at the ambient precision, one bf16 MXU pass under its default)
+      and "fp32" otherwise; "f32x3" runs "3xtf32"; "bf16" runs "bf16";
+    - on the CPU the plain versions run in "fp32", the ambient there (as
+      JAX's XLA engine on the CPU), and the variable is not read.
+
+    Any other mode raises JAX's ``ValueError`` (conv_stencil._mxu_dtype)."""
+    if torch.device(device).type != "cuda":
+        return "fp32"
+    prec = conv_precision if conv_precision is not None else os.environ.get("AIMNET_CONV_PRECISION", "f32")
+    if prec not in CONV_PRECISIONS:
+        raise ValueError(f"precision must be 'f32', 'f32x3' or 'bf16', got {prec!r}")
+    if prec == "f32x3":
+        return "3xtf32"
+    if prec == "bf16":
+        return "bf16"
+    return "tf32" if torch.backends.cuda.matmul.allow_tf32 else "fp32"
 
 
 @functools.lru_cache(maxsize=16)
@@ -73,13 +107,19 @@ class ConvAcc(torch.autograd.Function):
     engine does), the first adjoint is kernel B's constants' build
     (``conv_stencil_backward_constants``) and returns their adjoints too;
     inference never asks for them, and runs the build without.
+
+    ``mode`` (``resolve_conv_mode``) is the build both kernels run: the
+    forward's, saved for the backward, as JAX's mode is static in its
+    ``ConvStatic``.  The second-order tangents run the plain version at
+    the ambient precision, and exact at "3xtf32", as JAX's twin pins
+    HIGHEST at "f32x3" (conv_pallas.py:94).
     """
 
     @staticmethod
-    def forward(ctx, a_gmajor, coord, shift, st, mask, nbr, mnbr, shifts_g, scal):
-        ctx.st = st
+    def forward(ctx, a_gmajor, coord, shift, st, mask, nbr, mnbr, shifts_g, scal, mode="fp32"):
+        ctx.st, ctx.mode = st, mode
         ctx.save_for_backward(a_gmajor, coord, shift, mask, nbr, mnbr, shifts_g, scal)
-        return conv_stencil_forward(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
+        return conv_stencil_forward(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, mode=mode)
 
     @staticmethod
     def backward(ctx, gbar):
@@ -88,12 +128,12 @@ class ConvAcc(torch.autograd.Function):
         constants = ctx.needs_input_grad[7] or ctx.needs_input_grad[8]
         if torch.is_grad_enabled():  # create_graph: the adjoint must itself be differentiable
             grads = ConvAccBwd.apply(a_gmajor, coord, shift, gbar, ctx.st, mask, nbr, mnbr, shifts_g, scal,
-                                     constants)
+                                     constants, ctx.mode)
         else:  # first order: kernel B alone, no node to record
             kernel = conv_stencil_backward_constants if constants else conv_stencil_backward
-            grads = kernel(ctx.st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
+            grads = kernel(ctx.st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar, mode=ctx.mode)
         consts = tuple(grads[3:]) if constants else (None, None)
-        return (*grads[:3], None, None, None, None, *consts)
+        return (*grads[:3], None, None, None, None, *consts, None)
 
 
 class ConvAccBwd(torch.autograd.Function):
@@ -107,17 +147,22 @@ class ConvAccBwd(torch.autograd.Function):
     complete: it carries the cell and the strain."""
 
     @staticmethod
-    def forward(ctx, a_gmajor, coord, shift, gbar, st, mask, nbr, mnbr, shifts_g, scal, constants=False):
-        ctx.st, ctx.constants = st, constants
+    def forward(ctx, a_gmajor, coord, shift, gbar, st, mask, nbr, mnbr, shifts_g, scal, constants=False,
+                mode="fp32"):
+        ctx.st, ctx.constants, ctx.mode = st, constants, mode
         ctx.save_for_backward(a_gmajor, coord, shift, gbar, mask, nbr, shifts_g, scal)
         kernel = conv_stencil_backward_constants if constants else conv_stencil_backward
-        return kernel(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar)
+        return kernel(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar, mode=mode)
 
     @staticmethod
     def backward(ctx, *tangents):
         a_gmajor, coord, shift, gbar, mask, nbr, shifts_g, scal = ctx.saved_tensors
         with_consts = ctx.needs_input_grad[8] or ctx.needs_input_grad[9]
-        with torch.enable_grad():
+        # calculators import this module: the tier context comes in late
+        from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context
+
+        exact = ambient_matmul_context("highest") if ctx.mode == "3xtf32" else contextlib.nullcontext()
+        with torch.enable_grad(), exact:
             leaves = [x.detach().requires_grad_(True) for x in (a_gmajor, coord, shift, gbar)]
             sg, sc = shifts_g, scal
             if with_consts:
@@ -127,7 +172,7 @@ class ConvAccBwd(torch.autograd.Function):
             wrt = leaves + ([sg, sc] if with_consts else [])
             grads = torch.autograd.grad(adj, wrt, tangents, allow_unused=True)
         consts = tuple(grads[4:]) if with_consts else (None, None)
-        return (*grads[:4], None, None, None, None, *consts, None)
+        return (*grads[:4], None, None, None, None, *consts, None, None)
 
 
 def conv_pass(
@@ -138,13 +183,15 @@ def conv_pass(
     agh_a: torch.Tensor,
     agh_q: torch.Tensor | None,
     rc_static: float,
+    conv_precision: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """ConvSV(a) [and ConvSV(q)] for one message pass (conv_pallas.
     conv_pass_pallas): the charge channels ride in each g block of the
     features, so one contraction serves both.  Features without a G axis
     (no ``d2features``) are broadcast along it, as the charges are: the
     contraction is then JAX's ``einsum("nmc,nmgd->ncgd")``, and autograd
-    of the broadcast sums the adjoint over G."""
+    of the broadcast sums the adjoint over G.  ``conv_precision``: JAX's
+    mode, resolved by :func:`resolve_conv_mode`."""
     grid = system.bins
     dev = system.device
     cell0 = system.cell[0] if system.cell is not None else None
@@ -175,7 +222,7 @@ def conv_pass(
 
     acc = ConvAcc.apply(
         a_gmajor.contiguous(), coord.contiguous(), shift.contiguous(), st, mask, nbr, mnbr,
-        shifts_g, scal,
+        shifts_g, scal, resolve_conv_mode(conv_precision, dev),
     )
     acc = acc.reshape(b_tot, 4, c, g_dim, f_tot)
 

@@ -23,14 +23,23 @@ Both kernels run one warp per receiver atom and contract only the real
 pairs within rc, which a ballot over the candidate slots picks out; FP32 on
 CUDA cores (the exact tier has no TF32) with no float atomics: every output
 element is owned by one block and every sum has a fixed order, so results
-are deterministic.  What bounds them on an H100 and what the design does about
-it is in the notes at the top of each source.  A G*F row wider than one
+are deterministic.  Each kernel also has tensor-core builds, one for each
+of the JAX package's conv precision modes (conv_stencil.py::_mxu_dot):
+``mode`` "tf32", "3xtf32" or "bf16" (``MMA_MODES``, csrc/conv_mma.cuh)
+rounds the contraction's operands as that mode does and contracts with
+``mma.sync``; "fp32" is the FP32 build.  kernels/conv_pass.py::
+resolve_conv_mode picks the mode from ``conv_precision`` and the ambient.
+The plain versions take the same ``mode`` and emulate the rounding
+(``round_tf32`` is ``cvt.rna.tf32.f32`` bit for bit).  What bounds them on
+an H100 and what the design does about it is in the notes at the top of
+each source.  A G*F row wider than one
 build's lanes hold (a fused ensemble's member-stacked features) is cut into
 column tiles, a grid axis of both kernels (``col_tiles``).
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  ``launches`` on each
-wrapper counts its kernel launches.
+wrapper counts its kernel launches, every build; ``builds`` counts them by
+mode.
 """
 
 from __future__ import annotations
@@ -49,6 +58,10 @@ WARPS = 8  # receiver atoms a block of kernels A and B, one warp each
 LANE_COLUMNS = (9, 17)  # columns of the G*F row a lane may own (the kernels' builds)
 MAX_COL_TILES = 8  # column tiles of one launch: G*F <= 8 x 544 = 4,352
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+MMA_MODES = {"tf32": 1, "3xtf32": 2, "bf16": 3}  # the tensor-core builds (csrc/conv_mma.cuh)
+CONV_MODES = ("fp32", *MMA_MODES)  # "fp32": the FP32 builds on the CUDA cores
+MMA_ROWS, MMA_G_TILE, MMA_F_TILE = 16, 16, 24  # conv_mma.cuh: kRows, kGTile, kFTile
+MMA_BWD_SMEM = 4 * (6 * 16 * 33 + 4 * 16 * 32 * 4 + 16 * 16 * 24 + 3 * 16 * 33 + 16 * 6)  # conv_bwd.cu::kMmaSmemFloats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,14 +80,69 @@ class ConvStatic:
 # plain versions
 
 
-def _conv_step(st: ConvStatic, s: int, a_gmajor, coord, mask, shift_s, nbr_s, shifts_g, scal):
-    """One stencil offset of the plain forward: (B, 4, C, G, F)."""
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on f32 values: round to nearest, ties away from
+    zero, to 10 mantissa bits (the low 13 bits cleared).  Subnormals round
+    on the same bits; the largest finite values round to infinity, as the
+    hardware rounds them; infinities and NaN pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)  # the sign bit stays: the magnitude rounds
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``__float2bfloat16_rn``: round to nearest even, 8 mantissa bits."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _mode_einsum(eq: str, x: torch.Tensor, y: torch.Tensor, mode: str) -> torch.Tensor:
+    """One contraction of the kernels in ``mode``: the operands rounded as
+    the tensor cores take them, the products and sums in FP32.  The rounded
+    values are TF32 numbers, so a TF32 matmul takes them unchanged and
+    their products are exact in f32 at any ambient."""
+    if mode == "tf32":
+        return torch.einsum(eq, round_tf32(x), round_tf32(y))
+    if mode == "bf16":
+        return torch.einsum(eq, round_bf16(x), round_bf16(y))
+    xh, yh = round_tf32(x), round_tf32(y)
+    xl, yl = round_tf32(x - xh), round_tf32(y - yh)
+    return torch.einsum(eq, xl, yh) + torch.einsum(eq, xh, yl) + torch.einsum(eq, xh, yh)
+
+
+class _ModeContract(torch.autograd.Function):
+    """``out[b,k,i,g,f] = sum_j W[b,k,i,j,g] a[b,j,g,f]`` in a tensor-core
+    mode, with the adjoint kernel B takes: ``wbar = gbar . a`` over f and
+    ``grad_a = W . gbar`` over (k, i), each with its operands rounded."""
+
+    @staticmethod
+    def forward(ctx, w, a_cand, mode):
+        ctx.mode = mode
+        ctx.save_for_backward(w, a_cand)
+        return _mode_einsum("bkijg,bjgf->bkigf", w, a_cand, mode)
+
+    @staticmethod
+    def backward(ctx, gout):
+        w, a_cand = ctx.saved_tensors
+        gw = _mode_einsum("bkigf,bjgf->bkijg", gout, a_cand, ctx.mode)
+        ga = _mode_einsum("bkijg,bkigf->bjgf", w, gout, ctx.mode)
+        return gw, ga, None
+
+
+def _pair_geometry(st: ConvStatic, s: int, coord, mask, shift_s, nbr_s, rc, mode: str):
+    """One stencil offset's pairs: ``diff`` (B, Ci, Cj, 3) = (x_j + shift)
+    - x_i, ``d`` and ``fc``.  The tensor-core modes round each operation on
+    its own in the order their builds take (csrc/conv_mma.cuh::
+    pair_geometry), so that their W is this W bit for bit and no rounding
+    of it to TF32 or bf16 goes the other way; "fp32" keeps the formulas
+    every FP32 gate was measured with."""
     c = st.c
-    eta, rc = scal[0], scal[1]
-    ci = coord
     cj = coord[nbr_s] + shift_s[:, None, :]
-    diff = cj[:, None, :, :] - ci[:, :, None, :]  # (B, Ci, Cj, 3)
-    d2 = (diff * diff).sum(-1)
+    diff = cj[:, None, :, :] - coord[:, :, None, :]  # (B, Ci, Cj, 3)
+    if mode == "fp32":
+        d2 = (diff * diff).sum(-1)
+    else:
+        dx, dy, dz = diff.unbind(-1)
+        d2 = dx * dx + dy * dy + dz * dz
     real_i = (mask > 0.5)[:, :, None]
     real_j = (mask[nbr_s] > 0.5)[:, None, :]
     vp = real_i & real_j
@@ -82,16 +150,29 @@ def _conv_step(st: ConvStatic, s: int, a_gmajor, coord, mask, shift_s, nbr_s, sh
         vp = vp & ~torch.eye(c, dtype=torch.bool, device=coord.device)[None]
     d = torch.sqrt(torch.where(vp, d2, torch.ones_like(d2)))
     within = vp & (d < rc)
-    fc = torch.where(within, 0.5 * (torch.cos(torch.minimum(d, rc) * (math.pi / rc)) + 1.0), 0.0)
+    if mode == "fp32":
+        fc = torch.where(within, 0.5 * (torch.cos(torch.minimum(d, rc) * (math.pi / rc)) + 1.0), 0.0)
+    else:
+        pi_rc = torch.full((), math.pi, dtype=rc.dtype, device=rc.device) / rc
+        fc = torch.where(within, 0.5 * (torch.cos(d * pi_rc) + 1.0), 0.0)
+    return diff, d, fc
+
+
+def _conv_step(st: ConvStatic, s: int, a_gmajor, coord, mask, shift_s, nbr_s, shifts_g, scal, mode: str = "fp32"):
+    """One stencil offset of the plain forward: (B, 4, C, G, F)."""
+    eta, rc = scal[0], scal[1]
+    diff, d, fc = _pair_geometry(st, s, coord, mask, shift_s, nbr_s, rc, mode)
     dd = d[..., None] - shifts_g
     gs = torch.exp(-eta * dd * dd) * fc[..., None]  # (B, Ci, Cj, G)
     u = diff / d[..., None]
     w = torch.stack([gs] + [gs * u[..., k, None] for k in range(3)], dim=1)  # (B, 4, Ci, Cj, G)
-    a_cand = a_gmajor[nbr_s].reshape(st.b_tot, c, st.g, st.f)
-    return torch.einsum("bkijg,bjgf->bkigf", w, a_cand)
+    a_cand = a_gmajor[nbr_s].reshape(st.b_tot, st.c, st.g, st.f)
+    if mode == "fp32":
+        return torch.einsum("bkijg,bjgf->bkigf", w, a_cand)
+    return _ModeContract.apply(w, a_cand, mode)
 
 
-def conv_forward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal):
+def conv_forward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, mode: str = "fp32"):
     """Plain version of kernel A (the twin of conv_pallas._conv_acc_xla).
 
     a_gmajor (B, C, G*F), coord (B, C, 3), mask (B, C), shift (S, B, 3)
@@ -99,37 +180,43 @@ def conv_forward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts
     bins (-1 for a gas-phase step without one; its shift pushes the
     candidates out of range), shifts_g (G,), scal (2,) = [eta, rc].
     Returns (B, 4, C, G*F).  Each offset is checkpointed so a backward holds
-    one offset's pair tensors at a time.
+    one offset's pair tensors at a time.  ``mode`` (``CONV_MODES``): the
+    contraction of that build of kernel A, its operands rounded as the
+    tensor cores take them (``_ModeContract``).
     """
+    _check_mode(mode)
     acc = torch.zeros((st.b_tot, 4, st.c, st.g, st.f), dtype=a_gmajor.dtype, device=a_gmajor.device)
     nbr = nbr.clamp(min=0).long()
     for s in range(st.s_tot):
         acc = acc + checkpoint(
-            _conv_step, st, s, a_gmajor, coord, mask, shift[s], nbr[s], shifts_g, scal,
+            _conv_step, st, s, a_gmajor, coord, mask, shift[s], nbr[s], shifts_g, scal, mode,
             use_reentrant=False,
         )
     return acc.reshape(st.b_tot, 4, st.c, st.g * st.f)
 
 
 def conv_backward_plain(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar,
-                        create_graph: bool = False, constants: bool = False):
+                        create_graph: bool = False, constants: bool = False, mode: str = "fp32"):
     """Plain version of kernel B: the VJP of :func:`conv_forward_plain`
     through torch.autograd, in B's output frame ``(grad_a (B, C, G*F),
     grad_coord (B, C, 3), grad_shift (S, B, 3))``, and with ``constants``
     also ``grad_shifts_g (G,)`` and ``grad_scal (2,)`` (the plain version of
-    :func:`conv_stencil_backward_constants`).
+    :func:`conv_stencil_backward_constants`).  ``mode`` as the forward's:
+    B's two contractions round their operands as that build does.
 
     With ``create_graph`` the caller's ``a_gmajor``, ``coord``, ``shift``
     and ``gbar`` (and with ``constants`` ``shifts_g`` and ``scal``; leaves
     that require grad) stay in the graph, so the adjoint can be
     differentiated again: the tangents of ConvAcc's second order
-    (kernels/conv_pass.py::ConvAccBwd)."""
+    (kernels/conv_pass.py::ConvAccBwd), which run in "fp32"."""
+    if create_graph and mode != "fp32":
+        raise ValueError("the second-order tangents run the plain version in 'fp32'")
     with torch.enable_grad():
         if not create_graph:
             a_gmajor, coord, shift = (x.detach().requires_grad_(True) for x in (a_gmajor, coord, shift))
             if constants:
                 shifts_g, scal = (x.detach().requires_grad_(True) for x in (shifts_g, scal))
-        out = conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
+        out = conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, mode)
         wrt = (a_gmajor, coord, shift) + ((shifts_g, scal) if constants else ())
         return torch.autograd.grad(out, wrt, gbar, create_graph=create_graph)
 
@@ -226,10 +313,28 @@ def bwd_smem_bytes(st: ConvStatic, constants: bool = False) -> int:
     return max(rows, 4 * WARPS * (st.g * st.f + 2)) if constants else rows
 
 
-def _counts_arg(st: ConvStatic, pair_counts):
+def _check_mode(mode: str) -> None:
+    if mode not in CONV_MODES:
+        raise ValueError(f"mode must be one of {CONV_MODES}, not {mode!r}")
+
+
+def mma_tiles(st: ConvStatic) -> int:
+    """The tensor-core builds' shift-and-column tiles, a grid axis of both
+    kernels: MMA_G_TILE radial shifts by MMA_F_TILE feature columns."""
+    return -(-st.g // MMA_G_TILE) * -(-st.f // MMA_F_TILE)
+
+
+def mma_atom_tiles(st: ConvStatic) -> int:
+    """Kernel B's atom tiles a bin in the tensor-core builds (MMA_ROWS atoms)."""
+    return -(-st.c // MMA_ROWS)
+
+
+def _counts_arg(st: ConvStatic, pair_counts, mode: str):
     """The optional per-row pair-count output of a kernel, as a pointer."""
     if pair_counts is None:
         return ctypes.c_void_p(0)
+    if mode != "fp32":
+        raise ValueError("pair_counts: the tensor-core builds count no pairs")
     if pair_counts.dtype != torch.int32 or tuple(pair_counts.shape) != (st.b_tot * st.c,) \
             or pair_counts.device.type != "cuda" or not pair_counts.is_contiguous():
         raise ValueError(f"pair_counts: the kernel takes a contiguous int32 CUDA tensor of "
@@ -237,36 +342,50 @@ def _counts_arg(st: ConvStatic, pair_counts):
     return _ptr(pair_counts)
 
 
+def _count(wrapper, mode: str) -> None:
+    wrapper.launches += 1
+    wrapper.builds[mode] += 1
+
+
 def conv_stencil_forward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shifts_g, scal,
-                         pair_counts=None):
+                         pair_counts=None, mode: str = "fp32"):
     """Kernel A: the stencil ConvSV contraction, (B, 4, C, G*F).  Arguments
-    as :func:`conv_forward_plain`; ``nbr`` is int32 on the card.
+    as :func:`conv_forward_plain`; ``nbr`` is int32 on the card.  ``mode``
+    picks the build (``CONV_MODES``).
 
     ``pair_counts``, a (B*C,) int32 CUDA tensor, receives the pairs each
-    receiver row contracted (a diagnostic; the plain version has none).
+    receiver row contracted (a diagnostic of the FP32 build; the plain
+    version has none).
     """
+    _check_mode(mode)
     if a_gmajor.device.type == "cpu":
         if pair_counts is not None:
             raise ValueError("pair_counts: only the kernel counts its pairs")
-        return conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal)
+        return conv_forward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, mode)
     _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr,
            shifts_g=shifts_g, scal=scal)
-    _tiles, width, cols = col_tiles(st)
-    counts = _counts_arg(st, pair_counts)
+    counts = _counts_arg(st, pair_counts, mode)
     out = torch.empty((st.b_tot, 4, st.c, st.g * st.f), dtype=torch.float32, device=a_gmajor.device)
-    launch = _bind("conv_fwd", "conv_fwd_launch", 9, 7)
-    err = launch(
-        _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(nbr), _ptr(shift), _ptr(shifts_g),
-        _ptr(scal), _ptr(out), counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width,
-        ctypes.c_void_p(torch.cuda.current_stream(a_gmajor.device).cuda_stream),
-    )
+    stream = ctypes.c_void_p(torch.cuda.current_stream(a_gmajor.device).cuda_stream)
+    if mode == "fp32":
+        _tiles, width, cols = col_tiles(st)
+        err = _bind("conv_fwd", "conv_fwd_launch", 9, 7)(
+            _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(nbr), _ptr(shift), _ptr(shifts_g),
+            _ptr(scal), _ptr(out), counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream,
+        )
+    else:
+        err = _bind("conv_fwd", "conv_fwd_mma_launch", 8, 6)(
+            _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(nbr), _ptr(shift), _ptr(shifts_g),
+            _ptr(scal), _ptr(out), st.b_tot, st.c, st.g, st.f, st.s_tot, MMA_MODES[mode], stream,
+        )
     if err != 0:
-        raise RuntimeError(f"conv kernel A launch failed: cudaError {err}")
-    conv_stencil_forward.launches += 1
+        raise RuntimeError(f"conv kernel A ({mode}) launch failed: cudaError {err}")
+    _count(conv_stencil_forward, mode)
     return out
 
 
 conv_stencil_forward.launches = 0
+conv_stencil_forward.builds = dict.fromkeys(CONV_MODES, 0)
 
 
 def gather_partner_adjoints(st: ConvStatic, nbr, dc_recv, pgrad):
@@ -290,35 +409,47 @@ def gather_partner_adjoints(st: ConvStatic, nbr, dc_recv, pgrad):
 
 
 def _launch_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar,
-                     pair_counts, constants: bool):
-    """Kernel B's launch (``constants``: its constants' build) and the
-    fixed-order sums after it; the caller counts the launch."""
+                     pair_counts, constants: bool, mode: str):
+    """Kernel B's launch (``constants``: its constants' build; ``mode``:
+    the build) and the fixed-order sums after it; the caller counts the
+    launch."""
     _check(st, a_gmajor=a_gmajor, coord=coord, mask=mask, shift=shift, nbr=nbr, mnbr=mnbr,
            shifts_g=shifts_g, scal=scal, gbar=gbar)
-    tiles, width, cols = col_tiles(st)
+    mma = mode != "fp32"
+    if mma:
+        tiles, atom_tiles, smem = mma_tiles(st), mma_atom_tiles(st), MMA_BWD_SMEM
+    else:
+        tiles, width, cols = col_tiles(st)
+        atom_tiles, smem = bwd_tiles(st), bwd_smem_bytes(st, constants)
     if constants and tiles > 1:
-        raise ValueError(f"the AEV constants' adjoint takes one column tile (G*F <= "
-                         f"{32 * LANE_COLUMNS[-1]}), not G*F = {st.g * st.f}")
-    counts = _counts_arg(st, pair_counts)
-    if bwd_smem_bytes(st, constants) > SMEM_LIMIT:
+        limit = f"G <= {MMA_G_TILE} and F <= {MMA_F_TILE}" if mma else f"G*F <= {32 * LANE_COLUMNS[-1]}"
+        raise ValueError(f"the AEV constants' adjoint takes one column tile ({limit}), not "
+                         f"G = {st.g}, F = {st.f}")
+    counts = _counts_arg(st, pair_counts, mode)
+    if smem > SMEM_LIMIT:
         raise ValueError(f"conv kernel B does not take C={st.c}")
     dev = a_gmajor.device
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     grad_a = torch.empty((st.b_tot, st.c, st.g * st.f), dtype=torch.float32, device=dev)
     dc_recv = torch.empty((tiles, st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
-    pgrad = torch.empty((tiles, st.s_tot, st.b_tot, bwd_tiles(st), 3, st.c), dtype=torch.float32, device=dev)
+    pgrad = torch.empty((tiles, st.s_tot, st.b_tot, atom_tiles, 3, st.c), dtype=torch.float32, device=dev)
     args = [_ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(gbar), _ptr(mnbr), _ptr(shift),
-            _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad), counts]
+            _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad)]
     cbar = None
     if constants:
-        cbar = torch.empty((st.b_tot, bwd_tiles(st), st.g + 2), dtype=torch.float32, device=dev)
+        cbar = torch.empty((st.b_tot, atom_tiles, st.g + 2), dtype=torch.float32, device=dev)
+    if mma:
+        err = _bind("conv_bwd", "conv_bwd_mma_launch", 12, 7)(
+            *args, _ptr(cbar) if constants else ctypes.c_void_p(0), st.b_tot, st.c, st.g, st.f, st.s_tot,
+            MMA_MODES[mode], int(constants), stream)
+    elif constants:
         err = _bind("conv_bwd", "conv_bwd_const_launch", 13, 7)(
-            *args, _ptr(cbar), st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
+            *args, counts, _ptr(cbar), st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
     else:
         err = _bind("conv_bwd", "conv_bwd_launch", 12, 7)(
-            *args, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
+            *args, counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
     if err != 0:
-        raise RuntimeError(f"conv kernel B launch failed: cudaError {err}")
+        raise RuntimeError(f"conv kernel B ({mode}) launch failed: cudaError {err}")
     # the column tiles' partials, then the atom tiles' partial row sums,
     # each added in a fixed order
     if tiles > 1:
@@ -333,43 +464,50 @@ def _launch_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, sh
 
 
 def conv_stencil_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar,
-                          pair_counts=None):
+                          pair_counts=None, mode: str = "fp32"):
     """Kernel B: ``(grad_a (B, C, G*F), grad_coord (B, C, 3), grad_shift
     (S, B, 3))`` for the output cotangent ``gbar`` (B, 4, C, G*F).
 
     ``mnbr`` (S, B) is the receiver-centric mirror of ``nbr``
     (ops/binned.py::mirror_stencil_tables), -1 where a step has no partner.
-    ``pair_counts`` as in :func:`conv_stencil_forward`, per receiver atom j.
+    ``pair_counts`` as in :func:`conv_stencil_forward`, per receiver atom j;
+    ``mode`` the build.
     """
+    _check_mode(mode)
     if a_gmajor.device.type == "cpu":
         if pair_counts is not None:
             raise ValueError("pair_counts: only the kernel counts its pairs")
-        return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar)
+        return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar, mode=mode)
     out = _launch_backward(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar, pair_counts,
-                           constants=False)
-    conv_stencil_backward.launches += 1
+                           constants=False, mode=mode)
+    _count(conv_stencil_backward, mode)
     return out
 
 
 conv_stencil_backward.launches = 0
+conv_stencil_backward.builds = dict.fromkeys(CONV_MODES, 0)
 
 
 def conv_stencil_backward_constants(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal,
-                                    gbar, pair_counts=None):
+                                    gbar, pair_counts=None, mode: str = "fp32"):
     """Kernel B's constants' build: :func:`conv_stencil_backward`'s three
     adjoints and those of the AEV constants, ``grad_shifts_g (G,)`` and
     ``grad_scal (2,)`` = (eta, rc).  Each block writes its G + 2 partial
     sums and they are added here in a fixed order (no float atomics).  One
-    column tile only (G*F <= 544, a single model's widths): a wider row
-    raises ``ValueError``."""
+    column tile only (G*F <= 544 in the FP32 build, G <= 16 and F <= 24 in
+    the tensor-core builds: a single model's widths): a wider row raises
+    ``ValueError``."""
+    _check_mode(mode)
     if a_gmajor.device.type == "cpu":
         if pair_counts is not None:
             raise ValueError("pair_counts: only the kernel counts its pairs")
-        return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar, constants=True)
+        return conv_backward_plain(st, a_gmajor, coord, mask, shift, nbr, shifts_g, scal, gbar, constants=True,
+                                   mode=mode)
     out = _launch_backward(st, a_gmajor, coord, mask, shift, nbr, mnbr, shifts_g, scal, gbar, pair_counts,
-                           constants=True)
-    conv_stencil_backward_constants.launches += 1
+                           constants=True, mode=mode)
+    _count(conv_stencil_backward_constants, mode)
     return out
 
 
 conv_stencil_backward_constants.launches = 0
+conv_stencil_backward_constants.builds = dict.fromkeys(CONV_MODES, 0)

@@ -18,14 +18,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
 
 from aimnetcentral_tpu_torch.device import resolve_device
-from aimnetcentral_tpu_torch.kernels.conv_pass import conv_pass
+from aimnetcentral_tpu_torch.kernels.conv_pass import CONV_PRECISIONS, conv_pass
 from aimnetcentral_tpu_torch.models.heads import HeadSpec, head_apply, head_init
-from aimnetcentral_tpu_torch.models.modules import MLPSpec, mlp_apply, mlp_init
+from aimnetcentral_tpu_torch.models.modules import MLPSpec, mlp_apply, mlp_init, orthogonal_embedding_init
 from aimnetcentral_tpu_torch.ops import math as aops
 from aimnetcentral_tpu_torch.ops.math import nse
 from aimnetcentral_tpu_torch.ops.nb import gather_nb, mask_pad_atoms, mol_sum, pair_mask
@@ -115,9 +116,7 @@ def aimnet2_init(cfg: AIMNet2Config, seed: int = 0, device: str | torch.device =
     gen = torch.Generator(device=dev).manual_seed(seed)
     nprng = np.random.default_rng(seed)
 
-    afv = torch.empty((64, cfg.nfeature), device=dev)
-    torch.nn.init.orthogonal_(afv, generator=gen)
-    afv[0] = 0.0
+    afv = orthogonal_embedding_init(gen, 64, cfg.nfeature, dev)
     if cfg.d2features:
         afv = afv[:, :, None].expand(64, cfg.nfeature, cfg.nshifts).reshape(64, cfg.nfeature_tot)
 
@@ -177,12 +176,48 @@ def _conv_sv(agh: torch.Tensor, a: torch.Tensor, g_sv: torch.Tensor, nbmat: torc
     return torch.cat([avf_s.reshape(n, -1), avf_v.reshape(n, -1)], dim=-1)
 
 
-def aimnet2_apply(params: dict, cfg: AIMNet2Config, system: System, sae_external: bool = False) -> dict:
+def _conv_engine(system: System) -> str:
+    """Where a System's ConvSV runs: ``"kernel"`` (kernels A and B, a
+    binned layout on the card), ``"plain"`` (their plain versions, a binned
+    layout on the CPU) or ``"indexed"`` (``_conv_sv``, a torch contraction
+    that follows ``allow_tf32``)."""
+    if system.bins is None:
+        return "indexed"
+    return "kernel" if system.coord.device.type == "cuda" else "plain"
+
+
+def check_conv_precision(engine: str, conv_precision: str | None) -> None:
+    """Validate a requested conv precision mode (JAX's models/aimnet2.py::
+    check_conv_precision) and refuse to drop it silently: the mode exists
+    only inside kernels A and B, so where the conv runs elsewhere (the
+    plain versions on the CPU, exact f32 there as JAX's XLA engine is;
+    the indexed layout) a user who asked for one hears it.  Python's
+    warning registry reports each call site once a process."""
+    if conv_precision is None:
+        return
+    if conv_precision not in CONV_PRECISIONS:
+        raise ValueError(f"conv_precision must be 'f32', 'f32x3' or 'bf16', got {conv_precision!r}")
+    if engine != "kernel":
+        warnings.warn(
+            f"conv_precision={conv_precision!r} requested but the conv runs on the {engine!r} engine - "
+            "it follows the ambient matmul precision instead",
+            stacklevel=3,
+        )
+
+
+def aimnet2_apply(params: dict, cfg: AIMNet2Config, system: System, sae_external: bool = False,
+                  conv_precision: str | None = None) -> dict:
     """Full forward pass on a binned or an indexed System.  Returns the data
     dict with ``energy`` (num_mol,) [without SAE when ``sae_external``],
     ``charges`` (N,), ``aim`` (N, aim_size), ``_delta_Q`` and, when SAE is
-    external, ``mol_element_counts``."""
+    external, ``mol_element_counts``.
+
+    ``conv_precision``: the contraction mode of kernels A and B ("f32",
+    "f32x3", "bf16"; ``None`` reads ``AIMNET_CONV_PRECISION``;
+    kernels/conv_pass.py::resolve_conv_mode) -- the calculator's
+    ``precision="balanced"`` passes "f32x3" here."""
     binned = system.bins is not None
+    check_conv_precision(_conv_engine(system), conv_precision)
     n = system.natoms
     c = cfg.num_charge_channels
     a = params["afv"]["weight"][system.numbers]
@@ -218,6 +253,7 @@ def aimnet2_apply(params: dict, cfg: AIMNet2Config, system: System, sae_external
                 params["conv_a"]["agh"],
                 params["conv_q"]["agh"],
                 rc_static=cfg.aev.rc_s,
+                conv_precision=conv_precision,
             )
         else:
             conv_a = _conv_sv(params["conv_a"]["agh"], a, g_sv, system.nbmat, cfg.d2features)

@@ -33,7 +33,14 @@ import torch
 from aimnetcentral_tpu_torch.kernels.conv_pass import conv_pass
 from aimnetcentral_tpu_torch.models import engine_binned as eb
 from aimnetcentral_tpu_torch.models import ewald, lr
-from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config, _calc_aev, _conv_sv, mlp_spec_for_pass
+from aimnetcentral_tpu_torch.models.aimnet2 import (
+    AIMNet2Config,
+    _calc_aev,
+    _conv_sv,
+    check_conv_precision,
+    _conv_engine,
+    mlp_spec_for_pass,
+)
 from aimnetcentral_tpu_torch.models.heads import HeadSpec, _center_coordinates, head_apply
 from aimnetcentral_tpu_torch.models.modules import MLPSpec, get_activation
 from aimnetcentral_tpu_torch.ops import math as aops
@@ -100,13 +107,16 @@ def _channels_as_members(x: torch.Tensor, n_e: int) -> torch.Tensor:
     return x.reshape(x.shape[0], n_e, -1).movedim(1, 0)
 
 
-def aimnet2_apply_ensemble(params: dict, cfg: AIMNet2Config, system: System, sae_external: bool = False) -> dict:
+def aimnet2_apply_ensemble(params: dict, cfg: AIMNet2Config, system: System, sae_external: bool = False,
+                           conv_precision: str | None = None) -> dict:
     """The fused ensemble forward over member-stacked ``params`` (leading
     axis E) on a binned or an indexed System.  Returns the data dict with a
     leading member axis on the member-dependent keys (``energy`` (E,
     num_mol), ``charges`` and ``spin_charges`` (E, N), ``aim`` (E, N, A));
     ``mol_element_counts`` stays unstacked.  Agrees with
-    ``aimnet2_apply`` of each member (tests/test_torch_ensemble.py)."""
+    ``aimnet2_apply`` of each member (tests/test_torch_ensemble.py).
+    ``conv_precision`` as :func:`aimnet2_apply`'s."""
+    check_conv_precision(_conv_engine(system), conv_precision)
     n = system.natoms
     c = cfg.num_charge_channels
     n_e = ensemble_size(params)
@@ -143,7 +153,8 @@ def aimnet2_apply_ensemble(params: dict, cfg: AIMNet2Config, system: System, sae
         a_st = _stack_channels(a_e)  # (N, E*F[, G])
         q_st = _members_as_channels(charges_e) if ipass > 0 else None  # (N, E*c)
         if binned:
-            conv_a, conv_q = conv_pass(system, aev0, a_st, q_st, agh_a_st, agh_q_st, rc_static=cfg.aev.rc_s)
+            conv_a, conv_q = conv_pass(system, aev0, a_st, q_st, agh_a_st, agh_q_st, rc_static=cfg.aev.rc_s,
+                                       conv_precision=conv_precision)
         else:
             conv_a = _conv_sv(agh_a_st, a_st, g_sv, system.nbmat, cfg.d2features)
             conv_q = _conv_sv(agh_q_st, q_st, g_sv, system.nbmat, False) if ipass > 0 else None

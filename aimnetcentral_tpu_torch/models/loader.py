@@ -35,6 +35,7 @@ from aimnetcentral_tpu_torch.models.aimnet2 import AIMNet2Config
 from aimnetcentral_tpu_torch.models.convert import config_from_yaml, convert_state_dict
 from aimnetcentral_tpu_torch.models.heads import DFTD3Head, LRCoulombHead, head_init
 from aimnetcentral_tpu_torch.models.validation import (
+    FORBIDDEN_CONSTRUCTOR_KEYS,
     LEGACY_JPT_IMPORT_POLICY,
     REGISTRY_IMPORT_POLICY,
     ModelImportPolicy,
@@ -42,6 +43,8 @@ from aimnetcentral_tpu_torch.models.validation import (
     validate_model_metadata,
     validate_model_yaml_tree,
 )
+
+FORBIDDEN_KWARGS = tuple(sorted(FORBIDDEN_CONSTRUCTOR_KEYS))  # JAX's loader names them so
 
 
 class LoadedModel(NamedTuple):

@@ -34,6 +34,15 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(f"unknown activation {name!r}")
 
 
+def orthogonal_embedding_init(gen: torch.Generator, num: int, dim: int, device: torch.device) -> torch.Tensor:
+    """Orthogonal rows 1.. with a zero padding row 0 (reference
+    aimnet/modules/core.py:64-68)."""
+    w = torch.empty((num, dim), device=device)
+    torch.nn.init.orthogonal_(w, generator=gen)
+    w[0] = 0.0
+    return w
+
+
 def mlp_init(
     gen: torch.Generator, n_in: int, n_out: int, spec: MLPSpec, device: torch.device
 ) -> list[dict[str, torch.Tensor]]:

@@ -25,6 +25,9 @@ import torch
 from aimnetcentral_tpu_torch import constants
 from aimnetcentral_tpu_torch.ops.math import cellmul
 
+SPLINE_ORDER = 4  # the cardinal B-spline's order: each charge spreads over 4^3 mesh points
+
+
 def bspline4_weights(u: torch.Tensor) -> torch.Tensor:
     """Order-4 cardinal B-spline weights (..., 4) of the mesh points
     floor(u) - 1 .. floor(u) + 2 for the fractional offset u in [0, 1)."""
@@ -99,7 +102,7 @@ def _spread_geometry(frac: torch.Tensor, mesh: tuple[int, int, int]):
     scaled = frac * mesh_f
     base = torch.floor(scaled)
     w = bspline4_weights(scaled - base)  # (N, 3, 4)
-    offs = torch.arange(-1, 3, device=frac.device)
+    offs = torch.arange(-1, SPLINE_ORDER - 1, device=frac.device)
     idx = (base.to(torch.int64)[:, :, None] + offs) % mesh_i[None, :, None]
     w3 = w[:, 0, :, None, None] * w[:, 1, None, :, None] * w[:, 2, None, None, :]
     flat = (idx[:, 0, :, None, None] * k2 + idx[:, 1, None, :, None]) * k3 + idx[:, 2, None, None, :]

@@ -86,6 +86,32 @@ def nse(
     return q, dQ
 
 
+def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """The Huber loss: 0.5 x^2 inside |x| < delta, linear beyond."""
+    ax = torch.abs(x)
+    return torch.where(ax < delta, 0.5 * x * x, delta * (ax - 0.5 * delta))
+
+
+def bumpfn(x: torch.Tensor, low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+    """Smooth 0 -> 1 transition over [low, high] (reference aimnet/ops.py:280-287)."""
+    x = torch.clamp((x - low) / (high - low), 1e-6, 1 - 1e-6)
+    a = torch.exp(-1.0 / x)
+    b = torch.exp(-1.0 / (1.0 - x))
+    return a / (a + b)
+
+
+def smoothstep(x: torch.Tensor, low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+    """Quintic smoothstep 0 -> 1 over [low, high] (reference aimnet/ops.py:289-294)."""
+    x = torch.clamp((x - low) / (high - low), 0.0, 1.0)
+    return x**3 * (x * (x * 6.0 - 15.0) + 10.0)
+
+
+def expstep(x: torch.Tensor, low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+    """exp(-1 / (1 - x^2)) over [low, high], 1 at ``low``."""
+    x = torch.clamp((x - low) / (high - low), 1e-6, 1 - 1e-6)
+    return torch.exp(-1.0 / (1.0 - x * x)) / 0.36787944117144233
+
+
 def erfc_approx(x: torch.Tensor) -> torch.Tensor:
     """f32-grade erfc for x >= 0 (Abramowitz & Stegun 7.1.26, |error| <
     1.5e-7); the same rational form as the JAX package's DSF term."""

@@ -248,7 +248,7 @@ class SpatialEnergy:
     every spatial collective runs on; ``member`` is this rank's member."""
 
     def __init__(self, cfg: AIMNet2Config, spec: SpatialSpec, mesh: Mesh, ewald_kpts=None,
-                 ens_axis: str | None = None, observables: bool = False):
+                 ens_axis: str | None = None, observables: bool = False, conv_precision: str | None = None):
         cfg = auto_switch_simple_to_dsf(cfg)
         if observables and ens_axis is not None:
             raise ValueError("observables mode returns single-model outputs; run it per member")
@@ -270,6 +270,7 @@ class SpatialEnergy:
             ):
                 raise ValueError("Ewald/PME heads need plan_spatial on an attach_ewald'd System and its ewald_kpts")
         self.cfg, self.spec, self.mesh, self.observables = cfg, spec, mesh, observables
+        self.conv_precision = conv_precision
         dev = mesh.device
         self.kpts = None if ewald_kpts is None else torch.as_tensor(ewald_kpts, dtype=torch.float32, device=dev)
         self.core = spec.core_mask(dev)
@@ -342,7 +343,8 @@ class SpatialEnergy:
             a_ext = self.exchange(a_flat).reshape((-1,) + a.shape[1:])
             q_ext = self.exchange(charges) if charges is not None else None
             conv_a, conv_q = conv_pass(sys_ext, params["aev"], a_ext, q_ext, params["conv_a"]["agh"],
-                                       params["conv_q"]["agh"], rc_static=cfg.aev.rc_s)
+                                       params["conv_q"]["agh"], rc_static=cfg.aev.rc_s,
+                                       conv_precision=self.conv_precision)
             if ipass == 0:
                 x = torch.cat([a_flat, spec.take_core(conv_a)], dim=-1)
             else:
@@ -470,7 +472,8 @@ class SpatialEnergy:
 
 
 def make_spatial_energy_fn(cfg: AIMNet2Config, spec: SpatialSpec, mesh: Mesh, ewald_kpts=None,
-                           ens_axis: str | None = None, observables: bool = False) -> SpatialEnergy:
+                           ens_axis: str | None = None, observables: bool = False,
+                           conv_precision: str | None = None) -> SpatialEnergy:
     """Build ``fn(params, coord, numbers, charge, cell, mult=None)`` -> the
     total energy (1,), on every rank of ``mesh``.
 
@@ -491,8 +494,11 @@ def make_spatial_energy_fn(cfg: AIMNet2Config, spec: SpatialSpec, mesh: Mesh, ew
     slot order, on every rank) and, where the config has the heads,
     ``dipole``/``quadrupole`` (``spin_charges`` for NSE models), each summed
     over the mesh as the energy is.  It takes no ``ens_axis``
-    (``ValueError``): run it per member."""
-    return SpatialEnergy(cfg, spec, mesh, ewald_kpts, ens_axis, observables)
+    (``ValueError``): run it per member.
+
+    ``conv_precision``: the shard convs' mode, as ``aimnet2_apply``'s (JAX's
+    shard-local conv takes none: its ``balanced`` is ``exact`` there)."""
+    return SpatialEnergy(cfg, spec, mesh, ewald_kpts, ens_axis, observables, conv_precision)
 
 
 def spatial_forces(efn: SpatialEnergy, params: dict, coord, numbers, charge, cell, mult=None,
@@ -543,6 +549,7 @@ class SpatialMDDriver:
 
     def __init__(self, params: dict, cfg: AIMNet2Config, system: System, md, n_sp: int, seed: int = 0,
                  n_spy: int = 1, device: torch.device | None = None):
+        from aimnetcentral_tpu_torch.calculators.calculator import precision_tiers
         from aimnetcentral_tpu_torch.dynamics.md import maxwell_boltzmann_velocities
 
         if system.bins is None or system.cell is None:
@@ -554,7 +561,8 @@ class SpatialMDDriver:
             raise ValueError("this rank is outside the spatial mesh")
         dev = self.mesh.device
         system = system.to(dev)
-        self.efn = make_spatial_energy_fn(cfg, self.spec, self.mesh, ewald_kpts=system.ewald_kpts)
+        self.efn = make_spatial_energy_fn(cfg, self.spec, self.mesh, ewald_kpts=system.ewald_kpts,
+                                          conv_precision=precision_tiers(md.precision or "fast")[1])
         self.grid = system.bins
         self.system = system
         self.cell = system.cell[0]
@@ -576,7 +584,7 @@ class SpatialMDDriver:
         from aimnetcentral_tpu_torch.calculators.calculator import ambient_matmul_context, precision_tiers
 
         sysb = self.system
-        with ambient_matmul_context(precision_tiers(self.md.precision or "fast")):
+        with ambient_matmul_context(precision_tiers(self.md.precision or "fast")[0]):
             c = coord.detach().requires_grad_(True)
             e = self.efn.tile_energy(self.params, c, self.numbers, sysb.charge, self.cell, sysb.mult)
             (g,) = torch.autograd.grad(e.sum(), c)

@@ -80,6 +80,10 @@ class System:
         """Index of the guaranteed padding row (the neighbor fill value)."""
         return self.coord.shape[0] - 1
 
+    def mask_i(self) -> torch.Tensor:
+        """(N,) bool, True for padding atoms."""
+        return self.numbers == 0
+
     def resolve_nb(self, *suffixes: str) -> tuple[torch.Tensor, torch.Tensor | None, str]:
         """The first (nbmat, shifts, suffix) present among ``suffixes``;
         suffix "" is the base SR matrices."""

@@ -185,11 +185,12 @@ def get_learning_rate(adam: torch.optim.Adam) -> float | None:
 def ambient_for(precision: str) -> str:
     """A training tier's matmul precision, through the calculator's single
     mapping (``precision_tiers``).  Training takes ``fast`` (TF32 matmuls,
-    the default) and ``exact`` (TF32 off) only: ``balanced`` differs from
-    ``exact`` only inside the conv kernels of the TPU package."""
+    the default) and ``exact`` (TF32 off) only, as JAX's (train/step.py::
+    ambient_for); the conv precision is then ``None``: kernels A and B run
+    in one TF32 pass at ``fast`` (conv_pass.resolve_conv_mode)."""
     if precision not in ("fast", "exact"):
         raise ValueError(f"train precision must be 'fast' or 'exact', got {precision!r}")
-    return precision_tiers(precision)
+    return precision_tiers(precision)[0]
 
 
 # ---------------------------------------------------------------------------

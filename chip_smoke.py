@@ -59,7 +59,7 @@ Phases (any failure exits nonzero; nothing is caught):
    measurements are taken over the first 50 steps of a fresh NVE driver at
    each tier, gated at ``exact`` on the total energy (within 1e-4 of
    itself); two drivers of one seed give the same coordinates bit for bit
-   after 50 steps; on the 500-atom box, 3 NVE steps and 3 FIRE steps
+   after 50 steps; on the 500-atom box, 2 NVE steps and 2 FIRE steps
    of wb97m-d3 on the card at the exact tier against the CPU, per-step
    energies and forces and final coordinates within ``CHECK_ABS``, with the
    same steps at ``fast`` as the control that must exceed them;
@@ -204,6 +204,22 @@ history, ``train_loss`` falling) with a checkpoint after the first and a
 resumed second epoch equal bit for bit; the CLI's ``calc-sae``, ``train``
 and ``export`` bodies, the artifact on the card within ``CHECK_ABS``.
 
+Then phase ``conv_precision`` (``phase_conv_precision``, about 20 s):
+kernels A and B's tensor-core builds (csrc/conv_mma.cuh, one a mode of the
+JAX package's ``conv_precision``: "tf32", "3xtf32", "bf16") against their
+plain versions in the same mode on the card within 1e-5 of each output's
+largest magnitude, and bit for bit on a repeat, on flagship-10k's request
+grid (F = 16, 17), at a fused ensemble's G*F = 1,088 (F = 68) and B's
+constants' build on packed-64x48's molecule bins, with ms a launch and the
+bound at the tensor cores' rate; flagship-10k requests at ``balanced``
+(forces within ``CHECK_ABS`` of ``exact``), ``fast`` (the control that
+must exceed it) and ``exact`` with ``AIMNET_CONV_PRECISION=bf16`` (within
+2e-2 of max |F|), each launching A and B 3 times in its tier's build, the
+median ms of five requests; 4 MD steps at ``fast`` and at ``balanced``
+(A, B 3 a step in the tier's build); one train step on packed-64x48 in
+each mode (B's constants' build 6 a step).  ``--only conv_precision``
+runs the card and build phases and this one alone, with no result line.
+
 Then phase ``spatial`` (``phase_spatial``): one periodic box sharded over
 ranks (aimnetcentral_tpu_torch/parallel/): one world of four ranks spawned
 after the kernels are built (gloo on one card, the halo buffers staged
@@ -240,7 +256,13 @@ error); rows named with "column tiles" and "member form" are the
 ensemble phase's forms of A, B and of D, E (the fused request's and MD
 step's shapes: A and B at G*F = 1,088, D and E DSF's member form on the
 fused request's LR grid), counted over
-the fused requests and the ensemble MD window; ``launches`` counts every main-path run (both configurations'
+the fused requests and the ensemble MD window; rows named with a mode in
+brackets are the tensor-core builds (one launch at F = 17 on the request
+grid; B's constants' build on packed-64x48), their launches counted by
+build over every phase after ``kernels`` (the ``fast`` MD windows,
+training and the ``conv_precision`` phase's requests, MD steps and train
+steps; each gated above 0), while rows A and B count every build;
+``launches`` counts every main-path run (both configurations'
 requests, the gas, packed, artifact, legacy and integrations phases' requests, the MD windows,
 the second_order phase's IR request and kernel-route HVPs, the
 long_range phase's requests and MD windows, the train phase's
@@ -281,6 +303,11 @@ FP64_PEAK = 34e12  # H100 SXM, FP64 outside the tensor cores (FLOP/s; NVIDIA's d
 HBM_RATE = 3.35e12  # H100 SXM device memory (bytes/s)
 REL_TOL = 1e-5
 F64_FLOOR = 2e-7  # two f32 roundings of the largest magnitude
+TC_PEAK = {"tf32": 495e12, "3xtf32": 495e12 / 3, "bf16": 989e12}  # H100 SXM tensor cores, dense (3xTF32: three passes)
+CP_MODES = ("tf32", "3xtf32", "bf16")  # the tensor-core builds of kernels A and B
+CP_BF16_REL = 2e-2  # bf16 conv forces against exact, of max |F| (JAX's limit, tests/test_pallas_conv.py:129-143)
+CP_TIMED = 5  # timed requests a tier in phase conv_precision
+CP_MD_STEPS = 4  # MD steps a tier in phase conv_precision
 F32_EPS = 2.0**-23  # f32 machine epsilon
 # absolute limits of the 1,200-atom wb97m-d3 checks (layout reuse against a
 # fresh build, MD and FIRE on the card against the CPU), from the noise
@@ -299,6 +326,7 @@ MD_PROFILED = 5  # steps of a window's profiled chunk: the profiler's averages t
 MD_NVE_DRIFT = 1e-4  # NVE total energy change over the first 50 steps at the exact tier, of itself
 MD_SETTING = dict(dt_fs=0.5, temperature_K=300.0, thermostat="langevin", skin=0.3)  # bench.py:150
 MD_CHECK_STEPS = 3  # NVE steps, and FIRE steps, of the MD check card against CPU
+MD_CHECK_STEPS_BOX = 2  # of the 500-atom box's check, whose CPU side (4-5 s a step after the first) led the smoke
 MD_CHECK_LAG = 0.49  # of the skin: the MD check's injected displacement since the last re-bin (one re-bin in step 1)
 LR_CUTOFF = 15.0  # DSF's dsf_rc and the D3 cutoff of both configurations
 
@@ -436,6 +464,36 @@ def rel64(x, ref) -> float:
     return float((x.double() - ref).abs().max() / ref.abs().max())
 
 
+def conv_base(sysb, cfg, aev) -> tuple[dict, object, tuple[int, int, int, int]]:
+    """Kernels A and B's operands on the binned system ``sysb`` but the
+    features (the main path's tables, coordinates, mask and AEV constants),
+    the mirror table and ``(B, C, G, S)``."""
+    import torch
+
+    from aimnetcentral_tpu_torch.kernels.conv_pass import build_conv_tables
+    from aimnetcentral_tpu_torch.ops.binned import stencil_radius
+    from aimnetcentral_tpu_torch.ops.math import cellmul
+
+    dev = sysb.coord.device
+    grid = sysb.bins
+    tab = build_conv_tables(grid, stencil_radius(cfg.aev.rc_s, grid))
+    b, c = grid.total_bins, grid.capacity
+    if aev["shifts_s"].dim() == 2:  # member-stacked: the members share one architecture
+        aev = {k: v[0] for k, v in aev.items()}
+    shift = torch.as_tensor(tab["push"], device=dev)
+    if sysb.cell is not None:
+        shift = shift + cellmul(torch.as_tensor(tab["wraps"], device=dev), sysb.cell[0])
+    base = dict(
+        coord=sysb.coord.detach().reshape(b, c, 3).contiguous(),
+        mask=(sysb.numbers > 0).float().reshape(b, c).contiguous(),
+        shift=shift.contiguous(),
+        nbr=torch.as_tensor(tab["nbr"], device=dev),
+        shifts_g=aev["shifts_s"].detach().contiguous(),
+        scal=torch.stack([aev["eta_s"], aev["rc_s"]]).detach().contiguous(),
+    )
+    return base, torch.as_tensor(tab["mnbr"], device=dev), (b, c, cfg.nshifts, tab["nbr"].shape[0])
+
+
 def phase_kernels(calc, sysb, label: str, fs: tuple[int, ...] | None = None) -> tuple[list[dict], dict]:
     """Kernels A and B against their plain versions on the binned system
     ``sysb`` (a layout the main path runs: a request's or an MD driver's),
@@ -447,32 +505,12 @@ def phase_kernels(calc, sysb, label: str, fs: tuple[int, ...] | None = None) -> 
     import torch
 
     from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
-    from aimnetcentral_tpu_torch.kernels.conv_pass import build_conv_tables
-    from aimnetcentral_tpu_torch.ops.binned import stencil_radius
-    from aimnetcentral_tpu_torch.ops.math import cellmul
 
     dev = torch.device("cuda")
     grid = sysb.bins
     cfg = calc.cfg
-    tab = build_conv_tables(grid, stencil_radius(cfg.aev.rc_s, grid))
-    b, c, g = grid.total_bins, grid.capacity, cfg.nshifts
-    aev = calc.params["aev"]
-    if aev["shifts_s"].dim() == 2:  # member-stacked: the members share one architecture
-        aev = {k: v[0] for k, v in aev.items()}
+    base, mnbr, (b, c, g, s_tot) = conv_base(sysb, cfg, calc.params["aev"])
     fs = fs or (cfg.nfeature, cfg.nfeature + cfg.num_charge_channels)
-    shift = torch.as_tensor(tab["push"], device=dev)
-    if sysb.cell is not None:
-        shift = shift + cellmul(torch.as_tensor(tab["wraps"], device=dev), sysb.cell[0])
-    base = dict(
-        coord=sysb.coord.detach().reshape(b, c, 3).contiguous(),
-        mask=(sysb.numbers > 0).float().reshape(b, c).contiguous(),
-        shift=shift.contiguous(),
-        nbr=torch.as_tensor(tab["nbr"], device=dev),
-        shifts_g=aev["shifts_s"].contiguous(),
-        scal=torch.stack([aev["eta_s"], aev["rc_s"]]).contiguous(),
-    )
-    mnbr = torch.as_tensor(tab["mnbr"], device=dev)
-    s_tot = tab["nbr"].shape[0]
     log(f"[kernels {label}] SR grid {grid.nbins} B={b} C={c} G={g} S={s_tot}")
     gen = torch.Generator(device=dev).manual_seed(1)
     n_pairs = None
@@ -904,6 +942,277 @@ def phase_pair_kernels(calc, sysb, label: str = "request", members: int = 0,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     return rows, detail
+
+
+@contextlib.contextmanager
+def counts_kept():
+    """Launches inside are not the main path's: every count, all builds,
+    put back as it was on the way out."""
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+
+    wrappers = {**counters(), "conv_stencil_backward_constants": cs.conv_stencil_backward_constants}
+    saved = {n: (w.launches, dict(getattr(w, "builds", {}))) for n, w in wrappers.items()}
+    try:
+        yield
+    finally:
+        for n, w in wrappers.items():
+            w.launches = saved[n][0]
+            if hasattr(w, "builds"):
+                w.builds.update(saved[n][1])
+
+
+def mode_counts() -> dict:
+    """The launches of kernels A and B's tensor-core builds, by row name."""
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+
+    return {f"{w.__name__}[{m}]": w.builds[m]
+            for w in (cs.conv_stencil_forward, cs.conv_stencil_backward, cs.conv_stencil_backward_constants)
+            for m in CP_MODES}
+
+
+def mode_delta(before: dict) -> dict:
+    """The tensor-core builds' launches since ``mode_counts()`` gave ``before``."""
+    return {k: v - before[k] for k, v in mode_counts().items()}
+
+
+def tc_bound(nbytes: float, flops: float, mode: str) -> tuple[float, str, float]:
+    """The least time (ms) of a tensor-core build, what sets it, and the
+    operations' time alone: the bytes over HBM_RATE against the
+    contraction's FLOP over the mode's tensor-core rate (TC_PEAK)."""
+    t_bytes = nbytes / HBM_RATE * 1e3
+    t_ops = flops / TC_PEAK[mode] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_ops
+
+
+def mode_kernel_checks(label: str, base: dict, mnbr, dims: tuple, fs: tuple, constants: bool = False) -> dict:
+    """Each tensor-core build of kernels A and B (or B's constants' build)
+    against its plain version in the same mode on the card (1e-5 of the
+    largest magnitude of each output), with ms a launch (CUDA events), the
+    plain version's ms and the bound over the real pairs' work."""
+    import torch
+
+    from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
+
+    dev = base["coord"].device
+    b, c, g, s_tot = dims
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {}
+    with counts_kept():
+        for f in fs:
+            st = cs.ConvStatic(b_tot=b, c=c, g=g, f=f, s_tot=s_tot)
+            ops = dict(base, a_gmajor=0.3 * torch.randn((b, c, g * f), generator=gen, device=dev))
+            gbar = torch.randn((b, 4, c, g * f), generator=gen, device=dev)
+            n_pairs = int(cs.pair_counts_plain(st, ops["coord"], ops["mask"], ops["shift"], ops["nbr"],
+                                               ops["scal"]).sum())
+            feat = 4 * b * c * g * f
+            small = 4 * (b * c * 4 + 2 * s_tot * b * 3 + s_tot * b)
+            bytes_a = feat + 4 * feat + small
+            bytes_b = feat + 4 * feat + feat + small + 4 * (b * c * 3 + s_tot * b * 3)
+            flops_a = 2.0 * 4 * g * f * n_pairs
+            for mode in CP_MODES:
+                row = {}
+                if constants:
+                    kern = lambda: cs.conv_stencil_backward_constants(st, **ops, mnbr=mnbr, gbar=gbar, mode=mode)
+                    plain = lambda: cs.conv_backward_plain(st, **ops, gbar=gbar, constants=True, mode=mode)
+                    checks = {"B constants": (kern, plain, bytes_b + 4 * (g + 2), 2 * flops_a)}
+                else:
+                    checks = {
+                        "A": (lambda: cs.conv_stencil_forward(st, **ops, mode=mode),
+                              lambda: cs.conv_forward_plain(st, **ops, mode=mode), bytes_a, flops_a),
+                        "B": (lambda: cs.conv_stencil_backward(st, **ops, mnbr=mnbr, gbar=gbar, mode=mode),
+                              lambda: cs.conv_backward_plain(st, **ops, gbar=gbar, mode=mode), bytes_b, 2 * flops_a),
+                    }
+                for key, (kern, plain, nbytes, flops) in checks.items():
+                    got = kern()
+                    torch.cuda.synchronize()
+                    ref = plain()
+                    got = got if isinstance(got, tuple) else (got,)
+                    ref = ref if isinstance(ref, tuple) else (ref,)
+                    errs = [(float((x - y).abs().max()), float(y.abs().max())) for x, y in zip(got, ref)]
+                    if not all(torch.equal(x, y) for x, y in zip(got, (kern(),) if len(got) == 1 else kern())):
+                        raise SystemExit(f"FAIL: kernel {key} [{mode}] does not repeat bit for bit on {label}")
+                    ms = time_cuda(kern, reps=10)
+                    plain_ms = time_cuda(plain, reps=1, warmup=0)  # warm from the check above
+                    bnd, by, t_ops = tc_bound(nbytes, flops, mode)
+                    worst = max(e / max(sc, 1e-30) for e, sc in errs)
+                    log(f"[conv_precision {label}] F={f} {key} [{mode}]: {ms:.3f} ms (plain {plain_ms:.3f} ms), "
+                        f"bound {bnd:.4f} ms by {by} (the tensor cores alone {t_ops:.5f} ms for {n_pairs} real "
+                        f"pairs); against its plain twin: "
+                        + ", ".join(f"{e:.2e} of {sc:.2e}" for e, sc in errs))
+                    if worst > REL_TOL:
+                        raise SystemExit(f"FAIL: kernel {key} [{mode}] disagrees with its plain version in the same "
+                                         f"mode at F={f} on {label} ({worst:.2e} of the largest magnitude)")
+                    row[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "ops_ms": t_ops,
+                                "max_abs_err": max(e for e, _s in errs), "rel_err": worst, "pairs": n_pairs}
+                res[f"F{f} {mode}"] = row
+            del ops, gbar
+            torch.cuda.empty_cache()
+    return res
+
+
+def tc_rows(res: dict, f: int) -> list[dict]:
+    """The kernels line's rows of the tensor-core builds: ms, plain ms and
+    bound at F = ``f`` (the request grid; B's constants' build on
+    packed-64x48), launches over every main-path phase after ``kernels``
+    (the builds' counts; each must be above 0)."""
+    counts = mode_counts()
+    rows = []
+    for name, src, line, key, part in (
+        ("conv_stencil_forward", "conv_fwd.cu", 289, "kernels", "A"),
+        ("conv_stencil_backward", "conv_bwd.cu", 466, "kernels", "B"),
+        ("conv_stencil_backward_constants", "conv_bwd.cu", 466, "kernels_constants", "B constants"),
+    ):
+        for mode in CP_MODES:
+            k = res[key][f"F{f} {mode}"][part]
+            row = f"{name}[{mode}]"
+            if counts[row] == 0:
+                raise SystemExit(f"FAIL: the main path never launched {row}")
+            rows.append({"name": row, "route": "cuda",
+                         "source": f"aimnetcentral_tpu_torch/csrc/{src} + aimnetcentral_tpu_torch/csrc/conv_mma.cuh",
+                         "replaces": f"aimnetcentral_tpu/kernels/conv_stencil.py:{line}", "launches": counts[row],
+                         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None})
+    return rows
+
+
+def phase_conv_precision(calc, params, cfg, coord, numbers, cell) -> dict:
+    """The conv precision modes (``phase_conv_precision``): kernels A and B's
+    tensor-core builds (csrc/conv_mma.cuh) against their plain versions in
+    the same mode on flagship-10k's request grid (F = 16, 17), at a fused
+    ensemble's G*F = 1,088 (F = 68, its shift-and-column tiles) and B's
+    constants' build on packed-64x48's molecule bins; then the tiers end to
+    end on flagship-10k: ``balanced`` forces within CHECK_ABS of ``exact``,
+    ``fast`` as the control that must exceed it, ``bf16`` (through
+    ``AIMNET_CONV_PRECISION`` at ``exact``) within CP_BF16_REL of max |F|,
+    each request launching its tier's builds (A, B 3 a request), the
+    median ms of CP_TIMED requests; MD steps at ``fast`` and ``balanced``
+    (A, B 3 a step in the tier's build); one train step at ``fast`` and one
+    each with ``AIMNET_CONV_PRECISION`` f32x3 and bf16 (B's constants'
+    builds)."""
+    import torch
+
+    from aimnetcentral_tpu_torch.builders import system_molecule_bins
+    from aimnetcentral_tpu_torch.calculators import AIMNet2Calculator
+    from aimnetcentral_tpu_torch.dynamics import MDConfig, MDDriver
+    from aimnetcentral_tpu_torch.train import step as tstep
+    from aimnetcentral_tpu_torch.train.loss import LossConfig, MTLoss
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    data = {"coord": coord, "numbers": numbers, "cell": cell}
+    sysb = calc.prepare_system(data)
+    base, mnbr, dims = conv_base(sysb, cfg, params["aev"])
+    log(f"[conv_precision] request grid {sysb.bins.nbins} B={dims[0]} C={dims[1]} G={dims[2]} S={dims[3]}")
+    res["kernels"] = mode_kernel_checks("request", base, mnbr, dims,
+                                        (cfg.nfeature, cfg.nfeature + cfg.num_charge_channels))
+    res["kernels_tiles"] = mode_kernel_checks("request, G*F 1,088", base, mnbr, dims,
+                                              (4 * (cfg.nfeature + cfg.num_charge_channels),))
+    packed = system_molecule_bins([gas_cluster(48, seed=30_000 + k) for k in range(64)], torch.device("cuda"))
+    pbase, pmnbr, pdims = conv_base(packed, cfg, params["aev"])
+    res["kernels_constants"] = mode_kernel_checks("packed-64x48", pbase, pmnbr, pdims,
+                                                  (cfg.nfeature + cfg.num_charge_channels,), constants=True)
+    del base, pbase
+
+    # the tiers end to end
+    want = {"balanced": "3xtf32", "fast": "tf32", "bf16": "bf16"}
+    ref = AIMNet2Calculator((params, cfg), device="cuda").eval(data, forces=True)
+    scale = float(np.abs(ref["forces"]).max())
+    for tier, mode in want.items():
+        env = os.environ.get("AIMNET_CONV_PRECISION")
+        if tier == "bf16":
+            os.environ["AIMNET_CONV_PRECISION"] = "bf16"
+        try:
+            tcalc = AIMNet2Calculator((params, cfg), device="cuda", precision="exact" if tier == "bf16" else tier)
+            wrappers = reset_counts()
+            before = mode_counts()
+            out = tcalc.eval(data, forces=True)
+            torch.cuda.synchronize()
+            launches, builds = read_counts(wrappers), mode_delta(before)
+            times = []
+            for k in range(CP_TIMED):
+                moved = dict(data, coord=(coord + 1e-3 * (k + 1)).astype(np.float32))
+                t0 = time.perf_counter()
+                tcalc.eval(moved, forces=True)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        finally:
+            if env is None:
+                os.environ.pop("AIMNET_CONV_PRECISION", None)
+            else:
+                os.environ["AIMNET_CONV_PRECISION"] = env
+        df = float(np.abs(out["forces"] - ref["forces"]).max())
+        de = float(np.abs(out["energy"] - ref["energy"]).max())
+        ms = float(np.median(times)) * 1e3
+        log(f"[conv_precision flagship-10k {tier}] forces {df:.3e} eV/A from exact (max |F| {scale:.3f}), energy "
+            f"{de:.3e} eV; {ms:.2f} ms a request (median of {CP_TIMED}); launches {launches}, builds "
+            f"{ {k: v for k, v in builds.items() if v} }")
+        for kern in ("conv_stencil_forward", "conv_stencil_backward"):
+            if builds[f"{kern}[{mode}]"] != 3 or launches[kern] != 3:
+                raise SystemExit(f"FAIL: a {tier} request launched {kern} {launches[kern]} times, "
+                                 f"{builds[f'{kern}[{mode}]']} in its {mode} build (3 expected)")
+        if tier == "balanced" and df > CHECK_ABS["forces"]:
+            raise SystemExit(f"FAIL: balanced forces {df:.3e} eV/A from exact, above {CHECK_ABS['forces']}")
+        if tier == "fast" and df <= CHECK_ABS["forces"]:
+            raise SystemExit(f"FAIL: the fast control ({df:.3e} eV/A) does not exceed {CHECK_ABS['forces']}")
+        if tier == "bf16" and df > CP_BF16_REL * scale:
+            raise SystemExit(f"FAIL: bf16 conv forces {df:.3e} eV/A from exact, above {CP_BF16_REL} of max |F|")
+        res[tier] = {"forces_abs": df, "forces_rel": df / scale, "energy_abs": de, "ms": ms, "launches": builds}
+
+    for tier in ("fast", "balanced"):
+        drv = MDDriver(params, cfg, md_system(coord, numbers, cell, "cuda"),
+                       MDConfig(**{**MD_SETTING, "precision": tier}), device="cuda")
+        drv.run(1, chunk=1)
+        torch.cuda.synchronize()
+        wrappers = reset_counts()
+        before = mode_counts()
+        rebins0 = drv.rebins
+        t0 = time.perf_counter()
+        drv.run(CP_MD_STEPS, chunk=CP_MD_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / CP_MD_STEPS * 1e3
+        launches, builds = read_counts(wrappers), mode_delta(before)
+        mode = want[tier]
+        log(f"[conv_precision md-flagship-10k {tier}] {ms:.2f} ms a step over {CP_MD_STEPS} steps "
+            f"({drv.rebins - rebins0} re-bins); builds { {k: v for k, v in builds.items() if v} }")
+        for kern in ("conv_stencil_forward", "conv_stencil_backward"):
+            if builds[f"{kern}[{mode}]"] != 3 * CP_MD_STEPS or launches[kern] != 3 * CP_MD_STEPS:
+                raise SystemExit(f"FAIL: {CP_MD_STEPS} {tier} MD steps launched {kern} {launches[kern]} times, "
+                                 f"{builds[f'{kern}[{mode}]']} in its {mode} build")
+        res[f"md {tier}"] = {"ms_step": ms, "launches": builds}
+        del drv
+        torch.cuda.empty_cache()
+
+    # one train step a mode of B's constants' build (training takes fast
+    # and exact; f32x3 and bf16 through the variable)
+    labels = {"energy": torch.zeros(64, device="cuda"),
+              "forces": torch.zeros((packed.natoms, 3), device="cuda"),
+              "charges": torch.zeros(packed.natoms, device="cuda")}
+    for conv_env, mode in ((None, "tf32"), ("f32x3", "3xtf32"), ("bf16", "bf16")):
+        env = os.environ.get("AIMNET_CONV_PRECISION")
+        if conv_env is not None:
+            os.environ["AIMNET_CONV_PRECISION"] = conv_env
+        try:
+            opt = tstep.make_optimizer()
+            step = tstep.make_train_step(cfg, MTLoss(LossConfig()), opt, precision="fast")
+            state = tstep.init_train_state(params, opt)
+            before = mode_counts()
+            _state, metrics = step(state, packed, labels)
+            torch.cuda.synchronize()
+        finally:
+            if env is None:
+                os.environ.pop("AIMNET_CONV_PRECISION", None)
+            else:
+                os.environ["AIMNET_CONV_PRECISION"] = env
+        builds = mode_delta(before)
+        n = builds[f"conv_stencil_backward_constants[{mode}]"]
+        log(f"[conv_precision train packed-64x48 {mode}] loss {float(metrics['loss']):.6g}; "
+            f"builds { {k: v for k, v in builds.items() if v} }")
+        if n != TRAIN_PER_STEP["conv_stencil_backward_constants"] or not np.isfinite(float(metrics["loss"])):
+            raise SystemExit(f"FAIL: a train step in {mode} launched B's constants' build {n} times "
+                             f"(or its loss is not finite)")
+        res[f"train {mode}"] = builds
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
 
 
 def phase_main_path(label: str, calc, coord, numbers, cell, per_request: dict) -> dict:
@@ -2263,8 +2572,8 @@ def plain_route():
     saved = (cp.conv_stencil_forward, cp.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
     cp.conv_stencil_forward = cs.conv_forward_plain
     cp.conv_stencil_backward = (
-        lambda st, a, c, mask, shift, nbr, _mnbr, shifts_g, scal, gbar:
-        cs.conv_backward_plain(st, a, c, mask, shift, nbr, shifts_g, scal, gbar)
+        lambda st, a, c, mask, shift, nbr, _mnbr, shifts_g, scal, gbar, mode="fp32":
+        cs.conv_backward_plain(st, a, c, mask, shift, nbr, shifts_g, scal, gbar, mode=mode)
     )
     ps.pair_sweep_forward, ps.pair_sweep_backward = ps.pair_forward_plain, ps.pair_backward_plain
     try:
@@ -3628,24 +3937,9 @@ def train_constants_kernel(label: str, system, cfg, params) -> dict:
     import torch
 
     from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
-    from aimnetcentral_tpu_torch.kernels.conv_pass import build_conv_tables
-    from aimnetcentral_tpu_torch.ops.binned import stencil_radius
 
     dev = torch.device("cuda")
-    grid = system.bins
-    tab = build_conv_tables(grid, stencil_radius(cfg.aev.rc_s, grid))
-    b, c, g = grid.total_bins, grid.capacity, cfg.nshifts
-    s_tot = tab["nbr"].shape[0]
-    aev = params["aev"]
-    base = dict(
-        coord=system.coord.reshape(b, c, 3).contiguous(),
-        mask=(system.numbers > 0).float().reshape(b, c).contiguous(),
-        shift=torch.as_tensor(tab["push"], device=dev).contiguous(),
-        nbr=torch.as_tensor(tab["nbr"], device=dev),
-        shifts_g=aev["shifts_s"].detach().contiguous(),
-        scal=torch.stack([aev["eta_s"], aev["rc_s"]]).detach().contiguous(),
-    )
-    mnbr = torch.as_tensor(tab["mnbr"], device=dev)
+    base, mnbr, (b, c, g, s_tot) = conv_base(system, cfg, params["aev"])
     gen = torch.Generator(device=dev).manual_seed(2)
     names = ("grad_a", "grad_coord", "grad_shift", "grad_shifts_g", "grad_scal")
     res = {"grid": {"b": b, "c": c, "s": s_tot}}
@@ -4735,6 +5029,8 @@ def phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell, train_sa
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="write the full results as JSON to this file")
+    parser.add_argument("--only", choices=["conv_precision"],
+                        help="run the card and build phases and this phase alone (no result line)")
     args = parser.parse_args()
     t_run = time.perf_counter()
     smi = phase_card()
@@ -4757,6 +5053,14 @@ def main() -> None:
     from aimnetcentral_tpu_torch.kernels import conv_stencil as cs
 
     cs.conv_stencil_backward_constants.launches = 0  # phase train checks that no phase before it launched this
+    if args.only == "conv_precision":
+        cfg = flagship_config()
+        params = aimnet2_init(cfg, seed=0, device="cuda")
+        calc = AIMNet2Calculator((params, cfg), device="cuda")
+        coord, numbers, cell = build_box(N_MAIN)
+        phase_conv_precision(calc, params, cfg, coord, numbers, cell)
+        log(f"[smoke] phase conv_precision alone in {time.perf_counter() - t_run:.1f} s; {smi}")
+        return
 
     cfg = flagship_config()
     params = aimnet2_init(cfg, seed=0, device="cuda")
@@ -4785,6 +5089,8 @@ def main() -> None:
             f"{lr_shape(sys_d3)}): the D and E check above holds for MD")
     kernels += pair_rows
     done("kernels")
+    for w in (cs.conv_stencil_forward, cs.conv_stencil_backward, cs.conv_stencil_backward_constants):
+        w.builds.update(dict.fromkeys(w.builds, 0))  # the tensor-core builds' main-path launches from here
     conv = {"conv_stencil_forward": 3, "conv_stencil_backward": 3}
     results["main"] = phase_main_path(
         "flagship-10k", calc, coord, numbers, cell,
@@ -4811,7 +5117,7 @@ def main() -> None:
     md_runs = phase_md(params, cfg, params_d3, cfg_d3, coord, numbers, cell, peaks)
     results["md"] = md_runs
     done("md")
-    results["md_check"] = phase_md_card_vs_cpu("wb97m-d3", params_d3, cfg_d3)
+    results["md_check"] = phase_md_card_vs_cpu("wb97m-d3", params_d3, cfg_d3, steps=MD_CHECK_STEPS_BOX)
     done("md_check")
     results["packed"] = phase_packed(params, cfg, params_d3, cfg_d3)
     done("packed")
@@ -4835,6 +5141,8 @@ def main() -> None:
     done("ensemble")
     results["train"] = phase_train(smi)
     done("train")
+    results["conv_precision"] = phase_conv_precision(calc, params, cfg, coord, numbers, cell)
+    done("conv_precision")
     results["spatial_kernels"] = phase_spatial_kernels(params, cfg, params_d3, cfg_d3, coord, numbers, cell)
     done("spatial_kernels")
     results["spatial"] = phase_spatial(params, cfg, params_d3, cfg_d3, coord, numbers, cell,
@@ -4860,6 +5168,7 @@ def main() -> None:
     kernels += results["ensemble"]["rows"]
     results["train"]["row"]["launches"] += results["spatial"]["launches"]["conv_stencil_backward_constants"]
     kernels.append(results["train"]["row"])
+    kernels += tc_rows(results["conv_precision"], cfg.nfeature + cfg.num_charge_channels)
     results["seconds"] = time.perf_counter() - t_run
     if args.out:
         with open(args.out, "w") as fh:

@@ -246,6 +246,89 @@ def test_kernel_b_constants_take_one_column_tile(cuda_device):
     assert cs.conv_stencil_backward_constants.launches == before
 
 
+MMA_MODES = ["tf32", "3xtf32", "bf16"]
+
+
+@pytest.mark.parametrize("mode", MMA_MODES)
+@pytest.mark.parametrize("f", [16, 17, 68])  # 68: a fused ensemble's rows, three shift-and-column tiles
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_tensor_core_builds_match_plain(cuda_device, layout, f, mode):
+    """Kernels A and B's tensor-core builds (csrc/conv_mma.cuh) against
+    their plain versions in the same mode, both on the card (the plain
+    version's W is the kernel's bit for bit there, so no rounding to TF32
+    or bf16 goes the other way), and bit for bit on a repeat."""
+    st, ops, mnbr, gbar = _operands(layout, f)
+    dev_ops = _to(cuda_device, ops)
+    args = dict(mnbr=mnbr.to(cuda_device), gbar=gbar.to(cuda_device))
+    out = cs.conv_stencil_forward(st, **dev_ops, mode=mode)
+    torch.cuda.synchronize()
+    _close(out, cs.conv_forward_plain(st, **dev_ops, mode=mode))
+    assert torch.equal(out, cs.conv_stencil_forward(st, **dev_ops, mode=mode))
+    got = cs.conv_stencil_backward(st, **dev_ops, **args, mode=mode)
+    torch.cuda.synchronize()
+    for g, r in zip(got, cs.conv_backward_plain(st, **dev_ops, gbar=args["gbar"], mode=mode)):
+        _close(g, r)
+    for x, y in zip(got, cs.conv_stencil_backward(st, **dev_ops, **args, mode=mode)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", MMA_MODES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_tensor_core_constants_builds_match_plain(cuda_device, layout, mode):
+    """B's constants' build in each tensor-core mode: its five adjoints
+    against the plain version's in the same mode."""
+    st, ops, mnbr, gbar = _operands(layout, 17)
+    dev_ops = _to(cuda_device, ops)
+    got = cs.conv_stencil_backward_constants(st, **dev_ops, mnbr=mnbr.to(cuda_device), gbar=gbar.to(cuda_device),
+                                             mode=mode)
+    torch.cuda.synchronize()
+    want = cs.conv_backward_plain(st, **dev_ops, gbar=gbar.to(cuda_device), constants=True, mode=mode)
+    assert len(got) == len(want) == 5
+    for g, r in zip(got, want):
+        _close(g, r)
+
+
+def test_tensor_core_builds_refuse_what_they_do_not_take(cuda_device):
+    """No pair counts, the constants' build in one shift-and-column tile,
+    an unknown mode: each raises and launches nothing."""
+    st, ops, _mnbr, _gbar = _operands("2x2x2", 17)
+    dev_ops = _to(cuda_device, ops)
+    before = (cs.conv_stencil_forward.launches, cs.conv_stencil_backward_constants.launches)
+    counts = torch.zeros(st.b_tot * st.c, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="count no pairs"):
+        cs.conv_stencil_forward(st, **dev_ops, pair_counts=counts, mode="tf32")
+    with pytest.raises(ValueError, match="mode"):
+        cs.conv_stencil_forward(st, **dev_ops, mode="f32x3")
+    wide, wops, wmnbr, wgbar = _operands("2x2x2", 68)
+    with pytest.raises(ValueError, match="column tile"):
+        cs.conv_stencil_backward_constants(wide, **_to(cuda_device, wops), mnbr=wmnbr.to(cuda_device),
+                                           gbar=wgbar.to(cuda_device), mode="bf16")
+    assert (cs.conv_stencil_forward.launches, cs.conv_stencil_backward_constants.launches) == before
+
+
+@pytest.mark.parametrize("tier,mode", [("exact", "fp32"), ("balanced", "3xtf32"), ("fast", "tf32")])
+def test_calculator_tiers_launch_their_builds(cuda_device, tier, mode):
+    """A request on the binned layout runs kernels A and B in its tier's
+    build: three launches each; ``balanced`` stays within 1e-5 eV/A of
+    ``exact``."""
+    cfg = dataclasses.replace(
+        AIMNet2Config(), outputs=(
+            ("energy_mlp", OutputHead(n_in=256, n_out=1, key_in="aim", key_out="energy",
+                                      mlp=MLPSpec(hidden=(128, 128), last_linear=True))),
+            ("atomic_sum", AtomicSumHead(key_in="energy", key_out="energy")),
+        ))
+    params = aimnet2_init(cfg, seed=0, device=cuda_device)
+    mol = _edge_molecule(np.random.default_rng(3))
+    exact = AIMNet2Calculator((params, cfg), device=cuda_device, binned_threshold=0).eval(mol, forces=True)
+    calc = AIMNet2Calculator((params, cfg), device=cuda_device, binned_threshold=0, precision=tier)
+    before = {w: dict(w.builds) for w in (cs.conv_stencil_forward, cs.conv_stencil_backward)}
+    out = calc.eval(mol, forces=True)
+    for w, b in before.items():
+        assert w.builds[mode] - b[mode] == 3
+    if tier != "fast":
+        np.testing.assert_allclose(out["forces"], exact["forces"], atol=1e-5)
+
+
 def test_kernels_are_deterministic(cuda_device):
     """No float atomics: two runs agree bit for bit."""
     st, ops, mnbr, gbar = _operands("2x2x2", 17)

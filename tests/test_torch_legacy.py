@@ -289,10 +289,63 @@ def test_convert_command_matches_jax(archives, tmp_path):
     _same_files(outs["port"], outs["jax"])
 
 
+# Public names of the JAX package without a counterpart of the same name in
+# the port's module of the same path, each a TPU-only piece: the Pallas
+# kernels' switches and entry points, their banded-grid tables, the XLA
+# engines the port does not have (it runs one engine: the kernels on the
+# card, their plain versions on the CPU; ROADMAP.md section 3) and JAX's
+# matmul-precision constants.
+TPU_ONLY_NAMES = {
+    # whether Pallas imports and the backend is a TPU; the port's kernels
+    # are built by kernels/build.py on any card
+    "kernels/__init__.py": {"PALLAS_CONV_ENABLED"},
+    "kernels/conv_stencil.py": {"PALLAS_CONV_ENABLED", "conv_stencil_available",
+                                # the banded Pallas adjoint; the port's kernel B is conv_stencil_backward
+                                "conv_stencil_bwd_banded"},
+    # the half-band Pallas sweeps, their static shapes and custom_vjp; the
+    # port's kernels D and E are pair_sweep_forward / _backward, PairStatic, PairAcc
+    "kernels/pair_sweep.py": {"PAIR_SWEEP_ENABLED", "pair_sweep_available", "PairStaticHB", "pair_acc_hb",
+                              "pair_sweep_forward_hb", "pair_sweep_backward_hb", "pair_energy_pallas"},
+    # the XLA engines of the conv (AIMNET_CONV_ENGINE=xla) and of the D3
+    # sweeps; the port's are kernels/conv_pass.py::conv_pass and the D3 terms
+    # of kernels D and E (pair_sweep.D3CNTerm, D3EnergyTerm)
+    "models/engine_binned.py": {"conv_pass_binned", "d3_cn_fn", "d3_e_fn"},
+    # the TPU's banded z-row grid (sequential grid steps, 128-lane tiles); the
+    # port keeps per-offset tables (stencil_tables, mirror_stencil_tables)
+    "ops/binned.py": {"row_stencil_tables", "mirror_row_stencil_tables", "xy_band_tables", "xy_band_tables_half",
+                      "stencil_map"},
+    # jax.lax.Precision.HIGHEST; the port's exact contractions are ops/math.py::cellmul
+    "models/ewald.py": {"HI"},
+    "ops/math.py": {"HIGHEST"},
+}
+
+
+def _public_names(mod) -> set[str]:
+    """Names a module defines at top level: not private, not modules, and
+    not functions, classes or typing aliases imported from elsewhere."""
+    import inspect
+
+    out = set()
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or inspect.ismodule(obj):
+            continue
+        origin = getattr(obj, "__module__", None)
+        if origin in ("typing", "collections.abc"):
+            continue
+        if (inspect.isfunction(obj) or inspect.isclass(obj)) and origin != mod.__name__:
+            continue
+        out.add(name)
+    return out
+
+
 def test_every_module_of_jax_has_its_port():
     """The JAX package's modules all have a counterpart of the same path in
     the port, but two TPU-only ones: ``kernels/conv_pallas.py`` (the port's
-    ``kernels/conv_pass.py``) and ``xla_cache.py`` (``kernels/build.py``)."""
+    ``kernels/conv_pass.py``) and ``xla_cache.py`` (``kernels/build.py``);
+    and every public top-level name of each has the same name there, but
+    the ``TPU_ONLY_NAMES``."""
+    import importlib
+
     def modules(pkg):
         root = os.path.dirname(pkg.__file__)
         return {os.path.relpath(os.path.join(d, f), root) for d, _s, fs in os.walk(root) for f in fs
@@ -301,7 +354,18 @@ def test_every_module_of_jax_has_its_port():
     import aimnetcentral_tpu
     import aimnetcentral_tpu_torch
 
-    assert modules(aimnetcentral_tpu) - modules(aimnetcentral_tpu_torch) == {"kernels/conv_pallas.py", "xla_cache.py"}
+    jax_modules = modules(aimnetcentral_tpu)
+    assert jax_modules - modules(aimnetcentral_tpu_torch) == {"kernels/conv_pallas.py", "xla_cache.py"}
+    missing = {}
+    for rel in sorted(jax_modules - {"kernels/conv_pallas.py", "xla_cache.py"}):
+        dotted = rel[: -len(".py")].replace("/", ".").removesuffix(".__init__").removesuffix("__init__")
+        suffix = f".{dotted}" if dotted else ""
+        jmod = importlib.import_module(f"aimnetcentral_tpu{suffix}")
+        tmod = importlib.import_module(f"aimnetcentral_tpu_torch{suffix}")
+        gap = _public_names(jmod) - set(vars(tmod))
+        if gap != TPU_ONLY_NAMES.get(rel, set()):
+            missing[rel] = sorted(gap)
+    assert not missing
 
 
 def test_from_legacy_jit_passes_calculator_keywords(archives):

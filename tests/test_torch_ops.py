@@ -128,3 +128,42 @@ def test_coulomb_matrix_dsf(rng):
         jmath.coulomb_matrix_dsf(d, 15.0, 0.2, valid),
         atol=1e-7,
     )
+
+
+@pytest.mark.parametrize("name,kw", [("huber", {}), ("huber", {"delta": 0.3}), ("bumpfn", {}),
+                                     ("bumpfn", {"low": 0.2, "high": 0.9}), ("smoothstep", {}),
+                                     ("smoothstep", {"low": -0.5, "high": 1.2}), ("expstep", {}),
+                                     ("expstep", {"low": 0.1, "high": 0.8})])
+def test_transition_functions(rng, name, kw):
+    """The loss and transition helpers (tests/test_ops_properties.py's),
+    values and first derivatives, on both sides of their ranges."""
+    import jax
+
+    x = rng.uniform(-1.5, 2.5, size=200).astype(np.float32)
+    jfn, tfn = getattr(jmath, name), getattr(tmath, name)
+    xt = torch.tensor(x, requires_grad=True)
+    yt = tfn(xt, **kw)
+    _close(yt, jfn(x, **kw), atol=1e-7)
+    (gt,) = torch.autograd.grad(yt.sum(), xt)
+    _close(gt, jax.grad(lambda v: jfn(v, **kw).sum())(x), rtol=1e-5, atol=1e-6)
+
+
+def test_ops_package_exports_what_jax_exports():
+    import aimnetcentral_tpu.ops as jops
+    import aimnetcentral_tpu_torch.ops as tops
+
+    public = {n for n in vars(jops) if not n.startswith("_") and not n[0].isupper()} - {"math", "nb", "binned"}
+    assert public <= set(vars(tops))
+    assert tops.smoothstep is tmath.smoothstep
+
+
+def test_system_mask_i():
+    from aimnetcentral_tpu.builders import system_from_molecules as jsfm
+    from aimnetcentral_tpu_torch.builders import system_from_molecules as tsfm
+
+    mols = [{"coord": np.eye(3, dtype=np.float32), "numbers": np.array([8, 1, 1])},
+            {"coord": np.zeros((1, 3), np.float32), "numbers": np.array([6])}]
+    got = tsfm(mols, torch.device("cpu")).mask_i()
+    want = jsfm(mols).mask_i()
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
