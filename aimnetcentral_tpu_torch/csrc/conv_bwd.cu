@@ -343,35 +343,47 @@ int launch(const float* coord, const float* mask, const float* a, const float* g
   return int(cudaGetLastError());
 }
 
-// The tensor-core builds (csrc/conv_mma.cuh: the modes, the tiles and the
-// exact W).  Block (jb, tile of kRows atoms j, shift-and-column tile); for
-// each offset s and each kSlots partner slots i of p = mnbr[s, jb]:
-//   the geometry pass (one pair a thread, the forward's displacement
-//   x_j + shift[s, p] - x_i) into shared memory, the live slots packed;
-//   phase 1, warp w the shift g = g0 + w: grad_a[j, g, f] += sum_{k, i}
-//     W_k[i, j, g] gbar[p, k, i, g, f] by mma.sync (depth: the live slots);
-//   phase 2, warp (q, t): wbar_k[j, i, g] = sum_f a[j, g, f] gbar[p, k, i,
-//     g, f] by mma.sync (depth: the tile's columns) for the live slots of
-//     tile t (eight) and the shifts g0 + q + 4 m; each pair's ubar and dbar
-//     summed over those shifts in registers, then over the four q in order
-//     through shared memory;
-//   the chain rule per pair in FP32: rbar into the atom's coordinate sum
-//     (a warp's butterfly) and the partner rows (the kRows atoms in order).
+// The tensor-core builds: kernel B in the JAX package's conv precision
+// modes, replacing _bwd_kernel (aimnetcentral_tpu/kernels/conv_stencil.py
+// :466) with its two _mxu_dot contractions (:574, :590) (csrc/conv_mma.cuh:
+// the modes, the design, the exact W).  What bounds them on an H100 is the
+// bytes moved (features, cotangent and outputs once); what they add is
+// moving each live partner's four cotangent rows from L2 into shared memory
+// (once a pass, 8 shifts x F columns of each), the pairs' geometry and
+// exps, the FP32 chain rule of every pair within rc, and three barriers a
+// batch.  Block (jb, shift-and-column tile z): kBwdGTile radial shifts
+// and kFTile feature columns of every real atom of bin jb, in passes of up
+// to kRowCap atoms (compacted in slot order).  A pass:
+//   1. the live partners: the pass's record of live_scan_kernel (launched
+//      just before, conv_mma.cuh): for each (offset s, slot i of the partner
+//      bin p = mnbr[s, jb]) holding a real atom, the row tiles with an atom
+//      within rc (the forward's displacement x_j + shift[s, p] - x_i), as
+//      the entry stream by class (Stream);
+//   2. batches of kBwdEntries entries: their cotangent rows gbar[p, k, i]
+//      (the block's columns) copied by cp.async, then the geometry and exps
+//      of each (atom, entry) pair, into shared memory; then
+//      phase 1, warp w: row tile w / 4, shifts g0 + w % 4 and g0 + w % 4 +
+//        4: grad_a[j, g, f] += sum_{k, e} W_k[j, e, g] gbar[e, k, g, f] by
+//        mma.sync (depth: the tile's entries; 24 accumulators a thread);
+//      phase 2, warp w: row tile w / 4, entries 8 ((w / 2) % 2) .. + 8, the
+//        shifts of half w % 2: wbar_k[j, e, g] = sum_f a[j, g, f] gbar[e, k,
+//        g, f] by mma.sync (depth: the columns), each pair's ubar and dbar
+//        summed over the half's shifts in registers, the two halves in
+//        order through shared memory;
+//      the chain rule per pair in FP32 (rbar), then the atoms' coordinate
+//      sums (an atom's entries in order) and the partner rows (the pass's
+//      atoms in order) into pgrad[z, s, jb, :, i]: written by the first
+//      pass (zeros for the slots it does not reach), added to by later ones.
 // The constants' build adds each pair's sbar, etabar and rcbar terms (as
 // the FP32 build) and reduces them in warp order at the end.  The column
-// sums of several shift-and-column tiles are partials the wrapper adds in a
-// fixed order, as the FP32 build's column tiles: no atomics, deterministic.
+// sums of several shift-and-column tiles (grad_coord, pgrad, cbar) are
+// partials the wrapper adds in a fixed order: no atomics, deterministic.
+// The constants' build holds 6 more sums a thread and runs one block an SM
+// (no spills); the build without two.
 namespace cm = conv_mma;
 
-constexpr int kGeoPitch = cm::kSlots + 1;  // a padded row of the geometry and partner-row buffers
-constexpr int kMmaSmemFloats = 6 * cm::kRows * kGeoPitch                 // geometry: d, fc, fc', ux, uy, uz
-                               + 4 * cm::kRows * cm::kSlots * 4          // phase 2's partial sums by q
-                               + cm::kRows * cm::kGTile * cm::kFTile     // the tile's features
-                               + 3 * cm::kRows * kGeoPitch               // partner rows by atom
-                               + cm::kWarps * 6;                         // the constants' warp sums
-
 template <int kMode, bool kConst>
-__global__ void __launch_bounds__(cm::kThreads, 1)
+__global__ void __launch_bounds__(cm::kThreads, kConst ? 1 : 2)
 conv_bwd_mma_kernel(const float* __restrict__ coord,     // (B*C, 3)
                     const float* __restrict__ mask,      // (B*C)
                     const float* __restrict__ a,         // (B*C, G*F)
@@ -382,197 +394,296 @@ conv_bwd_mma_kernel(const float* __restrict__ coord,     // (B*C, 3)
                     const float* __restrict__ scal,      // (2) eta, rc
                     float* __restrict__ grad_a,          // (B*C, G*F)
                     float* __restrict__ grad_coord,      // (T, B*C, 3) receiver side
-                    float* __restrict__ pgrad,           // (T, S, B, NJ, 3, C) partner side
-                    float* __restrict__ cbar,            // kConst: (B, NJ, G + 2) partial sums
+                    float* __restrict__ pgrad,           // (T, S, B, 3, C) partner side
+                    float* __restrict__ cbar,            // kConst: (B, T, G + 2) partial sums
+                    const int* __restrict__ rec,         // (B, passes) scan records (conv_mma.cuh)
                     int B, int C, int G, int F, int S) {
   using M = cm::Mma<kMode>;
-  extern __shared__ float smem[];
-  float* geo = smem;                                           // [6][kRows][kGeoPitch]
-  float* red = geo + 6 * cm::kRows * kGeoPitch;                // [4][kRows][kSlots][4]
-  float* aj = red + 4 * cm::kRows * cm::kSlots * 4;            // [kRows][kGTile][kFTile]
-  float* prt = aj + cm::kRows * cm::kGTile * cm::kFTile;       // [3][kRows][kGeoPitch]
-  float* csum = prt + 3 * cm::kRows * kGeoPitch;               // [kWarps][6]
-  __shared__ unsigned rowmask[cm::kRows];
-  __shared__ int live[cm::kSlots];
-#define GEO(v, r, c) geo[((v) * cm::kRows + (r)) * kGeoPitch + (c)]
+  constexpr int EB = cm::kBwdEntries;
+  constexpr int Q = cm::kBwdQ;
+  constexpr int GT = cm::kBwdGTile;
+  constexpr int TPE = cm::kThreads / EB;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const cm::BwdLayout L(C, F, S, kMode);
+  float4* const geo4 = smem4 + L.geo4 / 4;  // [kRowCap][Q] (fc, ux, uy, uz)
+  float4* const red = smem4 + L.red / 4;    // [2][kRowCap][EB]
+  float4* const rows = smem4 + L.rows / 4;
+  float2* const geo2 = reinterpret_cast<float2*>(smem + L.geo2);  // [kRowCap][Q] (d, fc')
+  float* const exs = smem + L.ex;                                 // [GT][kRowCap][Q]
+  float* const stage = smem + L.stage;                            // [EB][Pe]: [k][g][f]
+  float* const as = smem + L.as;                                  // [kRowCap][Pr]: [g][f]
+  float* const sg = smem + L.sg;
+  float* const csum = smem + L.csum;
+  float* const gcs = smem + L.gcs;
+  float4* const shs = smem4 + L.shs / 4;  // [S] forward shifts of the partner bins
+  int* const nbs = reinterpret_cast<int*>(smem + L.nbs);
+  unsigned* const masks = reinterpret_cast<unsigned*>(smem + L.masks);
+  int* const prefix = reinterpret_cast<int*>(smem + L.prefix);
+  int* const slots = reinterpret_cast<int*>(smem + L.slots);
+  int* const ent = reinterpret_cast<int*>(smem + L.ent);  // [2][2][EB]: offsets, slots
 
   const int jb = blockIdx.x;
-  const int jt = blockIdx.y;
-  const int NJ = gridDim.y;
-  const int g0 = (blockIdx.z % cm::g_tiles(G)) * cm::kGTile;
-  const int f0 = (blockIdx.z / cm::g_tiles(G)) * cm::kFTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int T = gridDim.z;
+  const int z = blockIdx.z;
+  const int g0 = (z % cm::bwd_g_tiles(G)) * GT;
+  const int f0 = (z / cm::bwd_g_tiles(G)) * cm::kFTile;
+  const int ng = min(GT, G - g0);
+  const int nfb = min(cm::kFTile, F - f0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int gid = lane >> 2;
   const int t4 = lane & 3;
-  const int j0 = jt * cm::kRows;
   const int GF = G * F;
   const size_t kstride = size_t(C) * GF;  // gbar's k stride
-  grad_coord += size_t(blockIdx.z) * B * C * 3;
-  pgrad += size_t(blockIdx.z) * S * B * NJ * 3 * C;
+  const int Pk = L.Pk, Pe = L.Pe, Pr = L.Pr, W = L.W;
+  grad_coord += size_t(z) * B * C * 3;
+  pgrad += size_t(z) * S * B * 3 * C;
   const float eta = scal[0];
-  const float rc = scal[1];
+  const cm::Rc2 rc2 = cm::rc_bounds(scal[1]);
+  const float rc = rc2.rc;
   const float pi_rc = __fdiv_rn(cm::kPi, rc);
 
-  // the geometry pass's row: atom j0 + warp, partner slot i0 + lane
-  const int jr = j0 + warp;
-  const size_t jrow = size_t(jb) * C + jr;
-  const bool real_j = jr < C && mask[jrow] > 0.5f;
-  const float xj0 = real_j ? coord[3 * jrow + 0] : 0.0f;
-  const float xj1 = real_j ? coord[3 * jrow + 1] : 0.0f;
-  const float xj2 = real_j ? coord[3 * jrow + 2] : 0.0f;
-
-  for (int t = threadIdx.x; t < cm::kRows * cm::kGTile * cm::kFTile; t += cm::kThreads) {
-    const int jj = j0 + t / (cm::kGTile * cm::kFTile);
-    const int gg = g0 + (t / cm::kFTile) % cm::kGTile;
-    const int ff = f0 + t % cm::kFTile;
-    const size_t jrw = size_t(jb) * C + jj;
-    aj[t] = (jj < C && gg < G && ff < F && mask[jrw] > 0.5f) ? a[jrw * GF + size_t(gg) * F + ff] : 0.0f;
+  if (warp == 0) {
+    const int nrow = cm::compact_rows(mask, jb, C, 0, C, slots, lane);
+    if (lane == 0) prefix[0] = nrow;
   }
-  const bool any_real = __syncthreads_or(real_j);
-
-  // phase 1: warp w, shift g1
-  const int g1 = g0 + warp;
-  const bool gwarp = g1 < G;
-  const float sg1 = gwarp ? shifts_g[g1] : 0.0f;
-  float ga[cm::kNT][4];
-#pragma unroll
-  for (int nt = 0; nt < cm::kNT; ++nt) ga[nt][0] = ga[nt][1] = ga[nt][2] = ga[nt][3] = 0.0f;
-  // phase 2: warp 4 q + t
-  const int it = warp & 3;
-  const int q2 = warp >> 2;
-  constexpr int kGq = cm::kGTile / 4;  // shifts a phase-2 warp walks
-  float gc0 = 0.0f, gc1 = 0.0f, gc2 = 0.0f;
-  float sbm[kGq];
-#pragma unroll
-  for (int m = 0; m < kGq; ++m) sbm[m] = 0.0f;
-  float eb = 0.0f, rbc = 0.0f;  // kConst: etabar and rcbar
-
-  for (int s = 0; s < S; ++s) {
-    const int p = mnbr[size_t(s) * B + jb];  // the same for the whole block
-    float* prow = pgrad + ((size_t(s) * B + jb) * NJ + jt) * 3 * C;
-    if (p < 0 || !any_real) {  // nothing to send
-      for (int t = threadIdx.x; t < 3 * C; t += cm::kThreads) prow[t] = 0.0f;
-      continue;
+  if (tid < GT) sg[tid] = g0 + tid < G ? shifts_g[g0 + tid] : 0.0f;
+  for (int s = tid; s < S; s += cm::kThreads) {
+    const int p = mnbr[size_t(s) * B + jb];
+    nbs[s] = p;
+    if (p >= 0) {
+      const float* sh = shift + (size_t(s) * B + p) * 3;
+      shs[s] = make_float4(sh[0], sh[1], sh[2], 0.0f);
     }
-    const float* sh = shift + (size_t(s) * B + p) * 3;
-    const float sh0 = sh[0], sh1 = sh[1], sh2 = sh[2];
-    for (int i0 = 0; i0 < C; i0 += cm::kSlots) {
-      __syncthreads();  // the previous step's readers are done
-      const int i = i0 + lane;
-      bool vp = false;
-      float xi0 = 0.0f, xi1 = 0.0f, xi2 = 0.0f;
-      if (real_j && i < C) {
-        const size_t pr = size_t(p) * C + i;
-        vp = mask[pr] > 0.5f && !(s == 0 && i == jr);
-        xi0 = coord[3 * pr + 0];
-        xi1 = coord[3 * pr + 1];
-        xi2 = coord[3 * pr + 2];
-      }
-      const cm::Geom pg = cm::pair_geometry(xj0, xj1, xj2, sh0, sh1, sh2, xi0, xi1, xi2, vp, rc, pi_rc);
-      GEO(0, warp, lane) = pg.d;
-      GEO(1, warp, lane) = pg.fc;
-      GEO(2, warp, lane) = pg.within ? -0.5f * pi_rc * sinf(pg.d * pi_rc) : 0.0f;
-      GEO(3, warp, lane) = pg.ux;
-      GEO(4, warp, lane) = pg.uy;
-      GEO(5, warp, lane) = pg.uz;
-      const unsigned m = __ballot_sync(0xffffffffu, pg.within);
-      if (lane == 0) rowmask[warp] = m;
-      __syncthreads();
-      unsigned livem = 0;
-#pragma unroll
-      for (int r = 0; r < cm::kRows; ++r) livem |= rowmask[r];
-      if (livem == 0) {  // no pair in these slots: their partner rows are zero
-        if (threadIdx.x < 3 * cm::kSlots) {
-          const int c = threadIdx.x % cm::kSlots;
-          if (i0 + c < C) prow[(threadIdx.x / cm::kSlots) * C + i0 + c] = 0.0f;
-        }
-        continue;  // the same for the whole block
-      }
-      if (warp == 0 && ((livem >> lane) & 1u)) live[__popc(livem & ((1u << lane) - 1u))] = lane;
-      __syncthreads();
-      const int nl = __popc(livem);
-      const float* gb = gbar + (size_t(p) * 4 * C + i0) * GF;  // gbar[p, 0, i0, 0, 0]
+  }
+  // the padding atoms' rows: zero feature adjoint (the block's columns) and
+  // coordinate partial, a warp a slot
+  const bool one_run = nfb == F;
+  for (int j = warp; j < C; j += cm::kWarps) {
+    const size_t row = size_t(jb) * C + j;
+    if (mask[row] > 0.5f) continue;  // the same for the warp
+    for (int c = lane; c < ng * nfb; c += 32)
+      grad_a[row * GF + (one_run ? g0 * F + c : (g0 + c / nfb) * F + f0 + c % nfb)] = 0.0f;
+    if (lane < 3) grad_coord[3 * row + lane] = 0.0f;
+  }
+  __syncthreads();
+  const int nrow = prefix[0];
+  const int npass = max(1, (nrow + cm::kRowCap - 1) / cm::kRowCap);
 
-      if (gwarp) {  // phase 1
-        for (int k0 = 0; k0 < nl; k0 += M::K) {
-          float gsv[2][M::NK], uv[3][2][M::NK];
-          int cc[M::NK];
+  // the copies of a cotangent row: 16 bytes a chunk where every run is aligned
+  const bool vec = (reinterpret_cast<uintptr_t>(gbar) & 15) == 0 && GF % 4 == 0 && Pe % 4 == 0 && Pk % 4 == 0 &&
+                   (one_run ? (g0 * F) % 4 == 0 && (ng * F) % 4 == 0 : F % 4 == 0 && f0 % 4 == 0 && nfb % 4 == 0);
+
+  // phase 1: row tile warp / 4, shifts gl1 and gl1 + 4; phase 2: the same
+  // row tile, entry tile (warp / 2) % 2, shifts 4 hh .. 4 hh + 3
+  const int tile = warp >> 2;
+  const int gl1 = warp & 3;
+  const int hh = warp & 1;
+  const int et2 = (warp >> 1) & 1;
+  float sbm[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // kConst: sbar of the shifts 4 hh + m
+  float eb = 0.0f, rbc = 0.0f;              // kConst: etabar and rcbar
+
+  for (int pass = 0; pass < npass; ++pass) {
+    const int r0 = pass * cm::kRowCap;
+    const int nr = min(cm::kRowCap, nrow - r0);  // 0 only in a bin without real atoms
+    const int* ps = slots + r0;                  // the pass's rows' slots
+    __syncthreads();  // the previous pass's readers are done
+    if (warp == 0) cm::load_rows(coord, jb, C, ps, max(nr, 0), rows, lane);
+    if (tid < 3 * cm::kRowCap) gcs[tid] = 0.0f;
+    // the pass's features a[j, g, f] (its columns), zero beyond its rows
+    for (int t = tid; t < cm::kRowCap * ng * nfb; t += cm::kThreads) {
+      const int r = t / (ng * nfb);
+      const int c = t % (ng * nfb);
+      as[r * Pr + c] = r < nr ? a[(size_t(jb) * C + ps[r]) * GF + size_t(g0 + c / nfb) * F + f0 + c % nfb] : 0.0f;
+    }
+    // 1. the live partners: this pass's scan record (live_scan_kernel); the
+    //    first pass writes zero partner rows where it finds no pair
+    const int* src_rec = rec + (size_t(jb) * cm::row_groups(C) + pass) * cm::scan_words(C, S);
+    for (int t = tid; t < cm::scan_words(C, S); t += cm::kThreads) reinterpret_cast<int*>(masks)[t] = src_rec[t];
+    __syncthreads();
+    if (pass == 0) {
+      for (int item = warp; item < S * W; item += cm::kWarps) {
+        const int s = item / W;
+        const int i = (item - s * W) * 32 + lane;
+        const unsigned any = masks[item] | masks[S * W + item] | masks[2 * S * W + item];
+        if (i < C && !((any >> lane) & 1u)) {
+          float* prow = pgrad + (size_t(s) * B + jb) * 3 * C + i;
+          prow[0] = prow[C] = prow[2 * C] = 0.0f;
+        }
+      }
+    }
+    const cm::Stream stream(masks, prefix, S, W);
+    const int nb = (stream.E + EB - 1) / EB;
+    const int lo = stream.lo(tile), hi = stream.hi(tile);  // this warp's tile's entries
+    const bool tile_on = tile * 16 < nr;
+
+    float ga[2][cm::kNT][4];
 #pragma unroll
-          for (int q = 0; q < M::NK; ++q) {
-            const int pidx = k0 + M::kidx(t4, q);
-            const int c = pidx < nl ? live[pidx] : -1;
-            cc[q] = c;
+    for (int u = 0; u < 2; ++u)
 #pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float gs = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
-              if (c >= 0) {
-                const int row = gid + 8 * r;
-                const float fc = GEO(1, row, c);
-                if (fc != 0.0f) {
-                  gs = __fmul_rn(cm::gauss(GEO(0, row, c), sg1, eta), fc);
-                  ux = GEO(3, row, c);
-                  uy = GEO(4, row, c);
-                  uz = GEO(5, row, c);
-                }
-              }
-              gsv[r][q] = gs;
-              uv[0][r][q] = ux;
-              uv[1][r][q] = uy;
-              uv[2][r][q] = uz;
-            }
+      for (int nt = 0; nt < cm::kNT; ++nt) ga[u][nt][0] = ga[u][nt][1] = ga[u][nt][2] = ga[u][nt][3] = 0.0f;
+
+    for (int t = 0; t < nb; ++t) {
+      const int par = t & 1;
+      const int base = t * EB;
+      const int ne = min(EB, stream.E - base);
+      // 2. the batch: copies first, then the geometry beside them
+      {
+        const int e = tid % EB;
+        const int part = tid / EB;
+        const int ge = base + e;
+        const bool valid = ge < stream.E;
+        int s = 0, i = 0, p = 0;
+        if (valid) {
+          stream.decode(ge, s, i);
+          p = nbs[s];
+          if (part == 0) {
+            ent[(par * 2 + 0) * EB + e] = s;
+            ent[(par * 2 + 1) * EB + e] = i;
           }
+        }
+        const float* src = gbar + (size_t(p) * 4 * C + i) * GF + size_t(g0) * F + f0;
+        float* dst = stage + e * Pe;
+        if (one_run) {
+          cm::stage_runs(dst, src, 4, 1, kstride, 0, Pk, 0, ng * F, vec, valid, part, TPE);
+        } else {
+          cm::stage_runs(dst, src, 4, ng, kstride, F, Pk, nfb, nfb, vec, valid, part, TPE);
+        }
+        cm::cp_async_commit();
+        float4 sh = make_float4(0.0f, 0.0f, 0.0f, 0.0f), xi = sh;
+        if (valid) {
+          const size_t pr = size_t(p) * C + i;
+          sh = shs[s];
+          xi = make_float4(coord[3 * pr + 0], coord[3 * pr + 1], coord[3 * pr + 2], 0.0f);
+        }
+        // the cheap test of this thread's pairs (rows part + 16 m), zeros
+        // where beyond rc; then the pairs within rc packed onto the warp's
+        // lanes for the sqrt, cos, divisions and exps
+        unsigned inm = 0;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            float w[2][M::NK];
+        for (int m = 0; m < 2; ++m) {
+          const int r = part + 16 * m;
+          bool in = false;
+          if (valid && r < nr && ge >= stream.lo(m) && ge < stream.hi(m) && !(s == 0 && ps[r] == i)) {
+            const float4 xr = rows[r];
+            float dx, dy, dz;
+            in = rc2.within(cm::pair_d2(xr.x, xr.y, xr.z, sh.x, sh.y, sh.z, xi.x, xi.y, xi.z, dx, dy, dz));
+          }
+          if (in) {
+            inm |= 1u << m;
+          } else {
+            geo4[r * Q + e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            geo2[r * Q + e] = make_float2(1.0f, 0.0f);
 #pragma unroll
-            for (int r = 0; r < 2; ++r)
+            for (int g = 0; g < GT; ++g) exs[(g * cm::kRowCap + r) * Q + e] = 0.0f;
+          }
+        }
+        const unsigned b0 = __ballot_sync(0xffffffffu, inm & 1u), b1 = __ballot_sync(0xffffffffu, inm & 2u);
+        const int c0 = __popc(b0), total = c0 + __popc(b1);
+        for (int base = 0; base < total; base += 32) {  // the same for the warp
+          const int idx = base + lane;
+          const int m = idx < c0 ? 0 : 1;
+          const int src = idx < total ? cm::nth_set_bit(m == 0 ? b0 : b1, idx - (m == 0 ? 0 : c0)) : lane;
+          const float qx = __shfl_sync(0xffffffffu, xi.x, src), qy = __shfl_sync(0xffffffffu, xi.y, src);
+          const float qz = __shfl_sync(0xffffffffu, xi.z, src);
+          const float sx = __shfl_sync(0xffffffffu, sh.x, src), sy = __shfl_sync(0xffffffffu, sh.y, src);
+          const float sz = __shfl_sync(0xffffffffu, sh.z, src);
+          if (idx < total) {
+            const int r = (warp * 2 + (src >> 4)) + 16 * m;  // the source lane's part, row
+            const int ee = src & 15;
+            const float4 xr = rows[r];
+            const cm::Geom pg = cm::pair_geometry(xr.x, xr.y, xr.z, sx, sy, sz, qx, qy, qz, pi_rc);
+            geo4[r * Q + ee] = make_float4(pg.fc, pg.ux, pg.uy, pg.uz);
+            geo2[r * Q + ee] = make_float2(pg.d, -0.5f * pi_rc * sinf(pg.d * pi_rc));
 #pragma unroll
-              for (int q = 0; q < M::NK; ++q) w[r][q] = k == 0 ? gsv[r][q] : __fmul_rn(gsv[r][q], uv[k - 1][r][q]);
-            cm::OpA aop;
-            cm::make_a<kMode>(w, aop);
+            for (int g = 0; g < GT; ++g) exs[(g * cm::kRowCap + r) * Q + ee] = cm::gauss(pg.d, sg[g], eta);
+          }
+        }
+        cm::cp_async_wait();
+      }
+      __syncthreads();
+
+      // phase 1 (the lane's rows' offsets formed here for the batch: kept
+      // live across the whole kernel they would crowd the registers)
+      int rq = (tile * 16 + gid) * Q;
+      asm volatile("" : "+r"(rq));
+      if (tile_on) {
+#pragma unroll 1
+        for (int k0 = 0; k0 < ne; k0 += M::K) {
+          if (base + k0 + M::K <= lo || base + k0 >= hi) continue;  // no entry of this tile
 #pragma unroll
-            for (int nt = 0; nt < cm::kNT; ++nt) {
-              const int f = f0 + nt * 8 + gid;
-              float bv[M::NK];
+          for (int u = 0; u < 2; ++u) {
+            const int gl = gl1 + 4 * u;
+            if (gl >= ng) continue;
+            const float* ex = exs + gl * cm::kRowCap * Q + rq;
+            const float* g4 = reinterpret_cast<const float*>(geo4 + rq);
+            float gs[2][M::NK];
+#pragma unroll
+            for (int q = 0; q < M::NK; ++q)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int ix = 8 * r * Q + k0 + M::kidx(t4, q);
+                gs[r][q] = __fmul_rn(ex[ix], g4[4 * ix]);
+              }
+            const float* st = stage + gl * nfb;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              float w[2][M::NK];
 #pragma unroll
               for (int q = 0; q < M::NK; ++q)
-                bv[q] = (cc[q] >= 0 && f < F) ? __ldg(gb + size_t(cc[q]) * GF + k * kstride + size_t(g1) * F + f)
-                                              : 0.0f;
-              cm::OpB bop;
-              cm::make_b<kMode>(bv, bop);
-              cm::mma<kMode>(ga[nt], aop, bop);
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  const int ix = 8 * r * Q + k0 + M::kidx(t4, q);
+                  w[r][q] = k == 0 ? gs[r][q] : __fmul_rn(gs[r][q], g4[4 * ix + k]);  // u_k
+                }
+              cm::OpA aop;
+              cm::make_a<kMode>(w, aop);
+#pragma unroll
+              for (int nt = 0; nt < cm::kNT; ++nt) {
+                const int fl = nt * 8 + gid;
+                if (nt * 8 >= nfb) continue;
+                float bv[M::NK];
+#pragma unroll
+                for (int q = 0; q < M::NK; ++q)
+                  bv[q] = fl < nfb ? st[(k0 + M::kidx(t4, q)) * Pe + k * Pk + fl] : 0.0f;
+                cm::OpB bop;
+                cm::make_b<kMode>(bv, bop);
+                cm::mma<kMode>(ga[u][nt], aop, bop);
+              }
             }
           }
         }
       }
 
-      if (it * 8 < nl) {  // phase 2
-        float pp[4][4];   // pairs e (row gid + 8 (e >> 1), live slot it * 8 + 2 t4 + (e & 1)): ubar, dbar
-        float wep[4];     // kConst: sum over g of W_c e_g
+      // phase 2
+      if (tile_on && et2 * 8 < ne && base + et2 * 8 + 8 > lo && base + et2 * 8 < hi) {
+        // pairs e (row gid + 8 (e >> 1), entry 2 t4 + (e & 1)): (ubar, dbar)
+        // summed over the half's shifts in red[hh], which this unit owns
+        float4* const pp = red + hh * cm::kRowCap * EB;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pp[e][0] = pp[e][1] = pp[e][2] = pp[e][3] = wep[e] = 0.0f;
-        const int pcol = it * 8 + gid;  // the B operand's column
-        const int ccol = pcol < nl ? live[pcol] : -1;
-#pragma unroll
-        for (int mq = 0; mq < kGq; ++mq) {
-          const int gl = q2 + 4 * mq;
-          const int gg = g0 + gl;
-          if (gg >= G) break;
+        for (int e = 0; e < 4; ++e)
+          pp[(tile * 16 + gid + 8 * (e >> 1)) * EB + et2 * 8 + 2 * t4 + (e & 1)] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 1
+        for (int m = 0; m < 4; ++m) {
+          const int gl = 4 * hh + m;
+          if (gl >= ng) break;
           float wacc[4][4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) wacc[k][0] = wacc[k][1] = wacc[k][2] = wacc[k][3] = 0.0f;
-#pragma unroll
-          for (int kf = 0; kf < cm::kFTile; kf += M::K) {
+          int ro = (tile * 16 + gid) * Pr + gl * nfb, so = (et2 * 8 + gid) * Pe + gl * nfb;
+          asm volatile("" : "+r"(ro), "+r"(so));
+          const float* ar = as + ro;
+          const float* st = stage + so;
+#pragma unroll 1
+          for (int kf = 0; kf < nfb; kf += M::K) {
             float av[2][M::NK];
-            int fq[M::NK];
 #pragma unroll
             for (int q = 0; q < M::NK; ++q) {
               const int fl = kf + M::kidx(t4, q);
-              fq[q] = fl;
 #pragma unroll
-              for (int r = 0; r < 2; ++r)
-                av[r][q] = fl < cm::kFTile ? aj[((gid + 8 * r) * cm::kGTile + gl) * cm::kFTile + fl] : 0.0f;
+              for (int r = 0; r < 2; ++r) av[r][q] = fl < nfb ? ar[8 * r * Pr + fl] : 0.0f;
             }
             cm::OpA aop;
             cm::make_a<kMode>(av, aop);
@@ -581,172 +692,192 @@ conv_bwd_mma_kernel(const float* __restrict__ coord,     // (B*C, 3)
               float bv[M::NK];
 #pragma unroll
               for (int q = 0; q < M::NK; ++q) {
-                const int fl = fq[q];
-                bv[q] = (ccol >= 0 && fl < cm::kFTile && f0 + fl < F)
-                            ? __ldg(gb + size_t(ccol) * GF + k * kstride + size_t(gg) * F + f0 + fl)
-                            : 0.0f;
+                const int fl = kf + M::kidx(t4, q);
+                bv[q] = fl < nfb ? st[k * Pk + fl] : 0.0f;
               }
               cm::OpB bop;
               cm::make_b<kMode>(bv, bop);
               cm::mma<kMode>(wacc[k], aop, bop);
             }
           }
-          const float sgv = shifts_g[gg];
+          const float sgv = sg[gl];
+          const float* ex = exs + gl * cm::kRowCap * Q;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = gid + 8 * (e >> 1);
-            const int pc = it * 8 + 2 * t4 + (e & 1);
-            if (pc >= nl) continue;
-            const int c = live[pc];
-            const float fc = GEO(1, row, c);
+            const int ix = rq + 8 * (e >> 1) * Q + et2 * 8 + 2 * t4 + (e & 1);
+            const float4 gv = geo4[ix];
+            const float fc = gv.x;
             if (fc == 0.0f) continue;
-            const float d = GEO(0, row, c);
-            const float dd = d - sgv;
-            const float ex = expf(-eta * dd * dd);
-            const float gs = ex * fc;
-            const float dgs = ex * (GEO(2, row, c) - 2.0f * eta * dd * fc);
+            const float2 dv = geo2[ix];
+            const float dd = dv.x - sgv;
+            const float exv = ex[ix];
+            const float gs = exv * fc;
+            const float dgs = exv * (dv.y - 2.0f * eta * dd * fc);
             const float w0 = wacc[0][e], w1 = wacc[1][e], w2 = wacc[2][e], w3 = wacc[3][e];
-            pp[e][0] = fmaf(w1, gs, pp[e][0]);
-            pp[e][1] = fmaf(w2, gs, pp[e][1]);
-            pp[e][2] = fmaf(w3, gs, pp[e][2]);
-            const float wc = w0 + w1 * GEO(3, row, c) + w2 * GEO(4, row, c) + w3 * GEO(5, row, c);
-            pp[e][3] = fmaf(wc, dgs, pp[e][3]);
+            float4& acc = pp[(tile * 16 + gid + 8 * (e >> 1)) * EB + et2 * 8 + 2 * t4 + (e & 1)];
+            float4 v = acc;
+            v.x = fmaf(w1, gs, v.x);
+            v.y = fmaf(w2, gs, v.y);
+            v.z = fmaf(w3, gs, v.z);
+            const float wc = w0 + w1 * gv.y + w2 * gv.z + w3 * gv.w;
+            v.w = fmaf(wc, dgs, v.w);
+            acc = v;
             if (kConst) {
-              sbm[mq] = fmaf(wc * (2.0f * eta * dd), gs, sbm[mq]);
+              const float sv = wc * (2.0f * eta * dd) * gs;  // sbm[m] += sv, m held in registers
+              if (m == 0) {
+                sbm[0] += sv;
+              } else if (m == 1) {
+                sbm[1] += sv;
+              } else if (m == 2) {
+                sbm[2] += sv;
+              } else {
+                sbm[3] += sv;
+              }
               eb = fmaf(-wc * dd * dd, gs, eb);
-              wep[e] = fmaf(wc, ex, wep[e]);
+              rbc = fmaf(wc * exv, -dv.y * dv.x / rc, rbc);  // dfc/drc = -fc' d / rc
             }
           }
         }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = gid + 8 * (e >> 1);
-          const int pc = it * 8 + 2 * t4 + (e & 1);
-          if (pc >= nl) continue;
-          const int c = live[pc];
-          float* dst = red + ((q2 * cm::kRows + row) * cm::kSlots + c) * 4;
-          dst[0] = pp[e][0];
-          dst[1] = pp[e][1];
-          dst[2] = pp[e][2];
-          dst[3] = pp[e][3];
-          if (kConst && GEO(1, row, c) != 0.0f)
-            rbc = fmaf(wep[e], -GEO(2, row, c) * GEO(0, row, c) / rc, rbc);  // dfc/drc = -fc' d / rc
-        }
       }
       __syncthreads();
 
-      // the chain rule per pair: thread (atom j0 + warp, slot lane)
-      float rb0 = 0.0f, rb1 = 0.0f, rb2 = 0.0f;
-      if (GEO(1, warp, lane) != 0.0f) {
-        float ub0 = 0.0f, ub1 = 0.0f, ub2 = 0.0f, db = 0.0f;
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {
-          const float* src = red + ((qq * cm::kRows + warp) * cm::kSlots + lane) * 4;
-          ub0 += src[0];
-          ub1 += src[1];
-          ub2 += src[2];
-          db += src[3];
+      // the chain rule per pair, in place: red[0][row][e] = rbar
+      for (int pi = tid; pi < cm::kRowCap * EB; pi += cm::kThreads) {
+        const int row = pi / EB;
+        const int en = pi % EB;
+        float4 rb = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (row < nr && en < ne) {
+          const float4 gv = geo4[row * Q + en];
+          if (gv.x != 0.0f) {
+            const float4 h0 = red[row * EB + en];
+            const float4 h1 = red[(cm::kRowCap + row) * EB + en];
+            const float ub0 = h0.x + h1.x, ub1 = h0.y + h1.y, ub2 = h0.z + h1.z, db = h0.w + h1.w;
+            const float inv_d = 1.0f / geo2[row * Q + en].x;
+            const float uu = ub0 * gv.y + ub1 * gv.z + ub2 * gv.w;
+            rb.x = db * gv.y + (ub0 - uu * gv.y) * inv_d;
+            rb.y = db * gv.z + (ub1 - uu * gv.z) * inv_d;
+            rb.z = db * gv.w + (ub2 - uu * gv.w) * inv_d;
+          }
         }
-        const float ux = GEO(3, warp, lane), uy = GEO(4, warp, lane), uz = GEO(5, warp, lane);
-        const float inv_d = 1.0f / GEO(0, warp, lane);
-        const float uu = ub0 * ux + ub1 * uy + ub2 * uz;
-        rb0 = db * ux + (ub0 - uu * ux) * inv_d;
-        rb1 = db * uy + (ub1 - uu * uy) * inv_d;
-        rb2 = db * uz + (ub2 - uu * uz) * inv_d;
+        red[row * EB + en] = rb;
       }
-      gc0 += warp_sum(rb0);
-      gc1 += warp_sum(rb1);
-      gc2 += warp_sum(rb2);
-      prt[(0 * cm::kRows + warp) * kGeoPitch + lane] = -rb0;
-      prt[(1 * cm::kRows + warp) * kGeoPitch + lane] = -rb1;
-      prt[(2 * cm::kRows + warp) * kGeoPitch + lane] = -rb2;
       __syncthreads();
-      if (threadIdx.x < 3 * cm::kSlots) {  // the tile's partner rows: its atoms in order
-        const int comp = threadIdx.x / cm::kSlots;
-        const int c = threadIdx.x % cm::kSlots;
-        if (i0 + c < C) {
-          float sum = 0.0f;
-#pragma unroll
-          for (int r = 0; r < cm::kRows; ++r) sum += prt[(comp * cm::kRows + r) * kGeoPitch + c];
-          prow[comp * C + i0 + c] = sum;
+
+      // the atoms' coordinate sums and the partner rows, in fixed orders
+      const float* rbf = reinterpret_cast<const float*>(red);
+      if (tid < 3 * cm::kRowCap) {
+        const int row = tid / 3;
+        const int comp = tid % 3;
+        if (row < nr) {
+          float sum = gcs[tid];
+          for (int en = 0; en < ne; ++en) sum += rbf[(row * EB + en) * 4 + comp];
+          gcs[tid] = sum;
         }
+      } else if (tid < 3 * cm::kRowCap + 3 * EB) {
+        const int en = (tid - 3 * cm::kRowCap) / 3;
+        const int comp = (tid - 3 * cm::kRowCap) % 3;
+        if (en < ne) {
+          float sum = 0.0f;
+          for (int r = 0; r < nr; ++r) sum += -rbf[(r * EB + en) * 4 + comp];
+          const int s = ent[(par * 2 + 0) * EB + en];
+          const int i = ent[(par * 2 + 1) * EB + en];
+          float* dst = pgrad + ((size_t(s) * B + jb) * 3 + comp) * C + i;
+          *dst = pass == 0 ? sum : *dst + sum;
+        }
+      }
+      // the next batch writes the stage, geometry and entries of the other
+      // parity; red is read here and written again after its first barrier
+    }
+
+    // the pass's rows: feature adjoint and coordinate partial
+    if (tile_on) {
+      // the addresses here, not kept in registers from the kernel's start
+      int col = (g0 + gl1) * F + f0 + 2 * t4, bj = jb, row0 = tile * 16 + gid;
+      asm volatile("" : "+r"(col), "+r"(bj), "+r"(row0));
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int gl = gl1 + 4 * u;
+        if (gl >= ng) continue;
+#pragma unroll
+        for (int nt = 0; nt < cm::kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + 8 * (e >> 1);
+            const int fl = nt * 8 + 2 * t4 + (e & 1);
+            if (row < nr && fl < nfb)
+              grad_a[(size_t(bj) * C + ps[row]) * GF + col + 4 * u * F + nt * 8 + (e & 1)] = ga[u][nt][e];
+          }
       }
     }
+    __syncthreads();  // the last batch's coordinate sums are in place
+    if (tid < 3 * cm::kRowCap && tid / 3 < nr) grad_coord[3 * (size_t(jb) * C + ps[tid / 3]) + tid % 3] = gcs[tid];
   }
 
-  if (gwarp) {
+  if (kConst) {  // the block's G + 2 partial sums: lanes, then warps in order
 #pragma unroll
-    for (int nt = 0; nt < cm::kNT; ++nt)
+    for (int m = 0; m < 4; ++m) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + gid + 8 * (e >> 1);
-        const int f = f0 + nt * 8 + 2 * t4 + (e & 1);
-        if (j < C && f < F) grad_a[(size_t(jb) * C + j) * GF + size_t(g1) * F + f] = ga[nt][e];
-      }
-  }
-  if (lane == 0 && jr < C) {
-    grad_coord[3 * jrow + 0] = gc0;
-    grad_coord[3 * jrow + 1] = gc1;
-    grad_coord[3 * jrow + 2] = gc2;
-  }
-
-  if (kConst) {  // one shift-and-column tile: G <= kGTile, F <= kFTile
+      for (int o = 16; o > 0; o >>= 1) sbm[m] += __shfl_xor_sync(0xffffffffu, sbm[m], o);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      eb += __shfl_xor_sync(0xffffffffu, eb, o);
+      rbc += __shfl_xor_sync(0xffffffffu, rbc, o);
+    }
     __syncthreads();
-#pragma unroll
-    for (int mq = 0; mq < kGq; ++mq) sbm[mq] = warp_sum(sbm[mq]);
-    eb = warp_sum(eb);
-    rbc = warp_sum(rbc);
     if (lane == 0) {
 #pragma unroll
-      for (int mq = 0; mq < kGq; ++mq) csum[warp * 6 + mq] = sbm[mq];
+      for (int m = 0; m < 4; ++m) csum[warp * 6 + m] = sbm[m];
       csum[warp * 6 + 4] = eb;
       csum[warp * 6 + 5] = rbc;
     }
     __syncthreads();
-    const int t = threadIdx.x;
-    if (t < G + 2) {
+    if (tid < G + 2) {
       float sum = 0.0f;
-      if (t < G) {  // shift t: phase-2 warps 4 (t % 4) + 0..3, slot t / 4
-        for (int v = 0; v < 4; ++v) sum += csum[(4 * (t % 4) + v) * 6 + t / 4];
+      if (tid < G) {  // shift tid: the warps of half (tid - g0) / 4, slot (tid - g0) % 4
+        const int gl = tid - g0;
+        if (gl >= 0 && gl < ng)
+          for (int v = gl / 4; v < cm::kWarps; v += 2) sum += csum[v * 6 + gl % 4];
       } else {
-        for (int v = 0; v < cm::kWarps; ++v) sum += csum[v * 6 + 4 + (t - G)];
+        for (int v = 0; v < cm::kWarps; ++v) sum += csum[v * 6 + 4 + (tid - G)];
       }
-      cbar[(size_t(jb) * NJ + jt) * (G + 2) + t] = sum;
+      cbar[(size_t(jb) * T + z) * (G + 2) + tid] = sum;
     }
   }
-#undef GEO
 }
 
 template <int kMode, bool kConst>
 int launch_mma(const float* coord, const float* mask, const float* a, const float* gbar, const int* mnbr,
                const float* shift, const float* shifts_g, const float* scal, float* grad_a,
-               float* grad_coord, float* pgrad, float* cbar, int B, int C, int G, int F, int S,
+               float* grad_coord, float* pgrad, float* cbar, int* rec, int B, int C, int G, int F, int S,
                cudaStream_t stream) {
-  // kernels/conv_stencil.py::MMA_BWD_SMEM computes the same number
-  const int smem = int(sizeof(float)) * kMmaSmemFloats;
+  const int err0 = cm::launch_scan<true>(coord, mask, mnbr, shift, scal, rec, B, C, S, stream);
+  if (err0 != 0) return err0;
+  // kernels/conv_stencil.py::mma_bwd_smem_bytes computes the same number
+  const int smem = 4 * cm::BwdLayout(C, F, S, kMode).words;
   cudaError_t err = cudaFuncSetAttribute(conv_bwd_mma_kernel<kMode, kConst>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid(B, (C + cm::kRows - 1) / cm::kRows, cm::g_tiles(G) * cm::f_tiles(F));
+  const dim3 grid(B, 1, cm::bwd_g_tiles(G) * cm::f_tiles(F));
   conv_bwd_mma_kernel<kMode, kConst><<<grid, cm::kThreads, smem, stream>>>(
-      coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord, pgrad, cbar, B, C, G, F, S);
+      coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a, grad_coord, pgrad, cbar, rec, B, C, G, F, S);
   return int(cudaGetLastError());
 }
 
 template <bool kConst>
 int launch_mma_mode(int mode, const float* coord, const float* mask, const float* a, const float* gbar,
                     const int* mnbr, const float* shift, const float* shifts_g, const float* scal,
-                    float* grad_a, float* grad_coord, float* pgrad, float* cbar, int B, int C, int G,
+                    float* grad_a, float* grad_coord, float* pgrad, float* cbar, int* rec, int B, int C, int G,
                     int F, int S, cudaStream_t st) {
   if (mode == cm::kTF32)
     return launch_mma<cm::kTF32, kConst>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
-                                         grad_coord, pgrad, cbar, B, C, G, F, S, st);
+                                         grad_coord, pgrad, cbar, rec, B, C, G, F, S, st);
   if (mode == cm::k3xTF32)
     return launch_mma<cm::k3xTF32, kConst>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
-                                           grad_coord, pgrad, cbar, B, C, G, F, S, st);
+                                           grad_coord, pgrad, cbar, rec, B, C, G, F, S, st);
   if (mode == cm::kBF16)
     return launch_mma<cm::kBF16, kConst>(coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
-                                         grad_coord, pgrad, cbar, B, C, G, F, S, st);
+                                         grad_coord, pgrad, cbar, rec, B, C, G, F, S, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -792,23 +923,27 @@ extern "C" int conv_bwd_const_launch(const float* coord, const float* mask, cons
 }
 
 // The tensor-core builds: mode 1 TF32, 2 3xTF32, 3 bf16 (conv_mma.cuh);
-// kernels/conv_stencil.py::MMA_MODES.  grad_coord (T, B*C, 3) and pgrad
-// (T, S, B, NJ, 3, C) hold the partials of the T = mma_tiles shift-and-
-// column tiles, NJ = ceil(C / 16) atom tiles; ``constants`` != 0 also
-// writes cbar (B, NJ, G + 2) and takes one tile only.  No pair counts.
+// kernels/conv_stencil.py::MMA_MODES.  One block a bin and shift-and-column
+// tile: grad_coord (T, B*C, 3) and pgrad (T, S, B, 3, C) hold the partials
+// of the T = ceil(G / 8) ceil(F / 24) tiles; ``constants`` != 0 also writes
+// cbar (B, T, G + 2) and takes G <= 16, F <= 24.  No pair counts.
 extern "C" int conv_bwd_mma_launch(const float* coord, const float* mask, const float* a,
                                    const float* gbar, const int* mnbr, const float* shift,
                                    const float* shifts_g, const float* scal, float* grad_a,
-                                   float* grad_coord, float* pgrad, float* cbar, int B, int C, int G,
-                                   int F, int S, int mode, int constants, void* stream) {
+                                   float* grad_coord, float* pgrad, float* cbar, int* rec, int B, int C,
+                                   int G, int F, int S, int mode, int constants, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = cm::g_tiles(G) * cm::f_tiles(F);
-  if (B < 1 || C < 1 || G < 1 || F < 1 || (C + cm::kRows - 1) / cm::kRows > 65535 || tiles > 64 ||
-      (constants && (tiles != 1 || cbar == nullptr)))
+  const int tiles = cm::bwd_g_tiles(G) * cm::f_tiles(F);
+  if (B < 1 || C < 1 || G < 1 || F < 1 || S < 1 || tiles > 128 ||
+      (constants && (G > 2 * cm::kBwdGTile || F > cm::kFTile || cbar == nullptr)))
     return int(cudaErrorInvalidValue);
   if (constants)
     return launch_mma_mode<true>(mode, coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
-                                 grad_coord, pgrad, cbar, B, C, G, F, S, st);
+                                 grad_coord, pgrad, cbar, rec, B, C, G, F, S, st);
   return launch_mma_mode<false>(mode, coord, mask, a, gbar, mnbr, shift, shifts_g, scal, grad_a,
-                                grad_coord, pgrad, nullptr, B, C, G, F, S, st);
+                                grad_coord, pgrad, nullptr, rec, B, C, G, F, S, st);
 }
+
+// Shared memory of one block of the tensor-core build in `mode` (bytes;
+// the constants' build takes the same).
+extern "C" int conv_bwd_mma_smem(int C, int F, int S, int mode) { return 4 * cm::BwdLayout(C, F, S, mode).words; }

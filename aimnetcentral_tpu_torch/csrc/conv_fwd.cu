@@ -177,18 +177,35 @@ int launch(const float* coord, const float* mask, const float* a, const int* nbr
   return int(cudaGetLastError());
 }
 
-// The tensor-core builds (csrc/conv_mma.cuh: the modes, the tiles and the
-// exact W): block (b, receiver tile of kRows slots, shift-and-column tile),
-// warp w the radial shift g0 + w.  For each stencil offset and each kSlots
-// candidate slots: the geometry pass (one pair a thread) into shared memory,
-// the live slots packed, then out[k, i, g, f] += W_k[i, j, g] a[j, g, f] by
-// mma.sync over the live slots, four k's a depth step sharing each B
-// operand.  Every output element is written once, every sum in a fixed
-// order: no atomics, deterministic.
+// The tensor-core builds: kernel A in the JAX package's conv precision
+// modes, replacing _fwd_kernel (aimnetcentral_tpu/kernels/conv_stencil.py
+// :289) with its _mxu_dot (:373) in "f32" under TF32, "f32x3" and "bf16"
+// (csrc/conv_mma.cuh: the modes, the design, the exact W).  What bounds
+// them on an H100 is the bytes moved, as for the FP32 build; what they add
+// is finding the live candidates, moving each one's feature row from L2
+// into shared memory (once a pass, 4 shifts x F columns of it), the pairs'
+// geometry and exps, and two barriers a batch.  Block (b, shift-and-column
+// tile): kFwdGTile radial shifts and kFTile feature columns of every real
+// receiver of bin b, in passes of up to kRowCap receivers (compacted in
+// slot order); warp w owns row tile w / 4 and shift g0 + w % 4, with its
+// out[k, rows, g, f] in 48 FP32 accumulators (in shared memory between
+// batches).  The bin's padding slots get their zero rows first.  A pass:
+//   1. the live candidates: the pass's record of live_scan_kernel (launched
+//      just before, conv_mma.cuh): for each (offset s, slot j of the
+//      candidate bin nbr[s, b]) holding a real atom, the row tiles with a
+//      receiver within rc, as the entry stream by class (Stream);
+//   2. batches of kFwdEntries entries: batch t+1's feature rows (the
+//      block's columns) and coordinates are copied by cp.async while batch
+//      t's geometry and exps are computed (the pairs within rc packed onto
+//      a warp's lanes) and batch t is contracted:
+//      out[k, i, g, f] += W_k[i, e, g] a[e, g, f] by mma.sync over the
+//      entries of the warp's tile, four k's sharing each B operand.
+// Every output element is written once, every sum in a fixed order (the
+// stream's): no atomics.
 namespace cm = conv_mma;
 
 template <int kMode>
-__global__ void __launch_bounds__(cm::kThreads, 1)
+__global__ void __launch_bounds__(cm::kThreads, 2)
 conv_fwd_mma_kernel(const float* __restrict__ coord,     // (B*C, 3)
                     const float* __restrict__ mask,      // (B*C)
                     const float* __restrict__ a,         // (B*C, G*F)
@@ -197,145 +214,280 @@ conv_fwd_mma_kernel(const float* __restrict__ coord,     // (B*C, 3)
                     const float* __restrict__ shifts_g,  // (G)
                     const float* __restrict__ scal,      // (2) eta, rc
                     float* __restrict__ out,             // (B, 4, C, G*F)
+                    const int* __restrict__ rec,         // (B, passes) scan records (conv_mma.cuh)
                     int B, int C, int G, int F, int S) {
   using M = cm::Mma<kMode>;
-  __shared__ float geo[5][cm::kRows][cm::kSlots + 1];  // d, fc (0: no pair), ux, uy, uz
-  __shared__ unsigned rowmask[cm::kRows];
-  __shared__ int live[cm::kSlots];
+  constexpr int EB = cm::kFwdEntries;
+  constexpr int Q = cm::kFwdQ;
+  constexpr int GT = cm::kFwdGTile;
+  constexpr int TPE = cm::kThreads / EB;  // threads an entry in the copies
+  static_assert(EB == 32 && cm::kRowCap == 4 * cm::kWarps, "the geometry: warp w, rows w + 8 m, entry = lane");
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const cm::FwdLayout L(C, F, S, kMode);
+  float4* const accs = smem4 + L.accs / 4;  // [12][kThreads]
+  float4* const geo4 = smem4 + L.geo4 / 4;  // [kRowCap][Q] (fc, ux, uy, uz)
+  float4* const cst = smem4 + L.cst / 4;    // [2][EB] the entries' coordinates
+  float4* const rows = smem4 + L.rows / 4;
+  float4* const shs = smem4 + L.shs / 4;
+  float* const exs = smem + L.ex;       // [GT][kRowCap][Q]
+  float* const stage = smem + L.stage;  // [2][EB][P]
+  float* const sg = smem + L.sg;
+  int* const est = reinterpret_cast<int*>(smem + L.est);  // [2][2][EB] offset, self slot
+  int* const nbs = reinterpret_cast<int*>(smem + L.nbs);
+  unsigned* const masks = reinterpret_cast<unsigned*>(smem + L.masks);
+  int* const prefix = reinterpret_cast<int*>(smem + L.prefix);
+  int* const slots = reinterpret_cast<int*>(smem + L.slots);
 
   const int b = blockIdx.x;
-  const int i0 = blockIdx.y * cm::kRows;
-  const int gt = blockIdx.z % cm::g_tiles(G);
-  const int f0 = (blockIdx.z / cm::g_tiles(G)) * cm::kFTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int g0 = (blockIdx.z % cm::fwd_g_tiles(G)) * GT;
+  const int f0 = (blockIdx.z / cm::fwd_g_tiles(G)) * cm::kFTile;
+  const int ng = min(GT, G - g0);
+  const int nfb = min(cm::kFTile, F - f0);  // this block's columns of each shift
+  const bool one_run = nfb == F;           // the block's columns of its ng shifts are one contiguous run
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int gid = lane >> 2;
   const int t4 = lane & 3;
-  const int g = gt * cm::kGTile + warp;
-  const bool gwarp = g < G;
   const int GF = G * F;
+  const int P = L.P;
+  const int W = L.W;
   const float eta = scal[0];
-  const float rc = scal[1];
-  const float pi_rc = __fdiv_rn(cm::kPi, rc);
-  const float sg = gwarp ? shifts_g[g] : 0.0f;
+  const cm::Rc2 rc2 = cm::rc_bounds(scal[1]);
+  const float pi_rc = __fdiv_rn(cm::kPi, rc2.rc);
 
-  // the geometry pass: row warp (receiver slot i0 + warp), slot lane
-  const int gi = i0 + warp;
-  const size_t grow = size_t(b) * C + gi;
-  const bool real_i = gi < C && mask[grow] > 0.5f;
-  const float xi0 = real_i ? coord[3 * grow + 0] : 0.0f;
-  const float xi1 = real_i ? coord[3 * grow + 1] : 0.0f;
-  const float xi2 = real_i ? coord[3 * grow + 2] : 0.0f;
-  const bool any_real = __syncthreads_or(real_i);
-
-  float acc[4][cm::kNT][4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int nt = 0; nt < cm::kNT; ++nt) acc[k][nt][0] = acc[k][nt][1] = acc[k][nt][2] = acc[k][nt][3] = 0.0f;
-
-  for (int s = 0; any_real && s < S; ++s) {
+  if (warp == 0) {
+    const int nrow = cm::compact_rows(mask, b, C, 0, C, slots, lane);
+    if (lane == 0) prefix[0] = nrow;
+  }
+  if (tid < GT) sg[tid] = g0 + tid < G ? shifts_g[g0 + tid] : 0.0f;
+  for (int s = tid; s < S; s += cm::kThreads) {
     const int n = nbr[size_t(s) * B + b];
-    if (n < 0) continue;  // gas-phase step without a candidate bin
     const float* sh = shift + (size_t(s) * B + b) * 3;
-    const float sh0 = sh[0], sh1 = sh[1], sh2 = sh[2];
-    for (int j0 = 0; j0 < C; j0 += cm::kSlots) {
-      __syncthreads();  // the previous step's readers are done
-      const int j = j0 + lane;
-      bool vp = false;
-      float xj0 = 0.0f, xj1 = 0.0f, xj2 = 0.0f;
-      if (real_i && j < C) {
-        const size_t cr = size_t(n) * C + j;
-        vp = mask[cr] > 0.5f && !(s == 0 && j == gi);
-        xj0 = coord[3 * cr + 0];
-        xj1 = coord[3 * cr + 1];
-        xj2 = coord[3 * cr + 2];
-      }
-      const cm::Geom pg = cm::pair_geometry(xj0, xj1, xj2, sh0, sh1, sh2, xi0, xi1, xi2, vp, rc, pi_rc);
-      geo[0][warp][lane] = pg.d;
-      geo[1][warp][lane] = pg.fc;
-      geo[2][warp][lane] = pg.ux;
-      geo[3][warp][lane] = pg.uy;
-      geo[4][warp][lane] = pg.uz;
-      const unsigned m = __ballot_sync(0xffffffffu, pg.within);
-      if (lane == 0) rowmask[warp] = m;
-      __syncthreads();
-      unsigned livem = 0;
-#pragma unroll
-      for (int r = 0; r < cm::kRows; ++r) livem |= rowmask[r];
-      if (livem == 0) continue;  // the same for the whole block
-      if (warp == 0 && ((livem >> lane) & 1u)) live[__popc(livem & ((1u << lane) - 1u))] = lane;
-      __syncthreads();
-      const int nl = __popc(livem);
-      if (!gwarp) continue;
-      for (int k0 = 0; k0 < nl; k0 += M::K) {
-        // this lane's pairs: rows gid, gid + 8; depth k0 + kidx(q) -> live slot
-        float w[4][2][M::NK];
-        float av[cm::kNT][M::NK];
-#pragma unroll
-        for (int q = 0; q < M::NK; ++q) {
-          const int p = k0 + M::kidx(t4, q);
-          const int c = p < nl ? live[p] : -1;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float gs = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
-            if (c >= 0) {
-              const int row = gid + 8 * r;
-              const float fc = geo[1][row][c];
-              if (fc != 0.0f) {
-                gs = __fmul_rn(cm::gauss(geo[0][row][c], sg, eta), fc);
-                ux = geo[2][row][c];
-                uy = geo[3][row][c];
-                uz = geo[4][row][c];
-              }
-            }
-            w[0][r][q] = gs;
-            w[1][r][q] = __fmul_rn(gs, ux);
-            w[2][r][q] = __fmul_rn(gs, uy);
-            w[3][r][q] = __fmul_rn(gs, uz);
-          }
-          // a live slot holds a real atom (it has a pair within rc)
-          const float* arow = a + (size_t(n) * C + j0 + (c >= 0 ? c : 0)) * GF + size_t(g) * F;
-#pragma unroll
-          for (int nt = 0; nt < cm::kNT; ++nt) {
-            const int f = f0 + nt * 8 + gid;
-            av[nt][q] = (c >= 0 && f < F) ? __ldg(arow + f) : 0.0f;
-          }
-        }
-        cm::OpB bop[cm::kNT];
-#pragma unroll
-        for (int nt = 0; nt < cm::kNT; ++nt) cm::make_b<kMode>(av[nt], bop[nt]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          cm::OpA aop;
-          cm::make_a<kMode>(w[k], aop);
-#pragma unroll
-          for (int nt = 0; nt < cm::kNT; ++nt) cm::mma<kMode>(acc[k][nt], aop, bop[nt]);
-        }
-      }
+    nbs[s] = n;
+    shs[s] = make_float4(sh[0], sh[1], sh[2], 0.0f);
+  }
+  // the padding slots' zero rows (the block's columns), a warp a slot
+  for (int j = warp; j < C; j += cm::kWarps) {
+    if (mask[size_t(b) * C + j] > 0.5f) continue;  // the same for the warp
+    for (int k = 0; k < 4; ++k) {
+      float* orow = out + ((size_t(b) * 4 + k) * C + j) * GF;
+      for (int c = lane; c < ng * nfb; c += 32) orow[one_run ? g0 * F + c : (g0 + c / nfb) * F + f0 + c % nfb] = 0.0f;
     }
   }
+  __syncthreads();
+  const int nrow = prefix[0];
 
-  if (!gwarp) return;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int nt = 0; nt < cm::kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + gid + 8 * (e >> 1);
-        const int f = f0 + nt * 8 + 2 * t4 + (e & 1);
-        if (i < C && f < F) out[((size_t(b) * 4 + k) * C + i) * GF + size_t(g) * F + f] = acc[k][nt][e];
+  // the copies: 16 bytes a chunk where every run is aligned
+  const bool vec = (reinterpret_cast<uintptr_t>(a) & 15) == 0 && GF % 4 == 0 && P % 4 == 0 &&
+                   (one_run ? (g0 * F) % 4 == 0 && (ng * F) % 4 == 0 : F % 4 == 0 && f0 % 4 == 0 && nfb % 4 == 0);
+  const int tile = warp / GT;  // the warp's row tile and shift
+  const int gl = warp % GT;
+
+  for (int r0 = 0; r0 < nrow; r0 += cm::kRowCap) {
+    const int nr = min(cm::kRowCap, nrow - r0);
+    const int* ps = slots + r0;  // the pass's rows' slots
+    __syncthreads();             // the previous pass's readers are done
+    if (warp == 0) cm::load_rows(coord, b, C, ps, nr, rows, lane);
+    // 1. the live candidates: this pass's scan record (live_scan_kernel)
+    const int* src_rec = rec + (size_t(b) * cm::row_groups(C) + r0 / cm::kRowCap) * cm::scan_words(C, S);
+    for (int t = tid; t < cm::scan_words(C, S); t += cm::kThreads) reinterpret_cast<int*>(masks)[t] = src_rec[t];
+    for (int v = 0; v < 12; ++v) accs[v * cm::kThreads + tid] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    __syncthreads();
+    const cm::Stream stream(masks, prefix, S, W);
+    const int nb = (stream.E + EB - 1) / EB;
+    const int lo = stream.lo(tile), hi = stream.hi(tile);  // this warp's entries
+    const bool active = gl < ng && tile * 16 < nr;         // the same for the warp, all batches
+
+    // batch t's copies into buffer buf: thread tid, entry tid % EB
+    auto issue = [&](int t, int buf) {
+      const int e = tid % EB;
+      const int part = tid / EB;
+      const int ge = t * EB + e;
+      const bool valid = ge < stream.E;
+      int s = 0, j = 0;
+      if (valid) stream.decode(ge, s, j);
+      const size_t cr = size_t(valid ? nbs[s] : 0) * C + j;
+      const float* src = a + cr * GF + size_t(g0) * F + f0;
+      float* dst = stage + (buf * EB + e) * P;
+      if (one_run) {
+        cm::stage_runs(dst, src, 1, 1, 0, 0, 0, 0, ng * F, vec, valid, part, TPE);
+      } else {
+        cm::stage_runs(dst, src, 1, ng, 0, F, 0, nfb, nfb, vec, valid, part, TPE);
       }
+      if (part < 3) cm::cp_async4(reinterpret_cast<float*>(cst + buf * EB + e) + part, coord + 3 * cr + part, valid ? 4 : 0);
+      if (part == 0) {
+        est[(buf * 2 + 0) * EB + e] = valid ? s : -1;
+        est[(buf * 2 + 1) * EB + e] = valid && s == 0 ? j : -1;
+      }
+      cm::cp_async_commit();
+    };
+
+    // batch t's geometry: warp w, rows w + 8 m, entry = lane; the pairs
+    // within rc then packed onto the warp's lanes for the sqrt, cos,
+    // divisions and exps
+    auto geometry = [&](int t, int buf) {
+      const int e = lane;
+      const int ge = t * EB + e;
+      const int s = est[(buf * 2 + 0) * EB + e];
+      const int self = est[(buf * 2 + 1) * EB + e];
+      const float4 xe = cst[buf * EB + e];
+      const float4 sh = s >= 0 ? shs[s] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      unsigned inm = 0;  // bit m: the pair (row warp + 8 m, e) within rc
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int r = warp + 8 * m;
+        bool in = false;
+        if (s >= 0 && r < nr && ge >= stream.lo(r >> 4) && ge < stream.hi(r >> 4) && ps[r] != self) {
+          const float4 xr = rows[r];
+          float dx, dy, dz;
+          in = rc2.within(cm::pair_d2(xe.x, xe.y, xe.z, sh.x, sh.y, sh.z, xr.x, xr.y, xr.z, dx, dy, dz));
+        }
+        if (in) {
+          inm |= 1u << m;
+        } else {
+          geo4[r * Q + e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int g = 0; g < GT; ++g) exs[(g * cm::kRowCap + r) * Q + e] = 0.0f;
+        }
+      }
+      const unsigned b0 = __ballot_sync(0xffffffffu, inm & 1u), b1 = __ballot_sync(0xffffffffu, inm & 2u);
+      const unsigned b2 = __ballot_sync(0xffffffffu, inm & 4u), b3 = __ballot_sync(0xffffffffu, inm & 8u);
+      const int c0 = __popc(b0), c1 = c0 + __popc(b1), c2 = c1 + __popc(b2), total = c2 + __popc(b3);
+      for (int idx = lane; idx < total; idx += 32) {
+        const int m = idx < c0 ? 0 : idx < c1 ? 1 : idx < c2 ? 2 : 3;
+        const int k = idx - (m == 0 ? 0 : m == 1 ? c0 : m == 2 ? c1 : c2);
+        const int ee = cm::nth_set_bit(m == 0 ? b0 : m == 1 ? b1 : m == 2 ? b2 : b3, k);
+        const int r = warp + 8 * m;
+        const float4 xq = cst[buf * EB + ee];
+        const float4 shq = shs[est[(buf * 2 + 0) * EB + ee]];
+        const float4 xr = rows[r];
+        const cm::Geom pg = cm::pair_geometry(xq.x, xq.y, xq.z, shq.x, shq.y, shq.z, xr.x, xr.y, xr.z, pi_rc);
+        geo4[r * Q + ee] = make_float4(pg.fc, pg.ux, pg.uy, pg.uz);
+#pragma unroll
+        for (int g = 0; g < GT; ++g) exs[(g * cm::kRowCap + r) * Q + ee] = cm::gauss(pg.d, sg[g], eta);
+      }
+    };
+
+    // 2. the contraction
+    if (nb > 0) issue(0, 0);
+    for (int t = 0; t < nb; ++t) {
+      const int buf = t & 1;
+      cm::cp_async_wait();
+      __syncthreads();  // batch t's copies in place; batch t-1's readers done
+      if (t + 1 < nb) issue(t + 1, buf ^ 1);
+      geometry(t, buf);
+      __syncthreads();  // batch t's geometry in place
+      if (!active) continue;
+      const int base = t * EB;
+      const int ne = min(EB, stream.E - base);
+      float acc[4][cm::kNT][4];  // in registers for the batch, in shared memory between batches
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int nt = 0; nt < cm::kNT; ++nt) {
+          const float4 v = accs[(k * cm::kNT + nt) * cm::kThreads + tid];
+          acc[k][nt][0] = v.x;
+          acc[k][nt][1] = v.y;
+          acc[k][nt][2] = v.z;
+          acc[k][nt][3] = v.w;
+        }
+      // the lane's rows' offsets, formed here for the batch (kept live across
+      // the whole kernel they would crowd the registers)
+      int rq = (tile * 16 + gid) * Q;
+      asm volatile("" : "+r"(rq));
+      const float* ex = exs + gl * cm::kRowCap * Q + rq;
+      const float4* g4 = geo4 + rq;
+      const float* st = stage + buf * EB * P + gl * nfb;
+#pragma unroll 1
+      for (int k0 = 0; k0 < ne; k0 += M::K) {
+        if (base + k0 + M::K <= lo || base + k0 >= hi) continue;  // no entry of this tile
+        // gs = exp(..) fc and u of the lane's pairs: rows gid, gid + 8; depth kidx(q)
+        float gs[2][M::NK];
+        float4 gv[2][M::NK];
+#pragma unroll
+        for (int q = 0; q < M::NK; ++q) {
+          const int e = k0 + M::kidx(t4, q);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 8 * r * Q + e;
+            gv[r][q] = g4[i];
+            gs[r][q] = __fmul_rn(ex[i], gv[r][q].x);
+          }
+        }
+        // B operands: the entries' features a[e, g, f]
+        cm::OpB bop[cm::kNT];
+#pragma unroll
+        for (int nt = 0; nt < cm::kNT; ++nt) {
+          const int fl = nt * 8 + gid;
+          float bv[M::NK];
+#pragma unroll
+          for (int q = 0; q < M::NK; ++q) bv[q] = fl < nfb ? st[(k0 + M::kidx(t4, q)) * P + fl] : 0.0f;
+          cm::make_b<kMode>(bv, bop[nt]);
+        }
+        // A operands W_k = gs [1, u]_k, one k at a time
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float w[2][M::NK];
+#pragma unroll
+          for (int q = 0; q < M::NK; ++q)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float uk = k == 1 ? gv[r][q].y : k == 2 ? gv[r][q].z : gv[r][q].w;
+              w[r][q] = k == 0 ? gs[r][q] : __fmul_rn(gs[r][q], uk);
+            }
+          cm::OpA aop;
+          cm::make_a<kMode>(w, aop);
+#pragma unroll
+          for (int nt = 0; nt < cm::kNT; ++nt)
+            if (nt * 8 < nfb) cm::mma<kMode>(acc[k][nt], aop, bop[nt]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int nt = 0; nt < cm::kNT; ++nt)
+          accs[(k * cm::kNT + nt) * cm::kThreads + tid] =
+              make_float4(acc[k][nt][0], acc[k][nt][1], acc[k][nt][2], acc[k][nt][3]);
+    }
+
+    if (active) {
+      // the addresses here, not kept in registers from the kernel's start
+      int col = (g0 + gl) * F + f0 + 2 * t4, bb = b, row0 = tile * 16 + gid;
+      asm volatile("" : "+r"(col), "+r"(bb), "+r"(row0));
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int nt = 0; nt < cm::kNT; ++nt) {
+          const float4 v = accs[(k * cm::kNT + nt) * cm::kThreads + tid];
+          const float acc[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + 8 * (e >> 1);
+            const int fl = nt * 8 + 2 * t4 + (e & 1);
+            if (row < nr && fl < nfb)
+              out[((size_t(bb) * 4 + k) * C + ps[row]) * GF + col + nt * 8 + (e & 1)] = acc[e];
+          }
+        }
+    }
+  }
 }
 
 template <int kMode>
 int launch_mma(const float* coord, const float* mask, const float* a, const int* nbr, const float* shift,
-               const float* shifts_g, const float* scal, float* out, int B, int C, int G, int F, int S,
+               const float* shifts_g, const float* scal, float* out, int* rec, int B, int C, int G, int F, int S,
                cudaStream_t stream) {
-  const dim3 grid(B, (C + cm::kRows - 1) / cm::kRows, cm::g_tiles(G) * cm::f_tiles(F));
-  conv_fwd_mma_kernel<kMode><<<grid, cm::kThreads, 0, stream>>>(coord, mask, a, nbr, shift, shifts_g, scal,
-                                                                out, B, C, G, F, S);
+  int err0 = cm::launch_scan<false>(coord, mask, nbr, shift, scal, rec, B, C, S, stream);
+  if (err0 != 0) return err0;
+  // kernels/conv_stencil.py::mma_fwd_smem_bytes computes the same number
+  const int smem = 4 * cm::FwdLayout(C, F, S, kMode).words;
+  cudaError_t err = cudaFuncSetAttribute(conv_fwd_mma_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(B, 1, cm::fwd_g_tiles(G) * cm::f_tiles(F));
+  conv_fwd_mma_kernel<kMode><<<grid, cm::kThreads, smem, stream>>>(coord, mask, a, nbr, shift, shifts_g, scal,
+                                                                    out, rec, B, C, G, F, S);
   return int(cudaGetLastError());
 }
 
@@ -363,17 +515,19 @@ extern "C" int conv_fwd_launch(const float* coord, const float* mask, const floa
 // kernels/conv_stencil.py::MMA_MODES.  No pair counts.
 extern "C" int conv_fwd_mma_launch(const float* coord, const float* mask, const float* a,
                                    const int* nbr, const float* shift, const float* shifts_g,
-                                   const float* scal, float* out, int B, int C, int G, int F, int S,
-                                   int mode, void* stream) {
+                                   const float* scal, float* out, int* rec, int B, int C, int G, int F,
+                                   int S, int mode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || C < 1 || G < 1 || F < 1 || (C + cm::kRows - 1) / cm::kRows > 65535 ||
-      cm::g_tiles(G) * cm::f_tiles(F) > 65535)
+  if (B < 1 || C < 1 || G < 1 || F < 1 || S < 1 || cm::fwd_g_tiles(G) * cm::f_tiles(F) > 65535)
     return int(cudaErrorInvalidValue);
   if (mode == cm::kTF32)
-    return launch_mma<cm::kTF32>(coord, mask, a, nbr, shift, shifts_g, scal, out, B, C, G, F, S, st);
+    return launch_mma<cm::kTF32>(coord, mask, a, nbr, shift, shifts_g, scal, out, rec, B, C, G, F, S, st);
   if (mode == cm::k3xTF32)
-    return launch_mma<cm::k3xTF32>(coord, mask, a, nbr, shift, shifts_g, scal, out, B, C, G, F, S, st);
+    return launch_mma<cm::k3xTF32>(coord, mask, a, nbr, shift, shifts_g, scal, out, rec, B, C, G, F, S, st);
   if (mode == cm::kBF16)
-    return launch_mma<cm::kBF16>(coord, mask, a, nbr, shift, shifts_g, scal, out, B, C, G, F, S, st);
+    return launch_mma<cm::kBF16>(coord, mask, a, nbr, shift, shifts_g, scal, out, rec, B, C, G, F, S, st);
   return int(cudaErrorInvalidValue);
 }
+
+// Shared memory of one block of the tensor-core build in `mode` (bytes).
+extern "C" int conv_fwd_mma_smem(int C, int F, int S, int mode) { return 4 * cm::FwdLayout(C, F, S, mode).words; }

@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` on its own into a shared library with a
 plain C interface (``-gencode arch=compute_90a,code=sm_90a``); all sources
 compile in parallel.  Libraries are named by a hash of their source and of
 the shared headers (``csrc/*.cuh``), so a changed source is never served a
-stale build.  The build directory
+stale build; each library's nvcc log (``ptxas -v``: registers, shared
+memory, spills) is kept beside it as ``lib<name>-<hash>.log``.  The build directory
 (``aimnetcentral_tpu_torch/_build/``) is listed in .gitignore.
 """
 
@@ -43,6 +44,10 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _log_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".log")
+
+
 class KernelLibraries:
     """The process's loaded kernel libraries and their build logs."""
 
@@ -51,12 +56,14 @@ class KernelLibraries:
         self.logs: dict[str, str] = {}  # nvcc output (ptxas -v: registers, smem, spills)
 
     def build(self) -> None:
-        """Compile every missing library, one nvcc per source, all at once."""
+        """Compile every missing library, one nvcc per source, all at once;
+        read the logs of those already built."""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in SOURCES:
             out = _lib_path(name)
-            if out.exists():
+            if out.exists() and _log_path(name).exists():
+                self.logs[name] = _log_path(name).read_text()
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -72,6 +79,9 @@ class KernelLibraries:
             if proc.returncode != 0:
                 failed.append(f"{name}:\n{log}")
             else:
+                tmp_log = tmp.with_suffix(".log")
+                tmp_log.write_text(log)
+                os.replace(tmp_log, _log_path(name))
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -30,11 +30,17 @@ rounds the contraction's operands as that mode does and contracts with
 ``mma.sync``; "fp32" is the FP32 build.  kernels/conv_pass.py::
 resolve_conv_mode picks the mode from ``conv_precision`` and the ambient.
 The plain versions take the same ``mode`` and emulate the rounding
-(``round_tf32`` is ``cvt.rna.tf32.f32`` bit for bit).  What bounds them on
-an H100 and what the design does about it is in the notes at the top of
-each source.  A G*F row wider than one
-build's lanes hold (a fused ensemble's member-stacked features) is cut into
-column tiles, a grid axis of both kernels (``col_tiles``).
+(``round_tf32`` is ``cvt.rna.tf32.f32`` bit for bit).  The tensor-core
+builds take all of a bin's real rows in one block (in passes of
+``MMA_ROW_CAP``, so B's partner rows need no atom-tile axis) over a stream
+of live candidates, found by a scan kernel launched before them and staged
+into shared memory; their launch geometry is a pure function of the shapes
+(``mma_fwd_tiles``, ``mma_bwd_tiles``, ``mma_row_groups``,
+``mma_fwd_smem_bytes``, ``mma_bwd_smem_bytes``, ``mma_scan_words``).  What
+bounds them on an H100 and what the design does about it is in the notes at
+the top of each source.  A G*F row wider than one build's lanes hold (a
+fused ensemble's member-stacked features) is cut into column tiles, a grid
+axis of both kernels (``col_tiles``).
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  ``launches`` on each
@@ -60,8 +66,14 @@ MAX_COL_TILES = 8  # column tiles of one launch: G*F <= 8 x 544 = 4,352
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
 MMA_MODES = {"tf32": 1, "3xtf32": 2, "bf16": 3}  # the tensor-core builds (csrc/conv_mma.cuh)
 CONV_MODES = ("fp32", *MMA_MODES)  # "fp32": the FP32 builds on the CUDA cores
-MMA_ROWS, MMA_G_TILE, MMA_F_TILE = 16, 16, 24  # conv_mma.cuh: kRows, kGTile, kFTile
-MMA_BWD_SMEM = 4 * (6 * 16 * 33 + 4 * 16 * 32 * 4 + 16 * 16 * 24 + 3 * 16 * 33 + 16 * 6)  # conv_bwd.cu::kMmaSmemFloats
+# the tensor-core builds' tiles (csrc/conv_mma.cuh): real rows a block (A) or
+# a pass (B), feature columns a block, radial shifts an A and a B block,
+# entries a batch of A and of B
+MMA_ROW_CAP, MMA_F_TILE, MMA_FWD_G_TILE, MMA_BWD_G_TILE = 32, 24, 4, 8
+MMA_FWD_ENTRIES, MMA_BWD_ENTRIES = 32, 16
+MMA_THREADS = 256  # a block of either build, and of the scan before it
+MMA_CONST_G = 2 * MMA_BWD_G_TILE  # B's constants' build: G <= 16, F <= MMA_F_TILE
+MMA_BWD_MAX_TILES = 128  # B's shift-and-column tiles: the partials' scratch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,15 +330,97 @@ def _check_mode(mode: str) -> None:
         raise ValueError(f"mode must be one of {CONV_MODES}, not {mode!r}")
 
 
-def mma_tiles(st: ConvStatic) -> int:
-    """The tensor-core builds' shift-and-column tiles, a grid axis of both
-    kernels: MMA_G_TILE radial shifts by MMA_F_TILE feature columns."""
-    return -(-st.g // MMA_G_TILE) * -(-st.f // MMA_F_TILE)
+def mma_fwd_tiles(st: ConvStatic) -> int:
+    """Kernel A's shift-and-column tiles in the tensor-core builds, a grid
+    axis: MMA_FWD_G_TILE radial shifts by MMA_F_TILE feature columns."""
+    return -(-st.g // MMA_FWD_G_TILE) * -(-st.f // MMA_F_TILE)
 
 
-def mma_atom_tiles(st: ConvStatic) -> int:
-    """Kernel B's atom tiles a bin in the tensor-core builds (MMA_ROWS atoms)."""
-    return -(-st.c // MMA_ROWS)
+def mma_bwd_tiles(st: ConvStatic) -> int:
+    """Kernel B's shift-and-column tiles in the tensor-core builds (MMA_BWD_G_TILE
+    shifts): the T of its partial coordinate and partner-row outputs."""
+    return -(-st.g // MMA_BWD_G_TILE) * -(-st.f // MMA_F_TILE)
+
+
+def mma_row_groups(st: ConvStatic) -> int:
+    """The most passes of MMA_ROW_CAP real rows a block of kernel A or B
+    makes over its bin (a bin of C real atoms)."""
+    return -(-st.c // MMA_ROW_CAP)
+
+
+def _pitch_at(base: int, mod: int) -> int:
+    """conv_mma.cuh::pitch_at: a pitch >= base, congruent to mod modulo 32."""
+    return base + (mod - base) % 32
+
+
+def _stage_mod(mode: str) -> int:
+    return 4 if mode == "bf16" else 8
+
+
+def mma_fwd_smem_bytes(st: ConvStatic, mode: str) -> int:
+    """Shared memory of one kernel-A block in a tensor-core build
+    (conv_mma.cuh::FwdLayout): a batch's (row, entry) geometry and exps, two
+    batches of staged feature rows and coordinates, the pass's rows, the
+    offsets' tables, the live masks (three classes of S x ceil(C / 32)
+    words) and their prefix, the bin's slots."""
+    q, cap, gt, eb = MMA_FWD_ENTRIES + 4, MMA_ROW_CAP, MMA_FWD_G_TILE, MMA_FWD_ENTRIES
+    p = _pitch_at(gt * min(st.f, MMA_F_TILE), _stage_mod(mode))
+    words = 48 * MMA_THREADS + cap * q * 4 + 2 * eb * 4 + 4 * cap + 4 * st.s_tot + gt * cap * q
+    words = -(-words // 4) * 4 + 2 * eb * p
+    words += gt + 4 * eb + st.s_tot + 3 * st.s_tot * -(-st.c // 32) + 3 * (st.s_tot + 1) + st.c
+    return 4 * words
+
+
+def mma_bwd_smem_bytes(st: ConvStatic, mode: str) -> int:
+    """Shared memory of one kernel-B block in a tensor-core build, its
+    constants' build too (conv_mma.cuh::BwdLayout): one batch of geometry,
+    exps and staged cotangent rows, the two halves' (ubar, dbar), the pass's
+    features, the live masks, the bin's slots."""
+    q, cap, gt, eb = MMA_BWD_ENTRIES + 4, MMA_ROW_CAP, MMA_BWD_G_TILE, MMA_BWD_ENTRIES
+    nf = min(st.f, MMA_F_TILE)
+    pe = _pitch_at(4 * gt * nf, _stage_mod(mode))
+    pr = _pitch_at(gt * nf, 4)
+    words = cap * q * 4 + 2 * cap * eb * 4 + 4 * cap + 4 * st.s_tot + cap * q * 2 + gt * cap * q
+    words = -(-words // 4) * 4 + eb * pe
+    words = -(-words // 4) * 4 + cap * pr
+    words += (gt + 6 * 8 + 3 * cap + 3 * st.s_tot * -(-st.c // 32) + 3 * (st.s_tot + 1) + st.c + 4 * eb
+              + st.s_tot)
+    return 4 * words
+
+
+def mma_scan_words(st: ConvStatic) -> int:
+    """Words of one (bin, pass) record of the live-candidate scan that runs
+    before either tensor-core build (conv_mma.cuh::live_scan_kernel): three
+    classes of S x ceil(C / 32) mask words and their prefix sums."""
+    return 3 * st.s_tot * -(-st.c // 32) + 3 * (st.s_tot + 1)
+
+
+def mma_scan_smem_bytes(st: ConvStatic) -> int:
+    """Shared memory of one block of the live-candidate scan (ScanLayout)."""
+    return 4 * (4 * MMA_ROW_CAP + 4 * st.s_tot + MMA_ROW_CAP + st.s_tot + mma_scan_words(st))
+
+
+def _scan_records(st: ConvStatic, device) -> torch.Tensor:
+    """The live-candidate scan's (bin, pass) records, scratch of one launch."""
+    return torch.empty(st.b_tot * mma_row_groups(st) * mma_scan_words(st), dtype=torch.int32, device=device)
+
+
+def _check_mma_launch(st: ConvStatic, mode: str, kernel: str, constants: bool = False) -> None:
+    """Refuse, before any launch, what a tensor-core build does not take."""
+    if kernel == "A":
+        smem = mma_fwd_smem_bytes(st, mode)
+    else:
+        smem = mma_bwd_smem_bytes(st, mode)
+        if constants and (st.g > MMA_CONST_G or st.f > MMA_F_TILE):
+            raise ValueError(f"the AEV constants' adjoint takes one column tile (G <= {MMA_CONST_G} and "
+                             f"F <= {MMA_F_TILE}), not G = {st.g}, F = {st.f}")
+        if mma_bwd_tiles(st) > MMA_BWD_MAX_TILES:
+            raise ValueError(f"conv kernel B ({mode}) takes at most {MMA_BWD_MAX_TILES} shift-and-column "
+                             f"tiles, not G = {st.g}, F = {st.f}")
+    smem = max(smem, mma_scan_smem_bytes(st))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"conv kernel {kernel} ({mode}) does not take C={st.c}, S={st.s_tot}, F={st.f}: "
+                         f"{smem} bytes of shared memory a block")
 
 
 def _counts_arg(st: ConvStatic, pair_counts, mode: str):
@@ -374,9 +468,11 @@ def conv_stencil_forward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, shif
             _ptr(scal), _ptr(out), counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream,
         )
     else:
-        err = _bind("conv_fwd", "conv_fwd_mma_launch", 8, 6)(
+        _check_mma_launch(st, mode, "A")
+        rec = _scan_records(st, a_gmajor.device)
+        err = _bind("conv_fwd", "conv_fwd_mma_launch", 9, 6)(
             _ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(nbr), _ptr(shift), _ptr(shifts_g),
-            _ptr(scal), _ptr(out), st.b_tot, st.c, st.g, st.f, st.s_tot, MMA_MODES[mode], stream,
+            _ptr(scal), _ptr(out), _ptr(rec), st.b_tot, st.c, st.g, st.f, st.s_tot, MMA_MODES[mode], stream,
         )
     if err != 0:
         raise RuntimeError(f"conv kernel A ({mode}) launch failed: cudaError {err}")
@@ -417,31 +513,34 @@ def _launch_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, sh
            shifts_g=shifts_g, scal=scal, gbar=gbar)
     mma = mode != "fp32"
     if mma:
-        tiles, atom_tiles, smem = mma_tiles(st), mma_atom_tiles(st), MMA_BWD_SMEM
+        counts = _counts_arg(st, pair_counts, mode)
+        _check_mma_launch(st, mode, "B", constants)
+        tiles = mma_bwd_tiles(st)
+        part_shape = (tiles, st.s_tot, st.b_tot, 3, st.c)  # one block a bin: no atom-tile axis
+        cbar_shape = (st.b_tot, tiles, st.g + 2)
     else:
         tiles, width, cols = col_tiles(st)
-        atom_tiles, smem = bwd_tiles(st), bwd_smem_bytes(st, constants)
-    if constants and tiles > 1:
-        limit = f"G <= {MMA_G_TILE} and F <= {MMA_F_TILE}" if mma else f"G*F <= {32 * LANE_COLUMNS[-1]}"
-        raise ValueError(f"the AEV constants' adjoint takes one column tile ({limit}), not "
-                         f"G = {st.g}, F = {st.f}")
-    counts = _counts_arg(st, pair_counts, mode)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"conv kernel B does not take C={st.c}")
+        if constants and tiles > 1:
+            raise ValueError(f"the AEV constants' adjoint takes one column tile (G*F <= {32 * LANE_COLUMNS[-1]}), "
+                             f"not G = {st.g}, F = {st.f}")
+        counts = _counts_arg(st, pair_counts, mode)
+        if bwd_smem_bytes(st, constants) > SMEM_LIMIT:
+            raise ValueError(f"conv kernel B does not take C={st.c}")
+        part_shape = (tiles, st.s_tot, st.b_tot, bwd_tiles(st), 3, st.c)
+        cbar_shape = (st.b_tot, bwd_tiles(st), st.g + 2)
     dev = a_gmajor.device
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     grad_a = torch.empty((st.b_tot, st.c, st.g * st.f), dtype=torch.float32, device=dev)
     dc_recv = torch.empty((tiles, st.b_tot, st.c, 3), dtype=torch.float32, device=dev)
-    pgrad = torch.empty((tiles, st.s_tot, st.b_tot, atom_tiles, 3, st.c), dtype=torch.float32, device=dev)
+    pgrad = torch.empty(part_shape, dtype=torch.float32, device=dev)
     args = [_ptr(coord), _ptr(mask), _ptr(a_gmajor), _ptr(gbar), _ptr(mnbr), _ptr(shift),
             _ptr(shifts_g), _ptr(scal), _ptr(grad_a), _ptr(dc_recv), _ptr(pgrad)]
-    cbar = None
-    if constants:
-        cbar = torch.empty((st.b_tot, atom_tiles, st.g + 2), dtype=torch.float32, device=dev)
+    cbar = torch.empty(cbar_shape, dtype=torch.float32, device=dev) if constants else None
     if mma:
-        err = _bind("conv_bwd", "conv_bwd_mma_launch", 12, 7)(
-            *args, _ptr(cbar) if constants else ctypes.c_void_p(0), st.b_tot, st.c, st.g, st.f, st.s_tot,
-            MMA_MODES[mode], int(constants), stream)
+        rec = _scan_records(st, dev)
+        err = _bind("conv_bwd", "conv_bwd_mma_launch", 13, 7)(
+            *args, _ptr(cbar) if constants else ctypes.c_void_p(0), _ptr(rec), st.b_tot, st.c, st.g, st.f,
+            st.s_tot, MMA_MODES[mode], int(constants), stream)
     elif constants:
         err = _bind("conv_bwd", "conv_bwd_const_launch", 13, 7)(
             *args, counts, _ptr(cbar), st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
@@ -450,13 +549,13 @@ def _launch_backward(st: ConvStatic, a_gmajor, coord, mask, shift, nbr, mnbr, sh
             *args, counts, st.b_tot, st.c, st.g, st.f, st.s_tot, cols, width, stream)
     if err != 0:
         raise RuntimeError(f"conv kernel B ({mode}) launch failed: cudaError {err}")
-    # the column tiles' partials, then the atom tiles' partial row sums,
-    # each added in a fixed order
+    # the column tiles' partials, then (FP32 builds) the atom tiles' partial
+    # row sums, each added in a fixed order
     if tiles > 1:
         dc_recv, pgrad = dc_recv.sum(0), pgrad.sum(0)
     else:
         dc_recv, pgrad = dc_recv[0], pgrad[0]
-    dc, ds = gather_partner_adjoints(st, nbr, dc_recv, pgrad.sum(2))
+    dc, ds = gather_partner_adjoints(st, nbr, dc_recv, pgrad if mma else pgrad.sum(2))
     if not constants:
         return grad_a, dc, ds
     cb = cbar.reshape(-1, st.g + 2).sum(0)  # the blocks' partial sums

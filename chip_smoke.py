@@ -53,7 +53,8 @@ Phases (any failure exits nonzero; nothing is caught):
    re-binnings per 100 steps, retried chunks, peak device memory and the
    idle share of one profiled chunk; gated on the kernels' launches per
    step (A, B 3; D, E 1 on flagship-10k, 3 on wb97m-d3-10k; re-binning
-   steps add none), peak memory against the single request's, no growth
+   steps add none), peak memory against the single request's (on the
+   grown grid, measured again, where a retried chunk grew it), no growth
    of held memory.  The random-weight potential blows the box up after
    35-40 fs, so those windows are marked hot, not representative; the same
    measurements are taken over the first 50 steps of a fresh NVE driver at
@@ -205,13 +206,17 @@ resumed second epoch equal bit for bit; the CLI's ``calc-sae``, ``train``
 and ``export`` bodies, the artifact on the card within ``CHECK_ABS``.
 
 Then phase ``conv_precision`` (``phase_conv_precision``, about 20 s):
-kernels A and B's tensor-core builds (csrc/conv_mma.cuh, one a mode of the
-JAX package's ``conv_precision``: "tf32", "3xtf32", "bf16") against their
-plain versions in the same mode on the card within 1e-5 of each output's
-largest magnitude, and bit for bit on a repeat, on flagship-10k's request
-grid (F = 16, 17), at a fused ensemble's G*F = 1,088 (F = 68) and B's
-constants' build on packed-64x48's molecule bins, with ms a launch and the
-bound at the tensor cores' rate; flagship-10k requests at ``balanced``
+first ``ptxas -v``'s registers, stack frame and spill bytes of every
+tensor-core build of kernels A and B (both of B's constants' instances;
+FAIL on a spill); then kernels A and B's tensor-core builds
+(csrc/conv_mma.cuh, one a mode of the JAX package's ``conv_precision``:
+"tf32", "3xtf32", "bf16") against their plain versions in the same mode on
+the card within 1e-5 of each output's largest magnitude, and bit for bit on
+a repeat, on flagship-10k's request grid (F = 16, 17), at a fused
+ensemble's G*F = 1,088 (F = 68) and B's constants' build on packed-64x48's
+molecule bins, with ms a launch beside the FP32 build's on the same inputs
+in the same run (and their ratio) and the bound at the tensor cores' rate;
+flagship-10k requests at ``balanced``
 (forces within ``CHECK_ABS`` of ``exact``), ``fast`` (the control that
 must exceed it) and ``exact`` with ``AIMNET_CONV_PRECISION=bf16`` (within
 2e-2 of max |F|), each launching A and B 3 times in its tier's build, the
@@ -1009,6 +1014,13 @@ def mode_kernel_checks(label: str, base: dict, mnbr, dims: tuple, fs: tuple, con
             bytes_a = feat + 4 * feat + small
             bytes_b = feat + 4 * feat + feat + small + 4 * (b * c * 3 + s_tot * b * 3)
             flops_a = 2.0 * 4 * g * f * n_pairs
+            # the FP32 builds (the exact tier) on the same inputs: the yardstick
+            if constants:
+                fp32 = {"B constants": time_cuda(lambda: cs.conv_stencil_backward_constants(
+                    st, **ops, mnbr=mnbr, gbar=gbar), reps=10)}
+            else:
+                fp32 = {"A": time_cuda(lambda: cs.conv_stencil_forward(st, **ops), reps=10),
+                        "B": time_cuda(lambda: cs.conv_stencil_backward(st, **ops, mnbr=mnbr, gbar=gbar), reps=10)}
             for mode in CP_MODES:
                 row = {}
                 if constants:
@@ -1036,17 +1048,59 @@ def mode_kernel_checks(label: str, base: dict, mnbr, dims: tuple, fs: tuple, con
                     bnd, by, t_ops = tc_bound(nbytes, flops, mode)
                     worst = max(e / max(sc, 1e-30) for e, sc in errs)
                     log(f"[conv_precision {label}] F={f} {key} [{mode}]: {ms:.3f} ms (plain {plain_ms:.3f} ms), "
+                        f"the FP32 build {fp32[key]:.3f} ms in this run ({ms / fp32[key]:.2f} x), "
                         f"bound {bnd:.4f} ms by {by} (the tensor cores alone {t_ops:.5f} ms for {n_pairs} real "
                         f"pairs); against its plain twin: "
                         + ", ".join(f"{e:.2e} of {sc:.2e}" for e, sc in errs))
                     if worst > REL_TOL:
                         raise SystemExit(f"FAIL: kernel {key} [{mode}] disagrees with its plain version in the same "
                                          f"mode at F={f} on {label} ({worst:.2e} of the largest magnitude)")
-                    row[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by, "ops_ms": t_ops,
+                    row[key] = {"ms": ms, "fp32_ms": fp32[key], "ratio_fp32": ms / fp32[key], "plain_ms": plain_ms,
+                                "bound_ms": bnd, "bound_by": by, "ops_ms": t_ops,
                                 "max_abs_err": max(e for e, _s in errs), "rel_err": worst, "pairs": n_pairs}
                 res[f"F{f} {mode}"] = row
             del ops, gbar
             torch.cuda.empty_cache()
+    return res
+
+
+def mma_ptxas() -> dict:
+    """Registers, stack frame and spill bytes of every tensor-core build of
+    kernels A and B (both constants' instances of B), as ``ptxas -v``
+    reports them in the build's log (kept beside each library); FAIL on any
+    spill or a missing build."""
+    import re
+
+    from aimnetcentral_tpu_torch.kernels.build import LIBRARIES
+
+    LIBRARIES.build()
+    logs = {name: LIBRARIES.logs.get(name, "") for name in ("conv_fwd", "conv_bwd")}
+    names = {"1": "tf32", "2": "3xtf32", "3": "bf16"}
+    res = {}
+    for name, text in logs.items():
+        lines = text.splitlines()
+        for k, line in enumerate(lines):
+            m = re.search(r"conv_(fwd|bwd)_mma_kernelILi(\d)E(?:Lb(\d)E)?", line)
+            if "Compiling entry function" not in line or m is None:
+                continue
+            info = " ".join(lines[k + 1:k + 4])
+            row = "A" if m.group(1) == "fwd" else ("B constants" if m.group(3) == "1" else "B")
+            key = f"{row}[{names[m.group(2)]}]"
+            regs = re.search(r"Used (\d+) registers", info)
+            stack = re.search(r"(\d+) bytes stack frame", info)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info)
+            if regs is None or spill is None:
+                raise SystemExit(f"FAIL: no ptxas report for {key} in the build log of {name}")
+            res[key] = {"registers": int(regs.group(1)), "stack": int(stack.group(1)) if stack else 0,
+                        "spill_stores": int(spill.group(1)), "spill_loads": int(spill.group(2))}
+            log(f"[conv_precision ptxas] {key}: {res[key]['registers']} registers, {res[key]['stack']} bytes "
+                f"stack frame, {res[key]['spill_stores']} / {res[key]['spill_loads']} bytes spill stores / loads")
+    want = {f"{r}[{m}]" for r in ("A", "B", "B constants") for m in CP_MODES}
+    if set(res) != want:
+        raise SystemExit(f"FAIL: ptxas reported {sorted(res)}, not every tensor-core build {sorted(want)}")
+    spilled = [k for k, v in res.items() if v["spill_stores"] or v["spill_loads"]]
+    if spilled:
+        raise SystemExit(f"FAIL: the tensor-core builds {spilled} spill registers")
     return res
 
 
@@ -1098,7 +1152,7 @@ def phase_conv_precision(calc, params, cfg, coord, numbers, cell) -> dict:
     from aimnetcentral_tpu_torch.train.loss import LossConfig, MTLoss
 
     t_phase = time.perf_counter()
-    res: dict = {}
+    res: dict = {"ptxas": mma_ptxas()}
     data = {"coord": coord, "numbers": numbers, "cell": cell}
     sysb = calc.prepare_system(data)
     base, mnbr, dims = conv_base(sysb, cfg, params["aev"])
@@ -1517,11 +1571,43 @@ def device_busy_ms(prof, spans: tuple = (), events=None) -> float:
     return sum(dev_us(e) for e in events if on_device(e) and e.key not in spans) / 1e3
 
 
+def md_capacities(drv) -> tuple[int, ...]:
+    """An MDDriver's bin capacities: its SR grid's and, where it has one,
+    its LR grid's (the binned engine; none on the indexed one)."""
+    grids = (getattr(drv, "grid", None), getattr(drv, "lr_grid", None))
+    return tuple(g.capacity for g in grids if g is not None)
+
+
+def grown_request_peak(drv, caps: tuple[int, ...]) -> int:
+    """The peak memory of a single request on an MDDriver's grid at the
+    capacities ``caps`` (its SR grid's, then its LR grid's): the driver's
+    current coordinates binned into that grid, then their energy and
+    forces at the driver's tier, over what the process holds meanwhile (as
+    an MD window's peak is)."""
+    import torch
+
+    from aimnetcentral_tpu_torch.ops import binned as B
+
+    sr = dataclasses.replace(drv.grid, capacity=caps[0])
+    lr = dataclasses.replace(drv.lr_grid, capacity=caps[1]) if drv.lr_grid is not None else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sysb, _perm, ovf = B.to_binned_system(drv.state.system, sr, lr)
+    if bool(ovf.any()):
+        raise SystemExit(f"FAIL: the MD state overflows its own grid at capacities {caps}")
+    forces, _e, _std = drv._force_fn(drv.params, sysb)
+    torch.cuda.synchronize()
+    del sysb, forces
+    return torch.cuda.max_memory_allocated()
+
+
 def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunks: int = MD_TIMED,
               chunk: int = MD_CHUNK) -> dict:
     """``n_chunks`` chunks of ``chunk`` steps with every kernel's launches
     counted around them, then one profiled chunk.  The peak memory is gated
-    against ``request_peak`` (a single request's) when one is given.  The step time is the
+    against ``request_peak`` (a single request's) when one is given; where a
+    retried chunk grew the grid, against the peak of a single request on the
+    grown grid, measured after the window (``grown_request_peak``).  The step time is the
     window's whole wall time over its steps (host clock ending in a
     synchronize), the chunks' spread beside it.  The total energy
     (potential plus kinetic) is read from the observables; a window whose
@@ -1539,6 +1625,7 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunk
     torch.cuda.reset_peak_memory_stats()
     held0 = torch.cuda.memory_allocated()
     rebins0, regrows0 = drv.rebins, drv.regrows
+    caps0 = caps = md_capacities(drv)  # caps: the most slots each grid had in the window
     for fn in wrappers.values():
         fn.launches = 0
     chunk_s, temps, etot = [], [], []
@@ -1548,6 +1635,7 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunk
         obs = drv.run(chunk, chunk=chunk)
         torch.cuda.synchronize()
         chunk_s.append(time.perf_counter() - t0)
+        caps = tuple(max(c, c1) for c, c1 in zip(caps, md_capacities(drv)))
         if not all(np.isfinite(v).all() for v in obs.values()):
             raise SystemExit(f"FAIL: non-finite MD observables on {label}")
         temps.append(float(obs["temperature"].mean()))
@@ -1577,6 +1665,12 @@ def md_window(label: str, drv, per_eval: dict, request_peak: int | None, n_chunk
         + f", held {held / 2**20:+.1f} MiB; mean temperature by "
         f"chunk {', '.join(f'{t:.0f}' for t in temps)} K; total energy {etot[0]:.4f} -> {etot[-1]:.4f} eV "
         f"(|change| / |E| {drift:.2e}); launches {launches}{note}")
+    if request_peak is not None and caps != caps0:
+        # a retried chunk re-planned the grid at a grown capacity: the
+        # single request is measured again on that grid
+        request_peak = grown_request_peak(drv, caps)
+        log(f"[md {label}] a retried chunk grew the grid's capacity {caps0} -> {caps}: a single request on "
+            f"the grown grid peaks at {request_peak / 2**30:.3f} GiB")
     if request_peak is not None and peak > MD_PEAK_RATIO * request_peak:
         raise SystemExit(f"FAIL: MD peak memory {peak} B above {MD_PEAK_RATIO} x the single request's on {label}")
     if held > MD_HELD_GROWTH:

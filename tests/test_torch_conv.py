@@ -328,6 +328,70 @@ def test_kernel_tiles_fit_the_card(f):
     assert tcs.bwd_smem_bytes(st) == 23_040
 
 
+SM_SMEM = 233_472  # bytes of shared memory an H100 SM gives its resident blocks
+
+
+@pytest.mark.parametrize("f", [16, 17, 33, 68])
+def test_tensor_core_launches_fit_the_card(f):
+    """The tensor-core builds' launch geometry (pure functions of the
+    shapes, csrc/conv_mma.cuh): for every capacity the planner can give,
+    each launch of A and B (B's constants' build too) fits the card's
+    shared memory and grid limits, or is refused with ValueError before any
+    launch; the flagship's request grid and the molecule bins get the blocks
+    the design expects."""
+    for c in range(8, 257, 8):
+        for s_tot in (1, 27, 125):
+            st = tcs.ConvStatic(b_tot=512, c=c, g=G_DIM, f=f, s_tot=s_tot)
+            passes = tcs.mma_row_groups(st)  # of a bin of C real atoms
+            assert passes == -(-c // tcs.MMA_ROW_CAP) and (passes - 1) * tcs.MMA_ROW_CAP < c
+            assert tcs.mma_fwd_tiles(st) == 4 * -(-f // 24) and tcs.mma_bwd_tiles(st) == 2 * -(-f // 24)
+            # the live-candidate scan before either build: a record of three
+            # mask classes and their prefix sums a (bin, pass)
+            w = -(-c // 32)
+            assert tcs.mma_scan_words(st) == 3 * s_tot * w + 3 * (s_tot + 1)
+            assert tcs.mma_scan_smem_bytes(st) <= tcs.SMEM_LIMIT
+            for mode in tcs.MMA_MODES:
+                fwd, bwd = tcs.mma_fwd_smem_bytes(st, mode), tcs.mma_bwd_smem_bytes(st, mode)
+                assert fwd <= tcs.SMEM_LIMIT and bwd <= tcs.SMEM_LIMIT
+                tcs._check_mma_launch(st, mode, "A")
+                tcs._check_mma_launch(st, mode, "B")
+                if f <= tcs.MMA_F_TILE:
+                    tcs._check_mma_launch(st, mode, "B", constants=True)
+                    # a single model's widths: two blocks of each an SM
+                    if c <= 64 and s_tot <= 27:
+                        assert 2 * (max(fwd, bwd) + 1024) <= SM_SMEM
+                else:
+                    with pytest.raises(ValueError, match="column tile"):
+                        tcs._check_mma_launch(st, mode, "B", constants=True)
+    # what the builds refuse: the constants' build beyond one column tile,
+    # more offsets than the live masks' shared memory holds
+    with pytest.raises(ValueError, match="column tile"):
+        tcs._check_mma_launch(tcs.ConvStatic(64, 48, 17, 16, 1), "tf32", "B", constants=True)
+    huge = tcs.ConvStatic(b_tot=8, c=256, g=G_DIM, f=17, s_tot=7_000)
+    for kernel in ("A", "B"):
+        with pytest.raises(ValueError, match="shared memory"):
+            tcs._check_mma_launch(huge, "bf16", kernel)
+    # the flagship's request grid (512 bins, C = 40, 27 offsets, F = 17): a
+    # block a (bin, tile), so A's 4 shift tiles make 2,048 blocks of 108,196
+    # bytes and B's 2 make 1,024 of 111,604 (NJ = 1); a bin of up to 32 real
+    # atoms in one pass (about 20 at this density), 40 in two
+    st = tcs.ConvStatic(b_tot=512, c=40, g=G_DIM, f=17, s_tot=27)
+    assert st.b_tot * tcs.mma_fwd_tiles(st) == 2048 and st.b_tot * tcs.mma_bwd_tiles(st) == 1024
+    assert tcs.mma_row_groups(st) == 2
+    assert tcs.mma_fwd_smem_bytes(st, "tf32") == 108_196 and tcs.mma_bwd_smem_bytes(st, "tf32") == 111_604
+    # the scan's records: 246 words a (bin, pass), 2,164 bytes a scan block
+    assert tcs.mma_scan_words(st) == 246 and tcs.mma_scan_smem_bytes(st) == 2_164
+    # MD's grid (9 x 9 x 9, C = 32): one pass; molecule bins (C = 120, one
+    # offset): up to four passes of one block a molecule and tile
+    assert tcs.mma_row_groups(tcs.ConvStatic(729, 32, G_DIM, 17, 27)) == 1
+    st = tcs.ConvStatic(b_tot=64, c=120, g=G_DIM, f=17, s_tot=1)
+    assert tcs.mma_row_groups(st) == 4
+    assert st.b_tot * tcs.mma_fwd_tiles(st) == 256 and st.b_tot * tcs.mma_bwd_tiles(st) == 128
+    # a fused ensemble's rows (G*F = 1,088): 3 column tiles of 24 by 4 / 8 shifts
+    st = tcs.ConvStatic(b_tot=512, c=40, g=G_DIM, f=68, s_tot=27)
+    assert (tcs.mma_fwd_tiles(st), tcs.mma_bwd_tiles(st)) == (12, 6)
+
+
 def test_column_tiles_partition_the_adjoint(case):
     """Kernels A and B cut a fused ensemble's member-stacked row (here four
     members of F = 17, 1,088 columns: two tiles of 544) into column tiles

@@ -88,6 +88,19 @@ def _edge_molecule(rng):
     return {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * EDGE_BOX}
 
 
+def _crowded_molecule(rng, cap):
+    """A 12 A box on 2x2x2 bins of edge 6 for the tensor-core builds' row
+    groups (32 real rows a block of A, a pass of B): bin (0,0,0) filled to
+    ``cap`` - 2 atoms (more than one row group at capacity 48, more than two
+    at 72), each other bin 1 + 2 b atoms."""
+    crowded = rng.uniform(0.2, 5.8, size=(cap - 2, 3))
+    rest = [rng.uniform(0.2, 5.8, size=(1 + 2 * k, 3)) + 6.0 * np.array([k & 1, (k >> 1) & 1, k >> 2])
+            for k in range(1, 8)]
+    coord = np.concatenate([crowded, *rest]).astype(np.float32)
+    numbers = rng.choice([1, 6, 8], size=len(coord))
+    return {"coord": coord, "numbers": numbers, "cell": np.eye(3, dtype=np.float32) * 12.0}
+
+
 def _cluster(n, seed=0, spacing=2.2):
     """The ``n`` atoms nearest the centre of a jittered CHNO lattice."""
     rng = np.random.default_rng(seed)
@@ -121,6 +134,9 @@ def _operands(layout: str, f: int, seed: int = 7):
     elif layout == "gas":
         mol = {"coord": coord * np.array([1.0, 0.7, 0.7], np.float32), "numbers": numbers}
         grid = B.BinGrid(nbins=(3, 2, 2), capacity=16, edge_hint=4.0, periodic=False)
+    elif layout.startswith("cap"):
+        mol = _crowded_molecule(rng, int(layout[3:]))
+        grid = B.BinGrid(nbins=(2, 2, 2), capacity=int(layout[3:]), edge_hint=6.0, periodic=True)
     elif layout == "edges":
         mol = _edge_molecule(rng)
         grid = B.BinGrid(nbins=(3, 3, 3), capacity=EDGE_CAP, edge_hint=5.2, periodic=True)
@@ -304,6 +320,53 @@ def test_tensor_core_builds_refuse_what_they_do_not_take(cuda_device):
         cs.conv_stencil_backward_constants(wide, **_to(cuda_device, wops), mnbr=wmnbr.to(cuda_device),
                                            gbar=wgbar.to(cuda_device), mode="bf16")
     assert (cs.conv_stencil_forward.launches, cs.conv_stencil_backward_constants.launches) == before
+
+
+@pytest.mark.parametrize("mode", MMA_MODES)
+@pytest.mark.parametrize("layout", ["cap48", "cap72"])
+def test_tensor_core_builds_cross_their_row_groups(cuda_device, layout, mode):
+    """Capacities across the tensor-core builds' row groups: a bin of 46 real
+    atoms (two passes of A and B over the bin) at C = 48, of 70 (three) at
+    C = 72.  A, B and B's constants' build against their plain versions in
+    the same mode, and bit for bit on a repeat."""
+    st, ops, mnbr, gbar = _operands(layout, 17)
+    real = (ops["mask"] > 0.5).sum(1)
+    assert int(real.max()) == st.c - 2 and -(-int(real.max()) // cs.MMA_ROW_CAP) == {48: 2, 72: 3}[st.c]
+    dev_ops = _to(cuda_device, ops)
+    args = dict(mnbr=mnbr.to(cuda_device), gbar=gbar.to(cuda_device))
+    out = cs.conv_stencil_forward(st, **dev_ops, mode=mode)
+    torch.cuda.synchronize()
+    _close(out, cs.conv_forward_plain(st, **dev_ops, mode=mode))
+    assert torch.equal(out, cs.conv_stencil_forward(st, **dev_ops, mode=mode))
+    for build, plain in ((cs.conv_stencil_backward, {}), (cs.conv_stencil_backward_constants, {"constants": True})):
+        got = build(st, **dev_ops, **args, mode=mode)
+        torch.cuda.synchronize()
+        want = cs.conv_backward_plain(st, **dev_ops, gbar=args["gbar"], mode=mode, **plain)
+        for g, r in zip(got, want, strict=True):
+            _close(g, r)
+        for x, y in zip(got, build(st, **dev_ops, **args, mode=mode), strict=True):
+            assert torch.equal(x, y)
+
+
+def test_tensor_core_smem_mirrors_the_library(cuda_device):
+    """The wrappers' shared-memory bytes of the tensor-core builds (what they
+    refuse by) are the libraries' own layouts (conv_mma.cuh)."""
+    import ctypes
+
+    from aimnetcentral_tpu_torch.kernels.build import LIBRARIES
+
+    fns = {}
+    for lib, sym in (("conv_fwd", "conv_fwd_mma_smem"), ("conv_bwd", "conv_bwd_mma_smem")):
+        fns[lib] = getattr(LIBRARIES.get(lib), sym)
+        fns[lib].argtypes = [ctypes.c_int] * 4
+        fns[lib].restype = ctypes.c_int
+    for c in (8, 40, 120, 256):
+        for f in (16, 17, 33, 68):
+            for s_tot in (1, 27, 125):
+                st = cs.ConvStatic(b_tot=1, c=c, g=G_DIM, f=f, s_tot=s_tot)
+                for mode, code in cs.MMA_MODES.items():
+                    assert fns["conv_fwd"](c, f, s_tot, code) == cs.mma_fwd_smem_bytes(st, mode)
+                    assert fns["conv_bwd"](c, f, s_tot, code) == cs.mma_bwd_smem_bytes(st, mode)
 
 
 @pytest.mark.parametrize("tier,mode", [("exact", "fp32"), ("balanced", "3xtf32"), ("fast", "tf32")])
@@ -1049,8 +1112,8 @@ def _plain_route():
     saved = (cp.conv_stencil_forward, cp.conv_stencil_backward, ps.pair_sweep_forward, ps.pair_sweep_backward)
     cp.conv_stencil_forward = cs.conv_forward_plain
     cp.conv_stencil_backward = (
-        lambda st, a, c, mask, shift, nbr, _mnbr, shifts_g, scal, gbar:
-        cs.conv_backward_plain(st, a, c, mask, shift, nbr, shifts_g, scal, gbar)
+        lambda st, a, c, mask, shift, nbr, _mnbr, shifts_g, scal, gbar, mode="fp32":
+        cs.conv_backward_plain(st, a, c, mask, shift, nbr, shifts_g, scal, gbar, mode=mode)
     )
     ps.pair_sweep_forward, ps.pair_sweep_backward = ps.pair_forward_plain, ps.pair_backward_plain
     try:
